@@ -1,0 +1,20 @@
+// Shared definitions of the port's CUDA kernels (plain C interface, loaded
+// with ctypes by proovread_tpu_torch/kernels.py). Every entry point launches
+// on the stream it is given, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define PT_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Opt a kernel into more than 48 KB of dynamic shared memory when a launch
+// needs it (the H100 allows up to 227 KB per block).
+template <typename K>
+static inline cudaError_t pt_reserve_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
