@@ -7,18 +7,36 @@ any failure exits non-zero:
 1. setup: the card's name and power limit, torch/CUDA versions, and the
    kernel build from ``proovread_tpu_torch/csrc`` (seconds printed);
 2. every kernel against its plain PyTorch version on the card, on seeded
-   inputs at the main path's shapes (bsw at W=96 and W=64, R=8192, m=112;
-   pileup at B=256, Lp=24576; assemble and HCR at B=256, L=24576): integer
-   outputs bitwise equal, the bsw score and the pileup counts exactly equal;
-   kernel, plain and library times (median of CUDA-event timings after a
-   warm-up) and each kernel's bound from its bytes and operations;
-3. ``Pipeline.run`` on bench config 4's workload (10 kb genome, 40 kb of
-   long reads, 30x short reads, 4 iterations) on the card and on the CPU:
-   records, qual, chimeras and task reports must be identical;
-4. ``Pipeline.run`` on the E.coli-class workload (1.25 Mb genome, 5 Mb of
-   CLR reads, 30x short reads, 6 iterations) with every kernel's launch
-   count reset just before and read just after; fails if a kernel was not
-   launched or no pass admitted a candidate.
+   inputs at the main path's shapes (bsw v2 and v1 at W=96 and W=64,
+   R=8192, m=112; the three pileups at B=256, Lp=24576, R=8192, n=208;
+   assemble and HCR at B=256, L=24576): every output bitwise equal, bsw v1
+   also equal to v2 on the same candidates and the ordered pileup equal
+   again on a second run; kernel, plain and library times (median of
+   CUDA-event timings after a warm-up) and each kernel's bound from its
+   bytes and operations;
+3. on bench config 4's workload (10 kb genome, 40 kb of long reads, 30x
+   short reads), on the card and on the CPU, all identical: ``Pipeline.run``
+   (4 iterations; records, qual, chimeras and task reports), the same at
+   coverage 400 (every pass on the packed-word pileup), and the
+   qual-weighted ``DeviceCorrector`` chain (pass 1, three fused passes, a
+   finish pass collecting alignments: consensus calls, read state, pass
+   counts and alignment data);
+4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
+   genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
+5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
+   and 200x short reads at ``coverage=sr_coverage=finish_coverage=200``
+   (max_coverage 150 on every pass: a lane may collect up to 2*150+2 = 302
+   votes, more than the reference's bf16 bit-plane buffer counts exactly,
+   so every pass takes the packed-word pileup); it also prints how many votes the first bucket's
+   columns really collect in one pass;
+6. qual-weighted votes: the first length bucket of phase 4's workload
+   that fills the driver's 256 rows, packed as the driver packs it, through
+   ``DeviceCorrector.correct_pass`` and two fused passes against the whole
+   resident short-read set.
+
+Phases 4-6 each reset every kernel's launch count just before and read
+them just after; each fails if a kernel of its path was not launched, and
+phase 5 also if the bit-plane pileup was.
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
@@ -30,9 +48,12 @@ It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
 
-``--profile`` reruns phase 4 under ``torch.profiler``. ``--skip`` drops
+``--profile`` reruns phases 4-6 under ``torch.profiler``. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
 lines (the full run takes no arguments).
+
+The functions of phases 3-6 take the device as an argument, so the same
+code runs on the CPU at a small size.
 """
 
 from __future__ import annotations
@@ -239,6 +260,147 @@ def check_pileup(rng, dev, bsw_res, bsw_args):
                 votes=n_set)
 
 
+def check_bsw_v1(dev, ap, label, args, v2):
+    """bsw v1 on the slabs v2 read (strand-oriented query rows, window
+    codes): equal to its plain version, and, with v2's ignore gating
+    applied, to v2."""
+    import torch
+    from proovread_tpu_torch.align import bsw
+    q, rc, map_pad, qlen, sread, strand, lread, w0p = args
+    R, m = sread.shape[0], q.shape[1]
+    W = bsw.band_lanes(ap)
+    n = m + W
+    sr = sread.long()
+    q1 = torch.where((strand == 0)[:, None], q[sr], rc[sr])
+    cols = w0p.long()[:, None] + torch.arange(n, device=dev)[None, :]
+    word = map_pad[lread.long()[:, None], cols]
+    win1 = word & 7
+    got = bsw.bsw_expand(q1, win1, qlen, ap)
+    want = bsw.bsw_expand_plain(q1, win1, qlen, ap)
+    torch.cuda.synchronize()
+    ints = lambda r: [getattr(r, f).int() if f == "valid"  # noqa: E731
+                      else getattr(r, f) for f in r._fields]
+    pairs = list(zip(ints(got), ints(want)))
+    assert_equal(f"bsw_expand {label}", pairs)
+    ign = (word >> 3) > 0
+    gated = got._replace(state=torch.where(ign, -1, got.state),
+                         ins_len=torch.where(ign, 0, got.ins_len))
+    assert_equal(f"bsw_expand == bsw_expand_v2 {label}",
+                 list(zip(ints(gated), ints(v2))))
+    ms = time_ms(lambda: bsw._bsw_v1_cuda(q1, win1, qlen, ap))
+    plain_ms = time_ms(lambda: bsw.bsw_expand_plain(q1, win1, qlen, ap),
+                       reps=5, warmup=1)
+    n_bytes = R * m + R * n + 4 * R + 5 * R * n * 4 + R * 4 + 5 * R * 4
+    # the same 16 f32 operations per banded DP cell as v2 (see check_bsw)
+    b_ms, b_by = bound(n_bytes, float(R) * m * W * 16)
+    return dict(max_abs_err=max_abs_err(
+        [(a.float(), b.float()) for a, b in pairs]), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"R={R} m={m} W={W} n={n}"), got, (q1, ign)
+
+
+def check_pileup_packed(rng, dev, bsw_res, bsw_args):
+    import torch
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    from proovread_tpu_torch.ops.votes import encode_votes_packed_bases
+    words = encode_votes_packed_bases(
+        bsw_res.state, bsw_res.qrow, bsw_res.ins_len, bsw_res.ins_b0,
+        bsw_res.ins_b1, bsw_res.q_start, bsw_res.q_end, taboo_abs=7)
+    R, n = words.shape
+    B, Lp = 256, 24576
+    Lpile = Lp + 2 * n
+    read_of = bsw_args[6]
+    w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
+                         device=dev)
+    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
+    got = pk.pileup_accumulate_packed(base.clone(), words, read_of, w0)
+    want = pk.pileup_accumulate_packed_plain(base.clone(), words, read_of,
+                                             w0)
+    torch.cuda.synchronize()
+    assert_equal("pileup_accumulate_packed", [(got, want)])
+    err = max_abs_err([(got, want)])
+    # every candidate into one window of one read: lanes far past 256 votes
+    # (where a bf16 buffer would round), still exact
+    one = torch.zeros_like(read_of)
+    w_one = torch.full_like(w0, 1000)
+    got1 = pk.pileup_accumulate_packed(base.clone(), words, one, w_one)
+    want1 = pk.pileup_accumulate_packed_plain(base.clone(), words, one, w_one)
+    torch.cuda.synchronize()
+    assert_equal("pileup_accumulate_packed (one window)", [(got1, want1)])
+    err = max(err, max_abs_err([(got1, want1)]))
+    peak = float(want1.max())
+    if peak <= 256:
+        raise AssertionError(f"pileup packed: peak lane count {peak} <= 256")
+    del got1, want1
+    n_votes = int(want.sum())
+    if n_votes == 0:
+        raise AssertionError("pileup packed: no votes in the check inputs")
+    del got, want
+    buf = base
+    ms = time_ms(lambda: pk._packed_cuda(buf, words, read_of, w0))
+    plain_ms = time_ms(lambda: pk.pileup_accumulate_packed_plain(
+        buf, words, read_of, w0), reps=5, warmup=1)
+    votes = pk.decode_words(words).reshape(-1, 64)
+    rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
+    flat = buf.view(-1, 64)
+    lib_ms = time_ms(lambda: flat.index_add_(0, rows, votes), reps=5,
+                     warmup=1)
+    # words + metadata read once; one 4-byte read and write per vote
+    b_ms, b_by = bound(4.0 * R * n + 8 * R + 8.0 * n_votes, float(n_votes))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"B={B} Lp={Lp} R={R} n={n}", votes=n_votes,
+                one_window_peak_lane=peak)
+
+
+def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
+    """The ordered pileup on qual-weighted build_votes slabs of the bsw v1
+    check's candidates: bitwise equal to the plain version, twice."""
+    import torch
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    from proovread_tpu_torch.ops.votes import build_votes
+    q1, ign = v1_slabs
+    qual = torch.as_tensor(rng.integers(2, 41, q1.shape).astype(np.uint8),
+                           device=dev)
+    votes = build_votes(v1_res.state, v1_res.qrow, v1_res.ins_len, q1, qual,
+                        v1_res.q_start, v1_res.q_end, v1_res.valid,
+                        ignore_cols=ign, qual_weighted=True, taboo_abs=7)
+    R, n, _ = votes.shape
+    B, Lp = 256, 24576
+    Lpile = Lp + 2 * n
+    w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
+                         device=dev)
+    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
+    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
+    want = pk.pileup_accumulate_plain(base.clone(), votes, read_of, w0)
+    torch.cuda.synchronize()
+    assert_equal("pileup_accumulate", [(got, want)])
+    err = max_abs_err([(got, want)])
+    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
+    assert_equal("pileup_accumulate (second run)", [(got, want)])
+    frac = int(((want != 0) & (want != torch.round(want))).sum())
+    if frac == 0:
+        raise AssertionError("pileup dense: no fractional sums in the check")
+    del got, want
+    buf = base
+    ms = time_ms(lambda: pk._dense_cuda(buf, votes, read_of, w0))
+    plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
+        buf, votes, read_of, w0), reps=5, warmup=1)
+    rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
+    flat = buf.view(-1, 64)
+    v2d = votes.reshape(-1, 64)
+    lib_ms = time_ms(lambda: flat.index_add_(0, rows, v2d), reps=5,
+                     warmup=1)
+    cells = int(torch.unique(rows).numel()) * 64
+    # the slabs and metadata read once, each touched cell read and written
+    # once; one f32 add per slab element
+    b_ms, b_by = bound(4.0 * votes.numel() + 8 * R + 8.0 * cells,
+                       float(votes.numel()))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"B={B} Lp={Lp} R={R} n={n}", fractional_cells=frac)
+
+
 def random_call(rng, dev, B, L, K=6):
     import torch
     from proovread_tpu_torch.ops.consensus_call import ConsensusCall
@@ -324,28 +486,172 @@ def check_hcr(rng, dev, B=256, L=24576):
 
 
 # --------------------------------------------------------------------------
-# phases 3 and 4: the pipeline
+# phases 3-6: the pipeline and the qual-weighted pass
 # --------------------------------------------------------------------------
 
-def workload(genome_size, long_bases, n_iterations):
+def workload(genome_size, long_bases, n_iterations, sr_coverage=30.0):
     from proovread_tpu_torch.io.simulate import (random_genome,
                                                  simulate_long_reads,
                                                  simulate_short_reads)
     genome = random_genome(genome_size, seed=0)
     longs, _ = simulate_long_reads(genome, long_bases, seed=1)
-    srs = simulate_short_reads(genome, 30.0, seed=2)
+    srs = simulate_short_reads(genome, sr_coverage, seed=2)
     return longs, srs, n_iterations
 
 
-def run_pipeline(longs, srs, n_iterations, device):
+def run_pipeline(longs, srs, n_iterations, device, **kw):
     import torch
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
-    cfg = PipelineConfig(mode="sr", n_iterations=n_iterations, device=device)
+    cfg = PipelineConfig(mode="sr", n_iterations=n_iterations, device=device,
+                         **kw)
     t0 = time.monotonic()
     res = Pipeline(cfg).run(longs, srs)
     if device == "cuda":
         torch.cuda.synchronize()
     return res, time.monotonic() - t0
+
+
+def first_bucket(longs, srs, full=False, coverage=None, qual_weighted=True,
+                 **cfg_kw):
+    """The first length bucket of a workload (with ``full``, the first that
+    fills the driver's ``batch_reads`` rows), packed as
+    ``Pipeline._run_batch_device`` packs it, with the driver's iteration
+    and finish ConsensusParams (qual-weighted unless told otherwise), the
+    HCR mask parameters per iteration and the packed short reads."""
+    import dataclasses
+    from proovread_tpu_torch.io.batch import pack_reads
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.pipeline import driver as drv
+    cfg = drv.PipelineConfig(**cfg_kw)
+    min_sr_len = int(np.median([len(r) for r in srs]))
+    kept, _ = drv.Pipeline(cfg).read_long(longs, min_sr_len)
+    buckets = drv._bucket_records(kept, cfg.batch_reads)
+    if full:
+        buckets = [b for b in buckets
+                   if len(b[1]) == cfg.batch_reads] or buckets
+    pad, recs = buckets[0]
+    Lp = drv.bucket_lp(pad, cfg.length_slack)
+    rows = drv.batch_rows(len(recs), cfg.batch_reads)
+    pads = [SeqRecord(f"_pad{i}", "A" * 8) for i in range(rows - len(recs))]
+    lr = pack_reads(list(recs) + pads, pad_len=Lp)
+    if coverage is None:
+        coverage = sum(len(r) for r in srs) / sum(len(r) for r in kept)
+    cns_it = dataclasses.replace(drv.iteration_consensus_params(cfg, coverage),
+                                 qual_weighted=qual_weighted)
+    cns_fin = dataclasses.replace(drv.finish_consensus_params(cfg, coverage),
+                                  qual_weighted=qual_weighted)
+    masks = [(cfg.hcr_mask if it < 4 else cfg.hcr_mask_late).scaled(
+        min_sr_len) for it in range(1, cfg.n_iterations + 1)]
+    return lr, pack_reads(srs, pad_multiple=16), cns_it, cns_fin, masks
+
+
+def qual_chain(bucket, device, n_rest, finish, CH=8192):
+    """The qual-weighted DeviceCorrector chain on one bucket: pass 1
+    (``correct_pass``), ``n_rest`` fused passes against the whole resident
+    short-read set (no shortcut), then, with ``finish``, a finish pass that
+    collects its alignments. Returns (host copies of every output, per-pass
+    stats)."""
+    import torch
+    from proovread_tpu_torch.align.bsw import band_lanes
+    from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
+    from proovread_tpu_torch.ops.assemble_kernel import mask_params_vec
+    from proovread_tpu_torch.pipeline import dcorrect as dc
+    from proovread_tpu_torch.pipeline.driver import _SrDevice
+    lr, sr, cns_it, cns_fin, masks = bucket
+    dev = torch.device(device)
+    codes, qual, lengths = (torch.as_tensor(a, device=dev)
+                            for a in (lr.codes, lr.qual, lr.lengths))
+    Lp = codes.shape[1]
+    srd = _SrDevice(sr, dev)
+    corr = dc.DeviceCorrector(chunk=CH)
+    host = {}
+    stats = []
+
+    def keep(prefix, tensors):
+        for k, v in tensors.items():
+            host[f"{prefix}.{k}"] = v.cpu().numpy()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.monotonic()
+    call, st = corr.correct_pass(codes, qual, lengths, None, srd.codes,
+                                 srd.rc, srd.qual, srd.lengths, BWA_SR,
+                                 cns_it)
+    sync()
+    stats.append(dict(pass_="1", candidates=st.n_candidates,
+                      admitted=int(st.n_admitted),
+                      eligible=int(st.n_eligible),
+                      seconds=time.monotonic() - t0))
+    keep("pass1", call._asdict())
+    codes, qual, lengths = dc.device_assemble(call, lengths, Lp)
+    mask, frac = dc.device_hcr_mask(qual, lengths, masks[0])
+    n_chunks = dc._bucket_chunks(max(1, -(-int(st.n_candidates * 1.5) // CH)))
+    pvs = np.stack([mask_params_vec(masks[1 + k]).numpy()
+                    for k in range(n_rest)])
+    t0 = time.monotonic()
+    fr = dc.fused_iterations(
+        codes, qual, lengths, mask, float(frac), srd.codes, srd.rc, srd.qual,
+        srd.lengths, None, pvs, m=srd.codes.shape[1],
+        W=band_lanes(BWA_SR), CH=CH, n_chunks=n_chunks, ap=BWA_SR,
+        cns=cns_it, n_rest=n_rest, Lp=Lp, seed_stride=8, seed_min_votes=2,
+        shortcut_frac=2.0, min_gain=-1.0)
+    sync()
+    dt = time.monotonic() - t0
+    for k in range(len(fr.fracs)):
+        stats.append(dict(pass_=str(2 + k), candidates=fr.ncands[k],
+                          admitted=fr.nadms[k], eligible=fr.neligs[k],
+                          dropped_cap=fr.ndrops[k], masked=fr.fracs[k],
+                          seconds=dt / len(fr.fracs)))
+    keep("fused", dict(codes=fr.codes, qual=fr.qual, lengths=fr.lengths,
+                       mask=fr.mask_cols))
+    if finish:
+        t0 = time.monotonic()
+        call, st, aln = corr.correct_pass(
+            fr.codes, fr.qual, fr.lengths, None, srd.codes, srd.rc,
+            srd.qual, srd.lengths, BWA_SR_FINISH, cns_fin, collect_aln=True)
+        sync()
+        stats.append(dict(pass_="finish", candidates=st.n_candidates,
+                          admitted=int(st.n_admitted),
+                          eligible=int(st.n_eligible),
+                          seconds=time.monotonic() - t0))
+        keep("finish", call._asdict())
+        for f in ("lread", "pos0", "span", "admitted", "vote_ok", "q_start",
+                  "q_end", "win_start", "r_start", "r_end", "sread",
+                  "strand", "score"):
+            host[f"aln.{f}"] = np.asarray(getattr(aln, f))
+        use = np.flatnonzero(aln.admitted & aln.vote_ok)
+        aln.prefetch(use)
+        for j, name in enumerate(("state", "qrow", "ins_len")):
+            host[f"aln.{name}"] = np.stack([aln._rows[int(c)][j]
+                                            for c in use])
+    return host, stats
+
+
+def column_votes(bucket, device, CH=8192):
+    """Largest winning vote count and column coverage of one unweighted
+    pass 1 over a bucket (how many votes its columns really collect)."""
+    import torch
+    from proovread_tpu_torch.align.params import BWA_SR
+    from proovread_tpu_torch.pipeline import dcorrect as dc
+    from proovread_tpu_torch.pipeline.driver import _SrDevice
+    lr, sr, cns_it, _, _ = bucket
+    dev = torch.device(device)
+    codes, qual, lengths = (torch.as_tensor(a, device=dev)
+                            for a in (lr.codes, lr.qual, lr.lengths))
+    srd = _SrDevice(sr, dev)
+    call, st = dc.DeviceCorrector(chunk=CH).correct_pass(
+        codes, qual, lengths, None, srd.codes, srd.rc, srd.qual, srd.lengths,
+        BWA_SR, cns_it)
+    return (float(call.freq.max()), float(call.coverage.max()),
+            int((call.freq > 256).sum()), st.n_candidates)
+
+
+def same_host(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
 
 
 def result_key(res):
@@ -355,18 +661,20 @@ def result_key(res):
             res.chimera, res.reports)
 
 
-def profile_phase4(longs, srs, n_it, wall_unprofiled) -> None:
-    """Phase 4 again (warm) under torch.profiler: the device time of every
-    CUDA kernel, the share of the wall the device was busy, and the span
-    on the device timeline of each stage range (seed / align / vote /
+def profile_phase(phase, fn, wall_unprofiled) -> None:
+    """A phase's run again (warm) under torch.profiler: the device time of
+    every CUDA kernel, the share of the wall the device was busy, and the
+    span on the device timeline of each stage range (seed / align / vote /
     consensus, ``pipeline/dcorrect.py``)."""
     import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     stages = ("seed", "align", "vote", "consensus")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.monotonic()
     with profile(activities=acts) as prof:
-        _, wall = run_pipeline(longs, srs, n_it, "cuda")
+        fn()
+    wall = time.monotonic() - t0
     evs = prof.key_averages()
     dev_attr = ("self_device_time_total"
                 if hasattr(evs[0], "self_device_time_total")
@@ -375,22 +683,23 @@ def profile_phase4(longs, srs, n_it, wall_unprofiled) -> None:
                and e.key not in stages and getattr(e, dev_attr) > 0]
     busy_us = sum(getattr(e, dev_attr) for e in kernels)
     launches = sum(e.count for e in kernels)
-    lines = [f"profile: wall {wall:.2f} s under the profiler "
+    lines = [f"profile phase{phase}: wall {wall:.2f} s under the profiler "
              f"({wall_unprofiled:.2f} s without); {launches} kernel launches"
              f", device busy {busy_us / 1e6:.2f} s = "
              f"{busy_us / 1e6 / wall:.3f} of the profiled wall"]
     for e in evs:
         if e.key in stages:
-            lines.append(f"profile stage {e.key} ({e.device_type.name}): "
-                         f"calls {e.count}, span "
+            lines.append(f"profile phase{phase} stage {e.key} "
+                         f"({e.device_type.name}): calls {e.count}, span "
                          f"{getattr(e, dev_attr) / 1e6:.3f} s")
     for e in sorted(kernels, key=lambda e: -getattr(e, dev_attr))[:25]:
-        lines.append(f"profile kernel {getattr(e, dev_attr) / 1e6:.4f} s "
-                     f"x{e.count}: {e.key[:110]}")
+        lines.append(f"profile phase{phase} kernel "
+                     f"{getattr(e, dev_attr) / 1e6:.4f} s x{e.count}: "
+                     f"{e.key[:110]}")
     for line in lines:
         log(line)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile.txt", "w") as f:
+    with open(f"chiprun_out/profile_phase{phase}.txt", "w") as f:
         f.write("\n".join(lines) + "\n")
         f.write(evs.table(sort_by=dev_attr, row_limit=60))
 
@@ -398,11 +707,12 @@ def profile_phase4(longs, srs, n_it, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2,3,4 to leave out; such a "
+                     help="comma list of phases 2-6 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--profile", action="store_true",
-                     help="rerun phase 4 under torch.profiler and print the "
-                          "device time per pipeline stage and per kernel")
+                     help="rerun phases 4-6 under torch.profiler and print "
+                          "the device time per pipeline stage and per "
+                          "kernel")
     args = ap_.parse_args(argv)
     skip = {s for s in args.skip.split(",") if s}
 
@@ -444,8 +754,48 @@ def main(argv=None) -> int:
         "hcr_mask_rows": (assemble_kernel.hcr_mask_rows,
                           "proovread_tpu_torch/csrc/assemble.cu",
                           "proovread_tpu/ops/assemble_kernel.py:212"),
+        "pileup_accumulate_packed": (
+            pileup_kernel.pileup_accumulate_packed,
+            "proovread_tpu_torch/csrc/pileup.cu",
+            "proovread_tpu/ops/pileup_kernel.py:61"),
+        "bsw_expand": (bsw.bsw_expand, "proovread_tpu_torch/csrc/bsw.cu",
+                       "proovread_tpu/align/bsw.py:364"),
+        "pileup_accumulate": (pileup_kernel.pileup_accumulate,
+                              "proovread_tpu_torch/csrc/pileup.cu",
+                              "proovread_tpu/ops/pileup_kernel.py:306"),
     }
-    results = {}
+    # the phase whose path each kernel's launch count is read from
+    path_phase = {"bsw_expand_v2": 4, "pileup_accumulate_bits": 4,
+                  "assemble_rows": 4, "hcr_mask_rows": 4,
+                  "pileup_accumulate_packed": 5, "bsw_expand": 6,
+                  "pileup_accumulate": 6}
+    results, launches = {}, {}
+
+    def drive(phase, fn):
+        """Run a path with every launch count reset just before and read
+        just after; keep the counts of the kernels read from this phase."""
+        for f, _, _ in wrappers.values():
+            f.launches = 0
+        out = fn()
+        counts = {name: f.launches for name, (f, _, _) in wrappers.items()}
+        launches.update({k: v for k, v in counts.items()
+                         if path_phase[k] == phase})
+        log(f"phase{phase} launches " + json.dumps(counts))
+        missing = [k for k, ph in path_phase.items()
+                   if ph == phase and counts[k] == 0]
+        if missing:
+            raise AssertionError(f"phase {phase} never launched {missing}")
+        return out, counts
+
+    def report_passes(phase, res):
+        for rep in res.reports:
+            log(f"phase{phase} pass {rep.task}: masked {rep.masked_frac:.4f}"
+                f", candidates {rep.n_candidates}, admitted {rep.n_admitted}"
+                f", dropped cap {rep.n_dropped_cap}, cov {rep.n_dropped_cov}")
+        if not any(rep.n_admitted for rep in res.reports):
+            raise AssertionError(f"phase {phase}: no pass admitted")
+        if len(res.untrimmed) == 0:
+            raise AssertionError(f"phase {phase}: no corrected reads")
 
     # -- phase 2 -------------------------------------------------------------
     if "2" not in skip:
@@ -455,33 +805,70 @@ def main(argv=None) -> int:
             log("phase2 " + json.dumps(
                 {"name": name, "launches": wrappers[name][0].launches, **r}))
 
-        r64, _, _ = check_bsw(rng, dev, BWA_SR_FINISH, "W=64")
+        r64, bres64, bargs64 = check_bsw(rng, dev, BWA_SR_FINISH, "W=64")
         report("bsw_expand_v2", r64)
+        r, _, _ = check_bsw_v1(dev, BWA_SR_FINISH, "W=64", bargs64, bres64)
+        report("bsw_expand", r)
+        del bres64, bargs64
         r96, bres, bargs = check_bsw(rng, dev, BWA_SR, "W=96")
         report("bsw_expand_v2", r96)
         results["bsw_expand_v2"] = r96
+        results["bsw_expand"], v1res, v1slabs = check_bsw_v1(
+            dev, BWA_SR, "W=96", bargs, bres)
+        report("bsw_expand", results["bsw_expand"])
         results["pileup_accumulate_bits"] = check_pileup(rng, dev, bres, bargs)
-        del bres, bargs
+        results["pileup_accumulate_packed"] = check_pileup_packed(
+            rng, dev, bres, bargs)
+        results["pileup_accumulate"] = check_pileup_dense(
+            rng, dev, v1res, v1slabs, bargs[6])
+        del bres, bargs, v1res, v1slabs
+        torch.cuda.empty_cache()
         results["assemble_rows"] = check_assemble(rng, dev)
         results["hcr_mask_rows"] = check_hcr(rng, dev)
-        for name in ("pileup_accumulate_bits", "assemble_rows",
-                     "hcr_mask_rows"):
+        for name in ("pileup_accumulate_bits", "pileup_accumulate_packed",
+                     "pileup_accumulate", "assemble_rows", "hcr_mask_rows"):
             report(name, results[name])
         torch.cuda.empty_cache()
 
     # -- phase 3 -------------------------------------------------------------
     if "3" not in skip:
         longs, srs, n_it = workload(10_000, 40_000, 4)
-        res_gpu, t_gpu = run_pipeline(longs, srs, n_it, "cuda")
-        res_cpu, t_cpu = run_pipeline(longs, srs, n_it, "cpu")
-        if result_key(res_gpu) != result_key(res_cpu):
-            raise AssertionError("config 4: card and CPU results differ")
-        if not res_gpu.untrimmed or not any(r.n_admitted for r in
-                                            res_gpu.reports):
-            raise AssertionError("config 4: nothing corrected")
-        log(f"phase3 config 4: card {t_gpu:.1f} s, CPU {t_cpu:.1f} s, "
-            f"{len(res_gpu.untrimmed)} reads, {len(res_gpu.trimmed)} trimmed, "
-            f"{len(res_gpu.chimera)} chimera, identical")
+        for label, kw in (("", {}),
+                          (" coverage 400", dict(coverage=400.0,
+                                                 sr_coverage=400.0,
+                                                 finish_coverage=400.0))):
+            packed0 = pileup_kernel.pileup_accumulate_packed.launches
+            res_gpu, t_gpu = run_pipeline(longs, srs, n_it, "cuda", **kw)
+            res_cpu, t_cpu = run_pipeline(longs, srs, n_it, "cpu", **kw)
+            if result_key(res_gpu) != result_key(res_cpu):
+                raise AssertionError(f"config 4{label}: card and CPU differ")
+            if not res_gpu.untrimmed or not any(r.n_admitted for r in
+                                                res_gpu.reports):
+                raise AssertionError(f"config 4{label}: nothing corrected")
+            if kw and pileup_kernel.pileup_accumulate_packed.launches == packed0:
+                raise AssertionError("config 4 coverage 400: no packed pileup")
+            log(f"phase3 config 4{label}: card {t_gpu:.1f} s, CPU {t_cpu:.1f} "
+                f"s, {len(res_gpu.untrimmed)} reads, {len(res_gpu.trimmed)} "
+                f"trimmed, {len(res_gpu.chimera)} chimera, identical")
+        bucket = first_bucket(longs, srs)
+        t0 = time.monotonic()
+        h_gpu, st_gpu = qual_chain(bucket, "cuda", n_rest=3, finish=True)
+        t_gpu = time.monotonic() - t0
+        t0 = time.monotonic()
+        h_cpu, st_cpu = qual_chain(bucket, "cpu", n_rest=3, finish=True)
+        t_cpu = time.monotonic() - t0
+        strip = lambda st: [{k: v for k, v in d.items()  # noqa: E731
+                             if k != "seconds"} for d in st]
+        if not same_host(h_gpu, h_cpu) or strip(st_gpu) != strip(st_cpu):
+            diff = [k for k in h_gpu if k not in h_cpu
+                    or h_gpu[k].tobytes() != h_cpu[k].tobytes()]
+            raise AssertionError(f"config 4 qual-weighted chain: card and CPU"
+                                 f" differ in {diff or 'pass counts'}")
+        if not all(d["admitted"] for d in st_gpu):
+            raise AssertionError("config 4 qual-weighted: a pass admitted 0")
+        log(f"phase3 config 4 qual-weighted chain: card {t_gpu:.1f} s, CPU "
+            f"{t_cpu:.1f} s, {len(st_gpu)} passes, identical: "
+            + json.dumps(strip(st_gpu)))
 
     # -- phase 4: the main path ----------------------------------------------
     if "4" not in skip:
@@ -489,43 +876,83 @@ def main(argv=None) -> int:
         bases = sum(len(r) for r in longs)
         log(f"phase4 workload: {len(longs)} long reads ({bases} bases), "
             f"{len(srs)} short reads, {n_it} iterations")
-        for fn, _, _ in wrappers.values():
-            fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        res, wall = run_pipeline(longs, srs, n_it, "cuda")
-        launches = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
+        (res, wall), _ = drive(4, lambda: run_pipeline(longs, srs, n_it,
+                                                       "cuda"))
         log(f"phase4 wall {wall:.2f} s, {bases / wall:.0f} corrected bases/s, "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        for rep in res.reports:
-            log(f"phase4 pass {rep.task}: masked {rep.masked_frac:.4f}, "
-                f"candidates {rep.n_candidates}, admitted {rep.n_admitted}, "
-                f"dropped cap {rep.n_dropped_cap}, cov {rep.n_dropped_cov}")
-        log("phase4 launches " + json.dumps(launches))
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"main path never launched {missing}")
-        if not any(rep.n_admitted for rep in res.reports):
-            raise AssertionError("no pass admitted a candidate")
-        if len(res.untrimmed) == 0:
-            raise AssertionError("no corrected reads")
+        report_passes(4, res)
 
     if args.profile and "4" not in skip:
-        profile_phase4(longs, srs, n_it, wall)
+        profile_phase(4, lambda: run_pipeline(longs, srs, n_it, "cuda"), wall)
+
+    # -- phase 5: high coverage ----------------------------------------------
+    if "5" not in skip:
+        l5, s5, n5 = workload(250_000, 1_000_000, 6, sr_coverage=200.0)
+        bases5 = sum(len(r) for r in l5)
+        log(f"phase5 workload: {len(l5)} long reads ({bases5} bases), "
+            f"{len(s5)} short reads, {n5} iterations, coverage 200")
+        torch.cuda.reset_peak_memory_stats()
+        (res5, wall5), counts = drive(5, lambda: run_pipeline(
+            l5, s5, n5, "cuda", coverage=200.0, sr_coverage=200.0,
+            finish_coverage=200.0))
+        if counts["pileup_accumulate_bits"]:
+            raise AssertionError("phase 5 launched the bit-plane pileup")
+        log(f"phase5 wall {wall5:.2f} s, {bases5 / wall5:.0f} corrected "
+            f"bases/s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if args.profile:
+            profile_phase(5, lambda: run_pipeline(
+                l5, s5, n5, "cuda", coverage=200.0, sr_coverage=200.0,
+                finish_coverage=200.0), wall5)
+        report_passes(5, res5)
+        fmax, cmax, n256, ncand = column_votes(first_bucket(
+            l5, s5, coverage=200.0, qual_weighted=False, sr_coverage=200.0,
+            finish_coverage=200.0), "cuda")
+        log(f"phase5 first bucket, pass 1 alone: {ncand} candidates, largest"
+            f" winning vote count {fmax:.0f}, largest column coverage "
+            f"{cmax:.2f}, {n256} columns whose winning lane passed 256 "
+            f"votes")
+        del l5, s5, res5
+
+    # -- phase 6: qual-weighted votes ----------------------------------------
+    if "6" not in skip:
+        if "4" in skip:
+            longs, srs, _ = workload(1_250_000, 5_000_000, 6)
+        bucket = first_bucket(longs, srs, full=True)
+        lr6 = bucket[0]
+        log(f"phase6 bucket: {int((lr6.lengths > 8).sum())} reads "
+            f"(+ pad rows to {lr6.codes.shape[0]}), Lp {lr6.codes.shape[1]},"
+            f" {len(srs)} short reads resident, max_coverage "
+            f"{bucket[2].max_coverage}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        (_, st6), _ = drive(6, lambda: qual_chain(bucket, "cuda", n_rest=2,
+                                                  finish=False))
+        wall6 = time.monotonic() - t0
+        for d in st6:
+            log("phase6 pass " + json.dumps(d))
+        log(f"phase6 wall {wall6:.2f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(d["admitted"] for d in st6):
+            raise AssertionError("phase 6: a pass admitted no candidate")
+        if args.profile:
+            profile_phase(6, lambda: qual_chain(bucket, "cuda", n_rest=2,
+                                                finish=False), wall6)
 
     if skip:
         log(f"phases {sorted(skip)} skipped: no result printed")
         return 0
     rows = []
     for name, (_, source, replaces) in wrappers.items():
-        r = results.get(name, {})
+        r = results[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": r.get("max_abs_err"),
-                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
-                     "bound_ms": r.get("bound_ms"),
-                     "bound_by": r.get("bound_by"),
-                     "library_ms": r.get("library_ms")})
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

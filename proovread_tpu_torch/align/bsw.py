@@ -1,13 +1,19 @@
 """Banded Smith-Waterman with in-kernel traceback, expanded per window column.
 
-Port of ``proovread_tpu/align/bsw.py:bsw_expand_v2`` (the Pallas kernel
-``_bsw_v2_kernel`` over ``_bsw_core``). Per candidate: read the strand-
-selected query row and the ``n = m + W`` window of the padded combined map
-word (code in bits 0-2, MCR-ignore flag in bit 3), run the banded affine-gap
-local DP over W band lanes (lane w = ref column - query row), walk the
-optimal path back one query row per step, and emit per window column the
-voted state, consuming query row, insertion length and the packed inserted
-bases (3 bits per base, 20 bases over two words).
+Port of ``proovread_tpu/align/bsw.py:bsw_expand_v2`` and ``bsw_expand`` (v1)
+(the Pallas kernels ``_bsw_v2_kernel`` and ``_bsw_kernel`` over
+``_bsw_core``). Per candidate: take the query row and the ``n = m + W``
+reference window, run the banded affine-gap local DP over W band lanes (lane
+w = ref column - query row), walk the optimal path back one query row per
+step, and emit per window column the voted state, consuming query row,
+insertion length and the packed inserted bases (3 bits per base, 20 bases
+over two words).
+
+v2 reads the strand-selected query row and the window of the padded
+combined map word (code in bits 0-2, MCR-ignore flag in bit 3) by candidate
+metadata, and gates ignored columns. v1 takes pre-gathered query and window
+slabs and gates nothing; the qual-weighted pass masks ignored columns when
+it builds votes.
 
 Scoring, boundary and tie-break semantics are those of the reference,
 bit for bit in f32: M wins score ties against F and E, deletion extension
@@ -15,8 +21,8 @@ wins ties against re-opening (the log-shift running max keeps the smaller
 origin lane), insertion opening wins ties against extension, and end cells
 resolve ties in row-major (i, j) order.
 
-``bsw_expand_v2`` runs the plain PyTorch version for CPU tensors and the
-CUDA kernel (``csrc/bsw.cu``) for CUDA tensors.
+``bsw_expand_v2`` and ``bsw_expand`` run the plain PyTorch version for CPU
+tensors and the CUDA kernel (``csrc/bsw.cu``) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -165,10 +171,7 @@ def _bsw_cuda(q, rc, map_pad, qlen, sread, strand, lread, w0p,
             kernels.stream_of(q))
         kernels.check(rc_, "bsw_expand_v2")
         bsw_expand_v2.launches += 1
-    state, qrow, ins_len, b0, b1 = outs
-    return BswResult(state=state, qrow=qrow, ins_len=ins_len, score=score,
-                     q_start=pos[0], q_end=pos[1], r_start=pos[2],
-                     r_end=pos[3], valid=pos[4] > 0, ins_b0=b0, ins_b1=b1)
+    return _result(outs, score, pos)
 
 
 def bsw_expand_v2_plain(q, rc, map_pad, qlen, sread, strand, lread, w0p,
@@ -179,18 +182,105 @@ def bsw_expand_v2_plain(q, rc, map_pad, qlen, sread, strand, lread, w0p,
     S, m, R, n = _check_args(q, rc, map_pad, qlen, sread, strand, lread,
                              w0p, W)
     dev = q.device
+    sread_l = sread.long()
+    qsel = torch.where((strand == 0)[:, None], q[sread_l], rc[sread_l])
+    cols = w0p.long()[:, None] + torch.arange(n, device=dev)[None, :]
+    win = map_pad[lread.long()[:, None], cols].to(torch.int32)   # [R, n]
+    res = _plain_core(qsel.to(torch.int32), win, qlen, params)
+    # MCR-ignore gating (bit 3 of the map word): votes and attached
+    # insertion runs die, per-candidate stats stay untouched
+    ign = (win >> 3) > 0
+    return res._replace(state=torch.where(ign, -1, res.state),
+                        ins_len=torch.where(ign, 0, res.ins_len))
+
+
+def _check_v1(q, win, qlen, W):
+    R, m = q.shape
+    n = m + W
+    req = kernels.require
+    req(W <= 128, f"bsw_expand: band of {W} lanes > 128")
+    req(q.dtype == torch.int8 and win.dtype == torch.int8,
+        f"bsw_expand: q/win must be int8, got {q.dtype}/{win.dtype}")
+    req(win.shape == (R, n), f"bsw_expand: win {tuple(win.shape)} != {(R, n)}")
+    req(qlen.dtype == torch.int32 and qlen.shape == (R,),
+        f"bsw_expand: qlen must be int32 [{R}]")
+    req(win.device == q.device and qlen.device == q.device,
+        "bsw_expand: tensors on mixed devices")
+    return R, m, n
+
+
+def bsw_expand(q, win, qlen, params: AlignParams) -> BswResult:
+    """Align + expand a candidate batch from pre-gathered slabs (v1).
+
+    q: i8 [R, m] strand-oriented, N-padded query codes; win: i8 [R, n]
+    reference window codes, n = m + band_lanes(params); qlen: i32 [R].
+    R is a multiple of the reference's per-program candidate block."""
+    W = band_lanes(params)
+    R, m, _ = _check_v1(q, win, qlen, W)
+    C = 128 if m <= 256 else 64    # the reference's candidates per program
+    kernels.require(R % C == 0,
+                    f"bsw_expand: {R} candidates not a multiple of {C}")
+    if q.device.type == "cpu":
+        return bsw_expand_plain(q, win, qlen, params)
+    if q.device.type != "cuda":
+        raise ValueError(f"bsw_expand: unsupported device {q.device}")
+    return _bsw_v1_cuda(q, win, qlen, params)
+
+
+bsw_expand.launches = 0
+
+
+def _bsw_v1_cuda(q, win, qlen, params: AlignParams) -> BswResult:
+    W = band_lanes(params)
+    R, m, n = _check_v1(q, win, qlen, W)
+    q, win, qlen = q.contiguous(), win.contiguous(), qlen.contiguous()
+    kernels.require_in_range("bsw_expand", (qlen, 0, m))
+    dev = q.device
+    outs = [torch.empty((R, n), dtype=torch.int32, device=dev)
+            for _ in range(5)]
+    score = torch.empty(R, dtype=torch.float32, device=dev)
+    pos = torch.empty((5, R), dtype=torch.int32, device=dev)
+    p = params
+    if R > 0:
+        rc_ = kernels.lib().pt_bsw_expand_v1(
+            q.data_ptr(), win.data_ptr(), m, qlen.data_ptr(), R, W,
+            float(p.match), float(p.mismatch), float(p.n_penalty),
+            float(p.o_del), float(p.e_del), float(p.o_ins), float(p.e_ins),
+            float(p.clip),
+            *[o.data_ptr() for o in outs], score.data_ptr(), pos.data_ptr(),
+            kernels.stream_of(q))
+        kernels.check(rc_, "bsw_expand")
+        bsw_expand.launches += 1
+    return _result(outs, score, pos)
+
+
+def bsw_expand_plain(q, win, qlen, params: AlignParams) -> BswResult:
+    """Plain PyTorch version of the v1 kernel (no ignore gating)."""
+    W = band_lanes(params)
+    _check_v1(q, win, qlen, W)
+    return _plain_core(q.to(torch.int32), win.to(torch.int32), qlen, params)
+
+
+def _result(outs, score, pos) -> BswResult:
+    state, qrow, ins_len, b0, b1 = outs
+    return BswResult(state=state, qrow=qrow, ins_len=ins_len, score=score,
+                     q_start=pos[0], q_end=pos[1], r_start=pos[2],
+                     r_end=pos[3], valid=pos[4] > 0, ins_b0=b0, ins_b1=b1)
+
+
+def _plain_core(qi, win, qlen, params: AlignParams) -> BswResult:
+    """The DP and traceback over i32 query rows [R, m] and windows [R, n]
+    (the window code is bits 0-2)."""
+    W = band_lanes(params)
+    R, m = qi.shape
+    n = m + W
+    dev = qi.device
     f32, i32 = torch.float32, torch.int32
     p = params
     match, mismatch = float(p.match), float(p.mismatch)
     n_pen, clip = float(p.n_penalty), float(p.clip)
     o_del, e_del = float(p.o_del), float(p.e_del)
     oe_ins, e_ins = float(p.o_ins + p.e_ins), float(p.e_ins)
-
-    sread_l = sread.long()
-    qsel = torch.where((strand == 0)[:, None], q[sread_l], rc[sread_l])
-    qi = qsel.to(i32)                                          # [R, m]
-    cols = w0p.long()[:, None] + torch.arange(n, device=dev)[None, :]
-    win = map_pad[lread.long()[:, None], cols].to(i32)         # [R, n]
     qlen_ = qlen.to(i32)[:, None]
 
     iota = torch.arange(W, device=dev, dtype=i32)[None, :]     # [1, W]
@@ -316,11 +406,6 @@ def bsw_expand_v2_plain(q, rc, map_pad, qlen, sread, strand, lread, w0p,
                             torch.where(is_i, att_w + 1, cur_w))
 
     score = h_best + torch.where(q_start > 0, clip, 0.0).to(f32)
-    # MCR-ignore gating (bit 3 of the map word): votes and attached
-    # insertion runs die, per-candidate stats stay untouched
-    ign = (win >> 3) > 0
-    state = torch.where(ign, -1, state)
-    inslen = torch.where(ign, 0, inslen)
     return BswResult(
         state=state, qrow=qrow, ins_len=inslen,
         score=torch.where(valid, score, NEG).to(f32),

@@ -1,11 +1,16 @@
 // Banded Smith-Waterman with in-kernel traceback, expanded per window column.
 //
-// Replaces the Pallas kernel proovread_tpu/align/bsw.py:bsw_expand_v2
-// (_bsw_v2_kernel over _bsw_core). One block per candidate, one thread per
-// band lane (W = 64 or 96, at most 128). The block reads its own query row
-// (by sread/strand) and its n = m + W window of the padded combined map word
-// (by lread/w0p) straight from device memory; the TPU's DMA staging and
-// transposes only laid data out and are dropped.
+// Replaces the Pallas kernels proovread_tpu/align/bsw.py:bsw_expand_v2
+// (_bsw_v2_kernel) and bsw_expand (v1, _bsw_kernel), both over _bsw_core.
+// One block per candidate, one thread per band lane (W = 64 or 96, at most
+// 128). The two entry points share the DP and traceback (bsw_block) and
+// differ only in where a candidate's operands come from: v2 reads its own
+// query row (by sread/strand) and its n = m + W window of the padded
+// combined map word (by lread/w0p) straight from device memory and gates
+// MCR-ignored columns (bit 3 of the map word); v1 reads row c of the
+// pre-gathered [R, m] query and [R, n] window slabs and gates nothing (its
+// caller masks ignored columns when it builds votes). The TPU's DMA staging
+// and transposes only laid data out and are dropped.
 //
 // What bounds it: operations and latency, not bytes. Each candidate's DP is
 // m dependent rows, and the in-row deletion recurrence is a log-shift running
@@ -45,21 +50,52 @@ __host__ __device__ inline size_t bsw_smem_bytes(int m, int W) {
          size_t(W) * 4 * 8 + size_t(W) * 4 * 2;
 }
 
-__global__ void bsw_kernel(const int8_t* __restrict__ q,
-                           const int8_t* __restrict__ rc, int m,
-                           const int8_t* __restrict__ map_pad, int Lmap,
-                           const int32_t* __restrict__ qlen_a,
-                           const int32_t* __restrict__ sread,
-                           const int32_t* __restrict__ strand,
-                           const int32_t* __restrict__ lread,
-                           const int32_t* __restrict__ w0p, int R, int W,
-                           BswParams p, int32_t* __restrict__ o_state,
-                           int32_t* __restrict__ o_qrow,
-                           int32_t* __restrict__ o_inslen,
-                           int32_t* __restrict__ o_b0,
-                           int32_t* __restrict__ o_b1,
-                           float* __restrict__ o_score,
-                           int32_t* __restrict__ o_pos) {
+// v2 operands: fetched by candidate metadata; ignored columns are gated
+struct GatherOperands {
+  const int8_t* q;
+  const int8_t* rc;
+  const int8_t* map_pad;
+  int Lmap;
+  const int32_t* sread;
+  const int32_t* strand;
+  const int32_t* lread;
+  const int32_t* w0p;
+  static constexpr bool kGateIgnore = true;
+  __device__ const int8_t* query(int c, int m) const {
+    return (strand[c] == 0 ? q : rc) + size_t(sread[c]) * m;
+  }
+  __device__ const int8_t* window(int c, int n) const {
+    return map_pad + size_t(lread[c]) * Lmap + w0p[c];
+  }
+};
+
+// v1 operands: row c of the pre-gathered slabs; nothing is gated
+struct SlabOperands {
+  const int8_t* q;
+  const int8_t* win;
+  static constexpr bool kGateIgnore = false;
+  __device__ const int8_t* query(int c, int m) const {
+    return q + size_t(c) * m;
+  }
+  __device__ const int8_t* window(int c, int n) const {
+    return win + size_t(c) * n;
+  }
+};
+
+struct BswOutputs {
+  int32_t* state;
+  int32_t* qrow;
+  int32_t* inslen;
+  int32_t* b0;
+  int32_t* b1;
+  float* score;
+  int32_t* pos;                               // [5, R]
+};
+
+template <class Ops>
+__device__ void bsw_block(const Ops& ops, int m,
+                          const int32_t* __restrict__ qlen_a, int R, int W,
+                          BswParams p, BswOutputs out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = m + W;
   const int c = blockIdx.x;
@@ -80,12 +116,9 @@ __global__ void bsw_kernel(const int8_t* __restrict__ q,
   float* red_f = reinterpret_cast<float*>(pbuf + 2 * W);
   int32_t* red_i = reinterpret_cast<int32_t*>(red_f + W);
 
-  const int sr = sread[c];
-  const int lr = lread[c];
-  const int w0 = w0p[c];
   const int ql = qlen_a[c];
-  const int8_t* qsrc = (strand[c] == 0 ? q : rc) + size_t(sr) * m;
-  const int8_t* wsrc = map_pad + size_t(lr) * Lmap + w0;
+  const int8_t* qsrc = ops.query(c, m);
+  const int8_t* wsrc = ops.window(c, n);
   for (int i = w; i < m; i += W) s_q[i] = qsrc[i];
   for (int i = w; i < n; i += W) {
     s_win[i] = wsrc[i];
@@ -228,26 +261,65 @@ __global__ void bsw_kernel(const int8_t* __restrict__ q,
       cur_w = (is_m && !started) ? w_h : (is_i ? att_w + 1 : cur_w);
     }
     const float score = h_best + (q_start > 0 ? p.clip : 0.f);
-    o_score[c] = valid ? score : NEG;
-    o_pos[c] = q_start;
-    o_pos[R + c] = end_r + 1;
-    o_pos[2 * R + c] = r_start;
-    o_pos[3 * R + c] = end_r + end_w + 1;
-    o_pos[4 * R + c] = valid ? 1 : 0;
+    out.score[c] = valid ? score : NEG;
+    out.pos[c] = q_start;
+    out.pos[R + c] = end_r + 1;
+    out.pos[2 * R + c] = r_start;
+    out.pos[3 * R + c] = end_r + end_w + 1;
+    out.pos[4 * R + c] = valid ? 1 : 0;
   }
   __syncthreads();
 
-  // coalesced store; MCR-ignore gating (bit 3 of the map word) kills votes
-  // and attached insertion runs, per-candidate stats stay untouched
+  // coalesced store; v2's MCR-ignore gating (bit 3 of the map word) kills
+  // votes and attached insertion runs, per-candidate stats stay untouched
   for (int i = w; i < n; i += W) {
-    const bool ign = (s_win[i] >> 3) > 0;
+    const bool ign = Ops::kGateIgnore && (s_win[i] >> 3) > 0;
     const size_t o = size_t(c) * n + i;
-    o_state[o] = ign ? -1 : s_state[i];
-    o_qrow[o] = s_qrow[i];
-    o_inslen[o] = ign ? 0 : s_ins[i];
-    o_b0[o] = int32_t(s_b0[i]);
-    o_b1[o] = int32_t(s_b1[i]);
+    out.state[o] = ign ? -1 : s_state[i];
+    out.qrow[o] = s_qrow[i];
+    out.inslen[o] = ign ? 0 : s_ins[i];
+    out.b0[o] = int32_t(s_b0[i]);
+    out.b1[o] = int32_t(s_b1[i]);
   }
+}
+
+__global__ void bsw_v2_kernel(GatherOperands ops, int m,
+                              const int32_t* __restrict__ qlen, int R, int W,
+                              BswParams p, BswOutputs out) {
+  bsw_block(ops, m, qlen, R, W, p, out);
+}
+
+__global__ void bsw_v1_kernel(SlabOperands ops, int m,
+                              const int32_t* __restrict__ qlen, int R, int W,
+                              BswParams p, BswOutputs out) {
+  bsw_block(ops, m, qlen, R, W, p, out);
+}
+
+BswParams make_params(float match, float mismatch, float n_pen, float o_del,
+                      float e_del, float o_ins, float e_ins, float clip) {
+  BswParams p;
+  p.match = match;
+  p.mismatch = mismatch;
+  p.n_pen = n_pen;
+  p.o_del = o_del;
+  p.e_del = e_del;
+  p.oe_ins = o_ins + e_ins;                    // f32, as (o_ins + e_ins)
+  p.e_ins = e_ins;
+  p.clip = clip;
+  return p;
+}
+
+BswOutputs make_outputs(void* state, void* qrow, void* ins_len, void* ins_b0,
+                        void* ins_b1, void* score, void* pos) {
+  BswOutputs o;
+  o.state = static_cast<int32_t*>(state);
+  o.qrow = static_cast<int32_t*>(qrow);
+  o.inslen = static_cast<int32_t*>(ins_len);
+  o.b0 = static_cast<int32_t*>(ins_b0);
+  o.b1 = static_cast<int32_t*>(ins_b1);
+  o.score = static_cast<float*>(score);
+  o.pos = static_cast<int32_t*>(pos);
+  return o;
 }
 
 }  // namespace
@@ -268,27 +340,42 @@ PT_EXPORT int pt_bsw_expand_v2(const void* q, const void* rc, int S, int m,
                                void* score, void* pos, void* stream) {
   (void)S;
   if (W > 128 || W % 32 != 0 || m <= 0) return int(cudaErrorInvalidValue);
-  BswParams p;
-  p.match = match;
-  p.mismatch = mismatch;
-  p.n_pen = n_pen;
-  p.o_del = o_del;
-  p.e_del = e_del;
-  p.oe_ins = o_ins + e_ins;                    // f32, as (o_ins + e_ins)
-  p.e_ins = e_ins;
-  p.clip = clip;
+  GatherOperands ops;
+  ops.q = static_cast<const int8_t*>(q);
+  ops.rc = static_cast<const int8_t*>(rc);
+  ops.map_pad = static_cast<const int8_t*>(map_pad);
+  ops.Lmap = Lmap;
+  ops.sread = static_cast<const int32_t*>(sread);
+  ops.strand = static_cast<const int32_t*>(strand);
+  ops.lread = static_cast<const int32_t*>(lread);
+  ops.w0p = static_cast<const int32_t*>(w0p);
   const size_t smem = bsw_smem_bytes(m, W);
-  cudaError_t e = pt_reserve_smem(bsw_kernel, smem);
+  cudaError_t e = pt_reserve_smem(bsw_v2_kernel, smem);
   if (e != cudaSuccess) return int(e);
-  bsw_kernel<<<R, W, smem, cudaStream_t(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(rc), m,
-      static_cast<const int8_t*>(map_pad), Lmap,
-      static_cast<const int32_t*>(qlen), static_cast<const int32_t*>(sread),
-      static_cast<const int32_t*>(strand), static_cast<const int32_t*>(lread),
-      static_cast<const int32_t*>(w0p), R, W, p,
-      static_cast<int32_t*>(state), static_cast<int32_t*>(qrow),
-      static_cast<int32_t*>(ins_len), static_cast<int32_t*>(ins_b0),
-      static_cast<int32_t*>(ins_b1), static_cast<float*>(score),
-      static_cast<int32_t*>(pos));
+  bsw_v2_kernel<<<R, W, smem, cudaStream_t(stream)>>>(
+      ops, m, static_cast<const int32_t*>(qlen), R, W,
+      make_params(match, mismatch, n_pen, o_del, e_del, o_ins, e_ins, clip),
+      make_outputs(state, qrow, ins_len, ins_b0, ins_b1, score, pos));
+  return int(cudaGetLastError());
+}
+
+PT_EXPORT int pt_bsw_expand_v1(const void* q, const void* win, int m,
+                               const void* qlen, int R, int W, float match,
+                               float mismatch, float n_pen, float o_del,
+                               float e_del, float o_ins, float e_ins,
+                               float clip, void* state, void* qrow,
+                               void* ins_len, void* ins_b0, void* ins_b1,
+                               void* score, void* pos, void* stream) {
+  if (W > 128 || W % 32 != 0 || m <= 0) return int(cudaErrorInvalidValue);
+  SlabOperands ops;
+  ops.q = static_cast<const int8_t*>(q);
+  ops.win = static_cast<const int8_t*>(win);
+  const size_t smem = bsw_smem_bytes(m, W);
+  cudaError_t e = pt_reserve_smem(bsw_v1_kernel, smem);
+  if (e != cudaSuccess) return int(e);
+  bsw_v1_kernel<<<R, W, smem, cudaStream_t(stream)>>>(
+      ops, m, static_cast<const int32_t*>(qlen), R, W,
+      make_params(match, mismatch, n_pen, o_del, e_del, o_ins, e_ins, clip),
+      make_outputs(state, qrow, ins_len, ins_b0, ins_b1, score, pos));
   return int(cudaGetLastError());
 }

@@ -38,7 +38,12 @@ _SIGNATURES = {
     "pt_bsw_expand_v2": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _F, _F, _F, _F, _F,
                          _P, _P, _P, _P, _P, _P, _P, _P],
+    "pt_bsw_expand_v1": [_P, _P, _I, _P, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _F,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
     "pt_pileup_accumulate_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "pt_pileup_accumulate_packed": [_P, _I, _P, _P, _P, _I, _I, _P],
+    "pt_pileup_accumulate": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
     "pt_assemble_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "pt_hcr_mask_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P],

@@ -16,7 +16,7 @@ import torch
 
 from proovread_tpu_torch.consensus.params import MAX_PHRED, PROOVREAD_CONSTANT
 from proovread_tpu_torch.ops.encode import GAP
-from proovread_tpu_torch.ops.pileup import Pileup
+from proovread_tpu_torch.ops.pileup import Pileup, lane_sum
 
 
 class ConsensusCall(NamedTuple):
@@ -42,7 +42,7 @@ def call_consensus(pile: Pileup, ref_codes: torch.Tensor,
     K = pile.ins_len_votes.shape[-1]
 
     plain = counts - ins_mbase
-    ins_w = ins_mbase.sum(-1)
+    ins_w = lane_sum(ins_mbase)
     maj_len = torch.where(ins_w > 0, torch.argmax(pile.ins_len_votes, -1) + 1,
                           0)
     ins_allowed = ins_w > 0

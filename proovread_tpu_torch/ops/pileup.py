@@ -8,6 +8,17 @@ from typing import NamedTuple
 import torch
 
 
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim as a left fold, ``((x0 + x1) + x2) + ...``: the
+    order the CPU-compiled reference reduces in. ``Tensor.sum`` adds in
+    another order, which changes the f32 result for fractional
+    (qual-weighted) votes."""
+    out = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        out = out + x[..., k]
+    return out
+
+
 class Pileup(NamedTuple):
     """Accumulated vote tensors for B long reads of padded length L.
 
@@ -26,4 +37,4 @@ class Pileup(NamedTuple):
 
     @property
     def coverage(self) -> torch.Tensor:
-        return self.counts.sum(-1)
+        return lane_sum(self.counts)

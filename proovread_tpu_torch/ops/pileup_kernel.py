@@ -1,17 +1,24 @@
-"""Pileup accumulation: vote bit planes -> per-read pileup counts.
+"""Pileup accumulation: per-candidate votes -> per-read pileup tensors.
 
-Port of ``proovread_tpu/ops/pileup_kernel.py:pileup_accumulate_bits``. Each
-candidate's two i32 bit planes per window column decode to one-hot votes over
-the 64 lanes, added into ``pileup[read_of, w0:w0+n, :]``.
+Port of ``proovread_tpu/ops/pileup_kernel.py``: each candidate's votes over
+the 64 lanes of its ``n`` window columns are added into
+``pileup[read_of, w0:w0+n, :]``, from
+
+- ``pileup_accumulate_bits``: two i32 bit planes per column (+1 votes);
+- ``pileup_accumulate_packed``: one packed i32 vote word per column (+1
+  votes; the reference's f32 path for ``2*max_coverage+2 > 256``);
+- ``pileup_accumulate``: dense f32 vote slabs (qual-weighted votes).
 
 The buffer is f32 ``[B, Lp + 2n, PACK_LANES]`` and is updated IN PLACE (the
-JAX buffer is aliased in and out). Every add is +1 to an integer count far
-below 2^24, so any order of adds gives the same bits. The TPU's bf16 128-lane
-buffer, its VMEM budget split and the windowed fallback only laid data out;
-what the port holds equal is ``unpack_pileup``'s result.
+JAX buffer is aliased in and out). Unweighted votes add +1 to integer counts
+far below 2^24, so any order of adds gives the same bits. Weighted votes are
+fractional: the reference folds each cell over the candidates in index
+order, and so does the port. The TPU's bf16 128-lane buffer, its VMEM budget
+split and the windowed fallback only laid data out; what the port holds
+equal is ``unpack_pileup``'s result.
 
-``pileup_accumulate_bits`` runs the plain PyTorch version for CPU tensors and
-the CUDA kernel (``csrc/pileup.cu``) for CUDA tensors.
+Each wrapper runs the plain PyTorch version for CPU tensors and the CUDA
+kernel (``csrc/pileup.cu``) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -19,23 +26,28 @@ from __future__ import annotations
 import torch
 
 from proovread_tpu_torch import kernels
-from proovread_tpu_torch.ops.votes import PACK_LANES
+from proovread_tpu_torch.ops.votes import INS_CAP, PACK_LANES
+
+
+def _check_common(pileup, R, read_of, w0, others):
+    req = kernels.require
+    req(pileup.dim() == 3 and pileup.shape[2] == PACK_LANES
+        and pileup.dtype == torch.float32 and pileup.is_contiguous(),
+        "pileup: buffer must be contiguous f32 [B, L, 64] (updated in place)")
+    for name, t in (("read_of", read_of), ("w0", w0)):
+        req(t.dtype == torch.int32 and t.shape == (R,),
+            f"pileup: {name} must be int32 [{R}]")
+    req(all(t.device == pileup.device for t in (read_of, w0, *others)),
+        "pileup: tensors on mixed devices")
 
 
 def _check(pileup, bits0, bits1, read_of, w0):
     B, Lpile, P = pileup.shape
     R, n = bits0.shape
-    req = kernels.require
-    req(P == PACK_LANES and pileup.dtype == torch.float32
-        and pileup.is_contiguous(),
-        "pileup: buffer must be contiguous f32 [B, L, 64] (updated in place)")
-    req(bits0.dtype == torch.int32 and bits1.dtype == torch.int32
-        and bits1.shape == (R, n), "pileup: bit planes must be int32 [R, n]")
-    for name, t in (("read_of", read_of), ("w0", w0)):
-        req(t.dtype == torch.int32 and t.shape == (R,),
-            f"pileup: {name} must be int32 [{R}]")
-    req(all(t.device == pileup.device for t in (bits0, bits1, read_of, w0)),
-        "pileup: tensors on mixed devices")
+    kernels.require(bits0.dtype == torch.int32 and bits1.dtype == torch.int32
+                    and bits1.shape == (R, n),
+                    "pileup: bit planes must be int32 [R, n]")
+    _check_common(pileup, R, read_of, w0, (bits0, bits1))
     return B, Lpile, R, n
 
 
@@ -87,4 +99,165 @@ def pileup_accumulate_bits_plain(pileup, bits0, bits1, read_of, w0):
             + torch.arange(n, device=pileup.device)[None, :])
     pileup.view(B * Lpile, PACK_LANES).index_add_(
         0, rows.reshape(-1), decode_bits(bits0, bits1).reshape(-1, PACK_LANES))
+    return pileup
+
+
+def _rows(read_of, w0, Lpile: int, n: int) -> torch.Tensor:
+    """[R, n] flat buffer row of each candidate's window columns."""
+    return (read_of.to(torch.int64)[:, None] * Lpile
+            + w0.to(torch.int64)[:, None]
+            + torch.arange(n, device=read_of.device)[None, :])
+
+
+# --------------------------------------------------------------------------
+# packed vote words (f32 exact counts past 256 votes per lane)
+# --------------------------------------------------------------------------
+
+def _check_packed(pileup, words, read_of, w0):
+    B, Lpile, _ = pileup.shape
+    R, n = words.shape
+    kernels.require(words.dtype == torch.int32,
+                    "pileup_accumulate_packed: words must be int32 [R, n]")
+    _check_common(pileup, R, read_of, w0, (words,))
+    return B, Lpile, R, n
+
+
+def pileup_accumulate_packed(pileup, words, read_of, w0):
+    """Add each candidate's packed vote words into ``pileup`` (in place)
+    and return it.
+
+    pileup: f32 [B, Lp + 2n, 64]; words: i32 [R, n] (``ops/votes.py``
+    word layout; all-zero words vote nothing); read_of: i32 [R] target read;
+    w0: i32 [R] window offset in the padded buffer, in [0, Lp + n]."""
+    _check_packed(pileup, words, read_of, w0)
+    if pileup.device.type == "cpu":
+        return pileup_accumulate_packed_plain(pileup, words, read_of, w0)
+    if pileup.device.type != "cuda":
+        raise ValueError(f"pileup_accumulate_packed: device {pileup.device}")
+    return _packed_cuda(pileup, words, read_of, w0)
+
+
+pileup_accumulate_packed.launches = 0
+
+
+def _packed_cuda(pileup, words, read_of, w0):
+    B, Lpile, R, n = _check_packed(pileup, words, read_of, w0)
+    kernels.require_in_range("pileup_accumulate_packed", (read_of, 0, B - 1),
+                             (w0, 0, Lpile - n))
+    words, read_of, w0 = (t.contiguous() for t in (words, read_of, w0))
+    if R > 0:
+        rc = kernels.lib().pt_pileup_accumulate_packed(
+            pileup.data_ptr(), Lpile, words.data_ptr(), read_of.data_ptr(),
+            w0.data_ptr(), R, n, kernels.stream_of(pileup))
+        kernels.check(rc, "pileup_accumulate_packed")
+        pileup_accumulate_packed.launches += 1
+    return pileup
+
+
+def decode_words(words) -> torch.Tensor:
+    """[R, n] packed vote words -> f32 one-hot vote slab [R, n, 64]: lane
+    st-1 and, with the marker bit, 8+st-1 for a state field st > 0; lane
+    16+len-1 for a length field len > 0; and, when len > 0, lane 24+5k+b
+    for each inserted-base field b < 5."""
+    w = words.to(torch.int64)[:, :, None]
+    lanes = torch.arange(PACK_LANES, device=words.device)
+    st_f = w & 7
+    len_f = (w >> 4) & 7
+    votes = (lanes == st_f - 1) & (st_f > 0)
+    votes |= (lanes == 8 + st_f - 1) & (((w >> 3) & 1) > 0) & (st_f > 0)
+    votes |= (lanes == 16 + len_f - 1) & (len_f > 0)
+    for k in range(INS_CAP):
+        b_f = (w >> (7 + 3 * k)) & 7                  # 5 = none
+        votes |= (lanes == 24 + 5 * k + b_f) & (b_f < 5) & (len_f > 0)
+    return votes.to(torch.float32)
+
+
+def pileup_accumulate_packed_plain(pileup, words, read_of, w0):
+    """Plain PyTorch version: decode to a dense slab, then ``index_add_``."""
+    B, Lpile, R, n = _check_packed(pileup, words, read_of, w0)
+    pileup.view(B * Lpile, PACK_LANES).index_add_(
+        0, _rows(read_of, w0, Lpile, n).reshape(-1),
+        decode_words(words).reshape(-1, PACK_LANES))
+    return pileup
+
+
+# --------------------------------------------------------------------------
+# dense f32 vote slabs (qual-weighted votes), folded in candidate order
+# --------------------------------------------------------------------------
+
+def _check_dense(pileup, votes, read_of, w0):
+    B, Lpile, _ = pileup.shape
+    kernels.require(votes.dim() == 3 and votes.shape[2] == PACK_LANES
+                    and votes.dtype == torch.float32,
+                    "pileup_accumulate: votes must be f32 [R, n, 64]")
+    R, n, _ = votes.shape
+    _check_common(pileup, R, read_of, w0, (votes,))
+    return B, Lpile, R, n
+
+
+def pileup_accumulate(pileup, votes, read_of, w0):
+    """Add each candidate's vote slab into its read's pileup rows (in
+    place) and return it. Every cell is folded over the candidates in index
+    order, as the reference's sequential grid does; ``read_of`` must be
+    sorted ascending.
+
+    pileup: f32 [B, Lp + 2n, 64]; votes: f32 [R, n, 64] (rows of dead
+    candidates all zero); read_of, w0: i32 [R] as for the other wrappers."""
+    _check_dense(pileup, votes, read_of, w0)
+    if pileup.device.type == "cpu":
+        return pileup_accumulate_plain(pileup, votes, read_of, w0)
+    if pileup.device.type != "cuda":
+        raise ValueError(f"pileup_accumulate: device {pileup.device}")
+    return _dense_cuda(pileup, votes, read_of, w0)
+
+
+pileup_accumulate.launches = 0
+
+
+def _read_runs(read_of) -> torch.Tensor:
+    """i32 [n_runs + 1]: start of each run of equal ``read_of`` values,
+    then R."""
+    R = read_of.shape[0]
+    starts = torch.nonzero(read_of[1:] != read_of[:-1]).flatten() + 1
+    zero = torch.zeros(1, dtype=starts.dtype, device=read_of.device)
+    end = torch.full((1,), R, dtype=starts.dtype, device=read_of.device)
+    return torch.cat([zero, starts, end]).to(torch.int32)
+
+
+def _dense_cuda(pileup, votes, read_of, w0):
+    B, Lpile, R, n = _check_dense(pileup, votes, read_of, w0)
+    if R == 0:
+        return pileup
+    votes, read_of, w0 = (t.contiguous() for t in (votes, read_of, w0))
+    kernels.require_in_range("pileup_accumulate", (read_of, 0, B - 1),
+                             (w0, 0, Lpile - n))
+    kernels.require(bool((read_of[1:] >= read_of[:-1]).all()),
+                    "pileup_accumulate: read_of must be sorted ascending")
+    runs = _read_runs(read_of)
+    rc = kernels.lib().pt_pileup_accumulate(
+        pileup.data_ptr(), Lpile, votes.data_ptr(), w0.data_ptr(),
+        read_of.data_ptr(), runs.data_ptr(), runs.shape[0] - 1, n,
+        kernels.stream_of(pileup))
+    kernels.check(rc, "pileup_accumulate")
+    pileup_accumulate.launches += 1
+    return pileup
+
+
+def pileup_accumulate_plain(pileup, votes, read_of, w0):
+    """Plain PyTorch version, folded in candidate order: round k adds the
+    k-th candidate of every read with one ``index_add_`` over rows that are
+    all distinct, so each cell gets its adds one at a time, in order."""
+    B, Lpile, R, n = _check_dense(pileup, votes, read_of, w0)
+    if R == 0:
+        return pileup
+    kernels.require(bool((read_of[1:] >= read_of[:-1]).all()),
+                    "pileup_accumulate: read_of must be sorted ascending")
+    first = torch.searchsorted(read_of, read_of, side="left")
+    rank = torch.arange(R, device=read_of.device) - first
+    rows = _rows(read_of, w0, Lpile, n)
+    flat = pileup.view(B * Lpile, PACK_LANES)
+    for k in range(int(rank.max()) + 1):
+        sel = torch.nonzero(rank == k).flatten()
+        flat.index_add_(0, rows[sel].reshape(-1),
+                        votes[sel].reshape(-1, PACK_LANES))
     return pileup

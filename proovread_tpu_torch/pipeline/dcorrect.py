@@ -1,10 +1,17 @@
 """Device-resident iterative correction: one pass, and passes 2..N.
 
-Port of the main-path subset of ``proovread_tpu/pipeline/dcorrect.py``:
+Port of ``proovread_tpu/pipeline/dcorrect.py`` (device engine, no flex):
 
     masked codes -> k-mer index -> probe seeding -> bsw kernel
-    -> threshold + binned admission -> packed votes -> pileup kernel
+    -> threshold + binned admission -> votes -> pileup kernel
     -> consensus call -> assembly kernel -> HCR mask kernel
+
+Unweighted votes take the reference's scanned pass: bsw v2, packed vote
+words, and the bit-plane pileup kernel, or the packed-word kernel when a
+lane can collect more than 256 votes (``2*max_coverage+2 > 256``).
+Qual-weighted votes take its unrolled pass: gathered query/qual/window
+slabs, bsw v1, dense phred-weighted vote slabs and the ordered pileup
+kernel.
 
 The fused ``lax.while_loop`` over passes 2..N becomes a host loop with the
 same semantics: per-pass sampled query rows and mask parameters, the static
@@ -38,8 +45,10 @@ from proovread_tpu_torch.ops.assemble_kernel import (assemble_rows,
 from proovread_tpu_torch.ops.consensus_call import call_consensus
 from proovread_tpu_torch.ops.encode import N, N_STATES
 from proovread_tpu_torch.ops.fused import add_ref_votes
-from proovread_tpu_torch.ops.pileup_kernel import pileup_accumulate_bits
-from proovread_tpu_torch.ops.votes import (PACK_LANES,
+from proovread_tpu_torch.ops.pileup_kernel import (pileup_accumulate,
+                                                   pileup_accumulate_bits,
+                                                   pileup_accumulate_packed)
+from proovread_tpu_torch.ops.votes import (PACK_LANES, build_votes,
                                            encode_votes_packed_bases,
                                            unpack_pileup, word_to_bits)
 
@@ -54,6 +63,16 @@ def device_revcomp(codes: torch.Tensor, lengths: torch.Tensor
     g = torch.gather(codes, 1, src)
     rc = torch.where(g < 4, 3 - g, g)
     return torch.where(j < ln, rc, 4).to(codes.dtype)
+
+
+def device_reverse_rows(x: torch.Tensor, lengths: torch.Tensor
+                        ) -> torch.Tensor:
+    """Reverse each row's first lengths[i] entries (the rest stay)."""
+    B, m = x.shape
+    j = torch.arange(m, device=x.device)[None, :]
+    ln = lengths.to(torch.int64)[:, None]
+    out = torch.gather(x, 1, torch.clamp(ln - 1 - j, 0, m - 1))
+    return torch.where(j < ln, out, x)
 
 
 def device_admit(lread, pos0, span, score, passed, ref_lens,
@@ -114,10 +133,12 @@ def device_hcr_mask(qual, lengths, p):
     return hcr_mask_rows(qual, lengths, mask_params_vec(p))
 
 
-def pileup_fits(cns: ConsensusParams) -> bool:
-    """The main path's pileup holds at most 2*max_coverage+2 votes per
-    column lane; beyond 256 the reference switches to its f32 packed-word
-    kernel, which the port does not have yet."""
+def bits_pileup(cns: ConsensusParams) -> bool:
+    """Whether the unweighted pass takes the bit-plane pileup kernel. A
+    column lane can collect up to 2*max_coverage+2 votes (admission bins by
+    midpoint, plus the ref vote); past 256 the reference's bf16 bits buffer
+    would round, so it takes the f32 packed-word kernel, and so does the
+    port."""
     return 2 * cns.max_coverage + 2 <= 256
 
 
@@ -257,23 +278,81 @@ def detect_chimera_device(results, ref_lens: np.ndarray, aln: AlnData
 
 
 def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
-                q_codes, rc_codes, q_lengths,
+                q_codes, rc_codes, q_qual, q_lengths,
                 sread, strand, lread, diag, n_cand: int,
                 m: int, W: int, CH: int, n_chunks: int,
                 ap: AlignParams, cns: ConsensusParams, collect: bool):
     """One full correction pass over ``n_chunks`` chunks of CH candidate
-    rows (the reference's ``_fused_pass_scanned``). Chunks that start at
-    or past ``n_cand`` are dead: their rows carry the reference's dead-chunk
-    values and are neither aligned nor voted."""
-    if cns.qual_weighted:
-        raise NotImplementedError(
-            "qual-weighted voting (the reference's unrolled v1 path with "
-            "pileup_accumulate) is not ported yet")
-    if not pileup_fits(cns):
-        raise NotImplementedError(
-            f"max_coverage={cns.max_coverage} needs 2*max_coverage+2 > 256 "
-            "votes per lane: the f32 pileup_accumulate_packed fallback is "
-            "not ported yet")
+    rows: the reference's unrolled pass for qual-weighted votes, else its
+    scanned pass. Chunks that start at or past ``n_cand`` are dead: their
+    rows carry the reference's dead-chunk values and are neither aligned
+    nor voted."""
+    impl = _fused_pass_unrolled if cns.qual_weighted else _fused_pass_scanned
+    return impl(map_codes, ignore_cols, codes, qual, lengths, q_codes,
+                rc_codes, q_qual, q_lengths, sread, strand, lread, diag,
+                n_cand, m=m, W=W, CH=CH, n_chunks=n_chunks, ap=ap, cns=cns,
+                collect=collect)
+
+
+class _PassRows:
+    """Per-candidate scalars of a pass, dead-chunk values by default."""
+
+    def __init__(self, R_tot: int, dev):
+        i32 = torch.int32
+
+        def z():
+            return torch.zeros(R_tot, dtype=i32, device=dev)
+        self.passed = torch.zeros(R_tot, dtype=torch.bool, device=dev)
+        self.score = torch.full((R_tot,), -1e9, dtype=torch.float32,
+                                device=dev)
+        self.pos0, self.span, self.ws = z(), z(), z()
+        self.qs, self.qe, self.rs, self.re = z(), z(), z(), z()
+
+    def set(self, sl, res, win_start, passed):
+        self.passed[sl] = passed
+        self.pos0[sl] = win_start + res.r_start
+        self.span[sl] = res.r_end - res.r_start
+        self.score[sl] = res.score
+        self.qs[sl], self.qe[sl] = res.q_start, res.q_end
+        self.rs[sl], self.re[sl] = res.r_start, res.r_end
+        self.ws[sl] = win_start
+
+    def finish(self, codes, qual, lengths, pileup, pad, lread, sread, strand,
+               admitted, cns, collect, slabs):
+        """Consensus over the pileup, and the pass's outputs."""
+        Lp = codes.shape[1]
+        with record_function("consensus"):
+            pile = unpack_pileup(pileup, pad, Lp)
+            if cns.use_ref_qual:
+                pos = torch.arange(Lp, device=codes.device)[None, :]
+                lmask = (pos < lengths[:, None]).to(torch.float32)
+                pile = add_ref_votes(pile, codes, qual.to(torch.float32),
+                                     lmask)
+            call = call_consensus(pile, codes, cns.max_ins_length)
+        n_admitted = admitted.sum()
+        n_eligible = (self.passed & (self.span > 0)).sum()
+        if not collect:
+            return call, n_admitted, n_eligible, None, None
+        scalars = (lread, self.pos0, self.span, admitted, self.qs, self.qe,
+                   self.ws, self.rs, self.re, sread, strand, self.score)
+        return call, n_admitted, n_eligible, scalars, slabs
+
+
+def _threshold(ap: AlignParams, res, qlen):
+    thr = (ap.min_out_score * qlen.to(torch.float32)
+           if ap.score_per_base else ap.min_out_score)
+    return res.valid & (res.score >= thr)
+
+
+def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
+                        q_codes, rc_codes, q_qual, q_lengths,
+                        sread, strand, lread, diag, n_cand: int,
+                        m: int, W: int, CH: int, n_chunks: int,
+                        ap: AlignParams, cns: ConsensusParams,
+                        collect: bool):
+    """Unweighted votes (the reference's ``_fused_pass_scanned``): bsw v2
+    per chunk, admission over the pass, then packed vote words into the
+    bit-plane or the packed-word pileup kernel."""
     B, Lp = codes.shape
     dev = codes.device
     n = m + W
@@ -289,16 +368,7 @@ def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
     strand32 = strand.to(i32)
 
     n_live = min(n_chunks, -(-n_cand // CH))
-    R_tot = n_chunks * CH
-    passed = torch.zeros(R_tot, dtype=torch.bool, device=dev)
-    pos0 = torch.zeros(R_tot, dtype=i32, device=dev)
-    span = torch.zeros(R_tot, dtype=i32, device=dev)
-    score = torch.full((R_tot,), -1e9, dtype=torch.float32, device=dev)
-    qs_all = torch.zeros(R_tot, dtype=i32, device=dev)
-    qe_all = torch.zeros(R_tot, dtype=i32, device=dev)
-    rs_all = torch.zeros(R_tot, dtype=i32, device=dev)
-    re_all = torch.zeros(R_tot, dtype=i32, device=dev)
-    ws_all = torch.zeros(R_tot, dtype=i32, device=dev)
+    rows = _PassRows(n_chunks * CH, dev)
     words, slabs = [], []
     with record_function("align"):
         for c in range(n_live):
@@ -306,17 +376,9 @@ def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
             res = bsw.bsw_expand_v2(
                 q_codes, rc_codes, map_pad, qlen_all[sl], sread[sl],
                 strand32[sl], lread[sl], w0p_all[sl], ap)
-            qlen_c = qlen_all[sl]
-            thr = (ap.min_out_score * qlen_c.to(torch.float32)
-                   if ap.score_per_base else ap.min_out_score)
             live_m = (c * CH + torch.arange(CH, device=dev)) < n_cand
-            passed[sl] = res.valid & (res.score >= thr) & live_m
-            pos0[sl] = win_start_all[sl] + res.r_start
-            span[sl] = res.r_end - res.r_start
-            score[sl] = res.score
-            qs_all[sl], qe_all[sl] = res.q_start, res.q_end
-            rs_all[sl], re_all[sl] = res.r_start, res.r_end
-            ws_all[sl] = win_start_all[sl]
+            rows.set(sl, res, win_start_all[sl],
+                     _threshold(ap, res, qlen_all[sl]) & live_m)
             words.append(encode_votes_packed_bases(
                 res.state, res.qrow, res.ins_len, res.ins_b0, res.ins_b1,
                 res.q_start, res.q_end, taboo_frac=taboo_frac,
@@ -327,30 +389,107 @@ def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
                               res.ins_len.to(torch.int16)))
 
     with record_function("vote"):
-        admitted = device_admit(lread, pos0, span, score, passed, lengths, cns)
+        admitted = device_admit(lread, rows.pos0, rows.span, rows.score,
+                                rows.passed, lengths, cns)
         pileup = torch.zeros((B, Lpile, PACK_LANES), dtype=torch.float32,
                              device=dev)
+        use_bits = bits_pileup(cns)
         for c in range(n_live):
             sl = slice(c * CH, (c + 1) * CH)
             w = torch.where(admitted[sl][:, None], words[c], 0)
-            b0, b1 = word_to_bits(w)
             w0p = torch.clamp(win_start_all[sl] + pad, 0, Lpile - n).to(i32)
-            pileup_accumulate_bits(pileup, b0, b1, lread[sl].to(i32), w0p)
+            if use_bits:
+                b0, b1 = word_to_bits(w)
+                pileup_accumulate_bits(pileup, b0, b1, lread[sl].to(i32), w0p)
+            else:
+                pileup_accumulate_packed(pileup, w, lread[sl].to(i32), w0p)
+    return rows.finish(codes, qual, lengths, pileup, pad, lread, sread,
+                       strand, admitted, cns, collect, slabs)
 
-    with record_function("consensus"):
-        pile = unpack_pileup(pileup, pad, Lp)
-        if cns.use_ref_qual:
-            pos = torch.arange(Lp, device=dev)[None, :]
-            lmask = (pos < lengths[:, None]).to(torch.float32)
-            pile = add_ref_votes(pile, codes, qual.to(torch.float32), lmask)
-        call = call_consensus(pile, codes, cns.max_ins_length)
-    n_admitted = admitted.sum()
-    n_eligible = (passed & (span > 0)).sum()
-    if not collect:
-        return call, n_admitted, n_eligible, None, None
-    scalars = (lread, pos0, span, admitted, qs_all, qe_all, ws_all, rs_all,
-               re_all, sread, strand, score)
-    return call, n_admitted, n_eligible, scalars, slabs
+
+def _gather_and_align(map_codes, ignore_cols, q_codes, rc_codes, q_qual,
+                      q_lengths, sread, strand, lread, diag,
+                      m: int, W: int, ap: AlignParams):
+    """One chunk of the qual-weighted pass (the reference's
+    ``_gather_and_align``): gather the strand-oriented query, qual and
+    window slabs, run bsw v1. Returns (bsw result, query i8 [CH, m], qual
+    u8 [CH, m], window start, ignored columns bool [CH, n] or None)."""
+    L = map_codes.shape[1]
+    n = m + W
+    sr = sread.long()
+    fwd = (strand == 0)[:, None]
+    q = torch.where(fwd, q_codes[sr], rc_codes[sr]).to(torch.int8)
+    qlen = q_lengths[sr].to(torch.int32)
+    qual_f = q_qual[sr]
+    qual = torch.where(fwd, qual_f, device_reverse_rows(qual_f, qlen))
+    win_start = (diag - W // 2) & ~15
+    idx = win_start.to(torch.int64)[:, None] + torch.arange(
+        n, device=diag.device)[None, :]
+    inb = (idx >= 0) & (idx < L)
+    lr = lread.long()[:, None]
+    col = torch.clamp(idx, 0, L - 1)
+    win = torch.where(inb, map_codes[lr, col], 4).to(torch.int8)
+    res = bsw.bsw_expand(q, win, qlen, ap)
+    ign = (torch.where(inb, ignore_cols[lr, col], False)
+           if ignore_cols is not None else None)
+    return res, q, qual, qlen, win_start.to(torch.int32), ign
+
+
+def _fused_pass_unrolled(map_codes, ignore_cols, codes, qual, lengths,
+                         q_codes, rc_codes, q_qual, q_lengths,
+                         sread, strand, lread, diag, n_cand: int,
+                         m: int, W: int, CH: int, n_chunks: int,
+                         ap: AlignParams, cns: ConsensusParams,
+                         collect: bool):
+    """Qual-weighted votes (the reference's ``_fused_pass_unrolled``): per
+    chunk gather + bsw v1 (chunk 0 always, later chunks while they hold a
+    candidate), admission over the pass, then per live chunk a dense
+    phred-weighted vote slab added by the ordered pileup kernel. Each slab
+    ([CH, n, 64] f32) lives only while its chunk is voted."""
+    B, Lp = codes.shape
+    dev = codes.device
+    n = m + W
+    pad = n
+    Lpile = Lp + 2 * n
+    taboo_frac = cns.indel_taboo if cns.trim else 0.0
+    taboo_abs = (cns.indel_taboo_length or 0) if cns.trim else 0
+    i32 = torch.int32
+
+    n_live = max(1, min(n_chunks, -(-n_cand // CH)))
+    rows = _PassRows(n_chunks * CH, dev)
+    chunks, slabs = [], []
+    with record_function("align"):
+        for c in range(n_live):
+            sl = slice(c * CH, (c + 1) * CH)
+            res, q, qq, qlen, win_start, ign = _gather_and_align(
+                map_codes, ignore_cols, q_codes, rc_codes, q_qual,
+                q_lengths, sread[sl], strand[sl], lread[sl], diag[sl],
+                m=m, W=W, ap=ap)
+            live_m = (c * CH + torch.arange(CH, device=dev)) < n_cand
+            rows.set(sl, res, win_start, _threshold(ap, res, qlen) & live_m)
+            st = res.state.to(torch.int8)
+            qr = res.qrow.to(torch.int16)
+            il = res.ins_len.to(torch.int16)
+            chunks.append((st, qr, il, res.q_start, res.q_end, q, qq, ign))
+            if collect:
+                slabs.append((st, qr, il))
+
+    with record_function("vote"):
+        admitted = device_admit(lread, rows.pos0, rows.span, rows.score,
+                                rows.passed, lengths, cns)
+        pileup = torch.zeros((B, Lpile, PACK_LANES), dtype=torch.float32,
+                             device=dev)
+        for c, (st, qr, il, qs, qe, q, qq, ign) in enumerate(chunks):
+            sl = slice(c * CH, (c + 1) * CH)
+            votes = build_votes(
+                st, qr, il, q, qq, qs, qe, admitted[sl], ignore_cols=ign,
+                qual_weighted=True, taboo_frac=taboo_frac,
+                taboo_abs=taboo_abs, min_aln_length=cns.min_aln_length)
+            w0p = torch.clamp(rows.ws[sl] + pad, 0, Lpile - n).to(i32)
+            pileup_accumulate(pileup, votes, lread[sl].to(i32), w0p)
+            del votes
+    return rows.finish(codes, qual, lengths, pileup, pad, lread, sread,
+                       strand, admitted, cns, collect, slabs)
 
 
 def _pad_candidates(sread, strand, lread, diag, R_need: int):
@@ -405,7 +544,8 @@ class DeviceCorrector:
                      seed_stride: int = 8, seed_min_votes: int = 2,
                      collect_aln: bool = False):
         """One correction pass with a chunk count sized from this pass's
-        candidate count (``q_qual`` is unused by the unweighted path)."""
+        candidate count (``q_qual``, the short reads' phreds, weights the
+        votes of a qual-weighted ``cns``)."""
         B, Lp = codes.shape
         m = q_codes.shape[1]
         W = bsw.band_lanes(ap)
@@ -424,8 +564,8 @@ class DeviceCorrector:
                                                      diag, R_need)
         call, n_adm, n_elig, scalars, slabs = _fused_pass(
             map_codes, ignore_cols, codes, qual, lengths, q_codes, rc_codes,
-            q_lengths, sread, strand, lread, diag, n_cand, m=m, W=W, CH=CH,
-            n_chunks=n_chunks, ap=ap, cns=cns, collect=collect_aln)
+            q_qual, q_lengths, sread, strand, lread, diag, n_cand, m=m, W=W,
+            CH=CH, n_chunks=n_chunks, ap=ap, cns=cns, collect=collect_aln)
         stats = DevicePassStats(n_candidates=n_cand, n_admitted=n_adm,
                                 n_eligible=n_elig)
         if not collect_aln:
@@ -488,10 +628,11 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
     R_need = n_chunks * CH
     while it < n_rest and not done:
         if sels is None:
-            qc, rcq, qlen = sr_codes, sr_rc, sr_lengths
+            qc, rcq, qq, qlen = sr_codes, sr_rc, sr_qual, sr_lengths
         else:
             sel = torch.as_tensor(sels[it], dtype=torch.int64, device=dev)
-            qc, rcq, qlen = sr_codes[sel], sr_rc[sel], sr_lengths[sel]
+            qc, rcq, qq, qlen = (sr_codes[sel], sr_rc[sel], sr_qual[sel],
+                                 sr_lengths[sel])
         map_codes = torch.where(mask_cols, N, codes).to(codes.dtype)
         sread, strand, lread, diag, n_valid = _seed(
             map_codes, lengths, qc, qlen, rcq, ap, seed_stride,
@@ -501,7 +642,7 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
         n_valid = int(n_valid)
         n_cand = min(n_valid, R_need)
         call, n_adm, n_elig, _, _ = _fused_pass(
-            map_codes, mask_cols, codes, qual, lengths, qc, rcq, qlen,
+            map_codes, mask_cols, codes, qual, lengths, qc, rcq, qq, qlen,
             sread, strand, lread, diag, n_cand, m=m, W=W, CH=CH,
             n_chunks=n_chunks, ap=ap, cns=cns, collect=False)
         codes, qual, lengths = assemble_rows(call, lengths, Lp)

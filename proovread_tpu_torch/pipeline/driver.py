@@ -7,9 +7,10 @@ later passes' candidate cap), passes 2..N with the on-device mask shortcut,
 the strict finish pass against the unmasked reads with chimera detection,
 and finally ``trim_records``.
 
-Supported: ``engine="device"``, ``mode="sr"``, one device, flex off, the
-short-read set resident, unweighted votes and ``2*max_coverage+2 <= 256``.
-Every other setting raises ``NotImplementedError`` naming it. The
+Supported: ``engine="device"``, ``mode="sr"``, one device, flex off and the
+short-read set resident, at any coverage (past ``2*max_coverage+2 > 256``
+votes per lane the passes take the f32 packed-word pileup kernel). Every
+other setting raises ``NotImplementedError`` naming it. The
 resilience ladder, checkpoint journal, fault injection, QC, tracing,
 metrics and serving are not ported: ``ladder=True`` changes nothing when no
 fault occurs, and a device fault raises.

@@ -1,9 +1,12 @@
-"""Port parity: banded Smith-Waterman with traceback (bsw_expand_v2).
+"""Port parity: banded Smith-Waterman with traceback (bsw_expand_v2 and
+bsw_expand, v1).
 
-The same seeded numpy batches go through the JAX kernel in interpret mode
-and the port's plain PyTorch version on the CPU. Tolerance: bitwise for
+The same seeded numpy batches go through the JAX kernels in interpret mode
+and the port's plain PyTorch versions on the CPU. Tolerance: bitwise for
 every integer output, exact for the score (integer-valued f32), and the
-packed vote words built from both results must be equal."""
+packed vote words built from both results must be equal. v1 runs on the
+slabs the qual-weighted pass gathers (strand-oriented query rows, windows
+with out-of-range columns as N) and equals v2 on the same candidates."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -115,3 +118,54 @@ def test_packed_vote_words_match():
             got.q_start, got.q_end, **kw)
         np.testing.assert_array_equal(np.asarray(w_j), w_t.numpy())
         assert int((w_t.numpy() != 0).sum()) > 1000
+
+
+def _v1_slabs(W, n, qf, qlen_set, map2, sread, strand, lread, diag):
+    """The qual-weighted pass's gathered slabs (dcorrect._gather_and_align):
+    strand-oriented queries, windows at the 16-aligned band start with
+    out-of-range columns as N."""
+    rc = np.asarray(j_revcomp(jnp.asarray(qf), jnp.asarray(qlen_set)))
+    q = np.where(strand[:, None] == 0, qf[sread], rc[sread]).astype(np.int8)
+    Lp = map2.shape[1]
+    idx = ((diag - W // 2) & ~15)[:, None] + np.arange(n)[None, :]
+    inb = (idx >= 0) & (idx < Lp)
+    win = np.where(inb, map2[lread[:, None], np.clip(idx, 0, Lp - 1)],
+                   4).astype(np.int8)
+    return q, win, qlen_set[sread].astype(np.int32)
+
+
+@pytest.mark.parametrize("seed,finish", [(6, False), (7, True)])
+def test_bsw_v1_plain_bitwise_vs_jax_kernel(seed, finish):
+    jparams = J_FINISH if finish else JAlignParams()
+    W, n, qf, qlen_set, map2, _, sread, strand, lread, diag = _scenario(
+        seed, jparams, with_ignore=False)
+    q, win, qlen = _v1_slabs(W, n, qf, qlen_set, map2, sread, strand, lread,
+                             diag)
+    assert (q == 4).any() and (win == 4).any() and (strand == 1).any()
+    want = jbsw.bsw_expand(jnp.asarray(q), jnp.asarray(win),
+                           jnp.asarray(qlen), jparams, interpret=True)
+    tparams = params_from_fields(AlignParams, dataclasses.asdict(jparams))
+    t = torch.as_tensor
+    got = tbsw.bsw_expand(t(q), t(win), t(qlen), tparams)
+    assert int(np.asarray(want.valid).sum()) > 50
+    for f in want._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(want, f)), getattr(got, f).numpy(),
+            err_msg=f)
+    # the same candidates through v2 (no ignore bits): equal
+    _, v2 = _run_both(jparams, W, n, qf, qlen_set, map2, None, sread,
+                      strand, lread, diag)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(v2, f)), f
+
+
+def test_bsw_v1_checks_its_contract():
+    p = AlignParams()
+    W = tbsw.band_lanes(p)
+    q = torch.zeros((100, 112), dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tbsw.bsw_expand(q, torch.zeros((100, 112 + W), dtype=torch.int8),
+                        torch.zeros(100, dtype=torch.int32), p)
+    with pytest.raises(ValueError, match="win"):
+        tbsw.bsw_expand(q[:0], torch.zeros((0, 112), dtype=torch.int8),
+                        torch.zeros(0, dtype=torch.int32), p)

@@ -4,12 +4,13 @@ versions.
 There is no CPU mode for a CUDA kernel, so the sources under
 ``proovread_tpu_torch/csrc/`` are compiled here by g++ against a small
 emulation of the CUDA runtime subset they use: one ``std::thread`` per CUDA
-thread, blocks one after another, ``std::barrier`` for ``__syncthreads``,
-per-warp barriers for ``__shfl_up_sync`` and ``std::atomic_ref`` for
-``atomicAdd``. The launch syntax and the ``__shared__`` qualifiers are
-rewritten mechanically before compiling. Each check runs in a subprocess
-with a timeout. Tolerance: bitwise (integer outputs), exact (bsw score,
-pileup counts). Skips, with the reason, where g++ with C++20 is missing."""
+thread, blocks one after another (2-D grids row by row), ``std::barrier``
+for ``__syncthreads``, per-warp barriers for ``__shfl_up_sync`` and
+``std::atomic_ref`` for ``atomicAdd``. The launch syntax and the
+``__shared__`` qualifiers are rewritten mechanically before compiling.
+Each check runs in a subprocess with a timeout. Tolerance: bitwise (integer
+outputs, bsw score, pileup sums). Skips, with the reason, where g++ with
+C++20 is missing."""
 
 import re
 import shutil
@@ -33,6 +34,8 @@ CUDA_RUNTIME_EMU = r"""
 #include <memory>
 #include <thread>
 #include <vector>
+using std::max;
+using std::min;
 #define __global__
 #define __device__
 #define __host__
@@ -74,6 +77,7 @@ void pt_launch(dim3 grid, dim3 block, size_t, F body) {
   blockDim = block;
   gridDim = grid;
   int nt = block.x * block.y;
+  for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned b = 0; b < grid.x; ++b) {
     g_bar = std::make_unique<std::barrier<>>(nt);
     g_wbar.clear();
@@ -83,8 +87,8 @@ void pt_launch(dim3 grid, dim3 block, size_t, F body) {
     std::memset(g_smem, 0xAB, sizeof g_smem);  // shared memory is not zeroed
     std::vector<std::thread> th;
     for (int t = 0; t < nt; ++t)
-      th.emplace_back([&, t, b] {
-        blockIdx = dim3(b);
+      th.emplace_back([&, t, b, by] {
+        blockIdx = dim3(b, by);
         threadIdx = dim3(t % block.x, t / block.x);
         body();
       });
@@ -138,7 +142,19 @@ if which.startswith("bsw"):
     args = (t(qf), device_revcomp(t(qf), t(qlen)), mp, t(qlen)[t(sread).long()],
             t(sread), t(rng.integers(0, 2, R).astype(np.int32)),
             t(np.sort(rng.integers(0, B, R)).astype(np.int32)), w0p, ap)
-    same(bsw._bsw_cuda(*args), bsw.bsw_expand_v2_plain(*args))
+    got = bsw._bsw_cuda(*args)
+    same(got, bsw.bsw_expand_v2_plain(*args))
+    # v1 over the slabs v2 read, ignore bits cleared: v1 == v2 ungated
+    q_t, rc_t, mp, qlen_c, sr_t, st_t, lr_t, w0p = args[:8]
+    q1 = torch.where((st_t == 0)[:, None], q_t[sr_t.long()], rc_t[sr_t.long()])
+    cols = w0p.long()[:, None] + torch.arange(n)[None, :]
+    win1 = mp[lr_t.long()[:, None], cols] & 7
+    v1 = bsw._bsw_v1_cuda(q1, win1, qlen_c, ap)
+    same(v1, bsw.bsw_expand_plain(q1, win1, qlen_c, ap))
+    ign = (mp[lr_t.long()[:, None], cols] >> 3) > 0
+    same([torch.where(ign, -1, v1.state), torch.where(ign, 0, v1.ins_len)],
+         [got.state, got.ins_len])
+    same(v1[3:9], got[3:9])
 elif which == "pileup":
     from proovread_tpu_torch.ops import pileup_kernel as pk
     B, Lpile, R, n = 3, 900, 48, 176
@@ -149,6 +165,26 @@ elif which == "pileup":
     base = torch.zeros((B, Lpile, 64))
     same([pk._pileup_cuda(base.clone(), b0, b1, ro, w0)],
          [pk.pileup_accumulate_bits_plain(base.clone(), b0, b1, ro, w0)])
+elif which == "pileup_packed":
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    B, Lpile, R, n = 3, 900, 48, 176
+    words = rng.integers(0, 1 << 25, (R, n)).astype(np.int32)
+    words[rng.random((R, n)) < 0.3] = 0
+    ro = t(np.sort(rng.integers(0, B, R)).astype(np.int32))
+    w0 = t(rng.integers(0, Lpile - n + 1, R).astype(np.int32))
+    base = torch.zeros((B, Lpile, 64))
+    same([pk._packed_cuda(base.clone(), t(words), ro, w0)],
+         [pk.pileup_accumulate_packed_plain(base.clone(), t(words), ro, w0)])
+elif which == "pileup_dense":
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    B, Lpile, R, n = 4, 400, 40, 176
+    votes = rng.integers(0, 4000, (R, n, 64)).astype(np.float32) * np.float32(0.01)
+    votes[rng.random((R, n, 64)) < 0.7] = 0
+    ro = t(np.sort(rng.integers(0, B - 1, R)).astype(np.int32))
+    w0 = t(rng.integers(0, Lpile - n + 1, R).astype(np.int32))
+    base = torch.as_tensor(rng.random((B, Lpile, 64)).astype(np.float32))
+    got = pk._dense_cuda(base.clone(), t(votes), ro, w0)
+    same([got], [pk.pileup_accumulate_plain(base.clone(), t(votes), ro, w0)])
 elif which == "assemble":
     from proovread_tpu_torch.ops import assemble_kernel as ak
     B, L = 5, 700
@@ -214,8 +250,9 @@ def emu_lib(tmp_path_factory):
     return so
 
 
-@pytest.mark.parametrize("which", ["bsw96", "bsw64", "pileup", "assemble",
-                                   "hcr"])
+@pytest.mark.parametrize("which", ["bsw96", "bsw64", "pileup",
+                                   "pileup_packed", "pileup_dense",
+                                   "assemble", "hcr"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

@@ -86,3 +86,68 @@ def test_assemble_and_hcr_kernels_match_plain(cuda):
     pvi = ak._int_params(ak.mask_params_vec(MaskParams().scaled(100)))
     assert _equal(ak.hcr_mask_cuda(qual, lengths, pvi),
                   ak.hcr_mask_plain(qual, lengths, pvi))
+
+
+@pytest.mark.parametrize("finish", [False, True])
+def test_bsw_v1_kernel_matches_plain_and_v2(cuda, finish):
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
+    from proovread_tpu_torch.pipeline.dcorrect import device_revcomp
+    ap = BWA_SR_FINISH if finish else BWA_SR
+    rng = np.random.default_rng(4 + finish)
+    S, m, B, Lp, R = 64, 112, 4, 2048, 256
+    W = bsw.band_lanes(ap)
+    n = m + W
+    genome = rng.integers(0, 4, (B, Lp)).astype(np.int8)
+    qlen = rng.integers(60, 101, S).astype(np.int32)
+    qf = np.full((S, m), 4, np.int8)
+    for s in range(S):
+        b, p = int(rng.integers(0, B)), int(rng.integers(0, Lp - 120))
+        qf[s, :qlen[s]] = genome[b, p:p + qlen[s]]
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    sread = t(rng.integers(0, S, R).astype(np.int32))
+    strand = t(rng.integers(0, 2, R).astype(np.int32))
+    lread = t(np.sort(rng.integers(0, B, R)).astype(np.int32))
+    diag = t(rng.integers(-2 * n, Lp + 2 * n, R).astype(np.int32))
+    q_t = t(qf)
+    rc = device_revcomp(q_t, t(qlen))
+    mp = bsw.build_map_pad(t(genome), None, n)
+    _, w0p = bsw.window_starts(diag, W, Lp, n)
+    qlen_c = t(qlen)[sread.long()]
+    q1 = torch.where((strand == 0)[:, None], q_t[sread.long()],
+                     rc[sread.long()])
+    win1 = mp[lread.long()[:, None],
+              w0p.long()[:, None] + torch.arange(n, device=cuda)[None, :]]
+    launches = bsw.bsw_expand.launches
+    got = bsw.bsw_expand(q1, win1, qlen_c, ap)
+    assert bsw.bsw_expand.launches == launches + 1
+    assert _equal(got, bsw.bsw_expand_plain(q1, win1, qlen_c, ap))
+    assert _equal(got, bsw.bsw_expand_v2(q_t, rc, mp, qlen_c, sread, strand,
+                                         lread, w0p, ap))
+
+
+def test_packed_and_dense_pileup_kernels_match_plain(cuda):
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    from proovread_tpu_torch.ops.fused import phred2freq
+    rng = np.random.default_rng(5)
+    B, Lpile, R, n = 4, 1200, 256, 208
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    words = rng.integers(0, 1 << 25, (R, n)).astype(np.int32)
+    words[rng.random((R, n)) < 0.3] = 0
+    ro = t(np.sort(rng.integers(0, B, R)).astype(np.int32))
+    w0 = t(rng.integers(0, Lpile - n, R).astype(np.int32))
+    base = torch.zeros((B, Lpile, 64), device=cuda)
+    launches = pk.pileup_accumulate_packed.launches
+    got = pk.pileup_accumulate_packed(base.clone(), t(words), ro, w0)
+    assert pk.pileup_accumulate_packed.launches == launches + 1
+    assert torch.equal(got, pk.pileup_accumulate_packed_plain(
+        base.clone(), t(words), ro, w0))
+    votes = phred2freq(t(rng.integers(0, 42, (R, n, 64))))
+    votes = torch.where(t(rng.random((R, n, 64)) < 0.3), votes, 0.0)
+    launches = pk.pileup_accumulate.launches
+    got = pk.pileup_accumulate(base.clone(), votes, ro, w0)
+    assert pk.pileup_accumulate.launches == launches + 1
+    assert torch.equal(got, pk.pileup_accumulate_plain(base.clone(), votes,
+                                                       ro, w0))
+    assert torch.equal(got, pk.pileup_accumulate(base.clone(), votes, ro,
+                                                 w0))

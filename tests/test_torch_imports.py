@@ -84,22 +84,12 @@ def test_cuda_without_card_raises():
     ("bucket_timeout", dict(bucket_timeout=10.0)),
     ("fault", dict(fault_spec="oom@b0")),
     ("sr_device_budget", dict(sr_device_budget=10)),
-    ("max_coverage", dict(sr_coverage=400.0, coverage=400.0)),
 ])
 def test_unsupported_settings_raise(setting, kw):
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
     cfg = PipelineConfig(device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=setting):
         Pipeline(cfg).run(*_tiny())
-
-
-def test_qual_weighted_raises():
-    from proovread_tpu_torch.consensus.params import ConsensusParams
-    from proovread_tpu_torch.pipeline.dcorrect import _fused_pass
-    with pytest.raises(NotImplementedError, match="qual-weighted"):
-        _fused_pass(*([None] * 12), 0, m=112, W=96, CH=128, n_chunks=1,
-                    ap=None, cns=ConsensusParams(qual_weighted=True),
-                    collect=False)
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):

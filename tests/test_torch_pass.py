@@ -3,10 +3,12 @@
 Inputs are the JAX package's own device-path fixtures
 (tests/test_device_path.py: TestDeviceCorrectorE2E and TestFusedIterations),
 sent through the JAX pass (interpret-mode Pallas) and the port on the CPU.
-Tolerance: ConsensusCall fields, pass counts, per-pass KPIs and the final
+Both vote paths run: unweighted (bsw v2, bit-plane or, past 256 votes per
+lane, packed-word pileup) and qual-weighted (bsw v1, dense phred-weighted
+slabs folded in candidate order). Tolerance: ConsensusCall fields, pass
+counts, per-pass KPIs, the collected alignment data and the final
 codes/qual/lengths/mask are bitwise equal; the masked fractions are equal
-as f32; ``coverage`` (sums of fractional ref-qual votes) to 1e-6 relative,
-since the order of that six-term f32 sum is the backend's."""
+as f32."""
 
 import dataclasses
 
@@ -68,18 +70,47 @@ def _t(x):
 def _assert_call_equal(jcall, tcall):
     for f in jcall._fields:
         a, b = np.asarray(getattr(jcall, f)), getattr(tcall, f).numpy()
-        if f == "coverage":
-            np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=f)
-        else:
-            np.testing.assert_array_equal(b, a, err_msg=f)
+        np.testing.assert_array_equal(b, a, err_msg=f)
 
 
-@pytest.mark.parametrize("finish", [False, True])
-def test_correct_pass_matches_jax(finish):
+def _assert_aln_equal(jaln, taln):
+    for f in ("lread", "pos0", "span", "admitted", "vote_ok", "q_start",
+              "q_end", "win_start", "r_start", "r_end", "sread", "strand",
+              "score"):
+        np.testing.assert_array_equal(getattr(taln, f),
+                                      np.asarray(getattr(jaln, f)),
+                                      err_msg=f)
+    use = np.flatnonzero(taln.admitted & taln.vote_ok)
+    assert use.size
+    jaln.prefetch(use)
+    taln.prefetch(use)
+    for ci in use:
+        for a, b in zip(jaln._rows[int(ci)], taln._rows[int(ci)]):
+            np.testing.assert_array_equal(b, np.asarray(a))
+
+
+_PASS_CASES = {
+    "iteration": (JAlign(), JCns(use_ref_qual=True)),
+    "finish": (BWA_SR_FINISH, JCns(indel_taboo_length=7, max_coverage=22)),
+    # qual-weighted votes with reference-qual votes (bsw v1, dense slabs)
+    "qual_weighted": (JAlign(), JCns(qual_weighted=True, use_ref_qual=True)),
+    "qual_weighted_finish": (BWA_SR_FINISH, JCns(
+        qual_weighted=True, indel_taboo_length=7, max_coverage=22)),
+    # 2*150+2 > 256 votes per lane: the f32 packed-word pileup kernel
+    "high_coverage": (JAlign(), JCns(use_ref_qual=True, max_coverage=150)),
+}
+
+
+@pytest.mark.parametrize("case", list(_PASS_CASES))
+def test_correct_pass_matches_jax(case):
+    finish = case.endswith("finish")
+    jap, jcns = _PASS_CASES[case]
     lr, sr = _e2e_setup()
-    jap = BWA_SR_FINISH if finish else JAlign()
-    jcns = (JCns(indel_taboo_length=7, max_coverage=22) if finish
-            else JCns(use_ref_qual=True))
+    if case.startswith("qual"):
+        # varied short-read phreds, so the vote weights are fractional
+        rng = np.random.default_rng(5)
+        sr.qual[:] = rng.integers(2, 41, sr.qual.shape).astype(np.uint8)
+        lr.qual[:] = rng.integers(0, 30, lr.qual.shape).astype(np.uint8)
     rc = jdc.device_revcomp(jnp.asarray(sr.codes), jnp.asarray(sr.lengths))
     jout = jdc.DeviceCorrector(chunk=128, interpret=True).correct_pass(
         jnp.asarray(lr.codes), jnp.asarray(lr.qual), jnp.asarray(lr.lengths),
@@ -113,19 +144,7 @@ def test_correct_pass_matches_jax(finish):
     assert np.float32(tf.item()) == np.float32(jf)
 
     if finish:
-        jaln, taln = jout[2], tout[2]
-        for f in ("lread", "pos0", "span", "admitted", "vote_ok", "q_start",
-                  "q_end", "win_start", "r_start", "r_end"):
-            np.testing.assert_array_equal(getattr(taln, f),
-                                          np.asarray(getattr(jaln, f)),
-                                          err_msg=f)
-        use = np.flatnonzero(taln.admitted & taln.vote_ok)
-        assert use.size
-        jaln.prefetch(use)
-        taln.prefetch(use)
-        for ci in use:
-            for a, b in zip(jaln._rows[int(ci)], taln._rows[int(ci)]):
-                np.testing.assert_array_equal(b, np.asarray(a))
+        _assert_aln_equal(jout[2], tout[2])
 
 
 def _fused_data(seed=31):
@@ -153,12 +172,18 @@ def _fused_data(seed=31):
     return lr, sr, Lp, m
 
 
-@pytest.mark.parametrize("n_chunks,shortcut", [(1, False), (2, True)])
-def test_fused_iterations_match_jax(n_chunks, shortcut):
+@pytest.mark.parametrize("n_chunks,shortcut,qual_weighted", [
+    (1, False, False), (2, True, False), (2, False, True)])
+def test_fused_iterations_match_jax(n_chunks, shortcut, qual_weighted):
     lr, sr, Lp, m = _fused_data()
     CH = 128
     ap = BWA_SR
-    cns = JCns(use_ref_qual=True, indel_taboo_length=7)
+    cns = JCns(use_ref_qual=True, indel_taboo_length=7,
+               qual_weighted=qual_weighted)
+    if qual_weighted:
+        rng = np.random.default_rng(8)
+        sr.qual[:-1] = rng.integers(2, 41, sr.qual[:-1].shape)
+        lr.qual[:] = rng.integers(0, 30, lr.qual.shape)
     # without the shortcut, mask nothing (phred_min above the cap) so the
     # later passes keep enough candidates to overflow a one-chunk cap
     mp = JMask(phred_min=50) if not shortcut else JMask().scaled(100)

@@ -98,6 +98,34 @@ def test_pipeline_matches_jax(seed, shortcut):
     assert sum(r.n_admitted for r in tres.reports) > 0
 
 
+def test_pipeline_high_coverage_matches_jax(monkeypatch):
+    """coverage 400: max_coverage 300 on every pass, so 2*300+2 > 256 votes
+    per lane and every pass takes the f32 packed-word pileup kernel."""
+    from proovread_tpu_torch.ops import pileup_kernel as tpk
+    longs, srs = _uniform_dataset(np.random.default_rng(13))
+    kw = dict(n_iterations=3, sampling=False, batch_reads=8,
+              device_chunk=128, trim=JTrim(min_length=100), coverage=400.0,
+              sr_coverage=400.0, finish_coverage=400.0,
+              mask_shortcut_frac=2.0, mask_min_gain_frac=-1.0)
+    calls = {"bits": 0, "packed": 0}
+
+    def count(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+    monkeypatch.setattr(tpk, "pileup_accumulate_bits_plain",
+                        count("bits", tpk.pileup_accumulate_bits_plain))
+    monkeypatch.setattr(tpk, "pileup_accumulate_packed_plain",
+                        count("packed", tpk.pileup_accumulate_packed_plain))
+    jres, tres = run_both(longs, srs, **kw)
+    _compare(jres, tres)
+    assert [r.task for r in tres.reports] == [
+        "bwa-sr-1", "bwa-sr-2", "bwa-sr-3", "bwa-sr-finish"]
+    assert sum(r.n_admitted for r in tres.reports) > 0
+    assert calls["packed"] >= 4 and calls["bits"] == 0
+
+
 @pytest.mark.slow
 def test_pipeline_matches_jax_config4():
     """bench config 4's workload (10 kb genome, 40 kb of long reads, 30x
