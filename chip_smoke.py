@@ -11,9 +11,12 @@ any failure exits non-zero:
    R=8192, m=112; the three pileups at B=256, Lp=24576, R=8192, n=208;
    assemble and HCR at B=256, L=24576): every output bitwise equal, bsw v1
    also equal to v2 on the same candidates and the ordered pileup equal
-   again on a second run; kernel, plain and library times (median of
-   CUDA-event timings after a warm-up) and each kernel's bound from its
-   bytes and operations;
+   again on a second run, on random windows and on clustered ones (the
+   same slabs as sorted candidates of 8 reads at Lp=12288, about 1000 a
+   read, the shape of the qual-weighted pass's chunks); launcher, plain and
+   library times (median of CUDA-event timings after a warm-up), the
+   kernel's own device time (torch.profiler) and each kernel's bound from
+   its bytes and operations;
 3. on bench config 4's workload (10 kb genome, 40 kb of long reads, 30x
    short reads), on the card and on the CPU, all identical: ``Pipeline.run``
    (4 iterations; records, qual, chimeras and task reports), the same at
@@ -42,7 +45,8 @@ Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
 on CPU copies where the wrapper does work of its own around the kernel
 (assemble's column packing, HCR's parameter rounding and masked fraction).
-Its times are those of the kernel's launcher alone.
+Its times are those of the kernel's launcher alone (``ms``, the number
+the kernels line reports) and, from the profiler, of the kernel itself.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -101,10 +105,45 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def launcher_times(fn, name: str, reps: int = 5) -> dict:
+    """Times of one call of a kernel's launcher ``fn``: ``ms``, its median
+    CUDA-event time (host syncs and launch gaps included); ``kernel_ms``,
+    the device time of one launch of the kernel whose name holds ``name``;
+    ``device_ms``, all device work of one call (the kernel plus what its
+    launcher runs around it: index checks, work lists, copies). The last
+    two from torch.profiler over ``reps`` calls after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ms = time_ms(fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    attr = ("self_device_time_total" if evs and hasattr(
+        evs[0], "self_device_time_total") else "self_cuda_time_total")
+    mine = [e for e in evs if name in e.key]
+    count = sum(e.count for e in mine)
+    if count == 0:
+        raise AssertionError(f"the profiler saw no {name} launch")
+    return dict(ms=ms,
+                kernel_ms=sum(getattr(e, attr) for e in mine) / count / 1e3,
+                device_ms=sum(getattr(e, attr) for e in evs) / reps / 1e3)
+
+
 def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dp_rows(qlen, m: int) -> float:
+    """Banded DP rows a bsw launch needs: each candidate's query length,
+    at most m (the kernel stops at the query's end)."""
+    return float(qlen.clamp(max=m).sum())
 
 
 def max_abs_err(pairs) -> float:
@@ -199,7 +238,7 @@ def check_bsw(rng, dev, ap, label):
     if n_valid < R // 2 or n_ins == 0:
         raise AssertionError(f"bsw {label}: weak inputs ({n_valid} valid, "
                              f"{n_ins} insertion columns)")
-    ms = time_ms(lambda: bsw._bsw_cuda(*args, ap))
+    tm = launcher_times(lambda: bsw._bsw_cuda(*args, ap), "bsw_kernel")
     plain_ms = time_ms(lambda: bsw.bsw_expand_v2_plain(*args, ap), reps=5,
                        warmup=1)
     S = args[0].shape[0]
@@ -210,11 +249,11 @@ def check_bsw(rng, dev, ap, label):
     # insertion and deletion gaps (two subtracts, a max and the direction
     # compare each), H (three maxima) and its two source compares. None of
     # them is an FMA, and the peak counts an FMA as two, so the bound is
-    # optimistic by up to 2x.
+    # optimistic by up to 2x. Only rows up to each query's length are needed.
     ops_per_cell = 16
-    b_ms, b_by = bound(n_bytes, float(R) * m * W * ops_per_cell)
+    b_ms, b_by = bound(n_bytes, dp_rows(args[3], m) * W * ops_per_cell)
     return dict(max_abs_err=max_abs_err(
-        [(a.float(), b.float()) for a, b in pairs]), ms=ms,
+        [(a.float(), b.float()) for a, b in pairs]), **tm,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"R={R} m={m} W={W} n={n}", valid=n_valid), got, args
 
@@ -243,7 +282,8 @@ def check_pileup(rng, dev, bsw_res, bsw_args):
     if n_set == 0:
         raise AssertionError("pileup: no votes in the check inputs")
     buf = base.clone()
-    ms = time_ms(lambda: pk._pileup_cuda(buf, b0, b1, read_of, w0))
+    tm = launcher_times(lambda: pk._pileup_cuda(buf, b0, b1, read_of, w0),
+                       "pileup_bits_kernel")
     plain_ms = time_ms(lambda: pk.pileup_accumulate_bits_plain(
         buf, b0, b1, read_of, w0), reps=5, warmup=1)
     votes = pk.decode_bits(b0, b1).reshape(-1, 64)
@@ -254,7 +294,7 @@ def check_pileup(rng, dev, bsw_res, bsw_args):
                      warmup=1)
     # bit planes + metadata read once; one 4-byte read and write per vote
     b_ms, b_by = bound(8.0 * R * n + 8 * R + 8.0 * n_set, float(n_set))
-    return dict(max_abs_err=max_abs_err([(got, want)]), ms=ms,
+    return dict(max_abs_err=max_abs_err([(got, want)]), **tm,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, shape=f"B={B} Lp={Lp} R={R} n={n}",
                 votes=n_set)
@@ -287,14 +327,15 @@ def check_bsw_v1(dev, ap, label, args, v2):
                          ins_len=torch.where(ign, 0, got.ins_len))
     assert_equal(f"bsw_expand == bsw_expand_v2 {label}",
                  list(zip(ints(gated), ints(v2))))
-    ms = time_ms(lambda: bsw._bsw_v1_cuda(q1, win1, qlen, ap))
+    tm = launcher_times(lambda: bsw._bsw_v1_cuda(q1, win1, qlen, ap),
+                       "bsw_kernel")
     plain_ms = time_ms(lambda: bsw.bsw_expand_plain(q1, win1, qlen, ap),
                        reps=5, warmup=1)
     n_bytes = R * m + R * n + 4 * R + 5 * R * n * 4 + R * 4 + 5 * R * 4
     # the same 16 f32 operations per banded DP cell as v2 (see check_bsw)
-    b_ms, b_by = bound(n_bytes, float(R) * m * W * 16)
+    b_ms, b_by = bound(n_bytes, dp_rows(qlen, m) * W * 16)
     return dict(max_abs_err=max_abs_err(
-        [(a.float(), b.float()) for a, b in pairs]), ms=ms,
+        [(a.float(), b.float()) for a, b in pairs]), **tm,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"R={R} m={m} W={W} n={n}"), got, (q1, ign)
 
@@ -337,7 +378,8 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args):
         raise AssertionError("pileup packed: no votes in the check inputs")
     del got, want
     buf = base
-    ms = time_ms(lambda: pk._packed_cuda(buf, words, read_of, w0))
+    tm = launcher_times(lambda: pk._packed_cuda(buf, words, read_of, w0),
+                       "pileup_packed_kernel")
     plain_ms = time_ms(lambda: pk.pileup_accumulate_packed_plain(
         buf, words, read_of, w0), reps=5, warmup=1)
     votes = pk.decode_words(words).reshape(-1, 64)
@@ -347,7 +389,7 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args):
                      warmup=1)
     # words + metadata read once; one 4-byte read and write per vote
     b_ms, b_by = bound(4.0 * R * n + 8 * R + 8.0 * n_votes, float(n_votes))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    return dict(max_abs_err=err, **tm, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 shape=f"B={B} Lp={Lp} R={R} n={n}", votes=n_votes,
                 one_window_peak_lane=peak)
@@ -383,7 +425,8 @@ def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
         raise AssertionError("pileup dense: no fractional sums in the check")
     del got, want
     buf = base
-    ms = time_ms(lambda: pk._dense_cuda(buf, votes, read_of, w0))
+    tm = launcher_times(lambda: pk._dense_cuda(buf, votes, read_of, w0),
+                       "pileup_ordered_kernel")
     plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
         buf, votes, read_of, w0), reps=5, warmup=1)
     rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
@@ -391,14 +434,63 @@ def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
     v2d = votes.reshape(-1, 64)
     lib_ms = time_ms(lambda: flat.index_add_(0, rows, v2d), reps=5,
                      warmup=1)
+    b_ms, b_by = dense_bound(votes, rows)
+    del buf, flat
+    clustered = check_pileup_dense_clustered(rng, dev, votes)
+    return dict(max_abs_err=max(err, clustered.pop("max_abs_err")), **tm,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"B={B} Lp={Lp} R={R} n={n}",
+                fractional_cells=frac, clustered=clustered)
+
+
+def dense_bound(votes, rows):
+    """The ordered pileup's bound: the slabs and metadata read once, each
+    touched cell read and written once; one f32 add per slab element."""
+    import torch
+    R = votes.shape[0]
     cells = int(torch.unique(rows).numel()) * 64
-    # the slabs and metadata read once, each touched cell read and written
-    # once; one f32 add per slab element
-    b_ms, b_by = bound(4.0 * votes.numel() + 8 * R + 8.0 * cells,
-                       float(votes.numel()))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    return bound(4.0 * votes.numel() + 8 * R + 8.0 * cells,
+                 float(votes.numel()))
+
+
+def check_pileup_dense_clustered(rng, dev, votes, B=8, Lp=12288):
+    """The ordered pileup on the shape of the qual-weighted pass's chunks:
+    the same slabs as sorted candidates of a few reads (about 1000 a read),
+    windows spread over each read. Bitwise equal to the plain version,
+    twice; kernel, plain and library times beside its bound."""
+    import torch
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    R, n, _ = votes.shape
+    Lpile = Lp + 2 * n
+    read_of = torch.as_tensor(np.sort(rng.integers(0, B, R)).astype(np.int32),
+                              device=dev)
+    w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
+                         device=dev)
+    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
+    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
+    want = pk.pileup_accumulate_plain(base.clone(), votes, read_of, w0)
+    torch.cuda.synchronize()
+    assert_equal("pileup_accumulate (clustered)", [(got, want)])
+    err = max_abs_err([(got, want)])
+    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
+    assert_equal("pileup_accumulate (clustered, second run)", [(got, want)])
+    del got, want
+    buf = base
+    tm = launcher_times(lambda: pk._dense_cuda(buf, votes, read_of, w0),
+                       "pileup_ordered_kernel")
+    plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
+        buf, votes, read_of, w0), reps=3, warmup=1)
+    rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
+    flat = buf.view(-1, 64)
+    v2d = votes.reshape(-1, 64)
+    lib_ms = time_ms(lambda: flat.index_add_(0, rows, v2d), reps=5,
+                     warmup=1)
+    b_ms, b_by = dense_bound(votes, rows)
+    per_read = np.bincount(read_of.cpu().numpy(), minlength=B)
+    return dict(max_abs_err=err, **tm, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
-                shape=f"B={B} Lp={Lp} R={R} n={n}", fractional_cells=frac)
+                shape=f"B={B} Lp={Lp} R={R} n={n}",
+                candidates_per_read=[int(x) for x in per_read])
 
 
 def random_call(rng, dev, B, L, K=6):
@@ -435,11 +527,12 @@ def check_assemble(rng, dev, B=256, L=24576):
                  [(a.cpu(), b) for a, b in zip(got, want_cpu)])
     if int((want[2] == Lp).sum()) == 0:
         raise AssertionError("assemble: no row was truncated at Lp")
-    ms = time_ms(lambda: ak.assemble_words_cuda(word, lengths, Lp))
+    tm = launcher_times(lambda: ak.assemble_words_cuda(word, lengths, Lp),
+                       "assemble_kernel")
     plain_ms = time_ms(lambda: ak.assemble_words_plain(word, lengths, Lp),
                        reps=5, warmup=1)
     b_ms, b_by = bound(4.0 * B * L + 4 * B + 2.0 * B * Lp + 4 * B, 0.0)
-    return dict(max_abs_err=max_abs_err(list(zip(got, want))), ms=ms,
+    return dict(max_abs_err=max_abs_err(list(zip(got, want))), **tm,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, shape=f"B={B} L={L} Lp={Lp}")
 
@@ -476,11 +569,11 @@ def check_hcr(rng, dev, B=256, L=24576):
         if float(frac_cpu) == 0.0:
             raise AssertionError("hcr: nothing masked in the check inputs")
         errs.append(max_abs_err([(a.float(), b.float()) for a, b in pairs]))
-    ms = time_ms(lambda: ak.hcr_mask_cuda(q, ln, pvi))
+    tm = launcher_times(lambda: ak.hcr_mask_cuda(q, ln, pvi), "hcr_kernel")
     plain_ms = time_ms(lambda: ak.hcr_mask_plain(q, ln, pvi), reps=5,
                        warmup=1)
     b_ms, b_by = bound(2.0 * B * L + 8 * B, 0.0)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=max(errs), **tm, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=f"B={B} L={L}")
 

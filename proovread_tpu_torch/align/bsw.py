@@ -151,13 +151,10 @@ def _bsw_cuda(q, rc, map_pad, qlen, sread, strand, lread, w0p,
                                         lread, w0p)]
     q, rc, map_pad, qlen, sread, strand, lread, w0p = tensors
     kernels.require_in_range(
-        "bsw_expand_v2", (sread, 0, S - 1), (lread, 0, map_pad.shape[0] - 1),
-        (w0p, 0, map_pad.shape[1] - n), (qlen, 0, m))
-    dev = q.device
-    outs = [torch.empty((R, n), dtype=torch.int32, device=dev)
-            for _ in range(5)]
-    score = torch.empty(R, dtype=torch.float32, device=dev)
-    pos = torch.empty((5, R), dtype=torch.int32, device=dev)
+        "bsw_expand_v2", (sread, 0, S - 1, "sread"),
+        (lread, 0, map_pad.shape[0] - 1, "lread"),
+        (w0p, 0, map_pad.shape[1] - n, "w0p"), (qlen, 0, m, "qlen"))
+    outs, score, pos = _outputs(R, n, q.device)
     p = params
     if R > 0:
         rc_ = kernels.lib().pt_bsw_expand_v2(
@@ -234,12 +231,8 @@ def _bsw_v1_cuda(q, win, qlen, params: AlignParams) -> BswResult:
     W = band_lanes(params)
     R, m, n = _check_v1(q, win, qlen, W)
     q, win, qlen = q.contiguous(), win.contiguous(), qlen.contiguous()
-    kernels.require_in_range("bsw_expand", (qlen, 0, m))
-    dev = q.device
-    outs = [torch.empty((R, n), dtype=torch.int32, device=dev)
-            for _ in range(5)]
-    score = torch.empty(R, dtype=torch.float32, device=dev)
-    pos = torch.empty((5, R), dtype=torch.int32, device=dev)
+    kernels.require_in_range("bsw_expand", (qlen, 0, m, "qlen"))
+    outs, score, pos = _outputs(R, n, q.device)
     p = params
     if R > 0:
         rc_ = kernels.lib().pt_bsw_expand_v1(
@@ -259,6 +252,15 @@ def bsw_expand_plain(q, win, qlen, params: AlignParams) -> BswResult:
     W = band_lanes(params)
     _check_v1(q, win, qlen, W)
     return _plain_core(q.to(torch.int32), win.to(torch.int32), qlen, params)
+
+
+def _outputs(R: int, n: int, dev):
+    """The kernel's outputs: five i32 [R, n] rows (state, qrow, ins_len,
+    ins_b0, ins_b1) from one allocation, the score and the [5, R] per-
+    candidate positions."""
+    return (list(torch.empty((5, R, n), dtype=torch.int32, device=dev)),
+            torch.empty(R, dtype=torch.float32, device=dev),
+            torch.empty((5, R), dtype=torch.int32, device=dev))
 
 
 def _result(outs, score, pos) -> BswResult:

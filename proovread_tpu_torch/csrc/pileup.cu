@@ -19,16 +19,23 @@
 //
 // - pileup_accumulate (_accum_kernel): dense f32 vote slabs, phred-weighted,
 //   so the order of the adds is the result. The reference folds every cell
-//   over the candidates in index order (a sequential grid). Here block
-//   (r, t) takes run r of the candidates of one read (read_of is sorted)
-//   and tile t of DENSE_TILE columns of that read's row, and walks the run
-//   in order, skipping windows that miss the tile; thread (g, lane) owns
-//   the tile's columns col % G == g in its lane, so each cell has one owner
-//   that adds the candidates' votes one after another, with no atomics and
-//   no barrier. Tiling the row matters: a chunk of sorted candidates may
-//   hold only a few reads, each with a thousand candidates. Bound by
-//   bytes: each candidate's n x 64 f32 slab is read once and its cells
-//   read and written once; every block also reads its run's window starts.
+//   over the candidates in index order (a sequential grid). Here a work list
+//   gives each (read, tile of DENSE_TILE columns) its candidates in order:
+//   pileup_keys_kernel writes one key read * n_tiles + tile per (candidate,
+//   tile its window overlaps), 2-3 a candidate, and checks the metadata in
+//   the same pass (one flag word, the wrapper's only host sync); the
+//   wrapper sorts the keys stably, so the entries of one (read, tile) item
+//   keep candidate order. The block of a sorted entry that starts an item
+//   (the others exit at once, so no host sync counts the items) counts the
+//   item's entries with one block-wide vote and holds the tile's cells in
+//   registers: thread (g, lane) owns columns g, g + 8, ... of its lane,
+//   loads them once, adds the item's candidates one after another (the
+//   next candidate's votes are loaded while the current one's are added)
+//   and stores them once. Each cell has one owner that adds its votes in
+//   candidate order, so the sums are the reference's, with no atomics and
+//   no barrier in the fold. Bound by bytes: each slab is read once
+//   (256-byte rows, coalesced), and each cell inside the item's windows is
+//   read and written once.
 //
 // The TPU's bf16 128-lane buffer, VMEM budget and windowed fallback only
 // laid data out on the TPU and are dropped.
@@ -78,34 +85,113 @@ __global__ void pileup_packed_kernel(float* __restrict__ pile, int Lpile,
   }
 }
 
-// columns of the read row one block of the dense kernel owns
+// columns of a read row that one block of the ordered kernel holds
 constexpr int DENSE_TILE = 128;
+constexpr int DENSE_THREADS = 512;
+constexpr int DENSE_GROUPS = DENSE_THREADS / 64;               // 8
+constexpr int DENSE_CELLS = DENSE_TILE / DENSE_GROUPS;         // 16 a thread
 
-__global__ void pileup_dense_kernel(float* __restrict__ pile, int Lpile,
-                                    const float* __restrict__ votes,
-                                    const int32_t* __restrict__ w0,
-                                    const int32_t* __restrict__ read_of,
-                                    const int32_t* __restrict__ runs, int n) {
-  const int lo = runs[blockIdx.x];
-  const int hi = runs[blockIdx.x + 1];
-  const int t0 = blockIdx.y * DENSE_TILE;
-  const int t1 = min(t0 + DENSE_TILE, Lpile);
-  float* row = pile + size_t(read_of[lo]) * Lpile * 64;
+__device__ __forceinline__ void load_votes(float (&v)[DENSE_CELLS],
+                                           const float* __restrict__ votes,
+                                           int c, int base, int n, int col0,
+                                           int lane) {
+  const float* slab = votes + size_t(c) * n * 64 + lane;
+#pragma unroll
+  for (int j = 0; j < DENSE_CELLS; ++j) {
+    const int k = col0 + DENSE_GROUPS * j - base;              // slab row
+    v[j] = (k >= 0 && k < n) ? slab[size_t(k) * 64] : 0.f;
+  }
+}
+
+// work-list keys: entry c * K + k is the k-th tile of candidate c's
+// window, keyed read * n_tiles + tile, or INT32_MAX past its last tile (so
+// the sort puts it after every item). It also checks the metadata the
+// ordered kernel dereferences and ors into *bad: 1 read_of outside [0, B),
+// 2 w0 outside [0, Lpile - n], 4 read_of not ascending.
+__global__ void pileup_keys_kernel(int32_t* __restrict__ keys,
+                                   int32_t* __restrict__ bad,
+                                   const int32_t* __restrict__ read_of,
+                                   const int32_t* __restrict__ w0, int R,
+                                   int K, int n, int n_tiles, int B,
+                                   int Lpile) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= R * K) return;
+  const int c = e / K;
+  const int read = read_of[c], b = w0[c];
+  if (e % K == 0) {
+    const int flags = (read < 0 || read >= B ? 1 : 0) |
+                      (b < 0 || b > Lpile - n ? 2 : 0) |
+                      (c > 0 && read_of[c - 1] > read ? 4 : 0);
+    if (flags) atomicOr(bad, flags);
+  }
+  const int tile = b / DENSE_TILE + e % K;
+  keys[e] = tile <= (b + n - 1) / DENSE_TILE ? read * n_tiles + tile
+                                             : INT32_MAX;
+}
+
+__global__ void __launch_bounds__(DENSE_THREADS)
+pileup_ordered_kernel(float* __restrict__ pile, int Lpile, int n_tiles,
+                      const float* __restrict__ votes,
+                      const int32_t* __restrict__ w0,
+                      const int32_t* __restrict__ keys,
+                      const int64_t* __restrict__ order, int E, int K,
+                      int n) {
+  const int lo = blockIdx.x;
+  const int key = keys[lo];
+  if (key == INT32_MAX || (lo > 0 && keys[lo - 1] == key)) return;
+  // the item ends at the first larger key: count the equal keys after lo,
+  // DENSE_THREADS at a time (they are contiguous)
+  int hi = lo + 1;
+  for (;;) {
+    const int e = hi + threadIdx.x;
+    const int same = __syncthreads_count(e < E && keys[e] == key);
+    hi += same;
+    if (same < DENSE_THREADS) break;
+  }
+  const int t0 = (key % n_tiles) * DENSE_TILE;
   const int lane = threadIdx.x & 63;
-  const int G = blockDim.x >> 6;               // column groups
-  const int g = threadIdx.x >> 6;
-  for (int c = lo; c < hi; ++c) {
-    const int base = w0[c];
-    const int c0 = max(base, t0);
-    const int c1 = min(base + n, t1);
-    if (c0 >= c1) continue;                    // window misses this tile
-    const float* v = votes + size_t(c) * n * 64 + lane;
-    // this thread's first column in [c0, c1): col % G == g
-    int col = c0 + ((g - c0 % G) % G + G) % G;
-    for (; col < c1; col += G) {
-      float* cell = row + size_t(col) * 64 + lane;
-      *cell = *cell + v[size_t(col - base) * 64];
+  const int col0 = t0 + (threadIdx.x >> 6);    // this thread's first column
+  // the columns of the tile that the item's windows cover: only those are
+  // loaded and stored
+  int c_lo = t0 + DENSE_TILE, c_hi = t0;
+  for (int e = lo; e < hi; ++e) {
+    const int b = w0[int(order[e] / K)];
+    c_lo = min(c_lo, max(b, t0));
+    c_hi = max(c_hi, min(b + n, t0 + DENSE_TILE));
+  }
+  float* row = pile + size_t(key / n_tiles) * Lpile * 64 + lane;
+  float acc[DENSE_CELLS];
+#pragma unroll
+  for (int j = 0; j < DENSE_CELLS; ++j) {
+    const int col = col0 + DENSE_GROUPS * j;
+    acc[j] = (col >= c_lo && col < c_hi) ? row[size_t(col) * 64] : 0.f;
+  }
+  int base = w0[int(order[lo] / K)];
+  float cur[DENSE_CELLS];
+  load_votes(cur, votes, int(order[lo] / K), base, n, col0, lane);
+  for (int e = lo; e < hi; ++e) {
+    int base_next = 0;
+    float nxt[DENSE_CELLS];
+    if (e + 1 < hi) {
+      const int c_next = int(order[e + 1] / K);
+      base_next = w0[c_next];
+      load_votes(nxt, votes, c_next, base_next, n, col0, lane);
+    } else {
+#pragma unroll
+      for (int j = 0; j < DENSE_CELLS; ++j) nxt[j] = 0.f;
     }
+#pragma unroll
+    for (int j = 0; j < DENSE_CELLS; ++j) {
+      const int k = col0 + DENSE_GROUPS * j - base;
+      if (k >= 0 && k < n) acc[j] = acc[j] + cur[j];
+      cur[j] = nxt[j];
+    }
+    base = base_next;
+  }
+#pragma unroll
+  for (int j = 0; j < DENSE_CELLS; ++j) {
+    const int col = col0 + DENSE_GROUPS * j;
+    if (col >= c_lo && col < c_hi) row[size_t(col) * 64] = acc[j];
   }
 }
 
@@ -137,14 +223,30 @@ PT_EXPORT int pt_pileup_accumulate_packed(void* pile, int Lpile,
   return int(cudaGetLastError());
 }
 
-PT_EXPORT int pt_pileup_accumulate(void* pile, int Lpile, const void* votes,
-                                   const void* w0, const void* read_of,
-                                   const void* runs, int n_runs, int n,
-                                   void* stream) {
-  const dim3 grid(n_runs, (Lpile + DENSE_TILE - 1) / DENSE_TILE);
-  pileup_dense_kernel<<<grid, 512, 0, cudaStream_t(stream)>>>(
-      static_cast<float*>(pile), Lpile, static_cast<const float*>(votes),
-      static_cast<const int32_t*>(w0), static_cast<const int32_t*>(read_of),
-      static_cast<const int32_t*>(runs), n);
+PT_EXPORT int pt_pileup_work_keys(void* keys, void* bad, const void* read_of,
+                                  const void* w0, int R, int K, int n,
+                                  int n_tiles, int B, int Lpile,
+                                  void* stream) {
+  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int32_t),
+                                    cudaStream_t(stream));
+  const int E = R * K;
+  if (err != cudaSuccess || E <= 0) return int(err);
+  pileup_keys_kernel<<<(E + 255) / 256, 256, 0, cudaStream_t(stream)>>>(
+      static_cast<int32_t*>(keys), static_cast<int32_t*>(bad),
+      static_cast<const int32_t*>(read_of), static_cast<const int32_t*>(w0),
+      R, K, n, n_tiles, B, Lpile);
+  return int(cudaGetLastError());
+}
+
+PT_EXPORT int pt_pileup_accumulate(void* pile, int Lpile, int n_tiles,
+                                   const void* votes, const void* w0,
+                                   const void* keys, const void* order,
+                                   int E, int K, int n, void* stream) {
+  if (E <= 0) return int(cudaSuccess);
+  pileup_ordered_kernel<<<E, DENSE_THREADS, 0, cudaStream_t(stream)>>>(
+      static_cast<float*>(pile), Lpile, n_tiles,
+      static_cast<const float*>(votes), static_cast<const int32_t*>(w0),
+      static_cast<const int32_t*>(keys), static_cast<const int64_t*>(order),
+      E, K, n);
   return int(cudaGetLastError());
 }

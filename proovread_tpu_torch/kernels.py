@@ -43,7 +43,8 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P],
     "pt_pileup_accumulate_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "pt_pileup_accumulate_packed": [_P, _I, _P, _P, _P, _I, _I, _P],
-    "pt_pileup_accumulate": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+    "pt_pileup_work_keys": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pt_pileup_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "pt_assemble_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "pt_hcr_mask_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P],
@@ -155,12 +156,18 @@ def require(cond: bool, msg: str) -> None:
 
 
 def require_in_range(what: str, *checks) -> None:
-    """Raise unless every (int tensor, lo, hi) has all values in [lo, hi]:
-    index arrays the kernel dereferences, checked with one device sync."""
+    """Raise unless every (int tensor, lo, hi, name) has all values in
+    [lo, hi]: index arrays the kernel dereferences. One ``aminmax`` per
+    tensor, then one device sync for all of them."""
     import torch
-    ok = torch.stack([((t >= lo) & (t <= hi)).all() for t, lo, hi in checks
-                      if t.numel()] or [torch.tensor(True)])
-    require(bool(ok.all()), f"{what}: index out of range")
+    live = [c for c in checks if c[0].numel()]
+    if not live:
+        return
+    ext = torch.stack([v for c in live for v in torch.aminmax(c[0])]).tolist()
+    for i, (_, lo, hi, name) in enumerate(live):
+        mn, mx = ext[2 * i], ext[2 * i + 1]
+        require(lo <= mn and mx <= hi,
+                f"{what}: {name} outside [{lo}, {hi}] (min {mn}, max {mx})")
 
 
 def stream_of(t) -> int:

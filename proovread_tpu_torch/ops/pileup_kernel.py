@@ -70,8 +70,9 @@ pileup_accumulate_bits.launches = 0
 
 def _pileup_cuda(pileup, bits0, bits1, read_of, w0):
     B, Lpile, R, n = _check(pileup, bits0, bits1, read_of, w0)
-    kernels.require_in_range("pileup_accumulate_bits", (read_of, 0, B - 1),
-                             (w0, 0, Lpile - n))
+    kernels.require_in_range("pileup_accumulate_bits",
+                             (read_of, 0, B - 1, "read_of"),
+                             (w0, 0, Lpile - n, "w0"))
     bits0, bits1, read_of, w0 = (t.contiguous()
                                  for t in (bits0, bits1, read_of, w0))
     if R > 0:
@@ -142,8 +143,9 @@ pileup_accumulate_packed.launches = 0
 
 def _packed_cuda(pileup, words, read_of, w0):
     B, Lpile, R, n = _check_packed(pileup, words, read_of, w0)
-    kernels.require_in_range("pileup_accumulate_packed", (read_of, 0, B - 1),
-                             (w0, 0, Lpile - n))
+    kernels.require_in_range("pileup_accumulate_packed",
+                             (read_of, 0, B - 1, "read_of"),
+                             (w0, 0, Lpile - n, "w0"))
     words, read_of, w0 = (t.contiguous() for t in (words, read_of, w0))
     if R > 0:
         rc = kernels.lib().pt_pileup_accumulate_packed(
@@ -214,14 +216,9 @@ def pileup_accumulate(pileup, votes, read_of, w0):
 pileup_accumulate.launches = 0
 
 
-def _read_runs(read_of) -> torch.Tensor:
-    """i32 [n_runs + 1]: start of each run of equal ``read_of`` values,
-    then R."""
-    R = read_of.shape[0]
-    starts = torch.nonzero(read_of[1:] != read_of[:-1]).flatten() + 1
-    zero = torch.zeros(1, dtype=starts.dtype, device=read_of.device)
-    end = torch.full((1,), R, dtype=starts.dtype, device=read_of.device)
-    return torch.cat([zero, starts, end]).to(torch.int32)
+# columns of a read row that one block of the ordered kernel holds
+# (csrc/pileup.cu)
+DENSE_TILE = 128
 
 
 def _dense_cuda(pileup, votes, read_of, w0):
@@ -229,15 +226,28 @@ def _dense_cuda(pileup, votes, read_of, w0):
     if R == 0:
         return pileup
     votes, read_of, w0 = (t.contiguous() for t in (votes, read_of, w0))
-    kernels.require_in_range("pileup_accumulate", (read_of, 0, B - 1),
-                             (w0, 0, Lpile - n))
-    kernels.require(bool((read_of[1:] >= read_of[:-1]).all()),
-                    "pileup_accumulate: read_of must be sorted ascending")
-    runs = _read_runs(read_of)
-    rc = kernels.lib().pt_pileup_accumulate(
-        pileup.data_ptr(), Lpile, votes.data_ptr(), w0.data_ptr(),
-        read_of.data_ptr(), runs.data_ptr(), runs.shape[0] - 1, n,
-        kernels.stream_of(pileup))
+    # the work list: one key per (candidate, tile its window overlaps),
+    # sorted stably so each (read, tile) item keeps candidate order. The
+    # same kernel checks read_of and w0 into one flag word: the only sync.
+    K = (n + DENSE_TILE - 2) // DENSE_TILE + 1   # most tiles a window spans
+    n_tiles = -(-Lpile // DENSE_TILE)
+    keys = torch.empty(R * K, dtype=torch.int32, device=pileup.device)
+    bad = torch.empty(1, dtype=torch.int32, device=pileup.device)
+    stream = kernels.stream_of(pileup)
+    lib = kernels.lib()
+    kernels.check(lib.pt_pileup_work_keys(
+        keys.data_ptr(), bad.data_ptr(), read_of.data_ptr(), w0.data_ptr(),
+        R, K, n, n_tiles, B, Lpile, stream), "pileup_accumulate")
+    flags = int(bad.item())
+    kernels.require(flags == 0, "pileup_accumulate: " + ", ".join(
+        msg for bit, msg in ((1, f"read_of outside [0, {B - 1}]"),
+                             (2, f"w0 outside [0, {Lpile - n}]"),
+                             (4, "read_of must be sorted ascending"))
+        if flags & bit))
+    keys, order = torch.sort(keys, stable=True)
+    rc = lib.pt_pileup_accumulate(
+        pileup.data_ptr(), Lpile, n_tiles, votes.data_ptr(), w0.data_ptr(),
+        keys.data_ptr(), order.data_ptr(), R * K, K, n, stream)
     kernels.check(rc, "pileup_accumulate")
     pileup_accumulate.launches += 1
     return pileup

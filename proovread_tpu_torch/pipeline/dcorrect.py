@@ -22,8 +22,9 @@ and counted as dropped), and the f32 mask-shortcut decision
 Each stage runs under a ``torch.profiler.record_function`` range (seed,
 align, vote, consensus) so a profile attributes device time per layer.
 
-The admission bin prefix sums are exact integer sums here; the reference
-sums the spans in f32, which rounds once a pass's total span passes 2^24.
+The admission bin prefix sums are the reference's f32 sums in XLA's CPU
+order (``ops/scan.py``): once a pass's total span passes 2^24 they round,
+and the port rounds as the reference does.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from proovread_tpu_torch.ops.fused import add_ref_votes
 from proovread_tpu_torch.ops.pileup_kernel import (pileup_accumulate,
                                                    pileup_accumulate_bits,
                                                    pileup_accumulate_packed)
+from proovread_tpu_torch.ops.scan import cumsum_f32_xla
 from proovread_tpu_torch.ops.votes import (PACK_LANES, build_votes,
                                            encode_votes_packed_bases,
                                            unpack_pileup, word_to_bits)
@@ -79,7 +81,9 @@ def device_admit(lread, pos0, span, score, passed, ref_lens,
                  params: ConsensusParams) -> torch.Tensor:
     """Binned admission (consensus/alnset.py:admit_mask semantics): per
     (read, bin), candidates ranked by ncscore, admitted while the bin's
-    span budget before them is <= bin_max_bases."""
+    span budget before them is <= bin_max_bases. The span sums are the
+    reference's f32 prefix sums in its order (``ops/scan.py``), so past
+    2^24 summed bases they round as the reference's do."""
     R = lread.shape[0]
     dev = lread.device
     if R == 0:
@@ -112,12 +116,13 @@ def device_admit(lread, pos0, span, score, passed, ref_lens,
     order = torch.argsort(-ncscore, stable=True)
     order = order[torch.argsort(primary[order], stable=True)]
     sbins = primary[order]
-    sspans = torch.where(keep, span.to(torch.int64), 0)[order]
-    cum = torch.cumsum(sspans, 0)
+    # the reference's f32 sums, in its order: past 2^24 bases they round
+    sspans = torch.where(keep, spanf, 0.0)[order]
+    cum = cumsum_f32_xla(sspans)
     first = torch.searchsorted(sbins, sbins, side="left")
-    before = torch.where(first > 0, cum[torch.clamp(first - 1, min=0)], 0)
-    cum_before = cum - sspans - before
-    admit = keep[order] & (cum_before <= params.bin_max_bases)
+    before = torch.where(first > 0, cum[torch.clamp(first - 1, min=0)], 0.0)
+    cum_before = (cum - sspans) - before
+    admit = keep[order] & (cum_before <= float(params.bin_max_bases))
     out = torch.zeros(R, dtype=torch.bool, device=dev)
     out[order] = admit
     return out

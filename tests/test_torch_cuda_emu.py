@@ -5,9 +5,12 @@ There is no CPU mode for a CUDA kernel, so the sources under
 ``proovread_tpu_torch/csrc/`` are compiled here by g++ against a small
 emulation of the CUDA runtime subset they use: one ``std::thread`` per CUDA
 thread, blocks one after another (2-D grids row by row), ``std::barrier``
-for ``__syncthreads``, per-warp barriers for ``__shfl_up_sync`` and
-``std::atomic_ref`` for ``atomicAdd``. The launch syntax and the
-``__shared__`` qualifiers are rewritten mechanically before compiling.
+for ``__syncthreads`` and ``__syncthreads_count``, per-warp barriers for
+``__syncwarp`` and the ``__shfl_up_sync`` / ``__shfl_down_sync`` /
+``__shfl_sync`` exchanges (any 32- or 64-bit type), and
+``std::atomic_ref`` for ``atomicAdd`` and ``atomicOr``. The launch syntax
+and the ``__shared__`` qualifiers are rewritten mechanically before
+compiling.
 Each check runs in a subprocess with a timeout. Tolerance: bitwise (integer
 outputs, bsw score, pileup sums). Skips, with the reason, where g++ with
 C++20 is missing."""
@@ -42,6 +45,7 @@ using std::min;
 #define __forceinline__ inline
 #define __restrict__
 #define __align__(x)
+#define __launch_bounds__(...)
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -58,19 +62,56 @@ inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::unique_ptr<std::barrier<>> g_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_wbar;
-inline int g_xchg[1024];
+inline uint64_t g_xchg[1024];
 alignas(16) inline unsigned char g_smem[240 * 1024];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
-inline int __shfl_up_sync(unsigned, int v, int o) {
-  int t = threadIdx.x + threadIdx.y * blockDim.x, lane = t & 31, w = t >> 5;
-  g_xchg[t] = v;
-  g_wbar[w]->arrive_and_wait();
-  int r = lane >= o ? g_xchg[t - o] : v;
-  g_wbar[w]->arrive_and_wait();
+inline int pt_tid() { return threadIdx.x + threadIdx.y * blockDim.x; }
+inline std::atomic<int> g_count{0};
+inline int __syncthreads_count(int pred) {
+  if (pred) g_count.fetch_add(1);
+  g_bar->arrive_and_wait();
+  int r = g_count.load();
+  g_bar->arrive_and_wait();
+  if (pt_tid() == 0) g_count.store(0);
+  g_bar->arrive_and_wait();
   return r;
 }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_wbar[pt_tid() >> 5]->arrive_and_wait();
+}
+// every lane of the warp publishes v, then reads lane src (its own value
+// where src is -1)
+template <typename T>
+T pt_shfl(T v, int src) {
+  int t = pt_tid();
+  std::memcpy(&g_xchg[t], &v, sizeof(T));
+  __syncwarp();
+  T r = v;
+  if (src >= 0) std::memcpy(&r, &g_xchg[(t & ~31) + src], sizeof(T));
+  __syncwarp();
+  return r;
+}
+template <typename T>
+T __shfl_up_sync(unsigned, T v, int o) {
+  int lane = pt_tid() & 31;
+  return pt_shfl(v, lane >= o ? lane - o : -1);
+}
+template <typename T>
+T __shfl_down_sync(unsigned, T v, int o) {
+  int lane = pt_tid() & 31;
+  return pt_shfl(v, lane + o < 32 ? lane + o : -1);
+}
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) { return pt_shfl(v, src & 31); }
 inline float atomicAdd(float* p, float v) {
   return std::atomic_ref<float>(*p).fetch_add(v);
+}
+inline int atomicOr(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_or(v);
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
 }
 template <typename F>
 void pt_launch(dim3 grid, dim3 block, size_t, F body) {
@@ -119,7 +160,8 @@ if which.startswith("bsw"):
     from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
     from proovread_tpu_torch.pipeline.dcorrect import device_revcomp
     ap = BWA_SR if which == "bsw96" else BWA_SR_FINISH
-    S, m, B, Lp, R = 24, 112, 3, 800, 48
+    # R odd: several candidates (warps) per block, the last block partial
+    S, m, B, Lp, R = 24, 112, 3, 800, 47
     W = bsw.band_lanes(ap)
     n = m + W
     genome = rng.integers(0, 4, (B, Lp)).astype(np.int8)
@@ -185,6 +227,36 @@ elif which == "pileup_dense":
     base = torch.as_tensor(rng.random((B, Lpile, 64)).astype(np.float32))
     got = pk._dense_cuda(base.clone(), t(votes), ro, w0)
     same([got], [pk.pileup_accumulate_plain(base.clone(), t(votes), ro, w0)])
+elif which == "pileup_dense_clustered":
+    # read 0: 30 candidates whose windows all cover tile 1 (one item folds
+    # many candidates); read 1: windows starting on and around tile edges;
+    # read 2: one candidate (a run of length 1); read 3: untouched
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    B, Lpile, n = 4, 700, 176
+    w0 = np.concatenate([rng.integers(90, 128, 30),
+                         [0, 127, 128, 129, 255, 256, 383, 384, 511, 524,
+                          1, 250, 400, 300],
+                         [77]]).astype(np.int32)
+    ro = np.repeat([0, 1, 2], [30, 14, 1]).astype(np.int32)
+    R = len(w0)
+    votes = rng.integers(0, 4000, (R, n, 64)).astype(np.float32) * np.float32(0.01)
+    votes[rng.random((R, n, 64)) < 0.5] = 0
+    base = torch.as_tensor(rng.random((B, Lpile, 64)).astype(np.float32))
+    got = pk._dense_cuda(base.clone(), t(votes), t(ro), t(w0))
+    want = pk.pileup_accumulate_plain(base.clone(), t(votes), t(ro), t(w0))
+    same([got], [want])
+    assert torch.equal(got[3], base[3]) and not torch.equal(got[0], base[0])
+    # the work-list kernel's metadata checks raise before the fold runs
+    for bad_ro, bad_w0, msg in ((ro[::-1].copy(), w0, "sorted"),
+                                (ro, w0 + 600, "w0 outside"),
+                                (ro + 2, w0, "read_of outside")):
+        buf = base.clone()
+        try:
+            pk._dense_cuda(buf, t(votes), t(bad_ro), t(bad_w0))
+            raise AssertionError("no error for " + msg)
+        except ValueError as e:
+            assert msg in str(e), e
+        assert torch.equal(buf, base)
 elif which == "assemble":
     from proovread_tpu_torch.ops import assemble_kernel as ak
     B, L = 5, 700
@@ -252,6 +324,7 @@ def emu_lib(tmp_path_factory):
 
 @pytest.mark.parametrize("which", ["bsw96", "bsw64", "pileup",
                                    "pileup_packed", "pileup_dense",
+                                   "pileup_dense_clustered",
                                    "assemble", "hcr"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],

@@ -24,14 +24,11 @@ def _equal(a, b):
     return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("finish", [False, True])
-def test_bsw_kernel_matches_plain(cuda, finish):
+def _bsw_args(cuda, ap, seed, R=256):
     from proovread_tpu_torch.align import bsw
-    from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
     from proovread_tpu_torch.pipeline.dcorrect import device_revcomp
-    ap = BWA_SR_FINISH if finish else BWA_SR
-    rng = np.random.default_rng(finish)
-    S, m, B, Lp, R = 64, 112, 4, 2048, 256
+    rng = np.random.default_rng(seed)
+    S, m, B, Lp = 64, 112, 4, 2048
     W = bsw.band_lanes(ap)
     n = m + W
     genome = rng.integers(0, 4, (B, Lp)).astype(np.int8)
@@ -46,14 +43,33 @@ def test_bsw_kernel_matches_plain(cuda, finish):
     diag = rng.integers(-2 * n, Lp + 2 * n, R).astype(np.int32)
     mp = bsw.build_map_pad(t(genome), t(rng.random((B, Lp)) < 0.1), n)
     _, w0p = bsw.window_starts(t(diag), W, Lp, n)
-    args = (t(qf), device_revcomp(t(qf), t(qlen)), mp,
+    return (t(qf), device_revcomp(t(qf), t(qlen)), mp,
             t(qlen)[t(sread).long()], t(sread),
             t(rng.integers(0, 2, R).astype(np.int32)),
             t(np.sort(rng.integers(0, B, R)).astype(np.int32)), w0p, ap)
+
+
+@pytest.mark.parametrize("finish", [False, True])
+def test_bsw_kernel_matches_plain(cuda, finish):
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
+    args = _bsw_args(cuda, BWA_SR_FINISH if finish else BWA_SR, finish)
     launches = bsw.bsw_expand_v2.launches
     got = bsw.bsw_expand_v2(*args)
     assert bsw.bsw_expand_v2.launches == launches + 1
     assert _equal(got, bsw.bsw_expand_v2_plain(*args))
+
+
+def test_bsw_kernel_matches_plain_at_band_128(cuda):
+    """W=128, four band lanes per warp lane (the widest band the kernel
+    takes), and an R that leaves the last block partly empty."""
+    import dataclasses
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.align.params import BWA_SR
+    ap = dataclasses.replace(BWA_SR, band_width=64)
+    assert bsw.band_lanes(ap) == 128
+    args = _bsw_args(cuda, ap, 6, R=253)
+    assert _equal(bsw.bsw_expand_v2(*args), bsw.bsw_expand_v2_plain(*args))
 
 
 def test_pileup_kernel_matches_plain(cuda):
@@ -151,3 +167,48 @@ def test_packed_and_dense_pileup_kernels_match_plain(cuda):
                                                        ro, w0))
     assert torch.equal(got, pk.pileup_accumulate(base.clone(), votes, ro,
                                                  w0))
+
+
+@pytest.mark.parametrize("seed,R,B,L,lo,hi,cov", [
+    (0, 200_000, 64, 1000, 90, 110, 150),
+    (1, 70_001, 16, 4000, 230, 290, 100)])
+def test_admission_past_2_24_same_on_card_and_cpu(cuda, seed, R, B, L, lo,
+                                                  hi, cov):
+    """The passes of tests/test_torch_admit.py (summed spans past 2^24,
+    where the f32 order of the adds decides admission): ``device_admit`` on
+    the card gives the CPU's mask, and so the reference's."""
+    from proovread_tpu_torch.consensus.params import ConsensusParams
+    from proovread_tpu_torch.pipeline.dcorrect import device_admit
+    rng = np.random.default_rng(seed)
+    lread = np.sort(rng.integers(0, B, R)).astype(np.int32)
+    span = rng.integers(lo, hi + 1, R).astype(np.int32)
+    pos0 = rng.integers(0, L - hi, R).astype(np.int32)
+    score = rng.integers(50, 201, R).astype(np.float32)
+    passed = rng.random(R) < 0.95
+    arrays = (lread, pos0, span, score, passed, np.full(B, L, np.int32))
+    assert int(span[passed].sum()) > 1 << 24
+    cp = ConsensusParams(max_coverage=cov)
+    want = device_admit(*(torch.as_tensor(a) for a in arrays), cp)
+    got = device_admit(*(torch.as_tensor(a, device=cuda) for a in arrays), cp)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(passed.sum())
+
+
+def test_ordered_pileup_on_clustered_candidates(cuda):
+    """Sorted candidates clustered on a few reads (~250 a read, the shape of
+    the qual-weighted pass's chunks): equal to the plain version, and equal
+    again on a second run."""
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    from proovread_tpu_torch.ops.fused import phred2freq
+    rng = np.random.default_rng(7)
+    B, Lp, R, n = 6, 3072, 1024, 208
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    ro = t(np.sort(rng.integers(0, 4, R)).astype(np.int32))
+    w0 = t(rng.integers(0, Lp + n, R).astype(np.int32))
+    votes = phred2freq(t(rng.integers(0, 42, (R, n, 64))))
+    votes = torch.where(t(rng.random((R, n, 64)) < 0.3), votes, 0.0)
+    base = torch.zeros((B, Lp + 2 * n, 64), device=cuda)
+    got = pk.pileup_accumulate(base.clone(), votes, ro, w0)
+    assert torch.equal(got, pk.pileup_accumulate_plain(base.clone(), votes,
+                                                       ro, w0))
+    assert torch.equal(got, pk.pileup_accumulate(base.clone(), votes, ro, w0))
