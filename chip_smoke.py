@@ -9,14 +9,17 @@ any failure exits non-zero:
 2. every kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (bsw v2 and v1 at W=96 and W=64,
    R=8192, m=112; the three pileups at B=256, Lp=24576, R=8192, n=208;
-   assemble and HCR at B=256, L=24576): every output bitwise equal, bsw v1
-   also equal to v2 on the same candidates and the ordered pileup equal
-   again on a second run, on random windows and on clustered ones (the
-   same slabs as sorted candidates of 8 reads at Lp=12288, about 1000 a
-   read, the shape of the qual-weighted pass's chunks); launcher, plain and
-   library times (median of CUDA-event timings after a warm-up), the
-   kernel's own device time (torch.profiler) and each kernel's bound from
-   its bytes and operations;
+   assemble at B=256, L=24576; HCR there and at the longest bucket, B=32,
+   L=49152): every output bitwise equal, bsw v1 also equal to v2 on the
+   same candidates. The bit-plane pileup runs on random windows and on the
+   main path's clustered shape (the same planes as sorted candidates of 12
+   reads, 16-aligned windows); the ordered pileup is equal again on a second run, on random
+   windows and on clustered ones (the same slabs as sorted candidates of 8
+   reads at Lp=12288, about 1000 a read, the shape of the qual-weighted
+   pass's chunks). Launcher, plain and library times (median of CUDA-event
+   timings after a warm-up), the kernel's own device time and the device
+   operations of one launcher call (torch.profiler), and each kernel's
+   bound from its bytes and operations;
 3. on bench config 4's workload (10 kb genome, 40 kb of long reads, 30x
    short reads), on the card and on the CPU, all identical: ``Pipeline.run``
    (4 iterations; records, qual, chimeras and task reports), the same at
@@ -52,7 +55,8 @@ It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
 
-``--profile`` reruns phases 4-6 under ``torch.profiler``. ``--skip`` drops
+``--profile`` reruns phases 4-6 under ``torch.profiler`` and prints the
+device time and launches of every port kernel in each. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
 lines (the full run takes no arguments).
 
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,8 +115,9 @@ def launcher_times(fn, name: str, reps: int = 5) -> dict:
     CUDA-event time (host syncs and launch gaps included); ``kernel_ms``,
     the device time of one launch of the kernel whose name holds ``name``;
     ``device_ms``, all device work of one call (the kernel plus what its
-    launcher runs around it: index checks, work lists, copies). The last
-    two from torch.profiler over ``reps`` calls after a warm-up."""
+    launcher runs around it: index checks, work lists, copies), and
+    ``device_ops``, the kernels, memsets and copies of one call. The last
+    three from torch.profiler over ``reps`` calls after a warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -131,7 +137,8 @@ def launcher_times(fn, name: str, reps: int = 5) -> dict:
         raise AssertionError(f"the profiler saw no {name} launch")
     return dict(ms=ms,
                 kernel_ms=sum(getattr(e, attr) for e in mine) / count / 1e3,
-                device_ms=sum(getattr(e, attr) for e in evs) / reps / 1e3)
+                device_ms=sum(getattr(e, attr) for e in evs) / reps / 1e3,
+                device_ops=sum(e.count for e in evs) / reps)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -258,7 +265,20 @@ def check_bsw(rng, dev, ap, label):
         shape=f"R={R} m={m} W={W} n={n}", valid=n_valid), got, args
 
 
-def check_pileup(rng, dev, bsw_res, bsw_args):
+def touched_bound(in_bytes: float, want, base):
+    """Bound of an unweighted pileup: its inputs read once, each cell that
+    gains a vote read and written once; one f32 add per vote."""
+    import torch
+    gained = want - base
+    cells = int(torch.count_nonzero(gained))
+    return bound(in_bytes + 8.0 * cells, float(gained.sum())), cells
+
+
+def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
+                 clustered_reads=12):
+    """The bit-plane pileup on phase 2's random windows (candidates of all
+    256 reads) and on the main path's clustered shape (the same planes as
+    sorted candidates of 12 reads, 16-aligned windows)."""
     import torch
     from proovread_tpu_torch.ops import pileup_kernel as pk
     from proovread_tpu_torch.ops.votes import (encode_votes_packed_bases,
@@ -268,36 +288,45 @@ def check_pileup(rng, dev, bsw_res, bsw_args):
         bsw_res.ins_b1, bsw_res.q_start, bsw_res.q_end, taboo_abs=7)
     b0, b1 = word_to_bits(words)
     R, n = b0.shape
-    B, Lp = 256, 24576
     Lpile = Lp + 2 * n
-    read_of = bsw_args[6]
-    w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
-                         device=dev)
-    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
-    got = pk.pileup_accumulate_bits(base.clone(), b0, b1, read_of, w0)
-    want = pk.pileup_accumulate_bits_plain(base.clone(), b0, b1, read_of, w0)
-    torch.cuda.synchronize()
-    assert_equal("pileup_accumulate_bits", [(got, want)])
-    n_set = int(want.sum())
-    if n_set == 0:
-        raise AssertionError("pileup: no votes in the check inputs")
-    buf = base.clone()
-    tm = launcher_times(lambda: pk._pileup_cuda(buf, b0, b1, read_of, w0),
-                       "pileup_bits_kernel")
-    plain_ms = time_ms(lambda: pk.pileup_accumulate_bits_plain(
-        buf, b0, b1, read_of, w0), reps=5, warmup=1)
-    votes = pk.decode_bits(b0, b1).reshape(-1, 64)
-    rows = (read_of.long()[:, None] * Lpile + w0.long()[:, None]
-            + torch.arange(n, device=dev)[None, :]).reshape(-1)
-    flat = buf.view(-1, 64)
-    lib_ms = time_ms(lambda: flat.index_add_(0, rows, votes), reps=5,
-                     warmup=1)
-    # bit planes + metadata read once; one 4-byte read and write per vote
-    b_ms, b_by = bound(8.0 * R * n + 8 * R + 8.0 * n_set, float(n_set))
-    return dict(max_abs_err=max_abs_err([(got, want)]), **tm,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=f"B={B} Lp={Lp} R={R} n={n}",
-                votes=n_set)
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    reads = rng.choice(B, clustered_reads, replace=False)
+    inputs = {
+        "random": (bsw_args[6], t(rng.integers(0, Lp + n, R).astype(np.int32))),
+        "clustered": (t(np.sort(rng.choice(reads, R)).astype(np.int32)),
+                      t((rng.integers(0, (Lp + n) // 16 + 1, R) * 16)
+                        .astype(np.int32)))}
+    out = {}
+    for label, (read_of, w0) in inputs.items():
+        base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
+        want = pk.pileup_accumulate_bits_plain(base.clone(), b0, b1, read_of,
+                                               w0)
+        got = pk.pileup_accumulate_bits(base.clone(), b0, b1, read_of, w0)
+        torch.cuda.synchronize()
+        assert_equal(f"pileup_accumulate_bits ({label})", [(got, want)])
+        err = max_abs_err([(got, want)])
+        (b_ms, b_by), cells = touched_bound(8.0 * R * n + 8 * R, want, base)
+        if cells == 0:
+            raise AssertionError("pileup: no votes in the check inputs")
+        peak = float(want.max())
+        del got, want
+        buf = base
+        tm = launcher_times(lambda: pk._pileup_cuda(buf, b0, b1, read_of, w0),
+                           "pileup_bits_col_kernel")
+        plain_ms = time_ms(lambda: pk.pileup_accumulate_bits_plain(
+            buf, b0, b1, read_of, w0), reps=5, warmup=1)
+        votes = pk.decode_bits(b0, b1).reshape(-1, 64)
+        rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
+        flat = buf.view(-1, 64)
+        lib_ms = time_ms(lambda: flat.index_add_(0, rows, votes), reps=5,
+                         warmup=1)
+        out[label] = dict(max_abs_err=err, **tm, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          touched_cells=cells, peak_cell=peak,
+                          shape=f"B={B} Lp={Lp} R={R} n={n}")
+        del buf, flat, votes, base
+        torch.cuda.empty_cache()
+    return dict(**out["random"], clustered=out["clustered"])
 
 
 def check_bsw_v1(dev, ap, label, args, v2):
@@ -360,6 +389,7 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args):
     torch.cuda.synchronize()
     assert_equal("pileup_accumulate_packed", [(got, want)])
     err = max_abs_err([(got, want)])
+    (b_ms, b_by), cells = touched_bound(4.0 * R * n + 8 * R, want, base)
     # every candidate into one window of one read: lanes far past 256 votes
     # (where a bf16 buffer would round), still exact
     one = torch.zeros_like(read_of)
@@ -387,12 +417,10 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args):
     flat = buf.view(-1, 64)
     lib_ms = time_ms(lambda: flat.index_add_(0, rows, votes), reps=5,
                      warmup=1)
-    # words + metadata read once; one 4-byte read and write per vote
-    b_ms, b_by = bound(4.0 * R * n + 8 * R + 8.0 * n_votes, float(n_votes))
     return dict(max_abs_err=err, **tm, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 shape=f"B={B} Lp={Lp} R={R} n={n}", votes=n_votes,
-                one_window_peak_lane=peak)
+                touched_cells=cells, one_window_peak_lane=peak)
 
 
 def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
@@ -537,7 +565,14 @@ def check_assemble(rng, dev, B=256, L=24576):
                 library_ms=None, shape=f"B={B} L={L} Lp={Lp}")
 
 
-def check_hcr(rng, dev, B=256, L=24576):
+def check_hcr(rng, dev):
+    """HCR masking at the main path's shape (the kernel's row) and at its
+    longest bucket (``longest_bucket``), each with its own numbers."""
+    return dict(**check_hcr_at(rng, dev, 256, 24576),
+                longest_bucket=check_hcr_at(rng, dev, 32, 49152))
+
+
+def check_hcr_at(rng, dev, B, L):
     import torch
     from proovread_tpu_torch.ops import assemble_kernel as ak
     from proovread_tpu_torch.pipeline.masking import MaskParams
@@ -569,7 +604,8 @@ def check_hcr(rng, dev, B=256, L=24576):
         if float(frac_cpu) == 0.0:
             raise AssertionError("hcr: nothing masked in the check inputs")
         errs.append(max_abs_err([(a.float(), b.float()) for a, b in pairs]))
-    tm = launcher_times(lambda: ak.hcr_mask_cuda(q, ln, pvi), "hcr_kernel")
+    tm = launcher_times(lambda: ak.hcr_mask_cuda(q, ln, pvi),
+                        "hcr_scan_kernel")
     plain_ms = time_ms(lambda: ak.hcr_mask_plain(q, ln, pvi), reps=5,
                        warmup=1)
     b_ms, b_by = bound(2.0 * B * L + 8 * B, 0.0)
@@ -754,11 +790,17 @@ def result_key(res):
             res.chimera, res.reports)
 
 
+# the port's CUDA kernels (csrc/*.cu), by the names the profiler shows
+PORT_KERNEL = re.compile(r"\b((?:bsw|pileup|assemble|hcr)_\w*kernel)\b")
+
+
 def profile_phase(phase, fn, wall_unprofiled) -> None:
-    """A phase's run again (warm) under torch.profiler: the device time of
-    every CUDA kernel, the share of the wall the device was busy, and the
-    span on the device timeline of each stage range (seed / align / vote /
-    consensus, ``pipeline/dcorrect.py``)."""
+    """A phase's run again (warm) under torch.profiler: the device time and
+    launches of each port kernel (every kernel named as those of
+    ``csrc/*.cu`` are) and of the 25 largest CUDA kernels, the
+    share of the wall the device was busy, and the span on the device
+    timeline of each stage range (seed / align / vote / consensus,
+    ``pipeline/dcorrect.py``)."""
     import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -785,6 +827,16 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
             lines.append(f"profile phase{phase} stage {e.key} "
                          f"({e.device_type.name}): calls {e.count}, span "
                          f"{getattr(e, dev_attr) / 1e6:.3f} s")
+    port = {}
+    for e in kernels:
+        m = PORT_KERNEL.search(e.key)
+        if m:
+            tot = port.setdefault(m.group(1), [0.0, 0])
+            tot[0] += getattr(e, dev_attr)
+            tot[1] += e.count
+    for name, (us, count) in sorted(port.items()):
+        lines.append(f"profile phase{phase} port kernel {name}: "
+                     f"{us / 1e6:.6f} s x{count}")
     for e in sorted(kernels, key=lambda e: -getattr(e, dev_attr))[:25]:
         lines.append(f"profile phase{phase} kernel "
                      f"{getattr(e, dev_attr) / 1e6:.4f} s x{e.count}: "
@@ -1043,6 +1095,7 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "kernel_ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})

@@ -11,11 +11,21 @@
 //
 // hcr_mask_rows replaces _hcr_kernel: the SeqFilter --phred-mask interval
 // state machine (runs in [pmin, pmax] of >= min_len, merged across gaps
-// < unmask_len, reduced at their ends). It is sequential per read, so one
-// thread walks it over qual tiles the block stages in shared memory, and
-// ORs each emitted run into a shared bit row, 32 columns per word; the
-// whole block then expands the bits into the bool mask. What bounds it:
-// the serial walk (latency), one thread per read.
+// < unmask_len, reduced at their ends). The reference walks it column by
+// column; here a block of HCR_THREADS threads takes one read and computes
+// the three levels of the plain version (hcr_mask_plain) on bit words of
+// 32 columns in shared memory: the in-range bits come from one ballot per
+// warp over coalesced qual loads; for each level, two block-wide scans
+// over the words (a forward max of the last zero bit, a backward min of
+// the first) give the edges of the runs that cross a word's ends, and a
+// thread finds the runs inside each of its words with __ffs and keeps,
+// fills or trims them: (1) in-range runs of >= min_len are kept; (2) gaps
+// between kept runs shorter than unmask_len are filled; (3) each merged
+// run is trimmed by red, or end_red where it touches column 0 or the read
+// length. The block then writes the mask (coalesced bytes) and the count
+// (popcounts, a block reduction). Integers only, so the result is the
+// plain version's bit for bit. What bounds it: bytes (1 in, 1 out per
+// column); the scans run over L / 32 words, a few barriers per level.
 
 #include "common.cuh"
 
@@ -87,86 +97,178 @@ __global__ void assemble_kernel(const int32_t* __restrict__ word,
   if (t == 0) nlen[b] = carry < Lp ? carry : Lp;
 }
 
-constexpr int HCR_THREADS = 128;
-constexpr int HCR_TILE = 4096;
+constexpr int HCR_THREADS = 512;
+constexpr int HCR_WARPS = HCR_THREADS / 32;
+constexpr uint32_t FULL = 0xFFFFFFFFu;
 
 struct HcrParams {
   int pmin, pmax, min_len, unmask_len, red, end_red;
 };
 
-// OR the boundary-reduced merged run [ms, me) into the bit row
-__device__ void emit_run(uint32_t* bits, int ms, int me, int len,
-                         const HcrParams& p, int& count) {
-  int lo = ms + (ms == 0 ? p.end_red : p.red);
-  int hi = me - (me == len ? p.end_red : p.red);
-  lo = lo > 0 ? lo : 0;
-  hi = hi < len ? hi : len;
-  if (hi <= lo) return;
-  count += hi - lo;
-  const int wlo = lo >> 5, whi = (hi - 1) >> 5;
-  const uint32_t first = 0xFFFFFFFFu << (lo & 31);
-  const uint32_t last = (hi & 31) == 0 ? 0xFFFFFFFFu
-                                       : ~(0xFFFFFFFFu << (hi & 31));
-  for (int i = wlo; i <= whi; ++i) {
-    uint32_t m = 0xFFFFFFFFu;
-    if (i == wlo) m &= first;
-    if (i == whi) m &= last;
-    bits[i] |= m;
-  }
+// the bits [lo, hi) of a word, 0 <= lo, hi <= 32
+__device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
+  if (lo >= hi) return 0u;
+  return (hi == 32 ? 0u : 1u << hi) - (1u << lo);
 }
 
-__global__ void hcr_kernel(const uint8_t* __restrict__ qual,
-                           const int32_t* __restrict__ lengths, int L,
-                           HcrParams p, uint8_t* __restrict__ mask,
-                           int32_t* __restrict__ counts) {
-  extern __shared__ uint32_t bits[];           // (L + 31) / 32 words
-  __shared__ uint8_t tile[HCR_TILE];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nw = (L + 31) >> 5;
-  for (int i = t; i < nw; i += HCR_THREADS) bits[i] = 0u;
-  const int len = lengths[b] < L ? lengths[b] : L;
-  const uint8_t* row = qual + size_t(b) * L;
-  // walker state: open in-range run start, pending merged run [ms, me)
-  int run_s = -1, ms = -1, me = -1, count = 0;
-  __syncthreads();
-  for (int base = 0; base < len; base += HCR_TILE) {
-    const int nt = len - base < HCR_TILE ? len - base : HCR_TILE;
-    for (int i = t; i < nt; i += HCR_THREADS) tile[i] = row[base + i];
+// For words x[0, NW) of L columns: before[w], the last zero bit of words
+// [0, w) (-1 if none), and after[w], the first zero bit of words (w, NW)
+// (L if none), so a run of set bits that crosses word w's low end starts
+// at before[w] + 1 and one that crosses its high end ends at after[w].
+// Both block-wide scans in one pass over tiles of HCR_THREADS words: an
+// inclusive warp scan with __shfl_up_sync, the warp totals scanned by warp
+// 0 in shared memory, a carry between tiles. The backward scan takes the
+// words in reverse order. Ends with a barrier.
+__device__ void run_edges(const uint32_t* x, int NW, int L, int* before,
+                          int* after, int* tot_f, int* tot_b) {
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  int carry_f = -1, carry_b = L;
+  for (int tb = 0; tb < NW; tb += HCR_THREADS) {
+    const int wf = tb + t, wb = NW - 1 - tb - t;
+    int f = -1, b = L;
+    if (wf < NW) {
+      const uint32_t z = ~x[wf];
+      if (z) f = 32 * wf + 31 - __clz(int(z));
+    }
+    if (wb >= 0) {
+      const uint32_t z = ~x[wb];
+      if (z) b = 32 * wb + __ffs(int(z)) - 1;
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const int yf = __shfl_up_sync(FULL, f, o);
+      const int yb = __shfl_up_sync(FULL, b, o);
+      if (lane >= o) {
+        f = max(f, yf);
+        b = min(b, yb);
+      }
+    }
+    if (lane == 31) {
+      tot_f[wid] = f;
+      tot_b[wid] = b;
+    }
     __syncthreads();
-    if (t == 0) {
-      for (int i = 0; i < nt; ++i) {
-        const int col = base + i;
-        const int q = tile[i];
-        const bool inq = q >= p.pmin && q <= p.pmax;
-        const bool qual_run = !inq && run_s >= 0 && (col - run_s) >= p.min_len;
-        const bool extend = qual_run && ms >= 0 && (run_s - me) < p.unmask_len;
-        if (qual_run && ms >= 0 && !extend) emit_run(bits, ms, me, len, p, count);
-        if (qual_run) {
-          ms = extend ? ms : run_s;
-          me = col;
+    if (wid == 0) {
+      int sf = lane < HCR_WARPS ? tot_f[lane] : -1;
+      int sb = lane < HCR_WARPS ? tot_b[lane] : L;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int yf = __shfl_up_sync(FULL, sf, o);
+        const int yb = __shfl_up_sync(FULL, sb, o);
+        if (lane >= o) {
+          sf = max(sf, yf);
+          sb = min(sb, yb);
         }
-        run_s = inq ? (run_s < 0 ? col : run_s) : -1;
+      }
+      if (lane < HCR_WARPS) {
+        tot_f[lane] = sf;
+        tot_b[lane] = sb;
       }
     }
     __syncthreads();
-  }
-  if (t == 0) {
-    // a run reaching the read end closes at len
-    const bool qual_run = run_s >= 0 && (len - run_s) >= p.min_len;
-    const bool extend = qual_run && ms >= 0 && (run_s - me) < p.unmask_len;
-    if (qual_run && ms >= 0 && !extend) emit_run(bits, ms, me, len, p, count);
-    if (qual_run) {
-      ms = extend ? ms : run_s;
-      me = len;
+    // exclusive: the earlier warps' total and the previous lane's value
+    int pf = __shfl_up_sync(FULL, f, 1), pb = __shfl_up_sync(FULL, b, 1);
+    if (lane == 0) {
+      pf = -1;
+      pb = L;
     }
-    if (ms >= 0) emit_run(bits, ms, me, len, p, count);
-    counts[b] = count;
+    if (wid > 0) {
+      pf = max(pf, tot_f[wid - 1]);
+      pb = min(pb, tot_b[wid - 1]);
+    }
+    if (wf < NW) before[wf] = max(carry_f, pf);
+    if (wb >= 0) after[wb] = min(carry_b, pb);
+    carry_f = max(carry_f, tot_f[HCR_WARPS - 1]);
+    carry_b = min(carry_b, tot_b[HCR_WARPS - 1]);
+    __syncthreads();
   }
+}
+
+// One level: for every run of set bits [rs, re) of x (columns), the part
+// [a, z) of it in word w, from a = the word's first column of the run and
+// z = one past its last, narrowed by pick(rs, re, a, z) (a >= z drops
+// it); out[w] = those bits | (also ? also[w] : 0). Returns the thread's
+// popcount of what it wrote.
+template <typename Pick>
+__device__ int runs_level(const uint32_t* x, uint32_t* out,
+                          const uint32_t* also, const int* before,
+                          const int* after, int NW, Pick pick) {
+  int count = 0;
+  for (int w = threadIdx.x; w < NW; w += HCR_THREADS) {
+    uint32_t rest = x[w], y = 0u;
+    while (rest) {
+      const int s = __ffs(int(rest)) - 1;
+      const uint32_t u = ~(rest >> s);
+      const int e = u ? s + __ffs(int(u)) - 1 : 32;
+      const int rs = s == 0 ? before[w] + 1 : 32 * w + s;
+      const int re = e == 32 ? after[w] : 32 * w + e;
+      int a = 32 * w + s, z = 32 * w + e;
+      pick(rs, re, a, z);
+      y |= bit_range(a - 32 * w, z - 32 * w);
+      rest &= ~bit_range(s, e);
+    }
+    if (also) y |= also[w];
+    out[w] = y;
+    count += __popc(y);
+  }
+  return count;
+}
+
+__global__ void __launch_bounds__(HCR_THREADS)
+hcr_scan_kernel(const uint8_t* __restrict__ qual,
+                const int32_t* __restrict__ lengths, int L, HcrParams p,
+                uint8_t* __restrict__ mask, int32_t* __restrict__ counts) {
+  extern __shared__ uint32_t words[];          // 4 arrays of NW words
+  __shared__ int tot_f[HCR_WARPS], tot_b[HCR_WARPS], total;
+  const int NW = (L + 31) >> 5;
+  uint32_t* xa = words;
+  uint32_t* xb = words + NW;
+  int* before = reinterpret_cast<int*>(words + 2 * NW);
+  int* after = reinterpret_cast<int*>(words + 3 * NW);
+  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31;
+  const int len = lengths[b];                  // as given: compared to run ends
+  const int lenc = len < 0 ? 0 : (len < L ? len : L);
+  const uint8_t* row = qual + size_t(b) * L;
+  if (t == 0) total = 0;
+  // in-range bits: one ballot per warp over 32 columns
+  for (int tb = 0; tb < L; tb += HCR_THREADS) {
+    const int col = tb + t;
+    const int q = col < lenc ? row[col] : -1;
+    const uint32_t bits = __ballot_sync(FULL, q >= p.pmin && q <= p.pmax &&
+                                                  col < lenc);
+    if (lane == 0 && col < L) xa[col >> 5] = bits;
+  }
+  __syncthreads();
+  // (1) in-range runs of >= min_len are kept: xb
+  run_edges(xa, NW, L, before, after, tot_f, tot_b);
+  runs_level(xa, xb, nullptr, before, after, NW,
+             [&](int rs, int re, int& a, int& z) {
+               if (re - rs < p.min_len) z = a;
+             });
+  __syncthreads();
+  // (2) gaps (valid columns not kept) shorter than unmask_len between two
+  // kept runs are filled; merged = kept | filled: xa
+  for (int w = t; w < NW; w += HCR_THREADS)
+    xa[w] = ~xb[w] & bit_range(0, min(32, max(0, lenc - 32 * w)));
+  __syncthreads();
+  run_edges(xa, NW, L, before, after, tot_f, tot_b);
+  runs_level(xa, xa, xb, before, after, NW,
+             [&](int rs, int re, int& a, int& z) {
+               if (!(re - rs < p.unmask_len && rs > 0 && re < lenc)) z = a;
+             });
+  __syncthreads();
+  // (3) merged runs trimmed at their ends: xb, counted
+  run_edges(xa, NW, L, before, after, tot_f, tot_b);
+  int count = runs_level(xa, xb, nullptr, before, after, NW,
+                         [&](int rs, int re, int& a, int& z) {
+                           a = max(a, rs + (rs == 0 ? p.end_red : p.red));
+                           z = min(z, re - (re == len ? p.end_red : p.red));
+                         });
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_xor_sync(FULL, count, o);
+  if (lane == 0 && count) atomicAdd(&total, count);
   __syncthreads();
   uint8_t* mrow = mask + size_t(b) * L;
   for (int i = t; i < L; i += HCR_THREADS)
-    mrow[i] = uint8_t((bits[i >> 5] >> (i & 31)) & 1u);
+    mrow[i] = uint8_t((xb[i >> 5] >> (i & 31)) & 1u);
+  if (t == 0) counts[b] = total;
 }
 
 }  // namespace
@@ -186,11 +288,10 @@ PT_EXPORT int pt_hcr_mask_rows(const void* qual, const void* lengths, int B,
                                int unmask_len, int red, int end_red,
                                void* mask, void* counts, void* stream) {
   HcrParams p{pmin, pmax, min_len, unmask_len, red, end_red};
-  const size_t smem = size_t((L + 31) / 32) * 4;
-  // the static qual tile takes HCR_TILE bytes beside the dynamic bit row
-  cudaError_t e = pt_reserve_smem(hcr_kernel, smem + HCR_TILE);
+  const size_t smem = size_t((L + 31) / 32) * 16;   // 4 words a column word
+  cudaError_t e = pt_reserve_smem(hcr_scan_kernel, smem);
   if (e != cudaSuccess) return int(e);
-  hcr_kernel<<<B, HCR_THREADS, smem, cudaStream_t(stream)>>>(
+  hcr_scan_kernel<<<B, HCR_THREADS, smem, cudaStream_t(stream)>>>(
       static_cast<const uint8_t*>(qual), static_cast<const int32_t*>(lengths),
       L, p, static_cast<uint8_t*>(mask), static_cast<int32_t*>(counts));
   return int(cudaGetLastError());

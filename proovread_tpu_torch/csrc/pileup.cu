@@ -4,18 +4,22 @@
 // Replaces the Pallas kernels of proovread_tpu/ops/pileup_kernel.py:
 //
 // - pileup_accumulate_bits (_accum_bits_kernel, row resident, and
-//   _accum_bits_win_kernel, windowed): one block per candidate; a 64 x 4
-//   thread block covers the 64 vote lanes of 4 window columns at a time,
-//   and every set bit adds 1.0f with atomicAdd.
+//   _accum_bits_win_kernel, windowed): one thread per window column
+//   (pileup_bits_col_kernel). It loads the column's two plane words (8
+//   bytes, coalesced across the warp), skips a column with no votes at
+//   once, and walks the set bits with __ffs: at most 9 a column (state,
+//   marker, length, six inserted bases), each one atomicAdd(+1.0f). The
+//   same launch checks every candidate's read_of and w0 into one flag word
+//   (the wrapper's only host sync); a candidate that fails writes nothing.
+//   Bound by bytes: the planes are read once, and each touched cell is one
+//   read-modify-write in L2.
 // - pileup_accumulate_packed (_accum_packed_kernel): one block per
 //   candidate, one thread per window column; the thread decodes the packed
 //   vote word (state, marker, insertion length, six inserted bases) and
 //   adds 1.0f to each of its at most 9 lanes with atomicAdd.
 //
-//   Both add +1 to integer counts far below 2^24, so any order of the
-//   atomics gives the same bits. Bound by bytes: 4-8 bytes read per window
-//   column and one read-modify-write per vote into a buffer that is mostly
-//   resident in the 50 MB L2 for the candidates of one read.
+//   These add +1 to integer counts far below 2^24, so any order of the
+//   adds gives the same bits.
 //
 // - pileup_accumulate (_accum_kernel): dense f32 vote slabs, phred-weighted,
 //   so the order of the adds is the result. The reference folds every cell
@@ -44,20 +48,35 @@
 
 namespace {
 
-__global__ void pileup_bits_kernel(float* __restrict__ pile, int Lpile,
-                                   const int32_t* __restrict__ bits0,
-                                   const int32_t* __restrict__ bits1,
-                                   const int32_t* __restrict__ read_of,
-                                   const int32_t* __restrict__ w0, int n) {
-  const int c = blockIdx.x;
-  const int lane = threadIdx.x;                // vote lane 0..63
-  const size_t base = (size_t(read_of[c]) * Lpile + w0[c]) * 64;
-  const int32_t* plane = (lane < 32 ? bits0 : bits1) + size_t(c) * n;
-  const int bit = lane & 31;
-  for (int col = threadIdx.y; col < n; col += blockDim.y) {
-    const uint32_t word = uint32_t(plane[col]);
-    if ((word >> bit) & 1u) atomicAdd(pile + base + size_t(col) * 64 + lane, 1.0f);
+// 1 read_of outside [0, B), 2 w0 outside [0, Lpile - n]
+__device__ __forceinline__ int meta_flags(int read, int b, int B, int Lpile,
+                                          int n) {
+  return (read < 0 || read >= B ? 1 : 0) | (b < 0 || b > Lpile - n ? 2 : 0);
+}
+
+constexpr int BITS_THREADS = 256;
+
+__global__ void __launch_bounds__(BITS_THREADS)
+pileup_bits_col_kernel(float* __restrict__ pile, int B, int Lpile,
+                       const int32_t* __restrict__ bits0,
+                       const int32_t* __restrict__ bits1,
+                       const int32_t* __restrict__ read_of,
+                       const int32_t* __restrict__ w0, int R, int n,
+                       int32_t* __restrict__ bad) {
+  const size_t i = size_t(blockIdx.x) * BITS_THREADS + threadIdx.x;
+  if (i < size_t(R)) {                         // candidate i's metadata
+    const int flags = meta_flags(read_of[i], w0[i], B, Lpile, n);
+    if (flags) atomicOr(bad, flags);
   }
+  if (i >= size_t(R) * n) return;
+  uint32_t v0 = uint32_t(bits0[i]), v1 = uint32_t(bits1[i]);
+  if ((v0 | v1) == 0u) return;
+  const int c = int(i / size_t(n));
+  const int read = read_of[c], b = w0[c];
+  if (meta_flags(read, b, B, Lpile, n)) return;
+  float* cell = pile + (size_t(read) * Lpile + b + int(i - size_t(c) * n)) * 64;
+  for (; v0; v0 &= v0 - 1u) atomicAdd(cell + __ffs(int(v0)) - 1, 1.0f);
+  for (; v1; v1 &= v1 - 1u) atomicAdd(cell + 31 + __ffs(int(v1)), 1.0f);
 }
 
 __global__ void pileup_packed_kernel(float* __restrict__ pile, int Lpile,
@@ -119,8 +138,7 @@ __global__ void pileup_keys_kernel(int32_t* __restrict__ keys,
   const int c = e / K;
   const int read = read_of[c], b = w0[c];
   if (e % K == 0) {
-    const int flags = (read < 0 || read >= B ? 1 : 0) |
-                      (b < 0 || b > Lpile - n ? 2 : 0) |
+    const int flags = meta_flags(read, b, B, Lpile, n) |
                       (c > 0 && read_of[c - 1] > read ? 4 : 0);
     if (flags) atomicOr(bad, flags);
   }
@@ -200,14 +218,18 @@ pileup_ordered_kernel(float* __restrict__ pile, int Lpile, int n_tiles,
 PT_EXPORT int pt_pileup_accumulate_bits(void* pile, int B, int Lpile,
                                         const void* bits0, const void* bits1,
                                         const void* read_of, const void* w0,
-                                        int R, int n, void* stream) {
-  (void)B;
-  dim3 block(64, 4);
-  pileup_bits_kernel<<<R, block, 0, cudaStream_t(stream)>>>(
-      static_cast<float*>(pile), Lpile, static_cast<const int32_t*>(bits0),
+                                        int R, int n, void* bad,
+                                        void* stream) {
+  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int32_t),
+                                    cudaStream_t(stream));
+  const size_t threads = size_t(R) * (n > 1 ? n : 1);
+  if (err != cudaSuccess || threads == 0) return int(err);
+  const unsigned grid = unsigned((threads + BITS_THREADS - 1) / BITS_THREADS);
+  pileup_bits_col_kernel<<<grid, BITS_THREADS, 0, cudaStream_t(stream)>>>(
+      static_cast<float*>(pile), B, Lpile, static_cast<const int32_t*>(bits0),
       static_cast<const int32_t*>(bits1),
       static_cast<const int32_t*>(read_of), static_cast<const int32_t*>(w0),
-      n);
+      R, n, static_cast<int32_t*>(bad));
   return int(cudaGetLastError());
 }
 

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "pt_bsw_expand_v1": [_P, _P, _I, _P, _I, _I,
                          _F, _F, _F, _F, _F, _F, _F, _F,
                          _P, _P, _P, _P, _P, _P, _P, _P],
-    "pt_pileup_accumulate_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "pt_pileup_accumulate_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                                  _P],
     "pt_pileup_accumulate_packed": [_P, _I, _P, _P, _P, _I, _I, _P],
     "pt_pileup_work_keys": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pt_pileup_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -56,7 +56,12 @@ def pileup_accumulate_bits(pileup, bits0, bits1, read_of, w0):
 
     pileup: f32 [B, Lp + 2n, 64]; bits0/bits1: i32 [R, n] vote lanes 0-31 /
     32-63; read_of: i32 [R] target read; w0: i32 [R] window offset in the
-    padded buffer, in [0, Lp + n]. Rows of dead candidates must be zero."""
+    padded buffer, in [0, Lp + n]. Rows of dead candidates must be zero.
+
+    Raises ValueError where ``read_of`` or ``w0`` is out of range. On the
+    card that check runs in the kernel's own launch, so the buffer then
+    already holds the votes of the valid candidates and must be thrown
+    away."""
     _check(pileup, bits0, bits1, read_of, w0)
     if pileup.device.type == "cpu":
         return pileup_accumulate_bits_plain(pileup, bits0, bits1, read_of, w0)
@@ -68,20 +73,32 @@ def pileup_accumulate_bits(pileup, bits0, bits1, read_of, w0):
 pileup_accumulate_bits.launches = 0
 
 
+def _raise_flags(what: str, flags: int, B: int, Lpile: int, n: int):
+    """Raise for a kernel's metadata flag word (0: nothing to raise)."""
+    kernels.require(flags == 0, f"{what}: " + ", ".join(
+        msg for bit, msg in ((1, f"read_of outside [0, {B - 1}]"),
+                             (2, f"w0 outside [0, {Lpile - n}]"),
+                             (4, "read_of must be sorted ascending"))
+        if flags & bit))
+
+
 def _pileup_cuda(pileup, bits0, bits1, read_of, w0):
+    """One thread per window column; the launch also checks ``read_of``
+    and ``w0`` into a flag word, read once after it (the only host sync).
+    A candidate that fails the check writes nothing; the wrapper raises."""
     B, Lpile, R, n = _check(pileup, bits0, bits1, read_of, w0)
-    kernels.require_in_range("pileup_accumulate_bits",
-                             (read_of, 0, B - 1, "read_of"),
-                             (w0, 0, Lpile - n, "w0"))
+    if R == 0:
+        return pileup
     bits0, bits1, read_of, w0 = (t.contiguous()
                                  for t in (bits0, bits1, read_of, w0))
-    if R > 0:
-        rc = kernels.lib().pt_pileup_accumulate_bits(
-            pileup.data_ptr(), B, Lpile, bits0.data_ptr(), bits1.data_ptr(),
-            read_of.data_ptr(), w0.data_ptr(), R, n,
-            kernels.stream_of(pileup))
-        kernels.check(rc, "pileup_accumulate_bits")
-        pileup_accumulate_bits.launches += 1
+    bad = torch.empty(1, dtype=torch.int32, device=pileup.device)
+    rc = kernels.lib().pt_pileup_accumulate_bits(
+        pileup.data_ptr(), B, Lpile, bits0.data_ptr(), bits1.data_ptr(),
+        read_of.data_ptr(), w0.data_ptr(), R, n, bad.data_ptr(),
+        kernels.stream_of(pileup))
+    kernels.check(rc, "pileup_accumulate_bits")
+    pileup_accumulate_bits.launches += 1
+    _raise_flags("pileup_accumulate_bits", int(bad.item()), B, Lpile, n)
     return pileup
 
 
@@ -238,12 +255,7 @@ def _dense_cuda(pileup, votes, read_of, w0):
     kernels.check(lib.pt_pileup_work_keys(
         keys.data_ptr(), bad.data_ptr(), read_of.data_ptr(), w0.data_ptr(),
         R, K, n, n_tiles, B, Lpile, stream), "pileup_accumulate")
-    flags = int(bad.item())
-    kernels.require(flags == 0, "pileup_accumulate: " + ", ".join(
-        msg for bit, msg in ((1, f"read_of outside [0, {B - 1}]"),
-                             (2, f"w0 outside [0, {Lpile - n}]"),
-                             (4, "read_of must be sorted ascending"))
-        if flags & bit))
+    _raise_flags("pileup_accumulate", int(bad.item()), B, Lpile, n)
     keys, order = torch.sort(keys, stable=True)
     rc = lib.pt_pileup_accumulate(
         pileup.data_ptr(), Lpile, n_tiles, votes.data_ptr(), w0.data_ptr(),

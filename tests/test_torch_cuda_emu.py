@@ -5,10 +5,12 @@ There is no CPU mode for a CUDA kernel, so the sources under
 ``proovread_tpu_torch/csrc/`` are compiled here by g++ against a small
 emulation of the CUDA runtime subset they use: one ``std::thread`` per CUDA
 thread, blocks one after another (2-D grids row by row), ``std::barrier``
-for ``__syncthreads`` and ``__syncthreads_count``, per-warp barriers for
-``__syncwarp`` and the ``__shfl_up_sync`` / ``__shfl_down_sync`` /
-``__shfl_sync`` exchanges (any 32- or 64-bit type), and
-``std::atomic_ref`` for ``atomicAdd`` and ``atomicOr``. The launch syntax
+for ``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or``,
+per-warp barriers for ``__syncwarp``, ``__ballot_sync`` and the
+``__shfl_up_sync`` / ``__shfl_down_sync`` / ``__shfl_xor_sync`` /
+``__shfl_sync`` exchanges (any 32- or 64-bit type), GCC builtins for
+``__popc``, ``__ffs`` and ``__clz``, and ``std::atomic_ref`` for
+``atomicAdd`` (float, int, unsigned) and ``atomicOr``. The launch syntax
 and the ``__shared__`` qualifiers are rewritten mechanically before
 compiling.
 Each check runs in a subprocess with a timeout. Tolerance: bitwise (integer
@@ -76,6 +78,7 @@ inline int __syncthreads_count(int pred) {
   g_bar->arrive_and_wait();
   return r;
 }
+inline int __syncthreads_or(int pred) { return __syncthreads_count(pred) > 0; }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   g_wbar[pt_tid() >> 5]->arrive_and_wait();
 }
@@ -103,8 +106,33 @@ T __shfl_down_sync(unsigned, T v, int o) {
 }
 template <typename T>
 T __shfl_sync(unsigned, T v, int src) { return pt_shfl(v, src & 31); }
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+  return pt_shfl(v, (pt_tid() & 31) ^ (m & 31));
+}
+// every lane publishes its predicate; each reads the whole warp's
+inline unsigned __ballot_sync(unsigned, int pred) {
+  int t = pt_tid(), w0 = t & ~31;
+  g_xchg[t] = pred != 0;
+  __syncwarp();
+  unsigned r = 0;
+  int nt = int(blockDim.x * blockDim.y);
+  for (int l = 0; l < 32 && w0 + l < nt; ++l)
+    if (g_xchg[w0 + l]) r |= 1u << l;
+  __syncwarp();
+  return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) { return x ? __builtin_clz(unsigned(x)) : 32; }
 inline float atomicAdd(float* p, float v) {
   return std::atomic_ref<float>(*p).fetch_add(v);
+}
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
 }
 inline int atomicOr(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_or(v);
@@ -207,6 +235,48 @@ elif which == "pileup":
     base = torch.zeros((B, Lpile, 64))
     same([pk._pileup_cuda(base.clone(), b0, b1, ro, w0)],
          [pk.pileup_accumulate_bits_plain(base.clone(), b0, b1, ro, w0)])
+elif which == "pileup_clustered":
+    # the main path's shape: sorted candidates of 3 reads (one of them a
+    # single candidate) whose 16-aligned windows overlap, planes from real
+    # vote words, a share of dead (all-zero) rows, counts already in the
+    # buffer; then the metadata checks
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    from proovread_tpu_torch.ops.votes import word_to_bits
+    B, Lpile, n = 4, 700, 176
+    ro = np.repeat([0, 2, 3], [40, 1, 23]).astype(np.int32)
+    R = len(ro)
+    w0 = (rng.integers(0, (Lpile - n) // 16 + 1, R) * 16).astype(np.int32)
+    w0[:20] = rng.integers(8, 12, 20) * 16      # 20 windows on one spot
+    st = rng.integers(1, 7, (R, n))
+    ln = np.where(rng.random((R, n)) < 0.2, rng.integers(1, 7, (R, n)), 0)
+    words = st | (rng.integers(0, 2, (R, n)) << 3) | (ln << 4)
+    for k in range(6):
+        words |= np.where(k < ln, rng.integers(0, 5, (R, n)), 5) << (7 + 3 * k)
+    words[rng.random((R, n)) < 0.3] = 0
+    words[rng.random(R) < 0.15] = 0
+    b0, b1 = word_to_bits(t(words.astype(np.int32)))
+    assert (b0 < 0).any() and (b1 != 0).any()
+    base = t(rng.integers(0, 5, (B, Lpile, 64)).astype(np.float32))
+    want = pk.pileup_accumulate_bits_plain(base.clone(), b0, b1, t(ro), t(w0))
+    assert int((want - base).max()) >= 8         # many votes on one cell
+    same([pk._pileup_cuda(base.clone(), b0, b1, t(ro), t(w0))], [want])
+    # the kernel writes nothing for a bad candidate (the others land) and
+    # the wrapper raises
+    ok = np.ones(R, bool)
+    ok[[3, 30, 50]] = False
+    for bad_ro, bad_w0, msg in ((np.where(ok, ro, 4), w0, "read_of outside"),
+                                (ro, np.where(ok, w0, Lpile - n + 16),
+                                 "w0 outside"),
+                                (np.where(ok, ro, -1), np.where(ok, w0, -16),
+                                 "read_of outside [0, 3], w0 outside")):
+        buf = base.clone()
+        try:
+            pk._pileup_cuda(buf, b0, b1, t(bad_ro), t(bad_w0))
+            raise AssertionError("no error for " + msg)
+        except ValueError as e:
+            assert msg in str(e), e
+        assert torch.equal(buf, pk.pileup_accumulate_bits_plain(
+            base.clone(), b0[t(ok)], b1[t(ok)], t(ro[ok]), t(w0[ok])))
 elif which == "pileup_packed":
     from proovread_tpu_torch.ops import pileup_kernel as pk
     B, Lpile, R, n = 3, 900, 48, 176
@@ -280,6 +350,40 @@ elif which == "hcr":
         got, want = ak.hcr_mask_cuda(qual, lens, pvi), ak.hcr_mask_plain(qual, lens, pvi)
         same(got, want)
         assert int(want[1].sum()) > 0
+elif which == "hcr_long":
+    # a read past one block's HCR_THREADS words (two scan tiles with a
+    # carry), runs from 1 to thousands of columns that cross 32-column
+    # words, warps and the tile edge, a partial last word, lengths 0, 1, L
+    # and past L, and a reduction larger than many runs
+    from proovread_tpu_torch.ops import assemble_kernel as ak
+    from proovread_tpu_torch.pipeline.masking import MaskParams
+    B, L = 6, 20001
+    qual = np.zeros((B, L), np.uint8)
+    for b in range(B):
+        pos, hi = 0, bool(b & 1)
+        while pos < L:
+            k = int(rng.choice([rng.integers(1, 40), rng.integers(40, 400),
+                                rng.integers(400, 5000)]))
+            qual[b, pos:pos + k] = (rng.integers(25, 41) if hi
+                                    else rng.integers(0, 10))
+            pos, hi = pos + k, not hi
+    # a run that starts 14 columns before column 16384, the edge between
+    # the forward scan's two tiles, and one that ends 12 columns after
+    # column 3648, the backward scan's edge: only the carry between the
+    # tiles places their reduced ends
+    qual[2, 16300:17500] = [3] * 70 + [35] * 1130
+    qual[3, 2500:3700] = [35] * 1160 + [3] * 40
+    lens = t(np.array([0, 1, L, L + 7, 16400, 12345], np.int32))
+    for mp in (MaskParams().scaled(100),
+               MaskParams(mask_min_len=10, unmask_min_len=20, mask_reduce=40,
+                          end_ratio=0.5),
+               MaskParams(mask_min_len=1, unmask_min_len=1000, mask_reduce=0,
+                          end_ratio=0.0)):
+        pvi = ak._int_params(ak.mask_params_vec(mp))
+        got = ak.hcr_mask_cuda(t(qual), lens, pvi)
+        want = ak.hcr_mask_plain(t(qual), lens, pvi)
+        same(got, want)
+        assert int(want[1].sum()) > 0 and int(want[1][0]) == 0
 print("EMU-OK", which)
 """
 
@@ -323,9 +427,10 @@ def emu_lib(tmp_path_factory):
 
 
 @pytest.mark.parametrize("which", ["bsw96", "bsw64", "pileup",
+                                   "pileup_clustered",
                                    "pileup_packed", "pileup_dense",
                                    "pileup_dense_clustered",
-                                   "assemble", "hcr"])
+                                   "assemble", "hcr", "hcr_long"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

@@ -212,3 +212,64 @@ def test_ordered_pileup_on_clustered_candidates(cuda):
     assert torch.equal(got, pk.pileup_accumulate_plain(base.clone(), votes,
                                                        ro, w0))
     assert torch.equal(got, pk.pileup_accumulate(base.clone(), votes, ro, w0))
+
+
+def test_bits_pileup_on_clustered_candidates(cuda):
+    """The main path's shape: sorted candidates of 3 reads, 16-aligned
+    windows that overlap (many votes on one cell), planes from real vote
+    words with dead rows, counts already in the buffer. The kernel equals
+    the plain version on the card and the wrapper on CPU copies."""
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    from proovread_tpu_torch.ops.votes import word_to_bits
+    rng = np.random.default_rng(8)
+    B, Lp, R, n = 5, 3072, 2048, 208
+    Lpile = Lp + 2 * n
+    st = rng.integers(1, 7, (R, n))
+    ln = np.where(rng.random((R, n)) < 0.2, rng.integers(1, 7, (R, n)), 0)
+    words = st | (rng.integers(0, 2, (R, n)) << 3) | (ln << 4)
+    for k in range(6):
+        words |= np.where(k < ln, rng.integers(0, 5, (R, n)), 5) << (7 + 3 * k)
+    words[rng.random((R, n)) < 0.3] = 0
+    words[rng.random(R) < 0.1] = 0
+    b0, b1 = word_to_bits(torch.as_tensor(words.astype(np.int32)))
+    ro = np.sort(rng.choice([0, 2, 3], R)).astype(np.int32)
+    w0 = (rng.integers(0, (Lp + n) // 16 + 1, R) * 16).astype(np.int32)
+    base = torch.as_tensor(rng.integers(0, 9, (B, Lpile, 64))
+                           .astype(np.float32))
+    args = [torch.as_tensor(a) for a in (ro, w0)]
+    want_cpu = pk.pileup_accumulate_bits(base.clone(), b0, b1, *args)
+    c = [x.to(cuda) for x in (base, b0, b1, *args)]
+    launches = pk.pileup_accumulate_bits.launches
+    got = pk.pileup_accumulate_bits(c[0].clone(), *c[1:])
+    assert pk.pileup_accumulate_bits.launches == launches + 1
+    want = pk.pileup_accumulate_bits_plain(c[0].clone(), *c[1:])
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), want_cpu)
+    assert float((want_cpu - base).max()) >= 16    # many votes on one cell
+
+
+def test_hcr_kernel_at_the_longest_bucket(cuda):
+    """HCR at B=32, L=49152 (the main path's longest bucket): equal to the
+    plain version on the card and to the wrapper on CPU copies (mask and
+    masked fraction)."""
+    from proovread_tpu_torch.ops import assemble_kernel as ak
+    from proovread_tpu_torch.pipeline.masking import MaskParams
+    rng = np.random.default_rng(9)
+    B, L = 32, 49152
+    seg = np.repeat(rng.integers(0, 2, (B, L // 97 + 1)), 97, axis=1)[:, :L]
+    qual = np.where(seg > 0, rng.integers(25, 41, (B, L)),
+                    rng.integers(0, 10, (B, L))).astype(np.uint8)
+    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lengths[:3] = [0, 1, L]
+    q, ln = torch.as_tensor(qual), torch.as_tensor(lengths)
+    pv = ak.mask_params_vec(MaskParams().scaled(100))
+    pvi = ak._int_params(pv)
+    launches = ak.hcr_mask_rows.launches
+    mask, frac = ak.hcr_mask_rows(q.to(cuda), ln.to(cuda), pv)
+    assert ak.hcr_mask_rows.launches == launches + 1
+    want = ak.hcr_mask_plain(q.to(cuda), ln.to(cuda), pvi)
+    mask_cpu, frac_cpu = ak.hcr_mask_rows(q, ln, pv)
+    assert torch.equal(mask, want[0])
+    assert torch.equal(mask.cpu(), mask_cpu) and torch.equal(frac.cpu(),
+                                                             frac_cpu)
+    assert 0.0 < float(frac_cpu) < 1.0
