@@ -9,17 +9,23 @@ any failure exits non-zero:
 2. every kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (bsw v2 and v1 at W=96 and W=64,
    R=8192, m=112; the three pileups at B=256, Lp=24576, R=8192, n=208;
-   assemble at B=256, L=24576; HCR there and at the longest bucket, B=32,
-   L=49152): every output bitwise equal, bsw v1 also equal to v2 on the
-   same candidates. The bit-plane pileup runs on random windows and on the
-   main path's clustered shape (the same planes as sorted candidates of 12
-   reads, 16-aligned windows); the ordered pileup is equal again on a second run, on random
-   windows and on clustered ones (the same slabs as sorted candidates of 8
-   reads at Lp=12288, about 1000 a read, the shape of the qual-weighted
-   pass's chunks). Launcher, plain and library times (median of CUDA-event
-   timings after a warm-up), the kernel's own device time and the device
-   operations of one launcher call (torch.profiler), and each kernel's
-   bound from its bytes and operations;
+   assemble at B=256, L=24576 and at the longest bucket, B=40, L=49152;
+   HCR at B=256, L=24576 and at B=32, L=49152): every output bitwise
+   equal, bsw v1 also equal to v2 on the same candidates. The bit-plane
+   pileup runs on random windows and on the main path's clustered shape
+   (the same planes as sorted candidates of 12 reads, 16-aligned windows);
+   the packed-word pileup on random windows, on the high-coverage path's
+   clustered shape (the same words as sorted candidates of 2 reads,
+   16-aligned windows in the first ~2,000 columns of each, about 140 state
+   votes a covered column) and on one window (lanes past 256 votes); the ordered pileup is
+   equal again on a second run, on random windows and on clustered ones
+   (the same slabs as sorted candidates of 8 reads at Lp=12288, about 1000
+   a read, the shape of the qual-weighted pass's chunks). Assemble's
+   fields are partly out of the ranges the packing clamps. Launcher, plain
+   and library times (median of CUDA-event timings after a warm-up), the
+   kernels' own device time and the device operations of one launcher
+   call (torch.profiler), and each kernel's bound from its bytes and
+   operations;
 3. on bench config 4's workload (10 kb genome, 40 kb of long reads, 30x
    short reads), on the card and on the CPU, all identical: ``Pipeline.run``
    (4 iterations; records, qual, chimeras and task reports), the same at
@@ -47,9 +53,10 @@ phase 5 also if the bit-plane pileup was.
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
 on CPU copies where the wrapper does work of its own around the kernel
-(assemble's column packing, HCR's parameter rounding and masked fraction).
+(assemble's field rules, HCR's parameter rounding and masked fraction).
 Its times are those of the kernel's launcher alone (``ms``, the number
-the kernels line reports) and, from the profiler, of the kernel itself.
+the kernels line reports; for assemble the whole public call) and, from
+the profiler, of the kernel itself.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -110,35 +118,53 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def launcher_times(fn, name: str, reps: int = 5) -> dict:
+def launcher_times(fn, names, reps: int = 5) -> dict:
     """Times of one call of a kernel's launcher ``fn``: ``ms``, its median
     CUDA-event time (host syncs and launch gaps included); ``kernel_ms``,
-    the device time of one launch of the kernel whose name holds ``name``;
-    ``device_ms``, all device work of one call (the kernel plus what its
-    launcher runs around it: index checks, work lists, copies), and
-    ``device_ops``, the kernels, memsets and copies of one call. The last
-    three from torch.profiler over ``reps`` calls after a warm-up."""
+    the device time of the kernels of one call whose names hold one of
+    ``names``; ``device_ms``, all device work of one call (the
+    kernels plus what the launcher runs around them: index checks, work
+    lists, packing, copies), and ``device_ops``, the kernels, memsets and
+    copies of one call. The last three from torch.profiler over ``reps``
+    calls after a warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ms = time_ms(fn)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    # the profiler now and then returns no record of a kernel that ran
+    # (seen once in some twenty phase-2 runs on an H100): profile again
+    # before failing
+    for _ in range(3):
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    attr = ("self_device_time_total" if evs and hasattr(
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        mine = [e for e in evs if any(nm in e.key for nm in names)]
+        if sum(e.count for e in mine) > 0:
+            break
+    else:
+        raise AssertionError(f"the profiler saw no launch of {names}")
+    attr = ("self_device_time_total" if hasattr(
         evs[0], "self_device_time_total") else "self_cuda_time_total")
-    mine = [e for e in evs if name in e.key]
-    count = sum(e.count for e in mine)
-    if count == 0:
-        raise AssertionError(f"the profiler saw no {name} launch")
     return dict(ms=ms,
-                kernel_ms=sum(getattr(e, attr) for e in mine) / count / 1e3,
+                kernel_ms=sum(getattr(e, attr) for e in mine) / reps / 1e3,
                 device_ms=sum(getattr(e, attr) for e in evs) / reps / 1e3,
                 device_ops=sum(e.count for e in evs) / reps)
+
+
+# each kernel's names as the profiler shows them
+KERNEL_NAMES = {
+    "bsw": ("bsw_kernel",),
+    "bits": ("BitPlanes",),
+    "packed": ("PackedWords",),
+    "ordered": ("pileup_ordered_kernel",),
+    "assemble": ("assemble_count_kernel", "assemble_tiles_kernel"),
+    "hcr": ("hcr_scan_kernel",),
+}
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -245,7 +271,8 @@ def check_bsw(rng, dev, ap, label):
     if n_valid < R // 2 or n_ins == 0:
         raise AssertionError(f"bsw {label}: weak inputs ({n_valid} valid, "
                              f"{n_ins} insertion columns)")
-    tm = launcher_times(lambda: bsw._bsw_cuda(*args, ap), "bsw_kernel")
+    tm = launcher_times(lambda: bsw._bsw_cuda(*args, ap),
+                        KERNEL_NAMES["bsw"])
     plain_ms = time_ms(lambda: bsw.bsw_expand_v2_plain(*args, ap), reps=5,
                        warmup=1)
     S = args[0].shape[0]
@@ -312,7 +339,7 @@ def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
         del got, want
         buf = base
         tm = launcher_times(lambda: pk._pileup_cuda(buf, b0, b1, read_of, w0),
-                           "pileup_bits_col_kernel")
+                            KERNEL_NAMES["bits"])
         plain_ms = time_ms(lambda: pk.pileup_accumulate_bits_plain(
             buf, b0, b1, read_of, w0), reps=5, warmup=1)
         votes = pk.decode_bits(b0, b1).reshape(-1, 64)
@@ -357,7 +384,7 @@ def check_bsw_v1(dev, ap, label, args, v2):
     assert_equal(f"bsw_expand == bsw_expand_v2 {label}",
                  list(zip(ints(gated), ints(v2))))
     tm = launcher_times(lambda: bsw._bsw_v1_cuda(q1, win1, qlen, ap),
-                       "bsw_kernel")
+                        KERNEL_NAMES["bsw"])
     plain_ms = time_ms(lambda: bsw.bsw_expand_plain(q1, win1, qlen, ap),
                        reps=5, warmup=1)
     n_bytes = R * m + R * n + 4 * R + 5 * R * n * 4 + R * 4 + 5 * R * 4
@@ -369,7 +396,16 @@ def check_bsw_v1(dev, ap, label, args, v2):
         shape=f"R={R} m={m} W={W} n={n}"), got, (q1, ign)
 
 
-def check_pileup_packed(rng, dev, bsw_res, bsw_args):
+def check_pileup_packed(rng, dev, bsw_res, bsw_args, B=256, Lp=24576):
+    """The packed-word pileup on phase 2's words placed three ways: random
+    windows over all 256 reads (the kernel's row); the high-coverage path's
+    clustered shape (``clustered``: the 8192 candidates sorted over 2
+    reads, 16-aligned windows in the first columns of each, as few as give
+    about 140 state votes a covered column, the coverage phase 5's columns
+    reach); every
+    candidate on one window of one read (``one_window``: lanes far past 256
+    votes, where a bf16 buffer would round). Each bitwise equal to the
+    plain version, with its own times, bound and ``index_add_`` time."""
     import torch
     from proovread_tpu_torch.ops import pileup_kernel as pk
     from proovread_tpu_torch.ops.votes import encode_votes_packed_bases
@@ -377,50 +413,68 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args):
         bsw_res.state, bsw_res.qrow, bsw_res.ins_len, bsw_res.ins_b0,
         bsw_res.ins_b1, bsw_res.q_start, bsw_res.q_end, taboo_abs=7)
     R, n = words.shape
-    B, Lp = 256, 24576
     Lpile = Lp + 2 * n
-    read_of = bsw_args[6]
-    w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
-                         device=dev)
-    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
-    got = pk.pileup_accumulate_packed(base.clone(), words, read_of, w0)
-    want = pk.pileup_accumulate_packed_plain(base.clone(), words, read_of,
-                                             w0)
-    torch.cuda.synchronize()
-    assert_equal("pileup_accumulate_packed", [(got, want)])
-    err = max_abs_err([(got, want)])
-    (b_ms, b_by), cells = touched_bound(4.0 * R * n + 8 * R, want, base)
-    # every candidate into one window of one read: lanes far past 256 votes
-    # (where a bf16 buffer would round), still exact
-    one = torch.zeros_like(read_of)
-    w_one = torch.full_like(w0, 1000)
-    got1 = pk.pileup_accumulate_packed(base.clone(), words, one, w_one)
-    want1 = pk.pileup_accumulate_packed_plain(base.clone(), words, one, w_one)
-    torch.cuda.synchronize()
-    assert_equal("pileup_accumulate_packed (one window)", [(got1, want1)])
-    err = max(err, max_abs_err([(got1, want1)]))
-    peak = float(want1.max())
-    if peak <= 256:
-        raise AssertionError(f"pileup packed: peak lane count {peak} <= 256")
-    del got1, want1
-    n_votes = int(want.sum())
-    if n_votes == 0:
-        raise AssertionError("pileup packed: no votes in the check inputs")
-    del got, want
-    buf = base
-    tm = launcher_times(lambda: pk._packed_cuda(buf, words, read_of, w0),
-                       "pileup_packed_kernel")
-    plain_ms = time_ms(lambda: pk.pileup_accumulate_packed_plain(
-        buf, words, read_of, w0), reps=5, warmup=1)
-    votes = pk.decode_words(words).reshape(-1, 64)
-    rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
-    flat = buf.view(-1, 64)
-    lib_ms = time_ms(lambda: flat.index_add_(0, rows, votes), reps=5,
-                     warmup=1)
-    return dict(max_abs_err=err, **tm, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                shape=f"B={B} Lp={Lp} R={R} n={n}", votes=n_votes,
-                touched_cells=cells, one_window_peak_lane=peak)
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    # the clustered span: the words' state votes over 2 reads at 140 a
+    # column, plus the window columns where no word votes
+    state = pk.decode_words(words)[:, :, :8].sum(-1)
+    offs = torch.nonzero(state.sum(0)).flatten()
+    reach = int(offs[-1] - offs[0]) + 1
+    span = max(n, 16 * round((float(state.sum()) / (2 * 140) + n - reach)
+                             / 16))
+    del state
+    reads = rng.choice(B, 2, replace=False)
+    inputs = {
+        "random": (bsw_args[6], t(rng.integers(0, Lp + n, R).astype(np.int32))),
+        "clustered": (t(np.sort(rng.choice(reads, R)).astype(np.int32)),
+                      t((rng.integers(0, (span - n) // 16 + 1, R) * 16)
+                        .astype(np.int32))),
+        "one_window": (t(np.zeros(R, np.int32)),
+                       t(np.full(R, 1000, np.int32)))}
+    out = {}
+    for label, (read_of, w0) in inputs.items():
+        base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
+        want = pk.pileup_accumulate_packed_plain(base.clone(), words, read_of,
+                                                 w0)
+        got = pk.pileup_accumulate_packed(base.clone(), words, read_of, w0)
+        torch.cuda.synchronize()
+        assert_equal(f"pileup_accumulate_packed ({label})", [(got, want)])
+        err = max_abs_err([(got, want)])
+        (b_ms, b_by), cells = touched_bound(4.0 * R * n + 8 * R, want, base)
+        n_votes = int(want.sum())
+        if n_votes == 0:
+            raise AssertionError("pileup packed: no votes in the check inputs")
+        peak = float(want.max())
+        if label == "one_window" and peak <= 256:
+            raise AssertionError(f"pileup packed: peak lane count {peak} "
+                                 "<= 256")
+        state_votes = want[:, :, :8].sum(-1)
+        col_votes = float(state_votes.sum() / (state_votes > 0).sum())
+        if label == "clustered" and col_votes < 100:
+            raise AssertionError(f"pileup packed: {col_votes} state votes a "
+                                 "covered column on the clustered input")
+        del got, want, state_votes
+        buf = base
+        tm = launcher_times(lambda: pk._packed_cuda(buf, words, read_of, w0),
+                            KERNEL_NAMES["packed"])
+        plain_ms = time_ms(lambda: pk.pileup_accumulate_packed_plain(
+            buf, words, read_of, w0), reps=5, warmup=1)
+        votes = pk.decode_words(words).reshape(-1, 64)
+        rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
+        flat = buf.view(-1, 64)
+        lib_ms = time_ms(lambda: flat.index_add_(0, rows, votes), reps=5,
+                         warmup=1)
+        out[label] = dict(max_abs_err=err, **tm, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          votes=n_votes, touched_cells=cells,
+                          state_votes_per_column=col_votes, peak_lane=peak,
+                          shape=f"B={B} Lp={Lp} R={R} n={n}")
+        del buf, flat, votes, base
+        torch.cuda.empty_cache()
+    random = out.pop("random")
+    random["max_abs_err"] = max(r["max_abs_err"]
+                                for r in (random, *out.values()))
+    return dict(**random, **out)
 
 
 def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
@@ -454,7 +508,7 @@ def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
     del got, want
     buf = base
     tm = launcher_times(lambda: pk._dense_cuda(buf, votes, read_of, w0),
-                       "pileup_ordered_kernel")
+                        KERNEL_NAMES["ordered"])
     plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
         buf, votes, read_of, w0), reps=5, warmup=1)
     rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
@@ -505,7 +559,7 @@ def check_pileup_dense_clustered(rng, dev, votes, B=8, Lp=12288):
     del got, want
     buf = base
     tm = launcher_times(lambda: pk._dense_cuda(buf, votes, read_of, w0),
-                       "pileup_ordered_kernel")
+                        KERNEL_NAMES["ordered"])
     plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
         buf, votes, read_of, w0), reps=3, warmup=1)
     rows = pk._rows(read_of, w0, Lpile, n).reshape(-1)
@@ -522,44 +576,87 @@ def check_pileup_dense_clustered(rng, dev, votes, B=8, Lp=12288):
 
 
 def random_call(rng, dev, B, L, K=6):
+    """ConsensusCall fields as the consensus call makes them, with some
+    outside the ranges the packing clamps (insertion length 7-9, phred
+    64-70, base -1 and 9, inserted base 7), so the clamps are checked."""
     import torch
     from proovread_tpu_torch.ops.consensus_call import ConsensusCall
     t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+
+    def wild(a, vals, frac):
+        sel = rng.random(a.shape) < frac
+        a[sel] = rng.choice(vals, int(sel.sum()))
+        return a
+
     return ConsensusCall(
         emitted=t(rng.random((B, L)) > 0.15),
-        base=t(rng.integers(0, 5, (B, L)).astype(np.int8)),
-        ins_len=t(np.where(rng.random((B, L)) < 0.08,
-                           rng.integers(1, K + 1, (B, L)), 0).astype(np.int32)),
-        ins_bases=t(rng.integers(0, 5, (B, L, K)).astype(np.int8)),
+        base=t(wild(rng.integers(0, 5, (B, L)), [-1, 9], 0.01)
+               .astype(np.int8)),
+        ins_len=t(wild(np.where(rng.random((B, L)) < 0.08,
+                                rng.integers(1, K + 1, (B, L)), 0),
+                       [7, 8, 9], 0.002).astype(np.int32)),
+        ins_bases=t(wild(rng.integers(0, 5, (B, L, K)), [7], 0.01)
+                    .astype(np.int8)),
         freq=t(rng.random((B, L)).astype(np.float32)),
-        phred=t(rng.integers(0, 41, (B, L)).astype(np.int32)),
+        phred=t(wild(rng.integers(0, 41, (B, L)), [64, 67, 70], 0.01)
+                .astype(np.int32)),
         coverage=t(rng.random((B, L)).astype(np.float32)))
 
 
-def check_assemble(rng, dev, B=256, L=24576):
+def check_assemble(rng, dev):
+    """Assembly at the main path's shape (the kernel's row) and at its
+    longest bucket (``longest_bucket``), each with its own numbers."""
+    return dict(**check_assemble_at(rng, dev, 256, 24576),
+                longest_bucket=check_assemble_at(rng, dev, 40, 49152))
+
+
+def check_assemble_at(rng, dev, B, L):
+    """The public ``assemble_rows(call, lengths, Lp)`` at Lp = L on fields
+    partly out of range: equal to the plain version on the card (the
+    reference's column words, then cumsum and scatter) and to the wrapper
+    on CPU copies. Its time is that of the whole public call (``ms``),
+    beside the device time of its assembly kernels alone (``kernel_ms``),
+    all its device work (``device_ms``: the packing too, where the call
+    packs) and its device operations."""
     import torch
     from proovread_tpu_torch.ops import assemble_kernel as ak
     call = random_call(rng, dev, B, L)
     lengths = torch.as_tensor(rng.integers(L // 2, L + 1, B).astype(np.int32),
                               device=dev)
     lengths[:2] = torch.tensor([0, L], dtype=torch.int32)
-    word = ak.pack_columns(call, lengths)
     Lp = L
+
+    def plain():
+        return ak.assemble_words_plain(ak.pack_columns(call, lengths),
+                                       lengths, Lp)
+
     got = ak.assemble_rows(call, lengths, Lp)
-    want = ak.assemble_words_plain(word, lengths, Lp)
+    want = plain()
     want_cpu = ak.assemble_rows(type(call)(*(t.cpu() for t in call)),
                                 lengths.cpu(), Lp)
     torch.cuda.synchronize()
-    assert_equal("assemble_rows", list(zip(got, want)))
-    assert_equal("assemble_rows (card vs CPU)",
+    assert_equal(f"assemble_rows B={B}", list(zip(got, want)))
+    assert_equal(f"assemble_rows B={B} (card vs CPU)",
                  [(a.cpu(), b) for a, b in zip(got, want_cpu)])
     if int((want[2] == Lp).sum()) == 0:
         raise AssertionError("assemble: no row was truncated at Lp")
-    tm = launcher_times(lambda: ak.assemble_words_cuda(word, lengths, Lp),
-                       "assemble_kernel")
-    plain_ms = time_ms(lambda: ak.assemble_words_plain(word, lengths, Lp),
-                       reps=5, warmup=1)
-    b_ms, b_by = bound(4.0 * B * L + 4 * B + 2.0 * B * Lp + 4 * B, 0.0)
+    if int(want[1].max()) != 63 or int(want[0].max()) != 7:
+        raise AssertionError("assemble: no clamped phred or base in the "
+                             "check inputs")
+    tm = launcher_times(lambda: ak.assemble_rows(call, lengths, Lp),
+                        KERNEL_NAMES["assemble"])
+    plain_ms = time_ms(plain, reps=5, warmup=1)
+    # what the public call must move on these inputs: the lengths; the
+    # emitted flag of each column below its read's length; base, ins_len
+    # and phred of each emitting column; the inserted bases it uses; out,
+    # 2 bytes a column over Lp and the new lengths
+    valid = (torch.arange(L, device=dev)
+             < lengths.clamp(0, L)[:, None].long())
+    emit = valid & call.emitted
+    n_ins = int(call.ins_len.clamp(0, 6)[emit].sum())
+    n_bytes = (4 * B + int(valid.sum()) + 9.0 * int(emit.sum()) + n_ins
+               + 2.0 * B * Lp + 4 * B)
+    b_ms, b_by = bound(n_bytes, 0.0)
     return dict(max_abs_err=max_abs_err(list(zip(got, want))), **tm,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, shape=f"B={B} L={L} Lp={Lp}")
@@ -605,7 +702,7 @@ def check_hcr_at(rng, dev, B, L):
             raise AssertionError("hcr: nothing masked in the check inputs")
         errs.append(max_abs_err([(a.float(), b.float()) for a, b in pairs]))
     tm = launcher_times(lambda: ak.hcr_mask_cuda(q, ln, pvi),
-                        "hcr_scan_kernel")
+                        KERNEL_NAMES["hcr"])
     plain_ms = time_ms(lambda: ak.hcr_mask_plain(q, ln, pvi), reps=5,
                        warmup=1)
     b_ms, b_by = bound(2.0 * B * L + 8 * B, 0.0)
@@ -791,7 +888,10 @@ def result_key(res):
 
 
 # the port's CUDA kernels (csrc/*.cu), by the names the profiler shows
-PORT_KERNEL = re.compile(r"\b((?:bsw|pileup|assemble|hcr)_\w*kernel)\b")
+# (a template kernel with its argument: pileup_col_kernel<PackedWords>)
+PORT_KERNEL = re.compile(
+    r"\b((?:bsw|pileup|assemble|hcr)_\w*kernel)\b"
+    r"(?:<(?:\(anonymous namespace\)::)?(\w+)>)?")
 
 
 def profile_phase(phase, fn, wall_unprofiled) -> None:
@@ -801,7 +901,6 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
     share of the wall the device was busy, and the span on the device
     timeline of each stage range (seed / align / vote / consensus,
     ``pipeline/dcorrect.py``)."""
-    import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     stages = ("seed", "align", "vote", "consensus")
@@ -831,7 +930,8 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
     for e in kernels:
         m = PORT_KERNEL.search(e.key)
         if m:
-            tot = port.setdefault(m.group(1), [0.0, 0])
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            tot = port.setdefault(name, [0.0, 0])
             tot[0] += getattr(e, dev_attr)
             tot[1] += e.count
     for name, (us, count) in sorted(port.items()):
@@ -868,6 +968,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    import proovread_tpu_torch
     from proovread_tpu_torch import kernels
     from proovread_tpu_torch.align import bsw
     from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
@@ -880,6 +981,7 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
+    log(f"package {os.path.dirname(proovread_tpu_torch.__file__)}")
     t0 = time.monotonic()
     kernels.lib()
     log(f"kernels built and loaded in {time.monotonic() - t0:.1f} s "

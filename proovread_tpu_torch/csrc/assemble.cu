@@ -1,13 +1,25 @@
-// Consensus assembly and HCR masking, one block per read.
+// Consensus assembly and HCR masking.
 //
 // assemble_rows replaces the Pallas kernel proovread_tpu/ops/
 // assemble_kernel.py:assemble_rows (_assemble_kernel), a scalar cursor walk
-// over each read's packed column words. Here a block takes the read in
-// tiles of blockDim columns: a block-wide exclusive prefix sum of the
-// per-column emit counts (emitted ? 1 + ins_len : 0) gives each column its
-// cursor, and the column writes its base and inserted bases there when the
-// cursor is below Lp. What bounds it: bytes (4 bytes in and 2 bytes out per
-// column); the scan costs two barriers per tile.
+// over each read's column words, which XLA packs from the ConsensusCall
+// fields first. Here the kernels read the fields themselves (emitted,
+// base, ins_len, phred, ins_bases, lengths) and apply the packing's rules:
+// a column emits where col < length and emitted; base, insertion length,
+// phred and inserted bases clamped to 0-7, 0-6, 0-63 and 0-7. A column
+// emits 1 + ins_len bytes, so the cursor is a prefix sum, found in two
+// passes over a grid of (tile of ASM_TILE columns, read), neither of
+// which waits on another block: assemble_count_kernel writes each tile's
+// emit count; assemble_tiles_kernel adds up the counts of its read's
+// earlier tiles and of all of them (one block reduction), scans its own
+// tile (four columns a thread), stages the tile's codes and qual bytes in
+// shared memory and stores them coalesced at the read's cursor, truncated
+// at Lp. The tail [total, Lp) is cut into one share per tile, each filled
+// with 4/0 by its tile's block, and the read's last tile writes the new
+// length: every output byte is written once. What bounds it: bytes (in,
+// the flag of each column below the length, 9 more where it emits and its
+// inserted bases; out, 2 a column); a read is spread over L / ASM_TILE
+// blocks.
 //
 // hcr_mask_rows replaces _hcr_kernel: the SeqFilter --phred-mask interval
 // state machine (runs in [pmin, pmax] of >= min_len, merged across gaps
@@ -32,69 +44,149 @@
 namespace {
 
 constexpr int ASM_THREADS = 256;
+constexpr int ASM_WARPS = ASM_THREADS / 32;
+constexpr int ASM_COLS = 4;                           // columns a thread
+constexpr int ASM_TILE = ASM_THREADS * ASM_COLS;      // columns a block
 constexpr int INS_K = 6;
+constexpr int ASM_SPAN = ASM_TILE * (1 + INS_K);      // a tile's most bytes
 
-__global__ void assemble_kernel(const int32_t* __restrict__ word,
-                                const int32_t* __restrict__ lengths, int L,
-                                int Lp, int8_t* __restrict__ codes,
-                                uint8_t* __restrict__ qual,
-                                int32_t* __restrict__ nlen) {
-  __shared__ int warp_sums[ASM_THREADS / 32];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31, wid = t >> 5;
-  const int nwarps = ASM_THREADS / 32;
-  const int32_t* row = word + size_t(b) * L;
-  int8_t* oc = codes + size_t(b) * Lp;
-  uint8_t* oq = qual + size_t(b) * Lp;
-  for (int i = t; i < Lp; i += ASM_THREADS) {
-    oc[i] = 4;
-    oq[i] = 0;
+// the ConsensusCall fields, [B, L] (ins_bases [B, L, INS_K]), contiguous
+struct AsmFields {
+  const uint8_t* emitted;                             // bool
+  const int8_t* base;
+  const int32_t* ins_len;
+  const int32_t* phred;
+  const int8_t* ins_bases;
+  const int32_t* lengths;
+  int L;
+};
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// read b's columns: its length clamped to [0, L]
+__device__ __forceinline__ int row_len(const AsmFields& f, int b) {
+  return clampi(f.lengths[b], 0, f.L);
+}
+
+// bytes column col of read b emits: 1 + its insertion length, 0 where it
+// does not emit
+__device__ __forceinline__ int emit_count(const AsmFields& f, size_t at,
+                                          int col, int len) {
+  if (col >= len || !f.emitted[at]) return 0;
+  return 1 + clampi(f.ins_len[at], 0, INS_K);
+}
+
+// the block-wide sums of a and b, in every thread (ws: 2 * ASM_WARPS ints)
+__device__ __forceinline__ void block_sum2(int& a, int& b, int* ws) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (lane == 0) {
+    ws[wid] = a;
+    ws[ASM_WARPS + wid] = b;
   }
   __syncthreads();
-  const int len = lengths[b] < L ? lengths[b] : L;
-  int carry = 0;
-  for (int base = 0; base < len; base += ASM_THREADS) {
-    const int col = base + t;
-    const int32_t w = col < len ? row[col] : 0;
-    const bool em = (w & 1) != 0;
-    const int nins = (w >> 4) & 7;
-    const int cnt = em ? 1 + nins : 0;
-    int x = cnt;                               // inclusive warp scan
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[wid] = x;
-    __syncthreads();
-    if (wid == 0) {
-      int s = lane < nwarps ? warp_sums[lane] : 0;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, s, o);
-        if (lane >= o) s += y;
-      }
-      if (lane < nwarps) warp_sums[lane] = s;
-    }
-    __syncthreads();
-    const int cur = carry + x + (wid > 0 ? warp_sums[wid - 1] : 0) - cnt;
-    if (em) {
-      const int phred = (w >> 7) & 63;
-      if (cur < Lp) {
-        oc[cur] = int8_t((w >> 1) & 7);
-        oq[cur] = uint8_t(phred);
-      }
-      for (int k = 0; k < INS_K; ++k) {
-        const int p = cur + 1 + k;
-        if (k < nins && p < Lp) {
-          oc[p] = int8_t((w >> (13 + 3 * k)) & 7);
-          oq[p] = uint8_t(phred);
-        }
-      }
-    }
-    carry += warp_sums[nwarps - 1];
-    __syncthreads();
+  a = b = 0;
+  for (int w = 0; w < ASM_WARPS; ++w) {
+    a += ws[w];
+    b += ws[ASM_WARPS + w];
   }
-  if (t == 0) nlen[b] = carry < Lp ? carry : Lp;
+  __syncthreads();
+}
+
+// pass 1: counts[b, tile], the bytes tile emits
+__global__ void __launch_bounds__(ASM_THREADS)
+assemble_count_kernel(AsmFields f, int n_tiles,
+                      int32_t* __restrict__ counts) {
+  __shared__ int ws[2 * ASM_WARPS];
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int len = row_len(f, b);
+  const int c0 = tile * ASM_TILE + threadIdx.x * ASM_COLS;
+  int cnt = 0, none = 0;
+#pragma unroll
+  for (int j = 0; j < ASM_COLS; ++j)
+    cnt += emit_count(f, size_t(b) * f.L + c0 + j, c0 + j, len);
+  block_sum2(cnt, none, ws);
+  if (threadIdx.x == 0) counts[size_t(b) * n_tiles + tile] = cnt;
+}
+
+// pass 2: the tile's bytes at the read's cursor, its share of the tail
+__global__ void __launch_bounds__(ASM_THREADS)
+assemble_tiles_kernel(AsmFields f, int n_tiles,
+                      const int32_t* __restrict__ counts, int Lp, int share,
+                      int8_t* __restrict__ codes, uint8_t* __restrict__ qual,
+                      int32_t* __restrict__ nlen) {
+  __shared__ int ws[2 * ASM_WARPS];
+  __shared__ int8_t s_codes[ASM_SPAN];
+  __shared__ uint8_t s_qual[ASM_SPAN];
+  const int tile = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const int lane = t & 31, wid = t >> 5;
+  // the cursor at this tile (the read's earlier tiles) and the read's total
+  int before = 0, total = 0;
+  for (int i = t; i < n_tiles; i += ASM_THREADS) {
+    const int c = counts[size_t(b) * n_tiles + i];
+    total += c;
+    if (i < tile) before += c;
+  }
+  block_sum2(before, total, ws);
+  // this thread's four columns, then a block-wide exclusive scan of their
+  // sums (a warp scan with __shfl_up_sync, the warp totals in shared memory)
+  const int len = row_len(f, b);
+  const int c0 = tile * ASM_TILE + t * ASM_COLS;
+  const size_t at0 = size_t(b) * f.L + c0;
+  int cnt[ASM_COLS], mine = 0;
+#pragma unroll
+  for (int j = 0; j < ASM_COLS; ++j) {
+    cnt[j] = emit_count(f, at0 + j, c0 + j, len);
+    mine += cnt[j];
+  }
+  int x = mine;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[wid] = x;
+  __syncthreads();
+  int off = x - mine, in_tile = 0;
+  for (int w = 0; w < ASM_WARPS; ++w) {
+    if (w < wid) off += ws[w];
+    in_tile += ws[w];
+  }
+  // stage the tile's bytes: each emitting column its base, then its
+  // inserted bases, all with its phred
+#pragma unroll
+  for (int j = 0; j < ASM_COLS; ++j) {
+    if (cnt[j] == 0) continue;
+    const size_t at = at0 + j;
+    const uint8_t q = uint8_t(clampi(f.phred[at], 0, 63));
+    s_codes[off] = int8_t(clampi(f.base[at], 0, 7));
+    s_qual[off] = q;
+    const int8_t* ins = f.ins_bases + at * INS_K;
+    for (int k = 1; k < cnt[j]; ++k) {
+      s_codes[off + k] = int8_t(clampi(ins[k - 1], 0, 7));
+      s_qual[off + k] = q;
+    }
+    off += cnt[j];
+  }
+  __syncthreads();
+  int8_t* oc = codes + size_t(b) * Lp;
+  uint8_t* oq = qual + size_t(b) * Lp;
+  const int end = min(in_tile, Lp - before);           // truncated at Lp
+  for (int j = t; j < end; j += ASM_THREADS) {
+    oc[before + j] = s_codes[j];
+    oq[before + j] = s_qual[j];
+  }
+  // this tile's share of the tail [total, Lp)
+  const int hi = min(Lp, (tile + 1) * share);
+  for (int p = max(total, tile * share) + t; p < hi; p += ASM_THREADS) {
+    oc[p] = 4;
+    oq[p] = 0;
+  }
+  if (tile == n_tiles - 1 && t == 0) nlen[b] = min(total, Lp);
 }
 
 constexpr int HCR_THREADS = 512;
@@ -273,13 +365,31 @@ hcr_scan_kernel(const uint8_t* __restrict__ qual,
 
 }  // namespace
 
-PT_EXPORT int pt_assemble_rows(const void* word, const void* lengths, int B,
-                               int L, int Lp, void* codes, void* qual,
-                               void* nlen, void* stream) {
-  assemble_kernel<<<B, ASM_THREADS, 0, cudaStream_t(stream)>>>(
-      static_cast<const int32_t*>(word), static_cast<const int32_t*>(lengths),
-      L, Lp, static_cast<int8_t*>(codes), static_cast<uint8_t*>(qual),
-      static_cast<int32_t*>(nlen));
+// counts: int32 scratch [B, n_tiles], n_tiles = max(1, ceil(L / ASM_TILE))
+PT_EXPORT int pt_assemble_rows(const void* emitted, const void* base,
+                               const void* ins_len, const void* phred,
+                               const void* ins_bases, const void* lengths,
+                               int B, int L, int Lp, void* counts,
+                               void* codes, void* qual, void* nlen,
+                               void* stream) {
+  if (B <= 0) return int(cudaSuccess);
+  const AsmFields f{static_cast<const uint8_t*>(emitted),
+                    static_cast<const int8_t*>(base),
+                    static_cast<const int32_t*>(ins_len),
+                    static_cast<const int32_t*>(phred),
+                    static_cast<const int8_t*>(ins_bases),
+                    static_cast<const int32_t*>(lengths), L};
+  const int n_tiles = L > ASM_TILE ? (L + ASM_TILE - 1) / ASM_TILE : 1;
+  const int share = (Lp + n_tiles - 1) / n_tiles;
+  const dim3 grid(n_tiles, B);
+  int32_t* cnt = static_cast<int32_t*>(counts);
+  assemble_count_kernel<<<grid, ASM_THREADS, 0, cudaStream_t(stream)>>>(
+      f, n_tiles, cnt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  assemble_tiles_kernel<<<grid, ASM_THREADS, 0, cudaStream_t(stream)>>>(
+      f, n_tiles, cnt, Lp, share, static_cast<int8_t*>(codes),
+      static_cast<uint8_t*>(qual), static_cast<int32_t*>(nlen));
   return int(cudaGetLastError());
 }
 

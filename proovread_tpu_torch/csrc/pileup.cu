@@ -4,20 +4,19 @@
 // Replaces the Pallas kernels of proovread_tpu/ops/pileup_kernel.py:
 //
 // - pileup_accumulate_bits (_accum_bits_kernel, row resident, and
-//   _accum_bits_win_kernel, windowed): one thread per window column
-//   (pileup_bits_col_kernel). It loads the column's two plane words (8
-//   bytes, coalesced across the warp), skips a column with no votes at
-//   once, and walks the set bits with __ffs: at most 9 a column (state,
-//   marker, length, six inserted bases), each one atomicAdd(+1.0f). The
-//   same launch checks every candidate's read_of and w0 into one flag word
-//   (the wrapper's only host sync); a candidate that fails writes nothing.
-//   Bound by bytes: the planes are read once, and each touched cell is one
-//   read-modify-write in L2.
-// - pileup_accumulate_packed (_accum_packed_kernel): one block per
-//   candidate, one thread per window column; the thread decodes the packed
-//   vote word (state, marker, insertion length, six inserted bases) and
-//   adds 1.0f to each of its at most 9 lanes with atomicAdd.
-//
+//   _accum_bits_win_kernel, windowed) and pileup_accumulate_packed
+//   (_accum_packed_kernel): one kernel body, pileup_col_kernel, templated
+//   on how a window column's votes are read: two plane words (BitPlanes) or
+//   one packed vote word (PackedWords), either way turned into two 32-lane
+//   masks. One thread per (candidate, window column): it loads the
+//   column's words (4 or 8 bytes, coalesced across the warp), leaves a
+//   column with no votes at once (an all-zero packed word, or a dead
+//   candidate's zeroed row, costs one load), and walks the set lanes with
+//   __ffs: at most 9 a column (state, marker, length, six inserted bases),
+//   each one atomicAdd(+1.0f). The same launch checks every candidate's
+//   read_of and w0 into one flag word (the wrapper's only host sync); a
+//   candidate that fails writes nothing. Bound by bytes: the words are
+//   read once, and each touched cell is one read-modify-write in L2.
 //   These add +1 to integer counts far below 2^24, so any order of the
 //   adds gives the same bits.
 //
@@ -54,22 +53,60 @@ __device__ __forceinline__ int meta_flags(int read, int b, int B, int Lpile,
   return (read < 0 || read >= B ? 1 : 0) | (b < 0 || b > Lpile - n ? 2 : 0);
 }
 
-constexpr int BITS_THREADS = 256;
+constexpr int COL_THREADS = 256;
 
-__global__ void __launch_bounds__(BITS_THREADS)
-pileup_bits_col_kernel(float* __restrict__ pile, int B, int Lpile,
-                       const int32_t* __restrict__ bits0,
-                       const int32_t* __restrict__ bits1,
-                       const int32_t* __restrict__ read_of,
-                       const int32_t* __restrict__ w0, int R, int n,
-                       int32_t* __restrict__ bad) {
-  const size_t i = size_t(blockIdx.x) * BITS_THREADS + threadIdx.x;
+// How pileup_col_kernel reads window column i (flat index candidate * n +
+// column): its votes as lane masks v0 (lanes 0-31) and v1 (lanes 32-63).
+struct BitPlanes {
+  const int32_t* bits0;
+  const int32_t* bits1;
+  __device__ __forceinline__ void operator()(size_t i, uint32_t& v0,
+                                             uint32_t& v1) const {
+    v0 = uint32_t(bits0[i]);
+    v1 = uint32_t(bits1[i]);
+  }
+};
+
+// ops/votes.py's packed word: state field st in bits 0-2 (0 none, else
+// state + 1) with a marker bit 3; length field len in bits 4-6 (0 none,
+// else bucket + 1); six 3-bit inserted bases from bit 7 (5 = none). Lanes:
+// st-1, 8+st-1 with the marker, 16+len-1, and 24+5k+b for each inserted
+// base b < 5; the inserted bases vote only with a length (so an all-zero
+// word votes nothing).
+struct PackedWords {
+  const int32_t* words;
+  __device__ __forceinline__ void operator()(size_t i, uint32_t& v0,
+                                             uint32_t& v1) const {
+    const uint32_t w = uint32_t(words[i]);
+    const uint32_t st = w & 7u, len = (w >> 4) & 7u;
+    uint64_t m = 0;
+    if (st) m = (1ull << (st - 1)) | (uint64_t((w >> 3) & 1u) << (st + 7));
+    if (len) {
+      m |= 1ull << (15 + len);
+      for (int k = 0; k < 6; ++k) {
+        const uint32_t b = (w >> (7 + 3 * k)) & 7u;
+        if (b < 5) m |= 1ull << (24 + 5 * k + b);
+      }
+    }
+    v0 = uint32_t(m);
+    v1 = uint32_t(m >> 32);
+  }
+};
+
+template <typename Decode>
+__global__ void __launch_bounds__(COL_THREADS)
+pileup_col_kernel(float* __restrict__ pile, int B, int Lpile, Decode decode,
+                  const int32_t* __restrict__ read_of,
+                  const int32_t* __restrict__ w0, int R, int n,
+                  int32_t* __restrict__ bad) {
+  const size_t i = size_t(blockIdx.x) * COL_THREADS + threadIdx.x;
   if (i < size_t(R)) {                         // candidate i's metadata
     const int flags = meta_flags(read_of[i], w0[i], B, Lpile, n);
     if (flags) atomicOr(bad, flags);
   }
   if (i >= size_t(R) * n) return;
-  uint32_t v0 = uint32_t(bits0[i]), v1 = uint32_t(bits1[i]);
+  uint32_t v0, v1;
+  decode(i, v0, v1);
   if ((v0 | v1) == 0u) return;
   const int c = int(i / size_t(n));
   const int read = read_of[c], b = w0[c];
@@ -79,29 +116,22 @@ pileup_bits_col_kernel(float* __restrict__ pile, int B, int Lpile,
   for (; v1; v1 &= v1 - 1u) atomicAdd(cell + 31 + __ffs(int(v1)), 1.0f);
 }
 
-__global__ void pileup_packed_kernel(float* __restrict__ pile, int Lpile,
-                                     const int32_t* __restrict__ words,
-                                     const int32_t* __restrict__ read_of,
-                                     const int32_t* __restrict__ w0, int n) {
-  const int c = blockIdx.x;
-  float* row = pile + (size_t(read_of[c]) * Lpile + w0[c]) * 64;
-  for (int col = threadIdx.x; col < n; col += blockDim.x) {
-    const uint32_t w = uint32_t(words[size_t(c) * n + col]);
-    float* cell = row + size_t(col) * 64;
-    const int st = w & 7u;                     // 0 none, else state + 1
-    const int len = (w >> 4) & 7u;             // 0 none, else bucket + 1
-    if (st > 0) {
-      atomicAdd(cell + st - 1, 1.0f);
-      if ((w >> 3) & 1u) atomicAdd(cell + 8 + st - 1, 1.0f);
-    }
-    if (len > 0) {                             // also rejects all-zero words
-      atomicAdd(cell + 16 + len - 1, 1.0f);
-      for (int k = 0; k < 6; ++k) {
-        const int b = (w >> (7 + 3 * k)) & 7u;  // 5 = none
-        if (b < 5) atomicAdd(cell + 24 + 5 * k + b, 1.0f);
-      }
-    }
-  }
+// the flag word cleared, then one thread per window column (a thread per
+// candidate where n is 0, for the checks)
+template <typename Decode>
+int launch_cols(Decode decode, void* pile, int B, int Lpile,
+                const void* read_of, const void* w0, int R, int n, void* bad,
+                void* stream) {
+  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int32_t),
+                                    cudaStream_t(stream));
+  const size_t threads = size_t(R) * (n > 1 ? n : 1);
+  if (err != cudaSuccess || threads == 0) return int(err);
+  const unsigned grid = unsigned((threads + COL_THREADS - 1) / COL_THREADS);
+  pileup_col_kernel<Decode><<<grid, COL_THREADS, 0, cudaStream_t(stream)>>>(
+      static_cast<float*>(pile), B, Lpile, decode,
+      static_cast<const int32_t*>(read_of), static_cast<const int32_t*>(w0),
+      R, n, static_cast<int32_t*>(bad));
+  return int(cudaGetLastError());
 }
 
 // columns of a read row that one block of the ordered kernel holds
@@ -220,29 +250,18 @@ PT_EXPORT int pt_pileup_accumulate_bits(void* pile, int B, int Lpile,
                                         const void* read_of, const void* w0,
                                         int R, int n, void* bad,
                                         void* stream) {
-  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int32_t),
-                                    cudaStream_t(stream));
-  const size_t threads = size_t(R) * (n > 1 ? n : 1);
-  if (err != cudaSuccess || threads == 0) return int(err);
-  const unsigned grid = unsigned((threads + BITS_THREADS - 1) / BITS_THREADS);
-  pileup_bits_col_kernel<<<grid, BITS_THREADS, 0, cudaStream_t(stream)>>>(
-      static_cast<float*>(pile), B, Lpile, static_cast<const int32_t*>(bits0),
-      static_cast<const int32_t*>(bits1),
-      static_cast<const int32_t*>(read_of), static_cast<const int32_t*>(w0),
-      R, n, static_cast<int32_t*>(bad));
-  return int(cudaGetLastError());
+  return launch_cols(BitPlanes{static_cast<const int32_t*>(bits0),
+                               static_cast<const int32_t*>(bits1)},
+                     pile, B, Lpile, read_of, w0, R, n, bad, stream);
 }
 
-PT_EXPORT int pt_pileup_accumulate_packed(void* pile, int Lpile,
+PT_EXPORT int pt_pileup_accumulate_packed(void* pile, int B, int Lpile,
                                           const void* words,
                                           const void* read_of,
                                           const void* w0, int R, int n,
-                                          void* stream) {
-  pileup_packed_kernel<<<R, 256, 0, cudaStream_t(stream)>>>(
-      static_cast<float*>(pile), Lpile, static_cast<const int32_t*>(words),
-      static_cast<const int32_t*>(read_of), static_cast<const int32_t*>(w0),
-      n);
-  return int(cudaGetLastError());
+                                          void* bad, void* stream) {
+  return launch_cols(PackedWords{static_cast<const int32_t*>(words)}, pile,
+                     B, Lpile, read_of, w0, R, n, bad, stream);
 }
 
 PT_EXPORT int pt_pileup_work_keys(void* keys, void* bad, const void* read_of,

@@ -43,10 +43,12 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P],
     "pt_pileup_accumulate_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
                                   _P],
-    "pt_pileup_accumulate_packed": [_P, _I, _P, _P, _P, _I, _I, _P],
+    "pt_pileup_accumulate_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P,
+                                    _P],
     "pt_pileup_work_keys": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pt_pileup_accumulate": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "pt_assemble_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "pt_assemble_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                         _P, _P],
     "pt_hcr_mask_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P],
 }

@@ -4,15 +4,18 @@ Port of ``proovread_tpu/ops/assemble_kernel.py``: ``assemble_rows`` (the
 Pallas ``_assemble_kernel``) and ``hcr_mask_rows`` (``_hcr_kernel``).
 
 Assembly streams each read's emitted columns and their inserted bases out to
-a cursor, truncated at Lp. All fields of a column are packed into one i32
-word first (same layout as the reference), so the kernel and its plain
-version read one array:
+a cursor, truncated at Lp. The reference packs all fields of a column into
+one i32 word first; the plain version does the same (``pack_columns``):
 
     bit 0      emitted
     bits 1-3   base code (0-4)
     bits 4-6   emitted insertion length (0-6)
     bits 7-12  phred (0-40)
     bits 13-30 six 3-bit inserted base codes
+
+The CUDA kernels read the ``ConsensusCall`` fields themselves and apply the
+packing's rules (valid columns, clamps) as they go, so the public call on
+the card is two launches with no packing pass.
 
 HCR masking is the SeqFilter ``--phred-mask`` interval machine: runs of phred
 in [pmin, pmax] of at least ``mask_min_len``, merged across gaps shorter than
@@ -21,7 +24,7 @@ in [pmin, pmax] of at least ``mask_min_len``, merged across gaps shorter than
 the mask and the masked fraction that drives the mask shortcut.
 
 Each function runs its plain PyTorch version for CPU tensors and the CUDA
-kernel (``csrc/assemble.cu``) for CUDA tensors.
+kernels (``csrc/assemble.cu``) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -54,13 +57,13 @@ def pack_columns(call, lengths: torch.Tensor) -> torch.Tensor:
 def assemble_rows(call, lengths: torch.Tensor, Lp: int):
     """(new codes i8 [B, Lp], new qual u8 [B, Lp], new lengths i32 [B]);
     output longer than Lp is truncated."""
-    word = pack_columns(call, lengths)
     lengths = lengths.to(torch.int32)
-    if word.device.type == "cpu":
-        return assemble_words_plain(word, lengths, Lp)
-    if word.device.type != "cuda":
-        raise ValueError(f"assemble_rows: device {word.device}")
-    return assemble_words_cuda(word, lengths, Lp)
+    dev = call.base.device
+    if dev.type == "cpu":
+        return assemble_rows_plain(call, lengths, Lp)
+    if dev.type != "cuda":
+        raise ValueError(f"assemble_rows: device {dev}")
+    return assemble_fields_cuda(call, lengths, Lp)
 
 
 assemble_rows.launches = 0
@@ -75,17 +78,50 @@ def _check_words(word, lengths):
     return B, L
 
 
-def assemble_words_cuda(word, lengths, Lp: int):
-    B, L = _check_words(word, lengths)
-    word, lengths = word.contiguous(), lengths.contiguous()
-    dev = word.device
+def assemble_rows_plain(call, lengths: torch.Tensor, Lp: int):
+    """Plain PyTorch version of ``assemble_rows``: the reference's column
+    words, then the cursor walk's cumsum and scatter."""
+    lengths = lengths.to(torch.int32)
+    return assemble_words_plain(pack_columns(call, lengths), lengths, Lp)
+
+
+# columns of a read that one block of the assembly kernels takes
+# (ASM_TILE, csrc/assemble.cu)
+ASM_TILE = 1024
+
+_FIELDS = (("emitted", torch.bool, ()), ("base", torch.int8, ()),
+           ("ins_len", torch.int32, ()), ("phred", torch.int32, ()),
+           ("ins_bases", torch.int8, (INS_K,)))
+
+
+def assemble_fields_cuda(call, lengths, Lp: int):
+    """Two launches over (tile of ASM_TILE columns, read): each tile's emit
+    count, then each tile's bytes at its read's cursor; the fields are read
+    as they are (dtypes of ``ConsensusCall``), no host sync."""
+    B, L = call.base.shape
+    dev = call.base.device
+    fields = []
+    for name, dtype, tail in _FIELDS:
+        f = getattr(call, name)
+        kernels.require(f.dtype == dtype and f.shape == (B, L, *tail)
+                        and f.device == dev,
+                        f"assemble_rows: {name} must be {dtype} "
+                        f"{[B, L, *tail]} on {dev}")
+        fields.append(f.contiguous())
+    kernels.require(lengths.dtype == torch.int32 and lengths.shape == (B,)
+                    and lengths.device == dev,
+                    f"assemble_rows: lengths must be int32 [{B}] on {dev}")
+    lengths = lengths.contiguous()
     codes = torch.empty((B, Lp), dtype=torch.int8, device=dev)
     qual = torch.empty((B, Lp), dtype=torch.uint8, device=dev)
     nlen = torch.empty(B, dtype=torch.int32, device=dev)
     if B > 0:
+        counts = torch.empty((B, max(1, -(-L // ASM_TILE))),
+                             dtype=torch.int32, device=dev)
         rc = kernels.lib().pt_assemble_rows(
-            word.data_ptr(), lengths.data_ptr(), B, L, Lp, codes.data_ptr(),
-            qual.data_ptr(), nlen.data_ptr(), kernels.stream_of(word))
+            *(f.data_ptr() for f in fields), lengths.data_ptr(), B, L, Lp,
+            counts.data_ptr(), codes.data_ptr(), qual.data_ptr(),
+            nlen.data_ptr(), kernels.stream_of(codes))
         kernels.check(rc, "assemble_rows")
         assemble_rows.launches += 1
     return codes, qual, nlen

@@ -82,24 +82,33 @@ def _raise_flags(what: str, flags: int, B: int, Lpile: int, n: int):
         if flags & bit))
 
 
-def _pileup_cuda(pileup, bits0, bits1, read_of, w0):
-    """One thread per window column; the launch also checks ``read_of``
-    and ``w0`` into a flag word, read once after it (the only host sync).
-    A candidate that fails the check writes nothing; the wrapper raises."""
-    B, Lpile, R, n = _check(pileup, bits0, bits1, read_of, w0)
+def _cols_cuda(fn, entry, pileup, cols, read_of, w0, n):
+    """Launch a column kernel of ``csrc/pileup.cu`` (``entry``: the C entry
+    point; ``cols``: its i32 [R, n] vote words) and count it on ``fn``: one
+    thread per window column, the launch also checks ``read_of`` and
+    ``w0`` into a flag word, read once after it (the only host sync). A
+    candidate that fails the check writes nothing; the wrapper raises."""
+    B, Lpile, _ = pileup.shape
+    R = read_of.shape[0]
     if R == 0:
         return pileup
-    bits0, bits1, read_of, w0 = (t.contiguous()
-                                 for t in (bits0, bits1, read_of, w0))
+    cols = [t.contiguous() for t in cols]
+    read_of, w0 = read_of.contiguous(), w0.contiguous()
     bad = torch.empty(1, dtype=torch.int32, device=pileup.device)
-    rc = kernels.lib().pt_pileup_accumulate_bits(
-        pileup.data_ptr(), B, Lpile, bits0.data_ptr(), bits1.data_ptr(),
+    rc = getattr(kernels.lib(), entry)(
+        pileup.data_ptr(), B, Lpile, *(t.data_ptr() for t in cols),
         read_of.data_ptr(), w0.data_ptr(), R, n, bad.data_ptr(),
         kernels.stream_of(pileup))
-    kernels.check(rc, "pileup_accumulate_bits")
-    pileup_accumulate_bits.launches += 1
-    _raise_flags("pileup_accumulate_bits", int(bad.item()), B, Lpile, n)
+    kernels.check(rc, fn.__name__)
+    fn.launches += 1
+    _raise_flags(fn.__name__, int(bad.item()), B, Lpile, n)
     return pileup
+
+
+def _pileup_cuda(pileup, bits0, bits1, read_of, w0):
+    _, _, _, n = _check(pileup, bits0, bits1, read_of, w0)
+    return _cols_cuda(pileup_accumulate_bits, "pt_pileup_accumulate_bits",
+                      pileup, (bits0, bits1), read_of, w0, n)
 
 
 def decode_bits(bits0, bits1) -> torch.Tensor:
@@ -146,7 +155,12 @@ def pileup_accumulate_packed(pileup, words, read_of, w0):
 
     pileup: f32 [B, Lp + 2n, 64]; words: i32 [R, n] (``ops/votes.py``
     word layout; all-zero words vote nothing); read_of: i32 [R] target read;
-    w0: i32 [R] window offset in the padded buffer, in [0, Lp + n]."""
+    w0: i32 [R] window offset in the padded buffer, in [0, Lp + n].
+
+    Raises ValueError where ``read_of`` or ``w0`` is out of range. On the
+    card that check runs in the kernel's own launch, so the buffer then
+    already holds the votes of the valid candidates and must be thrown
+    away."""
     _check_packed(pileup, words, read_of, w0)
     if pileup.device.type == "cpu":
         return pileup_accumulate_packed_plain(pileup, words, read_of, w0)
@@ -159,18 +173,9 @@ pileup_accumulate_packed.launches = 0
 
 
 def _packed_cuda(pileup, words, read_of, w0):
-    B, Lpile, R, n = _check_packed(pileup, words, read_of, w0)
-    kernels.require_in_range("pileup_accumulate_packed",
-                             (read_of, 0, B - 1, "read_of"),
-                             (w0, 0, Lpile - n, "w0"))
-    words, read_of, w0 = (t.contiguous() for t in (words, read_of, w0))
-    if R > 0:
-        rc = kernels.lib().pt_pileup_accumulate_packed(
-            pileup.data_ptr(), Lpile, words.data_ptr(), read_of.data_ptr(),
-            w0.data_ptr(), R, n, kernels.stream_of(pileup))
-        kernels.check(rc, "pileup_accumulate_packed")
-        pileup_accumulate_packed.launches += 1
-    return pileup
+    _, _, _, n = _check_packed(pileup, words, read_of, w0)
+    return _cols_cuda(pileup_accumulate_packed, "pt_pileup_accumulate_packed",
+                      pileup, (words,), read_of, w0, n)
 
 
 def decode_words(words) -> torch.Tensor:

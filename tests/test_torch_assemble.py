@@ -59,6 +59,45 @@ def test_assemble_matches_jax(Lp):
         assert int(got[2][0]) == 0
 
 
+def test_assemble_out_of_range_fields_match_jax_kernel():
+    """Fields outside the ranges the packing clamps (insertion length 7-9
+    and negative, phred 64-70, base -1 and 9, inserted base 7 and
+    negative), a negative length: the port's ``assemble_rows`` equals the
+    JAX kernel bit for bit, truncation at Lp included."""
+    rng = np.random.default_rng(31)
+    B, L, K = 6, 400, 6
+
+    def wild(a, vals, frac):
+        a = a.copy()
+        sel = rng.random(a.shape) < frac
+        a[sel] = rng.choice(vals, int(sel.sum()))
+        return a
+
+    f = dict(
+        emitted=rng.random((B, L)) > 0.15,
+        base=wild(rng.integers(0, 5, (B, L)), [-1, 9], 0.1).astype(np.int8),
+        ins_len=wild(np.where(rng.random((B, L)) < 0.08,
+                              rng.integers(1, K + 1, (B, L)), 0),
+                     [7, 8, 9, -2], 0.03).astype(np.int32),
+        ins_bases=wild(rng.integers(0, 5, (B, L, K)), [7, -3], 0.1)
+        .astype(np.int8),
+        freq=np.zeros((B, L), np.float32),
+        phred=wild(rng.integers(0, 41, (B, L)), [64, 67, 70], 0.1)
+        .astype(np.int32),
+        coverage=np.zeros((B, L), np.float32))
+    jcall = JCall(**{k: jnp.asarray(v) for k, v in f.items()})
+    tcall = ConsensusCall(**{k: torch.as_tensor(v) for k, v in f.items()})
+    lengths = np.array([0, L, L - 1, 250, 1, -4], np.int32)
+    for Lp in (L + 40, L):
+        ker = j_assemble(jcall, jnp.asarray(lengths), Lp, interpret=True)
+        got = tak.assemble_rows(tcall, torch.as_tensor(lengths), Lp)
+        for a, c, name in zip(ker, got, ("codes", "qual", "len")):
+            np.testing.assert_array_equal(c.numpy(), np.asarray(a),
+                                          err_msg=f"{Lp} {name}")
+    assert int(got[2][1]) == L and int(got[2][0]) == 0
+    assert int(got[1].max()) == 63 and int(got[0].max()) == 7
+
+
 def _qual_rows(rng, B, L):
     qual = np.zeros((B, L), np.uint8)
     lengths = rng.integers(50, L + 1, B).astype(np.int32)

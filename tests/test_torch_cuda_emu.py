@@ -287,6 +287,50 @@ elif which == "pileup_packed":
     base = torch.zeros((B, Lpile, 64))
     same([pk._packed_cuda(base.clone(), t(words), ro, w0)],
          [pk.pileup_accumulate_packed_plain(base.clone(), t(words), ro, w0)])
+elif which == "pileup_packed_clustered":
+    # the high-coverage path's shape: sorted candidates of 3 reads (one of
+    # them a single candidate) whose 16-aligned windows overlap, real vote
+    # words (marker bits, insertions, unset inserted bases) and raw random
+    # words, a share of dead (all-zero) rows, counts already in the
+    # buffer; then the metadata checks
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    B, Lpile, n = 4, 700, 176
+    ro = np.repeat([0, 2, 3], [40, 1, 23]).astype(np.int32)
+    R = len(ro)
+    w0 = (rng.integers(0, (Lpile - n) // 16 + 1, R) * 16).astype(np.int32)
+    w0[:20] = 160                               # 20 windows on one spot
+    st = np.where(rng.random((R, n)) < 0.8, 1, rng.integers(1, 7, (R, n)))
+    ln = np.where(rng.random((R, n)) < 0.2, rng.integers(1, 7, (R, n)), 0)
+    words = st | (rng.integers(0, 2, (R, n)) << 3) | (ln << 4)
+    for k in range(6):
+        words |= np.where(k < ln, rng.integers(0, 5, (R, n)), 5) << (7 + 3 * k)
+    words[50:54] = rng.integers(0, 2**31, (4, n))
+    words[rng.random((R, n)) < 0.3] = 0
+    words[rng.random(R) < 0.15] = 0
+    words = t(words.astype(np.int32))
+    base = t(rng.integers(0, 5, (B, Lpile, 64)).astype(np.float32))
+    want = pk.pileup_accumulate_packed_plain(base.clone(), words, t(ro),
+                                             t(w0))
+    assert int((want - base).max()) >= 8         # many votes on one cell
+    same([pk._packed_cuda(base.clone(), words, t(ro), t(w0))], [want])
+    # the kernel writes nothing for a bad candidate (the others land) and
+    # the wrapper raises with the flag word's message
+    ok = np.ones(R, bool)
+    ok[[3, 30, 50]] = False
+    for bad_ro, bad_w0, msg in ((np.where(ok, ro, 4), w0,
+                                 "read_of outside [0, 3]"),
+                                (ro, np.where(ok, w0, Lpile - n + 16),
+                                 f"w0 outside [0, {Lpile - n}]"),
+                                (np.where(ok, ro, -1), np.where(ok, w0, -16),
+                                 "read_of outside [0, 3], w0 outside")):
+        buf = base.clone()
+        try:
+            pk._packed_cuda(buf, words, t(bad_ro), t(bad_w0))
+            raise AssertionError("no error for " + msg)
+        except ValueError as e:
+            assert str(e).startswith("pileup_accumulate_packed: " + msg), e
+        assert torch.equal(buf, pk.pileup_accumulate_packed_plain(
+            base.clone(), words[t(ok)], t(ro[ok]), t(w0[ok])))
 elif which == "pileup_dense":
     from proovread_tpu_torch.ops import pileup_kernel as pk
     B, Lpile, R, n = 4, 400, 40, 176
@@ -327,14 +371,49 @@ elif which == "pileup_dense_clustered":
         except ValueError as e:
             assert msg in str(e), e
         assert torch.equal(buf, base)
-elif which == "assemble":
+elif which.startswith("assemble"):
+    # fields as ConsensusCall holds them, some outside the ranges the
+    # packing clamps (insertion length 7-9 and negative, phred 64-70 and
+    # negative, base -1 and 9, inserted base 7 and negative); "assemble":
+    # lengths on the tile edges (ASM_TILE = 1024 columns, L not a multiple
+    # of it), Lp above, at and below L; "assemble_long": many tiles a read,
+    # a length past L, truncation in an early tile
     from proovread_tpu_torch.ops import assemble_kernel as ak
-    B, L = 5, 700
-    word = t(rng.integers(0, 2**31, (B, L)).astype(np.int32))
-    lens = t(np.array([0, L, 350, 699, 1], np.int32))
-    for Lp in (720, 600):
-        same(ak.assemble_words_cuda(word, lens, Lp),
-             ak.assemble_words_plain(word, lens, Lp))
+    from proovread_tpu_torch.ops.consensus_call import ConsensusCall
+    T = ak.ASM_TILE
+    if which == "assemble":
+        B, L = 7, 2500
+        lens = np.array([0, T - 1, T, T + 1, L, 2 * T + 5, 1], np.int32)
+        lps = (L + 300, L, 2000)
+    else:
+        B, L = 3, 20000
+        lens = np.array([L, L + 7, 15000], np.int32)
+        lps = (L + 500, 3000)
+    def wild(a, lo, hi, frac=0.05):
+        a = a.copy()
+        sel = rng.random(a.shape) < frac
+        a[sel] = rng.integers(lo, hi + 1, int(sel.sum()))
+        return a
+    call = ConsensusCall(
+        emitted=t(rng.random((B, L)) > 0.15),
+        base=t(wild(wild(rng.integers(0, 5, (B, L)), -1, -1), 9, 9)
+               .astype(np.int8)),
+        ins_len=t(wild(np.where(rng.random((B, L)) < 0.08,
+                                rng.integers(1, 7, (B, L)), 0), 7, 9, 0.01)
+                  .astype(np.int32)),
+        ins_bases=t(wild(wild(rng.integers(0, 5, (B, L, 6)), 7, 7), -3, -1,
+                         0.01).astype(np.int8)),
+        freq=t(np.zeros((B, L), np.float32)),
+        phred=t(wild(wild(rng.integers(0, 41, (B, L)), 64, 70), -5, -1, 0.01)
+                .astype(np.int32)),
+        coverage=t(np.zeros((B, L), np.float32)))
+    for Lp in lps:
+        got = ak.assemble_fields_cuda(call, t(lens), Lp)
+        want = ak.assemble_rows_plain(call, t(lens), Lp)
+        same(got, want)
+        assert bool((want[2][t(lens <= 0)] == 0).all())
+    assert int(want[2].max()) == lps[-1]         # truncated at Lp
+    assert int(want[1].max()) == 63 and int(want[0].max()) == 7
 elif which == "hcr":
     from proovread_tpu_torch.ops import assemble_kernel as ak
     from proovread_tpu_torch.pipeline.masking import MaskParams
@@ -391,12 +470,14 @@ print("EMU-OK", which)
 def _emulation_source(src: str) -> str:
     """Kernel source -> C++ the emulation compiles: dynamic shared arrays
     become the emulated shared buffer, static ones become function
-    statics (one block runs at a time), launches become pt_launch calls."""
+    statics (one block runs at a time), launches (of a kernel or of a
+    template kernel's instance, ``k<T><<<...>>>``) become pt_launch
+    calls."""
     src = re.sub(r"extern __shared__ (?:__align__\(16\) )?([\w ]+?) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
     src = src.replace("__shared__", "static")
     return re.sub(
-        r"(\w+)<<<([^>]*)>>>\((.*?)\);",
+        r"(\w+(?:<\w+>)?)<<<([^>]*)>>>\((.*?)\);",
         lambda m: ("pt_launch(" + ",".join(m.group(2).split(",")[:3])
                    + ", [&]{ " + m.group(1) + "(" + m.group(3) + "); });"),
         src, flags=re.S)
@@ -428,9 +509,10 @@ def emu_lib(tmp_path_factory):
 
 @pytest.mark.parametrize("which", ["bsw96", "bsw64", "pileup",
                                    "pileup_clustered",
-                                   "pileup_packed", "pileup_dense",
-                                   "pileup_dense_clustered",
-                                   "assemble", "hcr", "hcr_long"])
+                                   "pileup_packed", "pileup_packed_clustered",
+                                   "pileup_dense", "pileup_dense_clustered",
+                                   "assemble", "assemble_long", "hcr",
+                                   "hcr_long"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

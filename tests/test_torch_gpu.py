@@ -87,16 +87,56 @@ def test_pileup_kernel_matches_plain(cuda):
         base.clone(), b0, b1, ro, w0))
 
 
+def _wild_call(rng, B, L, device):
+    """ConsensusCall fields with some outside the ranges the packing
+    clamps: insertion length 7-9, phred 64-70, base -1 and 9, inserted
+    base 7."""
+    from proovread_tpu_torch.ops.consensus_call import ConsensusCall
+
+    def wild(a, vals, frac):
+        a = a.copy()
+        sel = rng.random(a.shape) < frac
+        a[sel] = rng.choice(vals, int(sel.sum()))
+        return a
+
+    f = dict(
+        emitted=rng.random((B, L)) > 0.15,
+        base=wild(rng.integers(0, 5, (B, L)), [-1, 9], 0.05).astype(np.int8),
+        ins_len=wild(np.where(rng.random((B, L)) < 0.08,
+                              rng.integers(1, 7, (B, L)), 0),
+                     [7, 8, 9], 0.01).astype(np.int32),
+        ins_bases=wild(rng.integers(0, 5, (B, L, 6)), [7], 0.05)
+        .astype(np.int8),
+        freq=np.zeros((B, L), np.float32),
+        phred=wild(rng.integers(0, 41, (B, L)), [64, 67, 70], 0.05)
+        .astype(np.int32),
+        coverage=np.zeros((B, L), np.float32))
+    return ConsensusCall(**{k: torch.as_tensor(v, device=device)
+                            for k, v in f.items()})
+
+
+def _assemble_card_plain_cpu(cuda, call, lengths, Lp):
+    """assemble_rows on the card: one launch, equal to the plain version on
+    the card and to the wrapper on CPU copies."""
+    from proovread_tpu_torch.ops import assemble_kernel as ak
+    launches = ak.assemble_rows.launches
+    got = ak.assemble_rows(call, lengths, Lp)
+    assert ak.assemble_rows.launches == launches + 1
+    assert _equal(got, ak.assemble_rows_plain(call, lengths, Lp))
+    want_cpu = ak.assemble_rows(type(call)(*(f.cpu() for f in call)),
+                                lengths.cpu(), Lp)
+    assert _equal(got, want_cpu)
+    return want_cpu
+
+
 def test_assemble_and_hcr_kernels_match_plain(cuda):
     from proovread_tpu_torch.ops import assemble_kernel as ak
     from proovread_tpu_torch.pipeline.masking import MaskParams
     rng = np.random.default_rng(3)
     B, L = 16, 3000
     t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
-    word = t(rng.integers(0, 2**31, (B, L)).astype(np.int32))
     lengths = t(rng.integers(0, L + 1, B).astype(np.int32))
-    assert _equal(ak.assemble_words_cuda(word, lengths, L),
-                  ak.assemble_words_plain(word, lengths, L))
+    _assemble_card_plain_cpu(cuda, _wild_call(rng, B, L, cuda), lengths, L)
     qual = t(np.repeat(rng.integers(0, 41, (B, L // 50)), 50, axis=1)
              .astype(np.uint8))
     pvi = ak._int_params(ak.mask_params_vec(MaskParams().scaled(100)))
@@ -273,3 +313,68 @@ def test_hcr_kernel_at_the_longest_bucket(cuda):
     assert torch.equal(mask.cpu(), mask_cpu) and torch.equal(frac.cpu(),
                                                              frac_cpu)
     assert 0.0 < float(frac_cpu) < 1.0
+
+
+@pytest.mark.parametrize("B,L,Lp", [(8, 2500, 2500), (8, 2500, 2000),
+                                    (40, 49152, 49152)])
+def test_assemble_kernel_on_tile_edges_and_the_longest_bucket(cuda, B, L,
+                                                              Lp):
+    """Lengths on the kernels' tile edges (ASM_TILE columns, L not a
+    multiple of it), Lp at and below L, and the main path's longest bucket
+    (40 rows at 49,152 columns), with fields out of range."""
+    from proovread_tpu_torch.ops import assemble_kernel as ak
+    rng = np.random.default_rng(10 + B + Lp)
+    T = ak.ASM_TILE
+    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lengths[:6] = [0, T - 1, T, T + 1, L, 1]
+    want = _assemble_card_plain_cpu(
+        cuda, _wild_call(rng, B, L, cuda),
+        torch.as_tensor(lengths, device=cuda), Lp)
+    assert int(want[2].max()) == Lp and int(want[2][0]) == 0
+
+
+def test_packed_pileup_on_clustered_candidates_and_bad_metadata(cuda):
+    """The high-coverage path's shape: sorted candidates of 2 reads,
+    16-aligned windows in the first 6,144 columns of each (about 140
+    windows a column), real vote words with dead rows, counts already in
+    the buffer: equal to the plain version and to the wrapper on CPU
+    copies. Then a bad read_of or w0 raises with the flag word's message,
+    and only the valid candidates' votes land."""
+    from proovread_tpu_torch.ops import pileup_kernel as pk
+    rng = np.random.default_rng(11)
+    B, Lp, R, n = 4, 12288, 8192, 208
+    Lpile = Lp + 2 * n
+    st = np.where(rng.random((R, n)) < 0.8, 1, rng.integers(1, 7, (R, n)))
+    ln = np.where(rng.random((R, n)) < 0.1, rng.integers(1, 7, (R, n)), 0)
+    words = st | (rng.integers(0, 2, (R, n)) << 3) | (ln << 4)
+    for k in range(6):
+        words |= np.where(k < ln, rng.integers(0, 5, (R, n)), 5) << (7 + 3 * k)
+    words[rng.random((R, n)) < 0.2] = 0
+    words[rng.random(R) < 0.1] = 0
+    ro = np.sort(rng.choice([1, 3], R)).astype(np.int32)
+    w0 = (rng.integers(0, (6144 - n) // 16 + 1, R) * 16).astype(np.int32)
+    base = rng.integers(0, 9, (B, Lpile, 64)).astype(np.float32)
+    cpu = [torch.as_tensor(a) for a in (base, words.astype(np.int32), ro, w0)]
+    c = [x.to(cuda) for x in cpu]
+    want_cpu = pk.pileup_accumulate_packed(cpu[0].clone(), *cpu[1:])
+    launches = pk.pileup_accumulate_packed.launches
+    got = pk.pileup_accumulate_packed(c[0].clone(), *c[1:])
+    assert pk.pileup_accumulate_packed.launches == launches + 1
+    assert torch.equal(got, pk.pileup_accumulate_packed_plain(
+        c[0].clone(), *c[1:]))
+    assert torch.equal(got.cpu(), want_cpu)
+    assert float((want_cpu - cpu[0]).max()) >= 100  # ~140 windows a column
+    ok = np.ones(R, bool)
+    ok[[5, 4000, 8000]] = False
+    for bad_ro, bad_w0, msg in ((np.where(ok, ro, B), w0,
+                                 f"read_of outside [0, {B - 1}]"),
+                                (ro, np.where(ok, w0, Lpile - n + 1),
+                                 f"w0 outside [0, {Lpile - n}]")):
+        buf = c[0].clone()
+        with pytest.raises(ValueError) as e:
+            pk.pileup_accumulate_packed(buf, c[1], torch.as_tensor(
+                bad_ro, device=cuda), torch.as_tensor(bad_w0, device=cuda))
+        assert str(e.value) == "pileup_accumulate_packed: " + msg
+        keep = torch.as_tensor(ok, device=cuda)
+        assert torch.equal(buf, pk.pileup_accumulate_packed_plain(
+            c[0].clone(), c[1][keep], c[2][keep], c[3][keep]))
