@@ -21,7 +21,11 @@ any failure exits non-zero:
    equal again on a second run, on random windows and on clustered ones
    (the same slabs as sorted candidates of 8 reads at Lp=12288, about 1000
    a read, the shape of the qual-weighted pass's chunks). Assemble's
-   fields are partly out of the ranges the packing clamps. Launcher, plain
+   fields are partly out of the ranges the packing clamps. bsw v2 also runs
+   at the mr shapes (m=256 with 250 bp queries, W=96 and W=64), and the
+   Smith-Waterman kernel of siamaera's mapper at its chunk (R=2048, m=256,
+   n=384: half a read's window against its reverse complement, half chance
+   seeds). Launcher, plain
    and library times (median of CUDA-event timings after a warm-up), the
    kernels' own device time and the device operations of one launcher
    call (torch.profiler), and each kernel's bound from its bytes and
@@ -32,7 +36,9 @@ any failure exits non-zero:
    coverage 400 (every pass on the packed-word pileup), and the
    qual-weighted ``DeviceCorrector`` chain (pass 1, three fused passes, a
    finish pass collecting alignments: consensus calls, read state, pass
-   counts and alignment data);
+   counts and alignment data), and the command line (``cli.main``, siamaera
+   on) in sr-noccs and, with 30x of 250 bp short reads, mr-noccs: all six
+   output files (``parameter.log`` but its argv);
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
    genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
 5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
@@ -44,10 +50,18 @@ any failure exits non-zero:
 6. qual-weighted votes: the first length bucket of phase 4's workload
    that fills the driver's 256 rows, packed as the driver packs it, through
    ``DeviceCorrector.correct_pass`` and two fused passes against the whole
-   resident short-read set.
+   resident short-read set;
+7. the command line at E.coli class: phase 4's reads written as FASTQ,
+   ``cli.main`` with its defaults and ``--no-checkpoint`` (mode sr-noccs,
+   siamaera on): wall, bases/s, peak memory, siamaera's seconds split into
+   host seeding and Smith-Waterman, its candidates and counts, and the bsw
+   and sw launches and device time (CUDA events around each launch);
+8. mr at E.coli class: the same long reads with 30x of 250 bp short reads
+   (mode mr-noccs), the same numbers.
 
-Phases 4-6 each reset every kernel's launch count just before and read
-them just after; each fails if a kernel of its path was not launched, and
+Phases 4-8 each reset every kernel's launch count just before and read
+them just after; each fails if a kernel of its path was not launched
+(phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble and HCR), and
 phase 5 also if the bit-plane pileup was.
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
@@ -67,8 +81,9 @@ device time and launches of every port kernel in each. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
 lines (the full run takes no arguments).
 
-The functions of phases 3-6 take the device as an argument, so the same
-code runs on the CPU at a small size.
+The functions of phases 3-6 take the device as an argument, and those of
+phases 7-8 run ``cli.main``, so the same code runs on the CPU at a small
+size.
 """
 
 from __future__ import annotations
@@ -79,6 +94,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -126,14 +142,16 @@ def launcher_times(fn, names, reps: int = 5) -> dict:
     kernels plus what the launcher runs around them: index checks, work
     lists, packing, copies), and ``device_ops``, the kernels, memsets and
     copies of one call. The last three from torch.profiler over ``reps``
-    calls after a warm-up."""
+    calls after a warm-up: each distinct kernel's mean time times its
+    launches a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ms = time_ms(fn)
     # the profiler now and then returns no record of a kernel that ran
-    # (seen once in some twenty phase-2 runs on an H100): profile again
-    # before failing
+    # (seen in phase-2 runs on an H100: one launch in five or ten, or all
+    # of them): profile again before failing, and count a call's launches
+    # of each kernel as the rounded mean over the calls
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -142,18 +160,26 @@ def launcher_times(fn, names, reps: int = 5) -> dict:
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and e.count > 0]
         mine = [e for e in evs if any(nm in e.key for nm in names)]
-        if sum(e.count for e in mine) > 0:
+        if mine:
             break
     else:
         raise AssertionError(f"the profiler saw no launch of {names}")
     attr = ("self_device_time_total" if hasattr(
         evs[0], "self_device_time_total") else "self_cuda_time_total")
-    return dict(ms=ms,
-                kernel_ms=sum(getattr(e, attr) for e in mine) / reps / 1e3,
-                device_ms=sum(getattr(e, attr) for e in evs) / reps / 1e3,
-                device_ops=sum(e.count for e in evs) / reps)
+
+    def per_call(events):
+        ms_, ops = 0.0, 0
+        for e in events:
+            k = max(1, round(e.count / reps))
+            ms_ += getattr(e, attr) / e.count * k / 1e3
+            ops += k
+        return ms_, ops
+    kernel_ms, _ = per_call(mine)
+    device_ms, device_ops = per_call(evs)
+    return dict(ms=ms, kernel_ms=kernel_ms, device_ms=device_ms,
+                device_ops=device_ops)
 
 
 # each kernel's names as the profiler shows them
@@ -164,6 +190,7 @@ KERNEL_NAMES = {
     "ordered": ("pileup_ordered_kernel",),
     "assemble": ("assemble_count_kernel", "assemble_tiles_kernel"),
     "hcr": ("hcr_scan_kernel",),
+    "sw": ("sw_kernel",),
 }
 
 
@@ -200,10 +227,11 @@ def assert_equal(name, pairs) -> None:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def bsw_inputs(rng, ap, dev, R=8192, m=112, S=16384, B=256, Lp=24576):
-    """Seeded candidates with real alignments planted (both strands,
-    substitutions and indels), empty queries, out-of-range windows and
-    15% ignore bits."""
+def bsw_inputs(rng, ap, dev, R=8192, m=112, S=16384, B=256, Lp=24576,
+               ql=100):
+    """Seeded candidates with real alignments of ``ql`` bases planted (both
+    strands, substitutions and indels), empty queries, out-of-range
+    windows and 15% ignore bits."""
     import torch
     from proovread_tpu_torch.align import bsw
     from proovread_tpu_torch.ops.encode import revcomp_codes
@@ -212,24 +240,25 @@ def bsw_inputs(rng, ap, dev, R=8192, m=112, S=16384, B=256, Lp=24576):
     n = m + W
     genome = rng.integers(0, 4, (B, Lp)).astype(np.int8)
     qf = np.full((S, m), 4, np.int8)
-    qlen = np.full(S, 100, np.int32)
+    qlen = np.full(S, ql, np.int32)
     qlen[:4] = 0
     sread = rng.integers(0, S, R).astype(np.int32)
     strand = rng.integers(0, 2, R).astype(np.int32)
     lread = np.sort(rng.integers(0, B, R)).astype(np.int32)
-    diag = rng.integers(0, Lp - 200, R).astype(np.int32)
+    diag = rng.integers(0, Lp - 2 * ql, R).astype(np.int32)
     for s in range(4, S):
-        b, p = int(rng.integers(0, B)), int(rng.integers(0, Lp - 200))
-        src = genome[b, p:p + 100].copy()
+        b, p = int(rng.integers(0, B)), int(rng.integers(0, Lp - 2 * ql))
+        src = genome[b, p:p + ql].copy()
         k = int(rng.integers(0, 4))
         if k == 1:
-            src = np.insert(src, int(rng.integers(10, 90)), rng.integers(0, 4, 2))[:100]
+            src = np.insert(src, int(rng.integers(10, ql - 10)),
+                            rng.integers(0, 4, 2))[:ql]
         elif k == 2:
-            src = np.delete(src, int(rng.integers(10, 90)))
-            src = np.append(src, genome[b, p + 100])
-        sub = rng.random(100) < 0.02
+            src = np.delete(src, int(rng.integers(10, ql - 10)))
+            src = np.append(src, genome[b, p + ql])
+        sub = rng.random(ql) < 0.02
         src[sub] = (src[sub] + 1) % 4
-        qf[s, :100] = src
+        qf[s, :ql] = src
     # point candidates at their query's true placement, strand 1 at the
     # reverse complement of it
     for i in range(R):
@@ -237,8 +266,8 @@ def bsw_inputs(rng, ap, dev, R=8192, m=112, S=16384, B=256, Lp=24576):
         if s < 4:
             continue
         b, p = int(lread[i]), int(diag[i])
-        q = qf[s, :100]
-        genome[b, p:p + 100] = q if strand[i] == 0 else revcomp_codes(q)
+        q = qf[s, :ql]
+        genome[b, p:p + ql] = q if strand[i] == 0 else revcomp_codes(q)
     diag[: R // 20] = rng.integers(-2 * n, 8, R // 20)
     diag[R // 20: R // 10] = rng.integers(Lp - 8, Lp + 2 * n, R // 10 - R // 20)
     ign = rng.random((B, Lp)) < 0.15
@@ -252,10 +281,10 @@ def bsw_inputs(rng, ap, dev, R=8192, m=112, S=16384, B=256, Lp=24576):
     return args, n
 
 
-def check_bsw(rng, dev, ap, label):
+def check_bsw(rng, dev, ap, label, m=112, ql=100):
     import torch
     from proovread_tpu_torch.align import bsw
-    args, n = bsw_inputs(rng, ap, dev)
+    args, n = bsw_inputs(rng, ap, dev, m=m, ql=ql)
     R = args[4].shape[0]
     m = args[0].shape[1]
     W = bsw.band_lanes(ap)
@@ -394,6 +423,64 @@ def check_bsw_v1(dev, ap, label, args, v2):
         [(a.float(), b.float()) for a, b in pairs]), **tm,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"R={R} m={m} W={W} n={n}"), got, (q1, ign)
+
+
+def sw_inputs(rng, R=2048, m=256, n=384, band=40):
+    """Siamaera-like candidates at the mapper's chunk shape: half are a
+    read's own window against the reverse-complemented read on the
+    matching strand (the plus-strand self-match siamaera drops after the
+    alignment: the whole query aligns, so the walk runs its full length),
+    half chance seeds against random windows; one in eight queries is
+    shorter than m (a read's last window), two are of length 0 and 1, and
+    both sides carry N codes."""
+    r = rng.integers(0, 4, (R, n)).astype(np.int8)
+    q = np.full((R, m), 4, np.int8)
+    ql = np.full(R, m, np.int32)
+    short = rng.random(R) < 0.125
+    ql[short] = rng.integers(2, m, int(short.sum()))
+    ql[:2] = [0, 1]
+    off = band + rng.integers(-8, 9, R)
+    for i in range(R):
+        src = (r[i, off[i]:off[i] + m] if i % 2 == 0
+               else rng.integers(0, 4, m).astype(np.int8))
+        q[i, :ql[i]] = src[:ql[i]]
+    q[(rng.random((R, m)) < 0.005) & (np.arange(m)[None, :] < ql[:, None])] = 4
+    r[rng.random((R, n)) < 0.005] = 4
+    return q, r, ql
+
+
+def check_sw(rng, dev):
+    """The Smith-Waterman kernel against its plain version at siamaera's
+    shape (R=2048, m=256, n=384) with siamaera's mapper parameters."""
+    import torch
+    from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.align.params import AlignParams
+    ap = AlignParams(min_out_score=0.0, score_per_base=False)
+    q, r, ql = (torch.as_tensor(x, device=dev) for x in sw_inputs(rng))
+    R, m = q.shape
+    n = r.shape[1]
+    got = sw.sw_batch(q, r, ql, ap)
+    want = sw.sw_batch_plain(q, r, ql, ap)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want))
+    assert_equal("sw_batch", pairs)
+    long_walks = int((want.n_ops >= m - 8).sum())
+    if long_walks < R // 4:
+        raise AssertionError(f"sw: weak inputs ({long_walks} long walks)")
+    tm = launcher_times(lambda: sw._sw_cuda(q, r, ql, ap), KERNEL_NAMES["sw"])
+    plain_ms = time_ms(lambda: sw.sw_batch_plain(q, r, ql, ap), reps=3,
+                       warmup=1)
+    steps = m + n
+    n_bytes = R * m + R * n + 4 * R + 7 * 4 * R + R * steps + 2 * 2 * R * steps
+    # the 16 f32 operations of a DP cell counted as for bsw (check_bsw),
+    # over the rows each query needs (the kernel stops at max(qlen, 1))
+    rows = float(ql.clamp(1, m).sum())
+    b_ms, b_by = bound(n_bytes, rows * n * 16)
+    return dict(max_abs_err=max_abs_err(
+        [(a.float(), b.float()) for a, b in pairs]), **tm,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"R={R} m={m} n={n}", long_walks=long_walks,
+        ops_walked=int(want.n_ops.sum()))
 
 
 def check_pileup_packed(rng, dev, bsw_res, bsw_args, B=256, Lp=24576):
@@ -715,13 +802,14 @@ def check_hcr_at(rng, dev, B, L):
 # phases 3-6: the pipeline and the qual-weighted pass
 # --------------------------------------------------------------------------
 
-def workload(genome_size, long_bases, n_iterations, sr_coverage=30.0):
+def workload(genome_size, long_bases, n_iterations, sr_coverage=30.0,
+             sr_len=100):
     from proovread_tpu_torch.io.simulate import (random_genome,
                                                  simulate_long_reads,
                                                  simulate_short_reads)
     genome = random_genome(genome_size, seed=0)
     longs, _ = simulate_long_reads(genome, long_bases, seed=1)
-    srs = simulate_short_reads(genome, sr_coverage, seed=2)
+    srs = simulate_short_reads(genome, sr_coverage, read_len=sr_len, seed=2)
     return longs, srs, n_iterations
 
 
@@ -874,6 +962,200 @@ def column_votes(bucket, device, CH=8192):
             int((call.freq > 256).sum()), st.n_candidates)
 
 
+# --------------------------------------------------------------------------
+# phases 3, 7 and 8: the command line
+# --------------------------------------------------------------------------
+
+CLI_OUTPUTS = ("untrimmed.fq", "trimmed.fq", "trimmed.fa", "ignored.tsv",
+               "chim.tsv")
+
+
+def write_inputs(tmp, label, longs, srs):
+    """The workload as the FASTQ files a user hands the command line."""
+    from proovread_tpu_torch.io.fastq import FastqWriter
+    paths = []
+    for kind, recs in (("long", longs), ("short", srs)):
+        path = os.path.join(tmp, f"{label}.{kind}.fq")
+        with open(path, "wb") as fh:
+            w = FastqWriter(fh)
+            for r in recs:
+                w.write(r)
+        paths.append(path)
+    return paths
+
+
+def cli_outputs(out):
+    """The five read and table files' bytes and parameter.log without its
+    argv (which names the device and the output directory)."""
+    files = {}
+    for suf in CLI_OUTPUTS:
+        with open(os.path.join(out, f"res.{suf}"), "rb") as fh:
+            files[suf] = fh.read()
+    with open(os.path.join(out, "res.parameter.log")) as fh:
+        plog = json.load(fh)
+    plog.pop("argv")
+    return files, plog
+
+
+class SiamaeraProbe:
+    """Times siamaera's parts inside a command-line run: the whole filter,
+    its host seeding (``align/seed.py``: index and candidates) and its
+    Smith-Waterman calls (synchronised), and counts its candidates and
+    keeps its SiamaeraStats."""
+
+    def __enter__(self):
+        import torch
+        from proovread_tpu_torch.align import mapper, seed
+        from proovread_tpu_torch.pipeline import siamaera
+        self.t = dict(siamaera=0.0, seed=0.0, sw=0.0)
+        self.candidates, self.calls, self.stats = 0, 0, None
+        probe = self
+
+        def timed(key, fn, sync=False):
+            def wrapped(*a, **k):
+                t0 = time.monotonic()
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                probe.t[key] += time.monotonic() - t0
+                return out
+            return wrapped
+
+        filt, mb = siamaera.siamaera_filter, mapper.TorchMapper.map_batch
+
+        def filter_(*a, **k):
+            out = timed("siamaera", filt)(*a, **k)
+            probe.calls += 1
+            probe.stats = out[1]
+            return out
+
+        def map_batch(self_, *a, **k):
+            res = mb(self_, *a, **k)
+            probe.candidates += res.n_candidates
+            return res
+        self._saved = [(siamaera, "siamaera_filter", filt),
+                       (seed, "build_index", seed.build_index),
+                       (seed, "find_candidates", seed.find_candidates),
+                       (mapper, "sw_batch", mapper.sw_batch),
+                       (mapper.TorchMapper, "map_batch", mb)]
+        siamaera.siamaera_filter = filter_
+        seed.build_index = timed("seed", seed.build_index)
+        seed.find_candidates = timed("seed", seed.find_candidates)
+        mapper.sw_batch = timed("sw", mapper.sw_batch, sync=True)
+        mapper.TorchMapper.map_batch = map_batch
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+class KernelTimer:
+    """CUDA events around every call of one C entry point of the kernel
+    library: the device time of its launches, with nothing else on the
+    stream between the two events."""
+
+    def __init__(self, entry):
+        self.entry, self.events = entry, []
+
+    def __enter__(self):
+        import torch
+        from proovread_tpu_torch import kernels
+        self.lib = kernels.lib()
+        self.orig = orig = getattr(self.lib, self.entry)
+
+        def timed(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            rc = orig(*a)
+            e1.record()
+            self.events.append((e0, e1))
+            return rc
+        setattr(self.lib, self.entry, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.lib, self.entry, self.orig)
+
+    def total_ms(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.events))
+
+
+def cli_card_vs_cpu(tmp, label, longs, srs, want_mode):
+    """``cli.main`` on the workload's FASTQ files with ``--device cuda``
+    and ``--device cpu``: every output identical."""
+    from proovread_tpu_torch import cli
+    lp, sp = write_inputs(tmp, label, longs, srs)
+    got, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"{label}-{device}", "res")
+        t0 = time.monotonic()
+        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
+                       "--device", device, "-q"])
+        walls[device] = time.monotonic() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {label} --device {device}: exit {rc}")
+        got[device] = cli_outputs(out)
+    files, plog = got["cuda"]
+    if plog["mode"] != want_mode:
+        raise AssertionError(f"cli {label}: mode {plog['mode']}")
+    diff = [k for k in files if files[k] != got["cpu"][0][k]]
+    if diff or plog != got["cpu"][1]:
+        raise AssertionError(f"cli {label}: card and CPU differ in "
+                             f"{diff or 'parameter.log'}")
+    if not files["untrimmed.fq"]:
+        raise AssertionError(f"cli {label}: nothing corrected")
+    return walls, files
+
+
+def cli_run(tmp, label, longs, srs, want_mode):
+    """``cli.main`` with its defaults (and ``--no-checkpoint``) on the
+    workload's FASTQ files, with siamaera's parts and bsw's device time
+    measured; returns what phases 7 and 8 log."""
+    import torch
+    from proovread_tpu_torch import cli
+    from proovread_tpu_torch.align import sw
+    t0 = time.monotonic()
+    lp, sp = write_inputs(tmp, label, longs, srs)
+    t_write = time.monotonic() - t0
+    out = os.path.join(tmp, label, "res")
+    torch.cuda.reset_peak_memory_stats()
+    sw0 = sw.sw_batch.launches
+    with SiamaeraProbe() as probe, \
+            KernelTimer("pt_bsw_expand_v2") as bsw_t, \
+            KernelTimer("pt_sw_batch") as sw_t:
+        t0 = time.monotonic()
+        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {label}: exit {rc}")
+    files, plog = cli_outputs(out)
+    if plog["mode"] != want_mode:
+        raise AssertionError(f"cli {label}: mode {plog['mode']}, "
+                             f"not {want_mode}")
+    if probe.calls != 1 or probe.stats.checked == 0:
+        raise AssertionError(f"cli {label}: siamaera did not run")
+    bases = sum(len(r) for r in longs)
+    n_bsw = len(bsw_t.events)
+    return dict(
+        mode=plog["mode"], wall_s=wall, write_inputs_s=t_write,
+        corrected_bases_per_s=bases / wall,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+        untrimmed_bytes=len(files["untrimmed.fq"]),
+        trimmed_bytes=len(files["trimmed.fq"]),
+        siamaera_s=probe.t["siamaera"], siamaera_seed_s=probe.t["seed"],
+        siamaera_sw_s=probe.t["sw"], siamaera_candidates=probe.candidates,
+        siamaera_stats=vars(probe.stats),
+        sw_launches=sw.sw_batch.launches - sw0,
+        sw_device_ms=sw_t.total_ms(), bsw_launches=n_bsw,
+        bsw_device_ms=bsw_t.total_ms(),
+        bsw_ms_per_launch=bsw_t.total_ms() / max(n_bsw, 1))
+
+
 def same_host(a, b) -> bool:
     return a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
@@ -890,7 +1172,7 @@ def result_key(res):
 # the port's CUDA kernels (csrc/*.cu), by the names the profiler shows
 # (a template kernel with its argument: pileup_col_kernel<PackedWords>)
 PORT_KERNEL = re.compile(
-    r"\b((?:bsw|pileup|assemble|hcr)_\w*kernel)\b"
+    r"\b((?:bsw|sw|pileup|assemble|hcr)_\w*kernel)\b"
     r"(?:<(?:\(anonymous namespace\)::)?(\w+)>)?")
 
 
@@ -952,7 +1234,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-6 to leave out; such a "
+                     help="comma list of phases 2-8 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--profile", action="store_true",
                      help="rerun phases 4-6 under torch.profiler and print "
@@ -970,8 +1252,9 @@ def main(argv=None) -> int:
         return 2
     import proovread_tpu_torch
     from proovread_tpu_torch import kernels
-    from proovread_tpu_torch.align import bsw
-    from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
+    from proovread_tpu_torch.align import bsw, sw
+    from proovread_tpu_torch.align.params import (BWA_MR, BWA_MR_FINISH,
+                                                  BWA_SR, BWA_SR_FINISH)
     from proovread_tpu_torch.ops import assemble_kernel, pileup_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1010,17 +1293,25 @@ def main(argv=None) -> int:
         "pileup_accumulate": (pileup_kernel.pileup_accumulate,
                               "proovread_tpu_torch/csrc/pileup.cu",
                               "proovread_tpu/ops/pileup_kernel.py:306"),
+        # a port-only kernel: the reference's sw_batch is XLA
+        "sw_batch": (sw.sw_batch, "proovread_tpu_torch/csrc/sw.cu",
+                     "proovread_tpu/align/sw.py:175 (XLA sw_batch, no "
+                     "Pallas kernel)"),
     }
     # the phase whose path each kernel's launch count is read from
     path_phase = {"bsw_expand_v2": 4, "pileup_accumulate_bits": 4,
                   "assemble_rows": 4, "hcr_mask_rows": 4,
                   "pileup_accumulate_packed": 5, "bsw_expand": 6,
-                  "pileup_accumulate": 6}
+                  "pileup_accumulate": 6, "sw_batch": 7}
+    # the command-line runs also go through the main path's kernels
+    cli_path = ("sw_batch", "bsw_expand_v2", "pileup_accumulate_bits",
+                "assemble_rows", "hcr_mask_rows")
     results, launches = {}, {}
 
-    def drive(phase, fn):
+    def drive(phase, fn, required=()):
         """Run a path with every launch count reset just before and read
-        just after; keep the counts of the kernels read from this phase."""
+        just after; keep the counts of the kernels read from this phase,
+        and fail if one of them, or of ``required``, did not launch."""
         for f, _, _ in wrappers.values():
             f.launches = 0
         out = fn()
@@ -1029,7 +1320,7 @@ def main(argv=None) -> int:
                          if path_phase[k] == phase})
         log(f"phase{phase} launches " + json.dumps(counts))
         missing = [k for k, ph in path_phase.items()
-                   if ph == phase and counts[k] == 0]
+                   if (ph == phase or k in required) and counts[k] == 0]
         if missing:
             raise AssertionError(f"phase {phase} never launched {missing}")
         return out, counts
@@ -1076,6 +1367,16 @@ def main(argv=None) -> int:
                      "pileup_accumulate", "assemble_rows", "hcr_mask_rows"):
             report(name, results[name])
         torch.cuda.empty_cache()
+        # bsw v2 at the mr shapes: 250 bp queries padded to m = 256, the mr
+        # passes' band (W=96) and the mr finish's (W=64)
+        for ap, label in ((BWA_MR, "m=256 W=96"),
+                          (BWA_MR_FINISH, "m=256 W=64")):
+            r, _, _ = check_bsw(rng, dev, ap, label, m=256, ql=250)
+            report("bsw_expand_v2", dict(r, label=label))
+            torch.cuda.empty_cache()
+        results["sw_batch"] = check_sw(rng, dev)
+        report("sw_batch", results["sw_batch"])
+        torch.cuda.empty_cache()
 
     # -- phase 3 -------------------------------------------------------------
     if "3" not in skip:
@@ -1116,6 +1417,20 @@ def main(argv=None) -> int:
         log(f"phase3 config 4 qual-weighted chain: card {t_gpu:.1f} s, CPU "
             f"{t_cpu:.1f} s, {len(st_gpu)} passes, identical: "
             + json.dumps(strip(st_gpu)))
+        # the command line in sr-noccs (100 bp short reads) and mr-noccs
+        # (30x of 250 bp short reads), siamaera on: every output file
+        # identical on the card and on the CPU
+        _, srs_mr, _ = workload(10_000, 40_000, 4, sr_len=250)
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, shorts, mode in (("sr", srs, "sr-noccs"),
+                                        ("mr", srs_mr, "mr-noccs")):
+                walls, files = cli_card_vs_cpu(tmp, f"config4-{label}",
+                                               longs, shorts, mode)
+                log(f"phase3 cli config 4 {mode}: card "
+                    f"{walls['cuda']:.1f} s, CPU {walls['cpu']:.1f} s, "
+                    f"{files['untrimmed.fq'].count(b'\n') // 4} untrimmed"
+                    f" records, {files['trimmed.fa'].count(b'>')} trimmed, "
+                    "all six files identical (parameter.log but its argv)")
 
     # -- phase 4: the main path ----------------------------------------------
     if "4" not in skip:
@@ -1187,6 +1502,35 @@ def main(argv=None) -> int:
         if args.profile:
             profile_phase(6, lambda: qual_chain(bucket, "cuda", n_rest=2,
                                                 finish=False), wall6)
+
+    # -- phase 7: the command line at E.coli class ----------------------------
+    cli7 = None
+    if ("7" not in skip or "8" not in skip) and "4" in skip and "6" in skip:
+        longs, srs, _ = workload(1_250_000, 5_000_000, 6)
+    if "7" not in skip:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli7, _ = drive(7, lambda: cli_run(tmp, "ecoli-sr", longs, srs,
+                                               "sr-noccs"),
+                            required=cli_path)
+        log("phase7 " + json.dumps(cli7))
+
+    # -- phase 8: mr at E.coli class -----------------------------------------
+    if "8" not in skip:
+        del srs
+        _, srs8, _ = workload(1_250_000, 5_000_000, 6, sr_len=250)
+        log(f"phase8 workload: {len(longs)} long reads, {len(srs8)} short "
+            "reads of 250 bp")
+        with tempfile.TemporaryDirectory() as tmp:
+            cli8, _ = drive(8, lambda: cli_run(tmp, "ecoli-mr", longs, srs8,
+                                               "mr-noccs"),
+                            required=cli_path)
+        log("phase8 " + json.dumps(cli8))
+        if cli7 is not None:
+            log(f"phase8 bsw device time a launch at m=256: "
+                f"{cli8['bsw_ms_per_launch']:.4f} ms, "
+                f"{cli8['bsw_ms_per_launch'] / cli7['bsw_ms_per_launch']:.2f}"
+                f"x phase 7's at m=112 ({cli7['bsw_ms_per_launch']:.4f} ms)")
+        del srs8
 
     if skip:
         log(f"phases {sorted(skip)} skipped: no result printed")

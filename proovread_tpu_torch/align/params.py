@@ -63,3 +63,70 @@ TASK_PARAMS = {
     "bwa-mr-finish": BWA_MR_FINISH,
 }
 
+
+def from_shrimp_flags(flags: dict,
+                      base: "AlignParams" = None) -> "AlignParams":
+    """AlignParams from SHRiMP2 gmapper flags — the 2014 legacy-mode
+    schedule (``proovread.cfg:386-461``, driven through ``Shrimp.pm``).
+    Mapping notes: ``-s`` spaced seeds reduce to the lightest listed seed's
+    weight (the contiguous-k-mer seeder's sensitivity analog); ``-h`` is a
+    %-of-maximum-score output threshold, i.e. per-base = pct * match;
+    r(eference)/q(uery) gap costs map to del/ins in bwa convention; the
+    ``-w`` %-of-read band maps to the widest band the Pallas kernel tiles."""
+    p = base or AlignParams()
+    kw = {}
+    if "--match" in flags:
+        kw["match"] = int(flags["--match"])
+    if "--mismatch" in flags:
+        kw["mismatch"] = abs(int(flags["--mismatch"]))
+    if "--open-r" in flags:
+        kw["o_del"] = abs(int(flags["--open-r"]))
+    if "--open-q" in flags:
+        kw["o_ins"] = abs(int(flags["--open-q"]))
+    if "--ext-r" in flags:
+        kw["e_del"] = abs(int(flags["--ext-r"]))
+    if "--ext-q" in flags:
+        kw["e_ins"] = abs(int(flags["--ext-q"]))
+    if "-s" in flags:
+        kw["min_seed_len"] = min(
+            s.count("1") for s in str(flags["-s"]).split(","))
+    if "-h" in flags:
+        pct = float(str(flags["-h"]).rstrip("%")) / 100.0
+        kw["min_out_score"] = round(pct * kw.get("match", p.match), 3)
+        kw["score_per_base"] = True
+    if "-w" in flags:
+        kw["band_width"] = 60
+    return replace(p, **kw)
+
+
+def from_bwa_flags(flags: dict, base: "AlignParams" = None) -> "AlignParams":
+    """AlignParams from a bwa-proovread flag dict — the user-config mapper
+    schedule form (``proovread.cfg:320-366`` semantics: the cfg IS the
+    mapper schedule). Recognized: -A -B -O -E -L -k -w -T -c; -O/-E take
+    ``del,ins`` pairs like bwa."""
+    p = base or AlignParams()
+
+    def pair(v):
+        a = str(v).split(",")
+        return int(a[0]), int(a[1] if len(a) > 1 else a[0])
+
+    kw = {}
+    if "-A" in flags:
+        kw["match"] = int(flags["-A"])
+    if "-B" in flags:
+        kw["mismatch"] = int(flags["-B"])
+    if "-O" in flags:
+        kw["o_del"], kw["o_ins"] = pair(flags["-O"])
+    if "-E" in flags:
+        kw["e_del"], kw["e_ins"] = pair(flags["-E"])
+    if "-L" in flags:
+        kw["clip"] = int(str(flags["-L"]).split(",")[0])
+    if "-k" in flags:
+        kw["min_seed_len"] = int(flags["-k"])
+    if "-w" in flags:
+        kw["band_width"] = int(flags["-w"])
+    if "-T" in flags:
+        kw["min_out_score"] = float(flags["-T"])
+    if "-c" in flags:
+        kw["max_occ"] = int(flags["-c"])
+    return replace(p, **kw)

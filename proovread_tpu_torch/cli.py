@@ -1,0 +1,338 @@
+"""Command-line driver — the role of ``bin/proovread``'s CLI + output layer.
+
+Port of ``proovread_tpu/cli.py``, run as ``python -m proovread_tpu_torch``:
+the same flags (``bin/proovread:137-298``), argument checks and exit codes,
+mode auto-detection (``:628-654``) and output layout (``:904-956``):
+``<pre>/<name>.untrimmed.fq``, ``.trimmed.fq``, ``.trimmed.fa``,
+``.ignored.tsv``, ``.chim.tsv``, plus ``.parameter.log`` (``:401-416``).
+
+One flag is the port's own: ``--device {cuda,cpu}`` (default ``cuda``), the
+counterpart of the reference's ``JAX_PLATFORMS``; asking for the card
+without one is an error. Flags whose features are not ported yet return 2
+with a message naming the flag: ``serve``, ``-u``, ``--sam``, ``--bam``,
+``--haplo-coverage``, ``--resume``, the mesh flags, ``--bucket-timeout``,
+the observability flags and ``--debug``. The reference keeps a checkpoint
+journal unless ``--no-checkpoint`` is given; the port has no journal yet,
+so it asks for that flag.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+log = logging.getLogger("proovread_tpu_torch")
+
+PROG = "proovread-tpu-torch"
+
+# parsed-argument name -> flag, for the flags the port does not run yet
+_UNPORTED_FLAGS = (
+    ("unitigs", "-u/--unitigs"), ("sam", "--sam"), ("bam", "--bam"),
+    ("haplo_coverage", "--haplo-coverage"), ("resume", "--resume"),
+    ("mesh_shards", "--mesh-shards"),
+    ("mesh_pass_timeout", "--mesh-pass-timeout"),
+    ("bucket_timeout", "--bucket-timeout"), ("trace", "--trace"),
+    ("metrics_out", "--metrics-out"), ("qc_out", "--qc-out"),
+    ("truth", "--truth"), ("compile_ledger", "--compile-ledger"),
+    ("compile_cache", "--compile-cache"), ("xprof", "--xprof"),
+    ("debug", "--debug"),
+)
+# config keys that switch on the same features from a config file
+_UNPORTED_KEYS = ("trace-file", "metrics-out", "qc-out", "truth-sidecar",
+                  "compile-ledger", "compile-cache-dir")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog=PROG,
+        description="Hybrid correction of PacBio long reads by iterative "
+                    "short-read consensus (proovread rebuild), in PyTorch "
+                    "on one CUDA card.")
+    ap.add_argument("-l", "--long-reads", action="append", default=[],
+                    help="long-read FASTQ/FASTA (repeatable)")
+    ap.add_argument("-s", "--short-reads", action="append", default=[],
+                    help="short-read FASTQ/FASTA (repeatable)")
+    ap.add_argument("-u", "--unitigs", action="append", default=[],
+                    help="unitig FASTA (not supported by the port yet)")
+    ap.add_argument("-p", "--pre", help="output directory/prefix")
+    ap.add_argument("-m", "--mode", default="auto",
+                    help="correction mode (auto|sr|mr|sr-noccs|mr-noccs)")
+    ap.add_argument("--sam", help="external SAM mapping (not supported by "
+                                  "the port yet)")
+    ap.add_argument("--bam", help="external BAM mapping (not supported by "
+                                  "the port yet)")
+    ap.add_argument("-c", "--cfg", help="user config file (JSON + // comments)")
+    ap.add_argument("--create-cfg", metavar="PATH",
+                    help="write a commented config template and exit")
+    ap.add_argument("--coverage", type=float,
+                    help="input short-read coverage estimate")
+    ap.add_argument("-t", "--threads", type=int, default=1,
+                    help="accepted for interface parity; has no effect")
+    ap.add_argument("--lr-min-length", type=int,
+                    help="min long-read length (0 disables; default 2x "
+                         "median short-read length)")
+    ap.add_argument("--ignore-sr-length", action="store_true",
+                    help="accept short reads longer than 1000bp "
+                         "(bin/proovread:457-464 guard)")
+    ap.add_argument("--haplo-coverage", type=float, nargs="?", const=-1.0,
+                    help="flex mode (not supported by the port yet)")
+    ap.add_argument("--no-sampling", action="store_true",
+                    help="use all short reads every iteration")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a crashed run (not supported by the port "
+                         "yet)")
+    ap.add_argument("--no-checkpoint", action="store_true",
+                    help="run without the per-bucket checkpoint journal "
+                         "(required: the port has no journal yet)")
+    ap.add_argument("--bucket-timeout", type=float, metavar="SECONDS",
+                    help="per-bucket budget (not supported by the port yet)")
+    ap.add_argument("--no-ladder", action="store_true",
+                    help="fail fast on device faults (the port always "
+                         "does)")
+    ap.add_argument("--mesh-shards", type=int, metavar="N",
+                    help="multi-device mesh (not supported by the port yet)")
+    ap.add_argument("--mesh-pass-timeout", type=float, metavar="SECONDS",
+                    help="mesh pass budget (not supported by the port yet)")
+    ap.add_argument("--trace", metavar="FILE",
+                    help="span trace (not supported by the port yet)")
+    ap.add_argument("--metrics-out", metavar="FILE",
+                    help="KPI counters (not supported by the port yet)")
+    ap.add_argument("--qc-out", metavar="FILE",
+                    help="per-read QC (not supported by the port yet)")
+    ap.add_argument("--truth", metavar="FILE",
+                    help="accuracy scoring (not supported by the port yet)")
+    ap.add_argument("--compile-ledger", metavar="FILE",
+                    help="XLA compile ledger (no counterpart in the port)")
+    ap.add_argument("--compile-cache", metavar="DIR", nargs="?",
+                    const="auto",
+                    help="XLA compile cache (no counterpart in the port)")
+    ap.add_argument("--xprof", metavar="DIR",
+                    help="XLA profiler trace (no counterpart in the port)")
+    ap.add_argument("--log-json", action="store_true",
+                    help="one structured JSON log record per line "
+                         "(ts/level/logger/msg) instead of the human "
+                         "format")
+    ap.add_argument("--overwrite", action="store_true",
+                    help="allow writing into a non-empty output dir")
+    ap.add_argument("--keep-temporary-files", action="store_true")
+    ap.add_argument("--debug", action="store_true",
+                    help="debug dumps (not supported by the port yet)")
+    ap.add_argument("-q", "--quiet", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the passes and siamaera run (default: the "
+                         "card; there is no fallback to the CPU)")
+    return ap
+
+
+def _read_records(paths: List[str]):
+    from proovread_tpu_torch.io import fasta, fastq
+    out = []
+    for p in paths:
+        rd = (fastq.FastqReader(p) if _looks_fastq(p)
+              else fasta.FastaReader(p))
+        out.extend(rd)
+    return out
+
+
+def _looks_fastq(path: str) -> bool:
+    import gzip
+    op = gzip.open if path.endswith(".gz") else open
+    with op(path, "rb") as fh:
+        first = fh.read(1)
+    return first == b"@"
+
+
+class _JsonLogFormatter(logging.Formatter):
+    """One JSON object per record: the --log-json scraper format."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        d = {"ts": round(record.created, 3), "level": record.levelname,
+             "logger": record.name, "msg": record.getMessage()}
+        if record.exc_info:
+            d["exc"] = self.formatException(record.exc_info)
+        return json.dumps(d)
+
+
+def _setup_logging(args) -> None:
+    """Configure logging without clobbering a host application's setup:
+    ``logging.basicConfig`` only runs when the root logger has no handlers
+    yet; ``--log-json`` scopes its handler to this package's logger."""
+    level = logging.ERROR if args.quiet else logging.INFO
+    root = logging.getLogger()
+    if args.log_json:
+        if not any(isinstance(h.formatter, _JsonLogFormatter)
+                   for h in log.handlers):
+            h = logging.StreamHandler()
+            h.setFormatter(_JsonLogFormatter())
+            log.addHandler(h)
+        log.propagate = False
+        log.setLevel(level)
+        return
+    for h in list(log.handlers):
+        if isinstance(h.formatter, _JsonLogFormatter):
+            log.removeHandler(h)
+    log.propagate = True
+    log.setLevel(level)
+    if not root.handlers:
+        logging.basicConfig(
+            level=level,
+            format="[%(asctime)s] %(message)s", datefmt="%H:%M:%S")
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve":
+        return _error("serve is not supported by the PyTorch port yet")
+    args = build_parser().parse_args(argv)
+    for attr, flag in _UNPORTED_FLAGS:
+        v = getattr(args, attr)
+        if not (v is None or v is False or v == []):
+            return _error(f"{flag} is not supported by the PyTorch port yet")
+    _setup_logging(args)
+
+    from proovread_tpu_torch.config import Config, mode_auto
+
+    if args.threads and args.threads > 1:
+        log.warning("-t/--threads %d is accepted for interface parity but "
+                    "has no effect", args.threads)
+
+    if args.create_cfg:
+        Config.create_template(args.create_cfg)
+        print(f"config template written to {args.create_cfg}")
+        return 0
+
+    if not args.long_reads:
+        return _error("-l/--long-reads is required")
+    if not args.short_reads:
+        return _error("need -s")
+    if not args.pre:
+        return _error("-p/--pre is required")
+    if not args.no_checkpoint:
+        return _error("the checkpoint journal is not supported by the "
+                      "PyTorch port yet: pass --no-checkpoint")
+
+    cfg = Config.load(args.cfg)
+    for key in _UNPORTED_KEYS:
+        if cfg.get(key):
+            return _error(f"config key {key!r} is not supported by the "
+                          "PyTorch port yet")
+    try:
+        from proovread_tpu_torch.device import resolve
+        resolve(args.device)
+    except RuntimeError as e:
+        return _error(str(e))
+
+    outdir = args.pre
+    os.makedirs(outdir, exist_ok=True)
+    if os.listdir(outdir) and not args.overwrite:
+        return _error(f"output dir {outdir!r} not empty (use --overwrite)")
+    if args.no_ladder:
+        cfg.data["resilience-ladder"] = 0
+    name = os.path.basename(outdir.rstrip("/")) or "proovread"
+
+    t_start = time.monotonic()
+    rc = _run(args, argv, cfg, outdir, name, mode_auto)
+    if rc != 0:
+        return rc
+    log.info("total wall: %.1fs", time.monotonic() - t_start)
+    return 0
+
+
+def _run(args, argv, cfg, outdir: str, name: str, mode_auto) -> int:
+    """Input read → task run → output write."""
+    longs = _read_records(args.long_reads)
+    shorts = _read_records(args.short_reads)
+
+    sr_lens = (np.array([len(r) for r in shorts]) if shorts
+               else np.zeros(0))
+    min_sr_len = int(np.median(sr_lens)) if len(sr_lens) else 0
+
+    # preflight (bin/proovread:457-464,586-592): catch mis-supplied inputs
+    # before any device time is spent
+    if len(sr_lens) and sr_lens.max() > 1000 and not args.ignore_sr_length:
+        print(f"error: short reads up to {int(sr_lens.max())}bp — is -s the "
+              "right file? (--ignore-sr-length to proceed)", file=sys.stderr)
+        return 2
+    too_long = [r.id for r in longs if len(r.id) > 256]
+    if too_long:
+        print("error: read id longer than 256 chars: "
+              f"{too_long[0]!r}", file=sys.stderr)
+        return 2
+    if args.device == "cuda":
+        import torch
+        log.info("preflight: %d device(s), platform cuda (%s)",
+                 torch.cuda.device_count(), torch.cuda.get_device_name(0))
+    else:
+        log.info("preflight: 1 device(s), platform cpu")
+
+    from proovread_tpu_torch.pipeline.ccs import is_subread_set
+    mode = args.mode
+    if mode == "auto":
+        mode = mode_auto(min_sr_len, False, is_subread_set(longs))
+    tasks = cfg.tasks(mode)
+    log.info("mode %s: tasks %s", mode, " ".join(tasks))
+
+    # parameter.log (bin/proovread:401-416)
+    with open(os.path.join(outdir, f"{name}.parameter.log"), "w") as fh:
+        fh.write(json.dumps({
+            "argv": sys.argv if argv is None else [PROG] + argv,
+            "mode": mode, "tasks": tasks,
+            "n_long_reads": len(longs),
+            "n_short_reads": len(shorts),
+            "n_unitigs": 0, "median_sr_len": min_sr_len,
+            "config": cfg.data,
+        }, indent=2))
+
+    from proovread_tpu_torch.pipeline.tasks import run_tasks
+    result = run_tasks(
+        cfg, mode, tasks, longs, shorts, coverage=args.coverage,
+        lr_min_length=args.lr_min_length, sampling=not args.no_sampling,
+        device=args.device)
+
+    # -- reference output layout (bin/proovread:904-956) ------------------
+    from proovread_tpu_torch.io.fasta import FastaWriter
+    from proovread_tpu_torch.io.fastq import FastqWriter
+
+    def _w(path, records, fq=True):
+        with open(os.path.join(outdir, path), "wb") as fh:
+            w = FastqWriter(fh) if fq else FastaWriter(fh)
+            for r in records:
+                w.write(r)
+
+    _w(f"{name}.untrimmed.fq", result.untrimmed)
+    _w(f"{name}.trimmed.fq", result.trimmed)
+    _w(f"{name}.trimmed.fa", result.trimmed, fq=False)
+    with open(os.path.join(outdir, f"{name}.ignored.tsv"), "w") as fh:
+        for rid, why in result.ignored:
+            fh.write(f"{rid}\t{why}\n")
+    with open(os.path.join(outdir, f"{name}.chim.tsv"), "w") as fh:
+        for rid, f0, t0, s in result.chimera:
+            fh.write(f"{rid}\t{f0}\t{t0}\t{s:.3f}\n")
+
+    for rep in result.reports:
+        sat = ""
+        if rep.n_dropped_cap or rep.n_dropped_cov:
+            sat = (f"  dropped {rep.n_dropped_cap} cap /"
+                   f" {rep.n_dropped_cov} cov")
+        log.info("task %-16s masked/supported %5.1f%%  candidates %d%s",
+                 rep.task, rep.masked_frac * 100, rep.n_candidates, sat)
+    log.info("done: %d corrected, %d trimmed, %d ignored, %d chimera",
+             len(result.untrimmed), len(result.trimmed),
+             len(result.ignored), len(result.chimera))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
-for ``sm_90a`` with ``-fmad=false`` (the banded Smith-Waterman must round
+for ``sm_90a`` with ``-fmad=false`` (the Smith-Waterman kernels must round
 every f32 multiply and add separately, as the JAX reference does), then
 linked into one shared library with a plain C interface that is loaded with
 ``ctypes``. The library is keyed by a hash of the sources and flags, so a
@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu")
+SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -51,6 +51,8 @@ _SIGNATURES = {
                          _P, _P],
     "pt_hcr_mask_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P],
+    "pt_sw_batch": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                    _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -7,7 +7,9 @@ later passes' candidate cap), passes 2..N with the on-device mask shortcut,
 the strict finish pass against the unmasked reads with chimera detection,
 and finally ``trim_records``.
 
-Supported: ``engine="device"``, ``mode="sr"``, one device, flex off and the
+Supported: ``engine="device"``, ``mode="sr"`` and ``mode="mr"`` (the mr
+task schedule: ``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N,
+``BWA_MR_FINISH`` for the finish), one device, flex off and the
 short-read set resident, at any coverage (past ``2*max_coverage+2 > 256``
 votes per lane the passes take the f32 packed-word pileup kernel). Every
 other setting raises ``NotImplementedError`` naming it. The
@@ -26,8 +28,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from proovread_tpu_torch.align.params import (AlignParams, BWA_SR,
-                                              BWA_SR_FINISH)
+from proovread_tpu_torch.align.params import (AlignParams, BWA_MR,
+                                              BWA_MR_1, BWA_MR_FINISH,
+                                              BWA_SR, BWA_SR_FINISH)
 from proovread_tpu_torch.consensus.engine import ConsensusResult
 from proovread_tpu_torch.consensus.params import ConsensusParams
 from proovread_tpu_torch.device import resolve
@@ -152,6 +155,16 @@ def finish_consensus_params(cfg: PipelineConfig,
         trim=cfg.sr_trim)
 
 
+def _align_params(mode: str, iteration: Optional[int]) -> AlignParams:
+    """Built-in task schedule (cfg task-counter suffix semantics,
+    bin/proovread:1989-2024): iteration None = finish."""
+    if mode.startswith("sr"):
+        return BWA_SR_FINISH if iteration is None else BWA_SR
+    if iteration is None:
+        return BWA_MR_FINISH
+    return BWA_MR_1 if iteration == 1 else BWA_MR
+
+
 def _align_params_cfg(cfg: PipelineConfig,
                       iteration: Optional[int]) -> AlignParams:
     """Task schedule (iteration None = finish), honoring
@@ -164,7 +177,7 @@ def _align_params_cfg(cfg: PipelineConfig,
         if k in s:
             return s[k]
         return s["first"] if iteration == 1 else s["rest"]
-    return BWA_SR_FINISH if iteration is None else BWA_SR
+    return _align_params(cfg.mode, iteration)
 
 
 def _unsupported(cfg: PipelineConfig) -> Optional[str]:
@@ -172,7 +185,7 @@ def _unsupported(cfg: PipelineConfig) -> Optional[str]:
     env_fault = os.environ.get("PROOVREAD_FAULT")
     checks = (
         (cfg.engine != "device", f"engine={cfg.engine!r}"),
-        (cfg.mode != "sr", f"mode={cfg.mode!r}"),
+        (cfg.mode not in ("sr", "mr"), f"mode={cfg.mode!r}"),
         ((cfg.mesh_shards or 0) > 1, f"mesh_shards={cfg.mesh_shards}"),
         (cfg.haplo_coverage is not None,
          f"haplo_coverage={cfg.haplo_coverage}"),

@@ -64,7 +64,11 @@ inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::unique_ptr<std::barrier<>> g_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_wbar;
-inline uint64_t g_xchg[1024];
+// warp exchanges alternate between two halves: a lane writes a half again
+// only after the next exchange's barrier, which every lane reaches after
+// its read, so one warp barrier an exchange is enough
+inline uint64_t g_xchg[2][1024];
+inline thread_local unsigned g_half = 0;
 alignas(16) inline unsigned char g_smem[240 * 1024];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline int pt_tid() { return threadIdx.x + threadIdx.y * blockDim.x; }
@@ -87,11 +91,11 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
 template <typename T>
 T pt_shfl(T v, int src) {
   int t = pt_tid();
-  std::memcpy(&g_xchg[t], &v, sizeof(T));
+  uint64_t* x = g_xchg[g_half ^= 1];
+  std::memcpy(&x[t], &v, sizeof(T));
   __syncwarp();
   T r = v;
-  if (src >= 0) std::memcpy(&r, &g_xchg[(t & ~31) + src], sizeof(T));
-  __syncwarp();
+  if (src >= 0) std::memcpy(&r, &x[(t & ~31) + src], sizeof(T));
   return r;
 }
 template <typename T>
@@ -113,13 +117,13 @@ T __shfl_xor_sync(unsigned, T v, int m) {
 // every lane publishes its predicate; each reads the whole warp's
 inline unsigned __ballot_sync(unsigned, int pred) {
   int t = pt_tid(), w0 = t & ~31;
-  g_xchg[t] = pred != 0;
+  uint64_t* x = g_xchg[g_half ^= 1];
+  x[t] = pred != 0;
   __syncwarp();
   unsigned r = 0;
   int nt = int(blockDim.x * blockDim.y);
   for (int l = 0; l < 32 && w0 + l < nt; ++l)
-    if (g_xchg[w0 + l]) r |= 1u << l;
-  __syncwarp();
+    if (x[w0 + l]) r |= 1u << l;
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -463,6 +467,33 @@ elif which == "hcr_long":
         want = ak.hcr_mask_plain(t(qual), lens, pvi)
         same(got, want)
         assert int(want[1].sum()) > 0 and int(want[1][0]) == 0
+elif which == "sw":
+    # siamaera-like candidates at a small size: queries planted in their
+    # windows (some with an indel), chance pairs, N codes, empty and short
+    # queries; R not a multiple of the block's four candidates
+    from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.align.params import AlignParams, BWA_SR_FINISH
+    R, m, n = 23, 32, 128
+    r = rng.integers(0, 4, (R, n)).astype(np.int8)
+    ql = rng.integers(1, m + 1, R).astype(np.int32)
+    ql[:3] = [0, m, 1]
+    q = np.full((R, m), 4, np.int8)
+    for i in range(R):
+        st = int(rng.integers(0, n - m))
+        src = r[i, st:st + m].copy()
+        if i % 3 == 0:
+            src = rng.integers(0, 4, m).astype(np.int8)
+        elif i % 3 == 1:
+            src = np.insert(src, 9, [1, 2])[:m]
+        q[i, :ql[i]] = src[:ql[i]]
+    q[5, 3] = 4
+    r[::6, 40:44] = 4
+    for ap in (AlignParams(min_out_score=0.0, score_per_base=False),
+               BWA_SR_FINISH):
+        args = (t(q), t(r), t(ql), ap)
+        got, want = sw._sw_cuda(*args), sw.sw_batch_plain(*args)
+        same(got, want)
+        assert int(want.n_ops.max()) >= m // 2
 print("EMU-OK", which)
 """
 
@@ -492,7 +523,7 @@ def emu_lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_EMU)
     (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
     srcs = []
-    for name in ("bsw.cu", "pileup.cu", "assemble.cu"):
+    for name in ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu"):
         out = d / (Path(name).stem + ".cpp")
         out.write_text(_emulation_source((CSRC / name).read_text()))
         srcs.append(str(out))
@@ -512,7 +543,7 @@ def emu_lib(tmp_path_factory):
                                    "pileup_packed", "pileup_packed_clustered",
                                    "pileup_dense", "pileup_dense_clustered",
                                    "assemble", "assemble_long", "hcr",
-                                   "hcr_long"])
+                                   "hcr_long", "sw"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

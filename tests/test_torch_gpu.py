@@ -24,19 +24,19 @@ def _equal(a, b):
     return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
-def _bsw_args(cuda, ap, seed, R=256):
+def _bsw_args(cuda, ap, seed, R=256, m=112):
     from proovread_tpu_torch.align import bsw
     from proovread_tpu_torch.pipeline.dcorrect import device_revcomp
     rng = np.random.default_rng(seed)
-    S, m, B, Lp = 64, 112, 4, 2048
+    S, B, Lp = 64, 4, 2048
     W = bsw.band_lanes(ap)
     n = m + W
     genome = rng.integers(0, 4, (B, Lp)).astype(np.int8)
-    qlen = rng.integers(60, 101, S).astype(np.int32)
+    qlen = rng.integers(m // 2 + 4, m - 11, S).astype(np.int32)
     qlen[0] = 0
     qf = np.full((S, m), 4, np.int8)
     for s in range(S):
-        b, p = int(rng.integers(0, B)), int(rng.integers(0, Lp - 120))
+        b, p = int(rng.integers(0, B)), int(rng.integers(0, Lp - m - 8))
         qf[s, :qlen[s]] = genome[b, p:p + qlen[s]]
     t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
     sread = rng.integers(0, S, R).astype(np.int32)
@@ -58,6 +58,45 @@ def test_bsw_kernel_matches_plain(cuda, finish):
     got = bsw.bsw_expand_v2(*args)
     assert bsw.bsw_expand_v2.launches == launches + 1
     assert _equal(got, bsw.bsw_expand_v2_plain(*args))
+
+
+@pytest.mark.parametrize("finish", [False, True])
+def test_bsw_kernel_matches_plain_at_mr_shapes(cuda, finish):
+    """250 bp short reads pad to m = 256: the mr passes' band (W=96) and
+    the mr finish's (W=64)."""
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.align.params import BWA_MR, BWA_MR_FINISH
+    args = _bsw_args(cuda, BWA_MR_FINISH if finish else BWA_MR, 7 + finish,
+                     m=256)
+    assert _equal(bsw.bsw_expand_v2(*args), bsw.bsw_expand_v2_plain(*args))
+
+
+@pytest.mark.parametrize("m,n", [(32, 128), (256, 384)])
+def test_sw_kernel_matches_plain(cuda, m, n):
+    """Siamaera's Smith-Waterman: queries planted in their windows,
+    chance pairs, short and empty queries, N codes."""
+    from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.align.params import AlignParams, BWA_SR_FINISH
+    rng = np.random.default_rng(n)
+    R = 203
+    r = rng.integers(0, 4, (R, n)).astype(np.int8)
+    ql = rng.integers(1, m + 1, R).astype(np.int32)
+    ql[:2] = [0, m]
+    q = np.full((R, m), 4, np.int8)
+    for i in range(R):
+        src = (r[i, 40:40 + m] if i % 2 else
+               rng.integers(0, 4, m).astype(np.int8))
+        q[i, :ql[i]] = src[:ql[i]]
+    q[rng.random((R, m)) < 0.01] = 4
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    for ap in (AlignParams(min_out_score=0.0, score_per_base=False),
+               BWA_SR_FINISH):
+        launches = sw.sw_batch.launches
+        got = sw.sw_batch(t(q), t(r), t(ql), ap)
+        assert sw.sw_batch.launches == launches + 1
+        want = sw.sw_batch_plain(t(q), t(r), t(ql), ap)
+        assert _equal(got, want)
+        assert int(want.n_ops.max()) >= m
 
 
 def test_bsw_kernel_matches_plain_at_band_128(cuda):

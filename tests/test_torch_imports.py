@@ -42,7 +42,9 @@ def test_no_jax_or_reference_imports(path):
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "import proovread_tpu_torch.pipeline.driver, "
-            "proovread_tpu_torch.state, proovread_tpu_torch.kernels\n"
+            "proovread_tpu_torch.state, proovread_tpu_torch.kernels, "
+            "proovread_tpu_torch.cli, "
+            "proovread_tpu_torch.pipeline.siamaera\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")
@@ -75,7 +77,7 @@ def test_cuda_without_card_raises():
 
 @pytest.mark.parametrize("setting,kw", [
     ("engine", dict(engine="scan")),
-    ("mode", dict(mode="mr")),
+    ("mode", dict(mode="utg")),
     ("mesh_shards", dict(mesh_shards=2)),
     ("haplo_coverage", dict(haplo_coverage=0.0)),
     ("checkpoint_dir", dict(checkpoint_dir="ckpt")),

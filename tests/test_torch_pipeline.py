@@ -20,9 +20,10 @@ from proovread_tpu_torch.state import params_from_fields
 
 
 def _uniform_dataset(rng, G=600, n_long=6, read_len=300, n_sr=45,
-                     lr_err=0.08):
+                     lr_err=0.08, sr_len=100):
     """tests/test_qc.py's construction: uniform read lengths, 8% CLR-like
-    long-read errors, error-free 100 bp short reads on both strands."""
+    long-read errors, error-free ``sr_len`` bp short reads on both
+    strands."""
     from proovread_tpu.io.records import SeqRecord as JRecord
     from proovread_tpu.ops.encode import decode_codes, revcomp_codes
     genome = rng.integers(0, 4, G).astype(np.int8)
@@ -44,12 +45,12 @@ def _uniform_dataset(rng, G=600, n_long=6, read_len=300, n_sr=45,
         longs.append(JRecord(f"r{i}", decode_codes(np.array(noisy, np.int8))))
     srs = []
     for i in range(n_sr):
-        st = int(rng.integers(0, G - 100))
-        seq = genome[st:st + 100].copy()
+        st = int(rng.integers(0, G - sr_len))
+        seq = genome[st:st + sr_len].copy()
         if rng.random() < 0.5:
             seq = revcomp_codes(seq)
         srs.append(JRecord(f"s{i}", decode_codes(seq),
-                           qual=np.full(100, 30, np.uint8)))
+                           qual=np.full(sr_len, 30, np.uint8)))
     return longs, srs
 
 
@@ -71,8 +72,8 @@ def _compare(jres, tres):
             == [dataclasses.asdict(r) for r in jres.reports])
 
 
-def run_both(longs, srs, **kw):
-    jcfg = JConfig(mode="sr", engine="device", **kw)
+def run_both(longs, srs, mode="sr", **kw):
+    jcfg = JConfig(mode=mode, engine="device", **kw)
     jres = JPipeline(jcfg).run(longs, srs)
     fields = dataclasses.asdict(jcfg)
     tcfg = params_from_fields(PipelineConfig, {**fields, "device": "cpu"})
@@ -124,6 +125,26 @@ def test_pipeline_high_coverage_matches_jax(monkeypatch):
         "bwa-sr-1", "bwa-sr-2", "bwa-sr-3", "bwa-sr-finish"]
     assert sum(r.n_admitted for r in tres.reports) > 0
     assert calls["packed"] >= 4 and calls["bits"] == 0
+
+
+def test_pipeline_mr_matches_jax():
+    """mode="mr" with 250 bp short reads: queries pad to m = 256, pass 1
+    runs BWA_MR_1, passes 2..3 BWA_MR (k = 13) and the finish BWA_MR_FINISH
+    (k = 19, wrapped to 32 bits)."""
+    longs, srs = _uniform_dataset(np.random.default_rng(14), G=1500,
+                                  n_long=4, read_len=700, n_sr=40,
+                                  sr_len=250)
+    jres, tres = run_both(longs, srs, mode="mr", n_iterations=3,
+                          sampling=False, batch_reads=8, device_chunk=128,
+                          trim=JTrim(min_length=100),
+                          mask_shortcut_frac=2.0, mask_min_gain_frac=-1.0)
+    _compare(jres, tres)
+    assert [r.task for r in tres.reports] == [
+        "bwa-mr-1", "bwa-mr-2", "bwa-mr-3", "bwa-mr-finish"]
+    # pass 1 and the finish see unmasked reads; passes 2-3 seed only
+    # what HCR masking left
+    assert tres.reports[0].n_admitted > 0 and tres.reports[-1].n_admitted > 0
+    assert sum(r.n_candidates for r in tres.reports[1:3]) > 0
 
 
 @pytest.mark.slow
