@@ -25,7 +25,10 @@ any failure exits non-zero:
    at the mr shapes (m=256 with 250 bp queries, W=96 and W=64), and the
    Smith-Waterman kernel of siamaera's mapper at its chunk (R=2048, m=256,
    n=384: half a read's window against its reverse complement, half chance
-   seeds). Launcher, plain
+   seeds), and the accuracy scoreboard's LCS kernel on 646 (read, truth)
+   pairs at the E.coli-class spread (truths up to 45,000 bases) with the
+   edge cases (empty read or truth, truths of 64, 2048 and 4096 bases, a
+   read past its truth, N codes). Launcher, plain
    and library times (median of CUDA-event timings after a warm-up), the
    kernels' own device time and the device operations of one launcher
    call (torch.profiler), and each kernel's bound from its bytes and
@@ -38,7 +41,13 @@ any failure exits non-zero:
    finish pass collecting alignments: consensus calls, read state, pass
    counts and alignment data), and the command line (``cli.main``, siamaera
    on) in sr-noccs and, with 30x of 250 bp short reads, mr-noccs: all six
-   output files (``parameter.log`` but its argv);
+   output files (``parameter.log`` but its argv), and, scored against the
+   workload's truth (``--truth --qc-out --metrics-out``), ``qc.jsonl``
+   byte for byte and the metrics but for their timings; the sr-noccs
+   accuracy aggregate must equal the JAX package's recorded config-4 row
+   in ``ACCURACY_r10.json`` (read as data); then one ``--trace`` run on
+   the card, whose span tree must hold the run, bucket, pass and
+   score-accuracy spans and every QC record's bucket span;
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
    genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
 5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
@@ -53,16 +62,23 @@ any failure exits non-zero:
    resident short-read set;
 7. the command line at E.coli class: phase 4's reads written as FASTQ,
    ``cli.main`` with its defaults and ``--no-checkpoint`` (mode sr-noccs,
-   siamaera on): wall, bases/s, peak memory, siamaera's seconds split into
-   host seeding and Smith-Waterman, its candidates and counts, and the bsw
-   and sw launches and device time (CUDA events around each launch);
+   siamaera on), scored against the reads' truth (``--truth --qc-out
+   --metrics-out``): wall, bases/s (the wall without the scoring), peak
+   memory, siamaera's seconds split into host seeding and Smith-Waterman,
+   its candidates and counts, the bsw, sw and LCS launches and device
+   time (CUDA events around each launch), the score-accuracy seconds
+   (from the command line's ``accuracy:`` log line), the
+   reads scored, identity before and after, the error classes before and
+   after and those introduced; every output read must be scored, and its
+   mean identity after must reach the scoreboard's floor (0.95) and pass
+   the identity before;
 8. mr at E.coli class: the same long reads with 30x of 250 bp short reads
-   (mode mr-noccs), the same numbers.
+   (mode mr-noccs), the same numbers and holds.
 
 Phases 4-8 each reset every kernel's launch count just before and read
 them just after; each fails if a kernel of its path was not launched
-(phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble and HCR), and
-phase 5 also if the bit-plane pileup was.
+(phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble, HCR and the
+LCS), and phase 5 also if the bit-plane pileup was.
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
@@ -90,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import re
 import subprocess
@@ -99,9 +116,15 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet), used for each kernel's bound
+# H100 SXM peaks (NVIDIA data sheet), used for each kernel's bound; the
+# INT32 rate is the Hopper white paper's 64 INT32 lanes an SM x 132 SMs at
+# the 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 16.7e12
+# free card memory phase 1 waits for: about twice the most that a phase
+# holds (PERF.md, section 5)
+NEED_FREE_GIB = 8.0
 
 
 def log(msg: str) -> None:
@@ -114,6 +137,40 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_memory() -> str:
+    """The card's memory in use and every compute process nvidia-smi sees
+    on it, for the log."""
+    def query(*args):
+        out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        return "; ".join(out.stdout.strip().splitlines()) or "none"
+    return (f"memory used, total: {query('--query-gpu=memory.used,memory.total')}"
+            f"; compute processes (pid, memory): "
+            f"{query('--query-compute-apps=pid,used_memory')}")
+
+
+def wait_for_card_memory(need_gib: float = NEED_FREE_GIB,
+                         max_wait_s: float = 240.0, poll_s: float = 5.0):
+    """Wait, at most ``max_wait_s``, until the card has ``need_gib`` free,
+    since another process may hold the card for a while. Logs what holds
+    the card while it waits; returns the free GiB at the end (the run goes
+    on either way)."""
+    import torch
+    t0 = time.monotonic()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    log(f"card memory: {free:.2f} GiB free; {card_memory()}")
+    while free < need_gib and time.monotonic() - t0 < max_wait_s:
+        time.sleep(poll_s)
+        free = torch.cuda.mem_get_info()[0] / 2**30
+        log(f"card memory: {free:.2f} GiB free after "
+            f"{time.monotonic() - t0:.0f} s; {card_memory()}")
+    if free < need_gib:
+        log(f"card memory: only {free:.2f} GiB free after waiting "
+            f"{max_wait_s:.0f} s, less than the {need_gib} GiB this run "
+            "may need")
+    return free
 
 
 def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -191,12 +248,13 @@ KERNEL_NAMES = {
     "assemble": ("assemble_count_kernel", "assemble_tiles_kernel"),
     "hcr": ("hcr_scan_kernel",),
     "sw": ("sw_kernel",),
+    "lcs": ("lcs_kernel",),
 }
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -206,12 +264,23 @@ def dp_rows(qlen, m: int) -> float:
     return float(qlen.clamp(max=m).sum())
 
 
-def max_abs_err(pairs) -> float:
+def count_where(t, pred, chunk: int = 1 << 24) -> int:
+    """How many elements of ``t`` satisfy ``pred``, ``chunk`` elements at a
+    time: a whole-size bool sum widens to int64, 3 GiB for a pileup."""
+    flat = t.reshape(-1)
+    return sum(int(pred(flat[i:i + chunk]).sum())
+               for i in range(0, flat.numel(), chunk))
+
+
+def max_abs_err(pairs, chunk: int = 1 << 24) -> float:
+    """The largest |a - b| over the pairs, in f64, ``chunk`` elements at a
+    time: whole f64 copies of a 1.6 GB pileup pair would take 13 GB."""
     err = 0.0
     for a, b in pairs:
-        a, b = a.double(), b.double()
-        if a.numel():
-            err = max(err, float((a - b).abs().max()))
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), chunk):
+            d = a[i:i + chunk].double() - b[i:i + chunk].double()
+            err = max(err, float(d.abs().max()))
     return err
 
 
@@ -321,13 +390,21 @@ def check_bsw(rng, dev, ap, label, m=112, ql=100):
         shape=f"R={R} m={m} W={W} n={n}", valid=n_valid), got, args
 
 
-def touched_bound(in_bytes: float, want, base):
-    """Bound of an unweighted pileup: its inputs read once, each cell that
-    gains a vote read and written once; one f32 add per vote."""
+def pileup_zeros(B, Lpile, dev):
+    """A fresh f32 pileup of zeros. The checks make one for each call, and
+    no spare copy, so that phase 2 holds at most two pileups (1.6 GB each
+    at B=256, Lp=24576) at once."""
     import torch
-    gained = want - base
-    cells = int(torch.count_nonzero(gained))
-    return bound(in_bytes + 8.0 * cells, float(gained.sum())), cells
+    return torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
+
+
+def touched_bound(in_bytes: float, want):
+    """Bound of an unweighted pileup accumulated into zeros: its inputs read
+    once, each cell that gains a vote read and written once; one f32 add
+    per vote."""
+    import torch
+    cells = count_where(want, lambda c: c != 0)
+    return bound(in_bytes + 8.0 * cells, float(want.sum())), cells
 
 
 def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
@@ -346,6 +423,7 @@ def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
     R, n = b0.shape
     Lpile = Lp + 2 * n
     t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    zeros = lambda: pileup_zeros(B, Lpile, dev)   # noqa: E731
     reads = rng.choice(B, clustered_reads, replace=False)
     inputs = {
         "random": (bsw_args[6], t(rng.integers(0, Lp + n, R).astype(np.int32))),
@@ -354,19 +432,17 @@ def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
                         .astype(np.int32)))}
     out = {}
     for label, (read_of, w0) in inputs.items():
-        base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
-        want = pk.pileup_accumulate_bits_plain(base.clone(), b0, b1, read_of,
-                                               w0)
-        got = pk.pileup_accumulate_bits(base.clone(), b0, b1, read_of, w0)
+        want = pk.pileup_accumulate_bits_plain(zeros(), b0, b1, read_of, w0)
+        got = pk.pileup_accumulate_bits(zeros(), b0, b1, read_of, w0)
         torch.cuda.synchronize()
         assert_equal(f"pileup_accumulate_bits ({label})", [(got, want)])
         err = max_abs_err([(got, want)])
-        (b_ms, b_by), cells = touched_bound(8.0 * R * n + 8 * R, want, base)
+        (b_ms, b_by), cells = touched_bound(8.0 * R * n + 8 * R, want)
         if cells == 0:
             raise AssertionError("pileup: no votes in the check inputs")
         peak = float(want.max())
         del got, want
-        buf = base
+        buf = zeros()
         tm = launcher_times(lambda: pk._pileup_cuda(buf, b0, b1, read_of, w0),
                             KERNEL_NAMES["bits"])
         plain_ms = time_ms(lambda: pk.pileup_accumulate_bits_plain(
@@ -380,7 +456,7 @@ def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                           touched_cells=cells, peak_cell=peak,
                           shape=f"B={B} Lp={Lp} R={R} n={n}")
-        del buf, flat, votes, base
+        del buf, flat, votes
         torch.cuda.empty_cache()
     return dict(**out["random"], clustered=out["clustered"])
 
@@ -502,6 +578,7 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args, B=256, Lp=24576):
     R, n = words.shape
     Lpile = Lp + 2 * n
     t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    zeros = lambda: pileup_zeros(B, Lpile, dev)   # noqa: E731
     # the clustered span: the words' state votes over 2 reads at 140 a
     # column, plus the window columns where no word votes
     state = pk.decode_words(words)[:, :, :8].sum(-1)
@@ -520,14 +597,12 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args, B=256, Lp=24576):
                        t(np.full(R, 1000, np.int32)))}
     out = {}
     for label, (read_of, w0) in inputs.items():
-        base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
-        want = pk.pileup_accumulate_packed_plain(base.clone(), words, read_of,
-                                                 w0)
-        got = pk.pileup_accumulate_packed(base.clone(), words, read_of, w0)
+        want = pk.pileup_accumulate_packed_plain(zeros(), words, read_of, w0)
+        got = pk.pileup_accumulate_packed(zeros(), words, read_of, w0)
         torch.cuda.synchronize()
         assert_equal(f"pileup_accumulate_packed ({label})", [(got, want)])
         err = max_abs_err([(got, want)])
-        (b_ms, b_by), cells = touched_bound(4.0 * R * n + 8 * R, want, base)
+        (b_ms, b_by), cells = touched_bound(4.0 * R * n + 8 * R, want)
         n_votes = int(want.sum())
         if n_votes == 0:
             raise AssertionError("pileup packed: no votes in the check inputs")
@@ -541,7 +616,7 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args, B=256, Lp=24576):
             raise AssertionError(f"pileup packed: {col_votes} state votes a "
                                  "covered column on the clustered input")
         del got, want, state_votes
-        buf = base
+        buf = zeros()
         tm = launcher_times(lambda: pk._packed_cuda(buf, words, read_of, w0),
                             KERNEL_NAMES["packed"])
         plain_ms = time_ms(lambda: pk.pileup_accumulate_packed_plain(
@@ -556,7 +631,7 @@ def check_pileup_packed(rng, dev, bsw_res, bsw_args, B=256, Lp=24576):
                           votes=n_votes, touched_cells=cells,
                           state_votes_per_column=col_votes, peak_lane=peak,
                           shape=f"B={B} Lp={Lp} R={R} n={n}")
-        del buf, flat, votes, base
+        del buf, flat, votes
         torch.cuda.empty_cache()
     random = out.pop("random")
     random["max_abs_err"] = max(r["max_abs_err"]
@@ -581,19 +656,22 @@ def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
     Lpile = Lp + 2 * n
     w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
                          device=dev)
-    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
-    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
-    want = pk.pileup_accumulate_plain(base.clone(), votes, read_of, w0)
+    got = pk.pileup_accumulate(pileup_zeros(B, Lpile, dev), votes, read_of,
+                               w0)
+    want = pk.pileup_accumulate_plain(pileup_zeros(B, Lpile, dev), votes,
+                                      read_of, w0)
     torch.cuda.synchronize()
     assert_equal("pileup_accumulate", [(got, want)])
     err = max_abs_err([(got, want)])
-    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
+    del got
+    got = pk.pileup_accumulate(pileup_zeros(B, Lpile, dev), votes, read_of,
+                               w0)
     assert_equal("pileup_accumulate (second run)", [(got, want)])
-    frac = int(((want != 0) & (want != torch.round(want))).sum())
+    frac = count_where(want, lambda c: (c != 0) & (c != torch.round(c)))
     if frac == 0:
         raise AssertionError("pileup dense: no fractional sums in the check")
     del got, want
-    buf = base
+    buf = pileup_zeros(B, Lpile, dev)
     tm = launcher_times(lambda: pk._dense_cuda(buf, votes, read_of, w0),
                         KERNEL_NAMES["ordered"])
     plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
@@ -635,16 +713,19 @@ def check_pileup_dense_clustered(rng, dev, votes, B=8, Lp=12288):
                               device=dev)
     w0 = torch.as_tensor(rng.integers(0, Lp + n, R).astype(np.int32),
                          device=dev)
-    base = torch.zeros((B, Lpile, 64), dtype=torch.float32, device=dev)
-    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
-    want = pk.pileup_accumulate_plain(base.clone(), votes, read_of, w0)
+    got = pk.pileup_accumulate(pileup_zeros(B, Lpile, dev), votes, read_of,
+                               w0)
+    want = pk.pileup_accumulate_plain(pileup_zeros(B, Lpile, dev), votes,
+                                      read_of, w0)
     torch.cuda.synchronize()
     assert_equal("pileup_accumulate (clustered)", [(got, want)])
     err = max_abs_err([(got, want)])
-    got = pk.pileup_accumulate(base.clone(), votes, read_of, w0)
+    del got
+    got = pk.pileup_accumulate(pileup_zeros(B, Lpile, dev), votes, read_of,
+                               w0)
     assert_equal("pileup_accumulate (clustered, second run)", [(got, want)])
     del got, want
-    buf = base
+    buf = pileup_zeros(B, Lpile, dev)
     tm = launcher_times(lambda: pk._dense_cuda(buf, votes, read_of, w0),
                         KERNEL_NAMES["ordered"])
     plain_ms = time_ms(lambda: pk.pileup_accumulate_plain(
@@ -798,6 +879,98 @@ def check_hcr_at(rng, dev, B, L):
                 shape=f"B={B} L={L}")
 
 
+def lcs_inputs(rng, P=640):
+    """(read, truth) code pairs at the E.coli-class spread: truths of
+    lognormal length (mean ~8 kb, clipped to 500..45,000 bases, the
+    longest set to 45,000), each read its truth with the CLR simulator's
+    errors (~15%); then the edge cases: an empty read, an empty truth,
+    truths of exactly 64, 2048 (a kernel lane's block) and 4096 bases, a
+    read past its truth, N codes on either side, runs of N in a truth."""
+    from proovread_tpu_torch.io.simulate import _apply_errors
+    lens = np.clip(rng.lognormal(np.log(7000), 0.55, P), 500,
+                   45_000).astype(np.int64)
+    lens[0] = 45_000
+    pairs = []
+    for n_t in lens:
+        tr = rng.integers(0, 4, int(n_t)).astype(np.int8)
+        pairs.append((_apply_errors(tr, rng, 0.02, 0.08, 0.05), tr))
+    for n_t in (64, 2048, 4096, 3000, 0, 700):
+        tr = rng.integers(0, 4, n_t).astype(np.int8)
+        pairs.append((_apply_errors(tr, rng, 0.02, 0.08, 0.05), tr))
+    pairs[-1] = (np.zeros(0, np.int8), pairs[-1][1])         # empty read
+    pairs[-3] = (np.concatenate([pairs[-3][0], rng.integers(0, 4, 900)])
+                 .astype(np.int8), pairs[-3][1])             # read past truth
+    pairs[-4][1][::7] = 4                                     # N in a truth
+    pairs[-4][0][::5] = 4                                     # N in its read
+    for a, b in ((320, 384), (1000, 1300), (2040, 2120)):     # runs of N a
+        pairs[-3][1][a:b] = 4                                 # carry crosses
+    return pairs
+
+
+def check_lcs(rng, dev):
+    """The accuracy scoreboard's LCS kernel against its plain version on
+    ~640 pairs at the E.coli-class spread plus the edge cases (bitwise);
+    the plain version runs once, as one group, and that run is its time."""
+    import torch
+    from proovread_tpu_torch.obs import accuracy as acc
+    pairs = lcs_inputs(rng)
+    args = acc.pack_pairs(pairs, dev)
+    got = acc.lcs_lengths(*args)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = acc.lcs_lengths_plain(*args, group=len(pairs))
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    assert_equal("lcs_lengths", [(got, want)])
+    if int(want[0]) < 30_000:
+        raise AssertionError(f"lcs: weak inputs (longest LCS {int(want[0])})")
+    tm = launcher_times(lambda: acc.lcs_lengths(*args), KERNEL_NAMES["lcs"])
+    # each input byte once, the offsets and the output; the recurrence on
+    # a 64-bit word as Hopper's 32-bit units do it, 6 INT32 operations for
+    # each matching-alphabet read base and truth word: u = V & M (one LOP3
+    # a half), V + u with its carry (IADD3, IADD3.X), V' = s | (V & ~M)
+    # (one three-input LOP3 a half). This is a throughput figure: the
+    # floor in fact is the longest pair's dependent chain of steps
+    n_bytes = sum(len(r) + len(t) for r, t in pairs) + 8 * 3 * len(pairs)
+    steps = [int(((r >= 0) & (r < 4)).sum()) for r, _ in pairs]
+    word_steps = sum(st * -(-len(t) // 64)
+                     for st, (_, t) in zip(steps, pairs))
+    b_ms, b_by = bound(n_bytes, 6.0 * word_steps, PEAK_INT32_OPS_PER_S)
+    return dict(max_abs_err=max_abs_err([(got.float(), want.float())]),
+                **tm, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, word_steps=word_steps,
+                longest_chain_steps=max(steps), classes=lcs_classes(pairs),
+                shape=f"P={len(pairs)} bases={n_bytes}")
+
+
+def lcs_classes(pairs):
+    """The LCS kernel's register classes among ``pairs``, as its wrapper
+    picks them (0: the global scratch), with the pairs in each, and the
+    kernel's registers a thread and resident warps an SM at the launch's
+    shared memory (its largest shared-memory class): one kernel holds
+    every class, so every pair's warp reserves the registers of the
+    largest."""
+    import ctypes
+    from proovread_tpu_torch import kernels
+    from proovread_tpu_torch.obs import accuracy as acc
+    count = {}
+    for r, t in pairs:
+        if len(r) == 0 or len(t) == 0:
+            continue
+        wpl = -(-(-(-len(t) // 64)) // 32)
+        c = (0 if wpl > acc.SMEM_MAX_WPL
+             else min(c for c in acc.LCS_CLASSES if c >= wpl))
+        count[c] = count.get(c, 0) + 1
+    smem_w = max((c for c in count if c > 0), default=0)
+    regs, warps = ctypes.c_int(), ctypes.c_int()
+    kernels.check(kernels.lib().pt_lcs_occupancy(
+        smem_w, ctypes.byref(regs), ctypes.byref(warps)), "lcs_occupancy")
+    return dict(pairs_by_class={str(c): n for c, n in sorted(count.items())},
+                regs=regs.value, warps_per_sm=warps.value)
+
+
 # --------------------------------------------------------------------------
 # phases 3-6: the pipeline and the qual-weighted pass
 # --------------------------------------------------------------------------
@@ -808,9 +981,9 @@ def workload(genome_size, long_bases, n_iterations, sr_coverage=30.0,
                                                  simulate_long_reads,
                                                  simulate_short_reads)
     genome = random_genome(genome_size, seed=0)
-    longs, _ = simulate_long_reads(genome, long_bases, seed=1)
+    longs, truths = simulate_long_reads(genome, long_bases, seed=1)
     srs = simulate_short_reads(genome, sr_coverage, read_len=sr_len, seed=2)
-    return longs, srs, n_iterations
+    return longs, srs, n_iterations, truths
 
 
 def run_pipeline(longs, srs, n_iterations, device, **kw):
@@ -1084,17 +1257,44 @@ class KernelTimer:
         return float(sum(a.elapsed_time(b) for a, b in self.events))
 
 
-def cli_card_vs_cpu(tmp, label, longs, srs, want_mode):
+def write_truth(tmp, label, longs, truths):
+    """The workload's truth sidecar (``io/simulate.py``)."""
+    from proovread_tpu_torch.io.simulate import write_truth_sidecar
+    path = os.path.join(tmp, f"{label}.truth.jsonl")
+    write_truth_sidecar(path, longs, truths)
+    return path
+
+
+def read_qc(path):
+    """(meta line, per-read records) of a ``--qc-out`` file."""
+    with open(path) as fh:
+        lines = [json.loads(ln) for ln in fh if ln.strip()]
+    return lines[0], lines[1:]
+
+
+def cli_card_vs_cpu(tmp, label, longs, srs, want_mode, truths=None):
     """``cli.main`` on the workload's FASTQ files with ``--device cuda``
-    and ``--device cpu``: every output identical."""
+    and ``--device cpu``: every output identical; with ``truths``, both
+    runs also score ``--truth`` and write ``--qc-out`` and
+    ``--metrics-out``, and the QC files are identical byte for byte and
+    the metrics but for their timings. Returns the walls, the card's
+    files and its QC meta line (None unscored)."""
     from proovread_tpu_torch import cli
+    from proovread_tpu_torch.obs.metrics import without_timings
     lp, sp = write_inputs(tmp, label, longs, srs)
-    got, walls = {}, {}
+    tp = write_truth(tmp, label, longs, truths) if truths else None
+    got, walls, obs_files = {}, {}, {}
     for device in ("cuda", "cpu"):
         out = os.path.join(tmp, f"{label}-{device}", "res")
+        extra = []
+        if tp:
+            obs_files[device] = (os.path.join(tmp, f"{label}-{device}.qc"),
+                                 os.path.join(tmp, f"{label}-{device}.m"))
+            extra = ["--truth", tp, "--qc-out", obs_files[device][0],
+                     "--metrics-out", obs_files[device][1]]
         t0 = time.monotonic()
         rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
-                       "--device", device, "-q"])
+                       "--device", device, "-q", *extra])
         walls[device] = time.monotonic() - t0
         if rc != 0:
             raise AssertionError(f"cli {label} --device {device}: exit {rc}")
@@ -1108,27 +1308,134 @@ def cli_card_vs_cpu(tmp, label, longs, srs, want_mode):
                              f"{diff or 'parameter.log'}")
     if not files["untrimmed.fq"]:
         raise AssertionError(f"cli {label}: nothing corrected")
-    return walls, files
+    meta = None
+    if tp:
+        qc_b, m_b = ({d: open(obs_files[d][i], "rb").read()
+                      for d in obs_files} for i in (0, 1))
+        if qc_b["cuda"] != qc_b["cpu"]:
+            raise AssertionError(f"cli {label}: card and CPU qc.jsonl "
+                                 "differ")
+        if without_timings(json.loads(m_b["cuda"])) != without_timings(
+                json.loads(m_b["cpu"])):
+            raise AssertionError(f"cli {label}: card and CPU metrics "
+                                 "differ")
+        meta, _ = read_qc(obs_files["cuda"][0])
+    return walls, files, meta
 
 
-def cli_run(tmp, label, longs, srs, want_mode):
+def recorded_accuracy(config):
+    """The JAX package's recorded accuracy row of a bench config, read as
+    data from ``ACCURACY_r10.json`` beside this script."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ACCURACY_r10.json")
+    with open(path) as fh:
+        rows = [json.loads(ln) for ln in fh if ln.strip()]
+    return next(r for r in rows if r["config"] == config)
+
+
+def hold_accuracy(label, acc, row):
+    """A QC aggregate's accuracy section against a recorded row: the read
+    counts, the mean identities and the summed error classes equal."""
+    got = dict(n_scored=acc["n_scored"], n_classified=acc["n_classified"],
+               identity_before=acc["identity_before"]["mean"],
+               identity_after=acc["identity_after"]["mean"],
+               errors_before=acc["errors_before"],
+               errors_after=acc["errors_after"],
+               introduced=acc["introduced"], chimera=acc["chimera"])
+    want = {k: row[k] for k in got}
+    if got != want:
+        raise AssertionError(f"{label}: accuracy {got} is not the recorded "
+                             f"{want}")
+    return got
+
+
+def cli_trace(tmp, label, longs, srs, truths):
+    """``cli.main`` on the card with ``--trace``, ``--qc-out`` and
+    ``--truth``: the span tree has its run, bucket, pass and
+    score-accuracy spans, the root's children cover >= 95% of it, each
+    bucket span carries its compile/execute split and sampled memory, and
+    every QC record's ``bucket_span`` is a bucket span of the tree."""
+    from proovread_tpu_torch import cli
+    lp, sp = write_inputs(tmp, label, longs, srs)
+    tp = write_truth(tmp, label, longs, truths)
+    trace, qc = (os.path.join(tmp, f"{label}.{x}") for x in ("t", "qc"))
+    rc = cli.main(["-l", lp, "-s", sp, "-p", os.path.join(tmp, label, "res"),
+                   "--no-checkpoint", "-q", "--trace", trace, "--qc-out", qc,
+                   "--truth", tp])
+    if rc != 0:
+        raise AssertionError(f"cli {label} --trace: exit {rc}")
+    with open(trace) as fh:
+        events = [json.loads(ln) for ln in fh][1:]
+    root = next(e for e in events if e["args"]["depth"] == 0)
+    kids = sum(e["dur"] for e in events if e["args"]["depth"] == 1)
+    names = {e["name"] for e in events}
+    buckets = [e for e in events if e["cat"] == "bucket"]
+    need = {"run", "bucket", "bwa-sr-1", "bwa-sr-finish", "score-accuracy"}
+    _, records = read_qc(qc)
+    ids = {e["args"]["span_id"] for e in buckets}
+    bad = [r["id"] for r in records if r["bucket_span"] not in ids]
+    if (root["name"] != "run" or kids < 0.95 * root["dur"]
+            or not need <= names or bad or not buckets
+            or not all({"compile_ms", "execute_ms", "live_bytes"}
+                       <= set(e["args"]) for e in buckets)
+            or not all(e["args"]["live_bytes"] > 0 for e in buckets)):
+        raise AssertionError(f"cli {label} --trace: bad span tree (names "
+                             f"{sorted(names)}, {len(bad)} records outside "
+                             "it)")
+    return dict(spans=len(events), buckets=len(buckets),
+                root_s=root["dur"] / 1e6,
+                covered=kids / max(root["dur"], 1e-9),
+                peak_live_bytes=max(e["args"]["peak_live_bytes"]
+                                    for e in buckets))
+
+
+class ScoreLog(logging.Handler):
+    """The seconds of a command-line run's score-accuracy step, from the
+    ``accuracy:`` line it logs."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.s = None
+
+    def emit(self, record):
+        if str(record.msg).startswith("accuracy: %d/%d"):
+            self.s = record.args[-1]
+
+    def __enter__(self):
+        logging.getLogger("proovread_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("proovread_tpu_torch").removeHandler(self)
+
+
+def cli_run(tmp, label, longs, srs, want_mode, truths):
     """``cli.main`` with its defaults (and ``--no-checkpoint``) on the
-    workload's FASTQ files, with siamaera's parts and bsw's device time
-    measured; returns what phases 7 and 8 log."""
+    workload's FASTQ files, scoring ``--truth`` into ``--qc-out`` and
+    ``--metrics-out``, with siamaera's parts, bsw's device time and the
+    scoring measured; holds that every output read was scored, and
+    corrected to at least the identity floor and above its input; returns
+    what phases 7 and 8 log."""
     import torch
     from proovread_tpu_torch import cli
     from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.obs.accuracy import IDENTITY_FLOOR
     t0 = time.monotonic()
     lp, sp = write_inputs(tmp, label, longs, srs)
+    tp = write_truth(tmp, label, longs, truths)
     t_write = time.monotonic() - t0
     out = os.path.join(tmp, label, "res")
+    qc, mpath = (os.path.join(tmp, f"{label}.{x}") for x in ("qc", "m"))
     torch.cuda.reset_peak_memory_stats()
     sw0 = sw.sw_batch.launches
-    with SiamaeraProbe() as probe, \
+    with SiamaeraProbe() as probe, ScoreLog() as score, \
             KernelTimer("pt_bsw_expand_v2") as bsw_t, \
-            KernelTimer("pt_sw_batch") as sw_t:
+            KernelTimer("pt_sw_batch") as sw_t, \
+            KernelTimer("pt_lcs_lengths") as lcs_t:
         t0 = time.monotonic()
-        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint"])
+        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
+                       "--truth", tp, "--qc-out", qc, "--metrics-out",
+                       mpath])
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     if rc != 0:
@@ -1139,11 +1446,27 @@ def cli_run(tmp, label, longs, srs, want_mode):
                              f"not {want_mode}")
     if probe.calls != 1 or probe.stats.checked == 0:
         raise AssertionError(f"cli {label}: siamaera did not run")
+    if score.s is None:
+        raise AssertionError(f"cli {label}: no accuracy line logged")
+    meta, _ = read_qc(qc)
+    acc = meta["aggregate"]["accuracy"]
+    n_out = files["untrimmed.fq"].count(b"\n") // 4
+    before, after = acc["identity_before"]["mean"], acc["identity_after"][
+        "mean"]
+    if acc["n_scored"] != n_out or not (IDENTITY_FLOOR <= after
+                                        and after > before):
+        raise AssertionError(f"cli {label}: {acc['n_scored']} of {n_out} "
+                             f"reads scored, identity {before} -> {after}")
+    with open(mpath) as fh:
+        gauges = json.load(fh)["gauges"]
+    if gauges["accuracy_reads_scored"]["series"][0]["value"] != n_out:
+        raise AssertionError(f"cli {label}: accuracy gauges not published")
     bases = sum(len(r) for r in longs)
     n_bsw = len(bsw_t.events)
     return dict(
         mode=plog["mode"], wall_s=wall, write_inputs_s=t_write,
-        corrected_bases_per_s=bases / wall,
+        score_accuracy_s=score.s, wall_unscored_s=wall - score.s,
+        corrected_bases_per_s=bases / (wall - score.s),
         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
         untrimmed_bytes=len(files["untrimmed.fq"]),
         trimmed_bytes=len(files["trimmed.fq"]),
@@ -1153,7 +1476,12 @@ def cli_run(tmp, label, longs, srs, want_mode):
         sw_launches=sw.sw_batch.launches - sw0,
         sw_device_ms=sw_t.total_ms(), bsw_launches=n_bsw,
         bsw_device_ms=bsw_t.total_ms(),
-        bsw_ms_per_launch=bsw_t.total_ms() / max(n_bsw, 1))
+        bsw_ms_per_launch=bsw_t.total_ms() / max(n_bsw, 1),
+        n_out=n_out, n_scored=acc["n_scored"],
+        n_classified=acc["n_classified"], identity_before=before,
+        identity_after=after, errors_before=acc["errors_before"],
+        errors_after=acc["errors_after"], introduced=acc["introduced"],
+        lcs_launches=len(lcs_t.events), lcs_device_ms=lcs_t.total_ms())
 
 
 def same_host(a, b) -> bool:
@@ -1172,7 +1500,7 @@ def result_key(res):
 # the port's CUDA kernels (csrc/*.cu), by the names the profiler shows
 # (a template kernel with its argument: pileup_col_kernel<PackedWords>)
 PORT_KERNEL = re.compile(
-    r"\b((?:bsw|sw|pileup|assemble|hcr)_\w*kernel)\b"
+    r"\b((?:bsw|sw|pileup|assemble|hcr|lcs)_\w*kernel)\b"
     r"(?:<(?:\(anonymous namespace\)::)?(\w+)>)?")
 
 
@@ -1243,7 +1571,6 @@ def main(argv=None) -> int:
     args = ap_.parse_args(argv)
     skip = {s for s in args.skip.split(",") if s}
 
-    import logging
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s: %(message)s")
     import torch
@@ -1255,6 +1582,7 @@ def main(argv=None) -> int:
     from proovread_tpu_torch.align import bsw, sw
     from proovread_tpu_torch.align.params import (BWA_MR, BWA_MR_FINISH,
                                                   BWA_SR, BWA_SR_FINISH)
+    from proovread_tpu_torch.obs import accuracy
     from proovread_tpu_torch.ops import assemble_kernel, pileup_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1270,6 +1598,7 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {time.monotonic() - t0:.1f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'})")
     dev = torch.device("cuda")
+    wait_for_card_memory()
 
     wrappers = {
         "bsw_expand_v2": (bsw.bsw_expand_v2, "proovread_tpu_torch/csrc/bsw.cu",
@@ -1297,15 +1626,21 @@ def main(argv=None) -> int:
         "sw_batch": (sw.sw_batch, "proovread_tpu_torch/csrc/sw.cu",
                      "proovread_tpu/align/sw.py:175 (XLA sw_batch, no "
                      "Pallas kernel)"),
+        # a port-only kernel: the reference's lcs_lengths is numpy
+        "lcs_lengths": (accuracy.lcs_lengths,
+                        "proovread_tpu_torch/csrc/lcs.cu",
+                        "proovread_tpu/obs/accuracy.py:203 (numpy "
+                        "lcs_lengths, no Pallas kernel)"),
     }
     # the phase whose path each kernel's launch count is read from
     path_phase = {"bsw_expand_v2": 4, "pileup_accumulate_bits": 4,
                   "assemble_rows": 4, "hcr_mask_rows": 4,
                   "pileup_accumulate_packed": 5, "bsw_expand": 6,
-                  "pileup_accumulate": 6, "sw_batch": 7}
-    # the command-line runs also go through the main path's kernels
+                  "pileup_accumulate": 6, "sw_batch": 7, "lcs_lengths": 7}
+    # the command-line runs (scored against their truth) also go through
+    # the main path's kernels
     cli_path = ("sw_batch", "bsw_expand_v2", "pileup_accumulate_bits",
-                "assemble_rows", "hcr_mask_rows")
+                "assemble_rows", "hcr_mask_rows", "lcs_lengths")
     results, launches = {}, {}
 
     def drive(phase, fn, required=()):
@@ -1338,10 +1673,18 @@ def main(argv=None) -> int:
     # -- phase 2 -------------------------------------------------------------
     if "2" not in skip:
         rng = np.random.default_rng(0)
-        # "launches" here counts the comparison launches of this phase
+        torch.cuda.reset_peak_memory_stats()
+        peak2 = [0.0]
+
+        # "launches" here counts the comparison launches of this phase;
+        # "peak_gib" is the most device memory held since the last report
         def report(name, r):
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            peak2[0] = max(peak2[0], peak)
+            torch.cuda.reset_peak_memory_stats()
             log("phase2 " + json.dumps(
-                {"name": name, "launches": wrappers[name][0].launches, **r}))
+                {"name": name, "launches": wrappers[name][0].launches,
+                 "peak_gib": peak, **r}))
 
         r64, bres64, bargs64 = check_bsw(rng, dev, BWA_SR_FINISH, "W=64")
         report("bsw_expand_v2", r64)
@@ -1355,17 +1698,20 @@ def main(argv=None) -> int:
             dev, BWA_SR, "W=96", bargs, bres)
         report("bsw_expand", results["bsw_expand"])
         results["pileup_accumulate_bits"] = check_pileup(rng, dev, bres, bargs)
+        report("pileup_accumulate_bits", results["pileup_accumulate_bits"])
         results["pileup_accumulate_packed"] = check_pileup_packed(
             rng, dev, bres, bargs)
+        report("pileup_accumulate_packed",
+               results["pileup_accumulate_packed"])
         results["pileup_accumulate"] = check_pileup_dense(
             rng, dev, v1res, v1slabs, bargs[6])
+        report("pileup_accumulate", results["pileup_accumulate"])
         del bres, bargs, v1res, v1slabs
         torch.cuda.empty_cache()
         results["assemble_rows"] = check_assemble(rng, dev)
+        report("assemble_rows", results["assemble_rows"])
         results["hcr_mask_rows"] = check_hcr(rng, dev)
-        for name in ("pileup_accumulate_bits", "pileup_accumulate_packed",
-                     "pileup_accumulate", "assemble_rows", "hcr_mask_rows"):
-            report(name, results[name])
+        report("hcr_mask_rows", results["hcr_mask_rows"])
         torch.cuda.empty_cache()
         # bsw v2 at the mr shapes: 250 bp queries padded to m = 256, the mr
         # passes' band (W=96) and the mr finish's (W=64)
@@ -1377,10 +1723,14 @@ def main(argv=None) -> int:
         results["sw_batch"] = check_sw(rng, dev)
         report("sw_batch", results["sw_batch"])
         torch.cuda.empty_cache()
+        results["lcs_lengths"] = check_lcs(rng, dev)
+        report("lcs_lengths", results["lcs_lengths"])
+        log(f"phase2 peak device memory {peak2[0]:.2f} GiB")
+        torch.cuda.empty_cache()
 
     # -- phase 3 -------------------------------------------------------------
     if "3" not in skip:
-        longs, srs, n_it = workload(10_000, 40_000, 4)
+        longs, srs, n_it, truths = workload(10_000, 40_000, 4)
         for label, kw in (("", {}),
                           (" coverage 400", dict(coverage=400.0,
                                                  sr_coverage=400.0,
@@ -1420,21 +1770,35 @@ def main(argv=None) -> int:
         # the command line in sr-noccs (100 bp short reads) and mr-noccs
         # (30x of 250 bp short reads), siamaera on: every output file
         # identical on the card and on the CPU
-        _, srs_mr, _ = workload(10_000, 40_000, 4, sr_len=250)
+        _, srs_mr, _, _ = workload(10_000, 40_000, 4, sr_len=250)
         with tempfile.TemporaryDirectory() as tmp:
             for label, shorts, mode in (("sr", srs, "sr-noccs"),
                                         ("mr", srs_mr, "mr-noccs")):
-                walls, files = cli_card_vs_cpu(tmp, f"config4-{label}",
-                                               longs, shorts, mode)
+                walls, files, meta = cli_card_vs_cpu(
+                    tmp, f"config4-{label}", longs, shorts, mode, truths)
                 log(f"phase3 cli config 4 {mode}: card "
                     f"{walls['cuda']:.1f} s, CPU {walls['cpu']:.1f} s, "
                     f"{files['untrimmed.fq'].count(b'\n') // 4} untrimmed"
                     f" records, {files['trimmed.fa'].count(b'>')} trimmed, "
-                    "all six files identical (parameter.log but its argv)")
+                    "all six files identical (parameter.log but its argv)"
+                    ", qc.jsonl identical, metrics identical but timings")
+                acc = meta["aggregate"]["accuracy"]
+                if mode == "sr-noccs":
+                    # the JAX package's recorded config-4 row (sr-noccs)
+                    acc = hold_accuracy("config 4 sr-noccs", acc,
+                                        recorded_accuracy(4))
+                    log("phase3 config 4 sr-noccs accuracy == the JAX "
+                        "package's ACCURACY_r10.json row: " + json.dumps(acc))
+                else:
+                    log(f"phase3 config 4 {mode} accuracy: identity "
+                        f"{acc['identity_before']['mean']} -> "
+                        f"{acc['identity_after']['mean']}")
+            tr = cli_trace(tmp, "config4-trace", longs, srs, truths)
+            log("phase3 cli config 4 --trace: " + json.dumps(tr))
 
     # -- phase 4: the main path ----------------------------------------------
     if "4" not in skip:
-        longs, srs, n_it = workload(1_250_000, 5_000_000, 6)
+        longs, srs, n_it, truths = workload(1_250_000, 5_000_000, 6)
         bases = sum(len(r) for r in longs)
         log(f"phase4 workload: {len(longs)} long reads ({bases} bases), "
             f"{len(srs)} short reads, {n_it} iterations")
@@ -1451,7 +1815,7 @@ def main(argv=None) -> int:
 
     # -- phase 5: high coverage ----------------------------------------------
     if "5" not in skip:
-        l5, s5, n5 = workload(250_000, 1_000_000, 6, sr_coverage=200.0)
+        l5, s5, n5, _ = workload(250_000, 1_000_000, 6, sr_coverage=200.0)
         bases5 = sum(len(r) for r in l5)
         log(f"phase5 workload: {len(l5)} long reads ({bases5} bases), "
             f"{len(s5)} short reads, {n5} iterations, coverage 200")
@@ -1481,7 +1845,7 @@ def main(argv=None) -> int:
     # -- phase 6: qual-weighted votes ----------------------------------------
     if "6" not in skip:
         if "4" in skip:
-            longs, srs, _ = workload(1_250_000, 5_000_000, 6)
+            longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
         bucket = first_bucket(longs, srs, full=True)
         lr6 = bucket[0]
         log(f"phase6 bucket: {int((lr6.lengths > 8).sum())} reads "
@@ -1506,23 +1870,23 @@ def main(argv=None) -> int:
     # -- phase 7: the command line at E.coli class ----------------------------
     cli7 = None
     if ("7" not in skip or "8" not in skip) and "4" in skip and "6" in skip:
-        longs, srs, _ = workload(1_250_000, 5_000_000, 6)
+        longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
     if "7" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
             cli7, _ = drive(7, lambda: cli_run(tmp, "ecoli-sr", longs, srs,
-                                               "sr-noccs"),
+                                               "sr-noccs", truths),
                             required=cli_path)
         log("phase7 " + json.dumps(cli7))
 
     # -- phase 8: mr at E.coli class -----------------------------------------
     if "8" not in skip:
         del srs
-        _, srs8, _ = workload(1_250_000, 5_000_000, 6, sr_len=250)
+        _, srs8, _, _ = workload(1_250_000, 5_000_000, 6, sr_len=250)
         log(f"phase8 workload: {len(longs)} long reads, {len(srs8)} short "
             "reads of 250 bp")
         with tempfile.TemporaryDirectory() as tmp:
             cli8, _ = drive(8, lambda: cli_run(tmp, "ecoli-mr", longs, srs8,
-                                               "mr-noccs"),
+                                               "mr-noccs", truths),
                             required=cli_path)
         log("phase8 " + json.dumps(cli8))
         if cli7 is not None:

@@ -8,12 +8,19 @@ mode auto-detection (``:628-654``) and output layout (``:904-956``):
 
 One flag is the port's own: ``--device {cuda,cpu}`` (default ``cuda``), the
 counterpart of the reference's ``JAX_PLATFORMS``; asking for the card
-without one is an error. Flags whose features are not ported yet return 2
-with a message naming the flag: ``serve``, ``-u``, ``--sam``, ``--bam``,
-``--haplo-coverage``, ``--resume``, the mesh flags, ``--bucket-timeout``,
-the observability flags and ``--debug``. The reference keeps a checkpoint
-journal unless ``--no-checkpoint`` is given; the port has no journal yet,
-so it asks for that flag.
+without one is an error. The run's own account works as in the reference
+(``:300-440``, ``:591-620``): ``--trace FILE`` (span tree, with CUDA
+memory sampled at span boundaries and a leak report at exit),
+``--metrics-out FILE``, ``--qc-out FILE`` and ``--truth FILE`` (identity
+against a truth sidecar, scored on ``--device``), or their config keys
+``trace-file``, ``metrics-out``, ``qc-out`` and ``truth-sidecar``; the
+artifacts are written even when the run fails. Flags whose features are
+not ported yet return 2 with a message naming the flag: ``serve``, ``-u``,
+``--sam``, ``--bam``, ``--haplo-coverage``, ``--resume``, the mesh flags,
+``--bucket-timeout``, ``--compile-ledger``, ``--compile-cache``,
+``--xprof`` and ``--debug``. The reference keeps a checkpoint journal
+unless ``--no-checkpoint`` is given; the port has no journal yet, so it
+asks for that flag.
 """
 
 from __future__ import annotations
@@ -38,15 +45,13 @@ _UNPORTED_FLAGS = (
     ("haplo_coverage", "--haplo-coverage"), ("resume", "--resume"),
     ("mesh_shards", "--mesh-shards"),
     ("mesh_pass_timeout", "--mesh-pass-timeout"),
-    ("bucket_timeout", "--bucket-timeout"), ("trace", "--trace"),
-    ("metrics_out", "--metrics-out"), ("qc_out", "--qc-out"),
-    ("truth", "--truth"), ("compile_ledger", "--compile-ledger"),
+    ("bucket_timeout", "--bucket-timeout"),
+    ("compile_ledger", "--compile-ledger"),
     ("compile_cache", "--compile-cache"), ("xprof", "--xprof"),
     ("debug", "--debug"),
 )
 # config keys that switch on the same features from a config file
-_UNPORTED_KEYS = ("trace-file", "metrics-out", "qc-out", "truth-sidecar",
-                  "compile-ledger", "compile-cache-dir")
+_UNPORTED_KEYS = ("compile-ledger", "compile-cache-dir")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,13 +106,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh-pass-timeout", type=float, metavar="SECONDS",
                     help="mesh pass budget (not supported by the port yet)")
     ap.add_argument("--trace", metavar="FILE",
-                    help="span trace (not supported by the port yet)")
+                    help="write the span trace (Chrome trace-event JSONL, "
+                         "Perfetto-loadable) and log a span summary")
     ap.add_argument("--metrics-out", metavar="FILE",
-                    help="KPI counters (not supported by the port yet)")
+                    help="write KPI counters/gauges/histograms as JSON")
     ap.add_argument("--qc-out", metavar="FILE",
-                    help="per-read QC (not supported by the port yet)")
+                    help="write per-read correction-QC provenance as JSONL "
+                         "(meta line with the aggregate, then one record "
+                         "per read) and log the QC report")
     ap.add_argument("--truth", metavar="FILE",
-                    help="accuracy scoring (not supported by the port yet)")
+                    help="score corrected reads against this truth sidecar "
+                         "(io/simulate.py:write_truth_sidecar JSONL): "
+                         "identity before/after and residual error "
+                         "classes land in the QC records, the aggregate "
+                         "and the accuracy_* gauges")
     ap.add_argument("--compile-ledger", metavar="FILE",
                     help="XLA compile ledger (no counterpart in the port)")
     ap.add_argument("--compile-cache", metavar="DIR", nargs="?",
@@ -242,95 +254,220 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg.data["resilience-ladder"] = 0
     name = os.path.basename(outdir.rstrip("/")) or "proovread"
 
+    # observability: flags override config keys. Tracing brings the
+    # memory sampler and the leak report with it.
+    from proovread_tpu_torch import obs
+    trace_path = args.trace or cfg.get("trace-file")
+    metrics_path = args.metrics_out or cfg.get("metrics-out")
+    qc_path = args.qc_out or cfg.get("qc-out")
+    truth_path = args.truth or cfg.get("truth-sidecar")
+    tracer = obs.install_tracer() if trace_path else None
+    registry = obs.metrics.install() if metrics_path else None
+    mem_sampler = obs.memory.install() if trace_path else None
+    leak_check = obs.memory.LeakCheck() if trace_path else None
+    # --truth scores into the per-read QC records, so it brings the
+    # recorder with it even without a --qc-out artifact
+    qc_recorder = obs.qc.install() if (qc_path or truth_path) else None
+
     t_start = time.monotonic()
-    rc = _run(args, argv, cfg, outdir, name, mode_auto)
+    try:
+        rc = _run(args, argv, cfg, outdir, name, mode_auto, truth_path)
+    finally:
+        # written even on a crashed run: the partial span tree, the QC
+        # records that completed and the counters say where it died
+        if mem_sampler is not None:
+            obs.memory.uninstall()
+        if tracer is not None:
+            obs.uninstall_tracer()
+            try:
+                tracer.write_chrome(trace_path)
+                log.info("trace: %d span(s) -> %s (load in "
+                         "ui.perfetto.dev)", len(tracer.events), trace_path)
+                for ln in tracer.summary_lines():
+                    log.info("%s", ln)
+            except OSError as e:
+                log.warning("trace write failed: %s", e)
+            _queue_leak_report(leak_check)
+        if qc_recorder is not None:
+            obs.qc.uninstall()
+            try:
+                qc_agg = (qc_recorder.last_aggregate
+                          or qc_recorder.aggregate())
+                if qc_path:
+                    qc_recorder.write_jsonl(qc_path, agg=qc_agg)
+                    log.info("qc: %d per-read record(s) -> %s",
+                             len(qc_recorder.records), qc_path)
+                for ln in qc_recorder.report_lines(agg=qc_agg):
+                    log.info("%s", ln)
+            except OSError as e:
+                log.warning("qc write failed: %s", e)
+        if registry is not None:
+            obs.metrics.uninstall()
+            try:
+                d = registry.as_dict()
+                with open(metrics_path, "w") as fh:
+                    json.dump(d, fh, indent=2, sort_keys=True)
+                    fh.write("\n")
+                log.info("metrics: %d series -> %s",
+                         sum(len(m["series"])
+                             for sec in ("counters", "gauges", "histograms")
+                             for m in d[sec].values()), metrics_path)
+            except OSError as e:
+                log.warning("metrics write failed: %s", e)
     if rc != 0:
         return rc
     log.info("total wall: %.1fs", time.monotonic() - t_start)
     return 0
 
 
-def _run(args, argv, cfg, outdir: str, name: str, mode_auto) -> int:
-    """Input read → task run → output write."""
-    longs = _read_records(args.long_reads)
-    shorts = _read_records(args.short_reads)
+_pending_leak_check = None
+_leak_atexit_registered = False
 
-    sr_lens = (np.array([len(r) for r in shorts]) if shorts
-               else np.zeros(0))
-    min_sr_len = int(np.median(sr_lens)) if len(sr_lens) else 0
 
-    # preflight (bin/proovread:457-464,586-592): catch mis-supplied inputs
-    # before any device time is spent
-    if len(sr_lens) and sr_lens.max() > 1000 and not args.ignore_sr_length:
-        print(f"error: short reads up to {int(sr_lens.max())}bp — is -s the "
-              "right file? (--ignore-sr-length to proceed)", file=sys.stderr)
-        return 2
-    too_long = [r.id for r in longs if len(r.id) > 256]
-    if too_long:
-        print("error: read id longer than 256 chars: "
-              f"{too_long[0]!r}", file=sys.stderr)
-        return 2
-    if args.device == "cuda":
-        import torch
-        log.info("preflight: %d device(s), platform cuda (%s)",
-                 torch.cuda.device_count(), torch.cuda.get_device_name(0))
-    else:
-        log.info("preflight: 1 device(s), platform cpu")
+def _queue_leak_report(leak_check) -> None:
+    """Queue one end-of-process CUDA tensor leak report, for the most
+    recent traced run (a later in-process run replaces the pending one)."""
+    global _pending_leak_check, _leak_atexit_registered
+    _pending_leak_check = leak_check
+    if not _leak_atexit_registered:
+        _leak_atexit_registered = True
+        import atexit
+        atexit.register(_report_pending_leaks)
 
-    from proovread_tpu_torch.pipeline.ccs import is_subread_set
-    mode = args.mode
-    if mode == "auto":
-        mode = mode_auto(min_sr_len, False, is_subread_set(longs))
-    tasks = cfg.tasks(mode)
-    log.info("mode %s: tasks %s", mode, " ".join(tasks))
 
-    # parameter.log (bin/proovread:401-416)
-    with open(os.path.join(outdir, f"{name}.parameter.log"), "w") as fh:
-        fh.write(json.dumps({
-            "argv": sys.argv if argv is None else [PROG] + argv,
-            "mode": mode, "tasks": tasks,
-            "n_long_reads": len(longs),
-            "n_short_reads": len(shorts),
-            "n_unitigs": 0, "median_sr_len": min_sr_len,
-            "config": cfg.data,
-        }, indent=2))
+def _report_pending_leaks() -> None:
+    leak_check = _pending_leak_check
+    if leak_check is None:
+        return
+    rep = leak_check.report()
+    lvl = log.warning if rep["leaked_bytes"] > (1 << 20) else log.info
+    lvl("leak check: %d CUDA tensor(s) / %d bytes still live after the "
+        "run%s", rep["n_leaked"], rep["leaked_bytes"],
+        f" — top: {rep['examples']}" if rep["n_leaked"] else "")
 
-    from proovread_tpu_torch.pipeline.tasks import run_tasks
-    result = run_tasks(
-        cfg, mode, tasks, longs, shorts, coverage=args.coverage,
-        lr_min_length=args.lr_min_length, sampling=not args.no_sampling,
-        device=args.device)
 
-    # -- reference output layout (bin/proovread:904-956) ------------------
-    from proovread_tpu_torch.io.fasta import FastaWriter
-    from proovread_tpu_torch.io.fastq import FastqWriter
+def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
+         truth_path: Optional[str] = None) -> int:
+    """Input read → task run → output write (→ accuracy scoring), all
+    inside the root ``run`` span."""
+    from proovread_tpu_torch import obs
+    with obs.span("run", cat="run"):
+        with obs.span("read-inputs", cat="io"):
+            longs = _read_records(args.long_reads)
+            shorts = _read_records(args.short_reads)
 
-    def _w(path, records, fq=True):
-        with open(os.path.join(outdir, path), "wb") as fh:
-            w = FastqWriter(fh) if fq else FastaWriter(fh)
-            for r in records:
-                w.write(r)
+        with obs.span("preflight", cat="host"):
+            sr_lens = (np.array([len(r) for r in shorts]) if shorts
+                       else np.zeros(0))
+            min_sr_len = int(np.median(sr_lens)) if len(sr_lens) else 0
 
-    _w(f"{name}.untrimmed.fq", result.untrimmed)
-    _w(f"{name}.trimmed.fq", result.trimmed)
-    _w(f"{name}.trimmed.fa", result.trimmed, fq=False)
-    with open(os.path.join(outdir, f"{name}.ignored.tsv"), "w") as fh:
-        for rid, why in result.ignored:
-            fh.write(f"{rid}\t{why}\n")
-    with open(os.path.join(outdir, f"{name}.chim.tsv"), "w") as fh:
-        for rid, f0, t0, s in result.chimera:
-            fh.write(f"{rid}\t{f0}\t{t0}\t{s:.3f}\n")
+            # preflight (bin/proovread:457-464,586-592): catch mis-supplied
+            # inputs before any device time is spent
+            if len(sr_lens) and sr_lens.max() > 1000 \
+                    and not args.ignore_sr_length:
+                print(f"error: short reads up to {int(sr_lens.max())}bp — "
+                      "is -s the right file? (--ignore-sr-length to "
+                      "proceed)", file=sys.stderr)
+                return 2
+            too_long = [r.id for r in longs if len(r.id) > 256]
+            if too_long:
+                print("error: read id longer than 256 chars: "
+                      f"{too_long[0]!r}", file=sys.stderr)
+                return 2
+            if args.device == "cuda":
+                import torch
+                log.info("preflight: %d device(s), platform cuda (%s)",
+                         torch.cuda.device_count(),
+                         torch.cuda.get_device_name(0))
+            else:
+                log.info("preflight: 1 device(s), platform cpu")
 
-    for rep in result.reports:
-        sat = ""
-        if rep.n_dropped_cap or rep.n_dropped_cov:
-            sat = (f"  dropped {rep.n_dropped_cap} cap /"
-                   f" {rep.n_dropped_cov} cov")
-        log.info("task %-16s masked/supported %5.1f%%  candidates %d%s",
-                 rep.task, rep.masked_frac * 100, rep.n_candidates, sat)
-    log.info("done: %d corrected, %d trimmed, %d ignored, %d chimera",
-             len(result.untrimmed), len(result.trimmed),
-             len(result.ignored), len(result.chimera))
+            from proovread_tpu_torch.pipeline.ccs import is_subread_set
+            mode = args.mode
+            if mode == "auto":
+                mode = mode_auto(min_sr_len, False, is_subread_set(longs))
+            tasks = cfg.tasks(mode)
+            log.info("mode %s: tasks %s", mode, " ".join(tasks))
+
+            # parameter.log (bin/proovread:401-416)
+            with open(os.path.join(outdir, f"{name}.parameter.log"),
+                      "w") as fh:
+                fh.write(json.dumps({
+                    "argv": sys.argv if argv is None else [PROG] + argv,
+                    "mode": mode, "tasks": tasks,
+                    "n_long_reads": len(longs),
+                    "n_short_reads": len(shorts),
+                    "n_unitigs": 0, "median_sr_len": min_sr_len,
+                    "config": cfg.data,
+                }, indent=2))
+
+        from proovread_tpu_torch.pipeline.tasks import run_tasks
+        with obs.span("tasks", cat="mode", mode=mode):
+            result = run_tasks(
+                cfg, mode, tasks, longs, shorts, coverage=args.coverage,
+                lr_min_length=args.lr_min_length,
+                sampling=not args.no_sampling, device=args.device)
+
+        # -- reference output layout (bin/proovread:904-956) --------------
+        with obs.span("write-outputs", cat="io"):
+            from proovread_tpu_torch.io.fasta import FastaWriter
+            from proovread_tpu_torch.io.fastq import FastqWriter
+
+            def _w(path, records, fq=True):
+                with open(os.path.join(outdir, path), "wb") as fh:
+                    w = FastqWriter(fh) if fq else FastaWriter(fh)
+                    for r in records:
+                        w.write(r)
+
+            _w(f"{name}.untrimmed.fq", result.untrimmed)
+            _w(f"{name}.trimmed.fq", result.trimmed)
+            _w(f"{name}.trimmed.fa", result.trimmed, fq=False)
+            with open(os.path.join(outdir, f"{name}.ignored.tsv"),
+                      "w") as fh:
+                for rid, why in result.ignored:
+                    fh.write(f"{rid}\t{why}\n")
+            with open(os.path.join(outdir, f"{name}.chim.tsv"), "w") as fh:
+                for rid, f0, t0, s in result.chimera:
+                    fh.write(f"{rid}\t{f0}\t{t0}\t{s:.3f}\n")
+
+        # -- accuracy scoreboard: every corrected read against its
+        # error-free source, merged into the QC records and gauges (the
+        # recorder is installed whenever truth_path is set)
+        if truth_path:
+            t_score = time.monotonic()
+            with obs.span("score-accuracy", cat="host"):
+                truth_map, bp_map = obs.accuracy.load_truth_sidecar(
+                    truth_path)
+                qc_rec = obs.qc.current()
+                summary = obs.accuracy.apply_to_qc(
+                    qc_rec, longs, result.untrimmed, truth_map,
+                    truth_breakpoints=(bp_map if any(bp_map.values())
+                                       else None), device=args.device)
+                result.qc = qc_rec.aggregate()
+                qc_rec.last_aggregate = result.qc
+                qc_rec.to_metrics(result.qc)
+            if summary["n_scored"]:
+                log.info(
+                    "accuracy: %d/%d read(s) scored vs truth — identity "
+                    "%.4f -> %.4f (%d classified) in %.3f s",
+                    summary["n_scored"], len(longs),
+                    summary["identity_before"], summary["identity_after"],
+                    summary["n_classified"], time.monotonic() - t_score)
+            else:
+                log.warning("accuracy: truth sidecar %s matched no "
+                            "corrected read ids — nothing scored",
+                            truth_path)
+
+        for rep in result.reports:
+            sat = ""
+            if rep.n_dropped_cap or rep.n_dropped_cov:
+                sat = (f"  dropped {rep.n_dropped_cap} cap /"
+                       f" {rep.n_dropped_cov} cov")
+            log.info("task %-16s masked/supported %5.1f%%  candidates %d%s",
+                     rep.task, rep.masked_frac * 100, rep.n_candidates, sat)
+        log.info("done: %d corrected, %d trimmed, %d ignored, %d chimera",
+                 len(result.untrimmed), len(result.trimmed),
+                 len(result.ignored), len(result.chimera))
     return 0
 
 

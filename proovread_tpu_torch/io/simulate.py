@@ -1,5 +1,6 @@
 """Vectorized read simulators for benchmarks and scaled tests (numpy; a
-copy of the subset of ``proovread_tpu/io/simulate.py`` the port's runs use).
+copy of ``proovread_tpu/io/simulate.py`` but for ``simulate_job_stream``,
+which only serving uses).
 
 Scaled workloads are simulated from a random genome with the error profiles
 the reference's docs describe: CLR subreads at ~85% identity dominated by
@@ -114,6 +115,71 @@ def simulate_long_reads(
     return records, truth
 
 
+def _ont_errors(src: np.ndarray, rng, sub: float, ins: float,
+                dele: float, hp_compress: float) -> np.ndarray:
+    """ONT error engine: homopolymer-compression deletions first (each
+    base equal to its predecessor is dropped with prob ``hp_compress`` —
+    the nanopore dwell-time ambiguity that systematically shortens
+    homopolymer runs), then the generic indel/sub engine on the
+    compressed sequence. The caller's truth stays the UNcompressed
+    source — the compression is an error to be corrected, not a feature
+    of the molecule."""
+    if hp_compress > 0.0 and len(src) > 1:
+        same = np.zeros(len(src), bool)
+        same[1:] = src[1:] == src[:-1]
+        drop = same & (rng.random(len(src)) < hp_compress)
+        src = src[~drop]
+    return _apply_errors(src, rng, sub, ins, dele)
+
+
+def simulate_ont_reads(
+    genome: np.ndarray,
+    total_bases: int,
+    mean_len: int = 6000,
+    min_len: int = 500,
+    sub: float = 0.012,
+    ins: float = 0.025,
+    dele: float = 0.045,
+    hp_compress: float = 0.2,
+    qual: int = 12,
+    seed: int = 5,
+    id_prefix: str = "ont",
+):
+    """ONT-profile long reads totalling ~``total_bases``.
+
+    Same contract as :func:`simulate_long_reads` — returns ``(records,
+    truth)`` with truth[i] the error-free source codes oriented as the
+    read, so ``write_truth_sidecar`` and standalone ``--truth`` runs
+    work unchanged — but with the nanopore error profile instead of the
+    CLR one: **indel-dominated** (deletions dominate every other class
+    and indels together far outweigh substitutions — the R9/R10
+    systematics) plus **homopolymer-compression** deletions
+    on top (``hp_compress`` per repeated base; on a random genome ~25%
+    of positions repeat their predecessor, so the default adds ~5%
+    deletion load concentrated in runs)."""
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    records, truth = [], []
+    tot = 0
+    i = 0
+    while tot < total_bases:
+        ln = int(np.clip(rng.lognormal(np.log(mean_len), 0.55), min_len,
+                         G - 1))
+        a = int(rng.integers(0, G - ln))
+        src = genome[a:a + ln]
+        mut = _ont_errors(src, rng, sub, ins, dele, hp_compress)
+        if rng.random() < 0.5:
+            mut = revcomp_codes(mut)
+            src = revcomp_codes(src)
+        records.append(SeqRecord(
+            f"{id_prefix}_{i}", decode_codes(mut),
+            qual=np.full(len(mut), qual, np.uint8)))
+        truth.append(src)
+        tot += ln
+        i += 1
+    return records, truth
+
+
 def simulate_short_reads(
     genome: np.ndarray,
     coverage: float,
@@ -139,3 +205,98 @@ def simulate_short_reads(
     return [SeqRecord(f"{id_prefix}{i}", decode_codes(reads[i]), qual=q)
             for i in range(n)]
 
+
+def simulate_independent_segments(
+    seed: int = 0,
+    n_long: int = 12,
+    read_len: int = 300,
+    sr_per: int = 6,
+    lr_err: float = 0.08,
+    with_truth: bool = False,
+):
+    """Long + short reads where every long read owns its own genome
+    segment, so no short read can seed against more than one long read.
+
+    Under this workload family sharded execution is exact: a shard's
+    local seed selection picks the candidates a global one would.
+
+    ``with_truth=True`` additionally returns each long read's error-free
+    source segment (oriented as the read): ``(longs, srs, truths)``, the
+    accuracy scoreboard's ground truth."""
+    rng = np.random.default_rng(seed)
+    longs, srs, truths = [], [], []
+    si = 0
+    for i in range(n_long):
+        genome = rng.integers(0, 4, read_len).astype(np.int8)
+        truths.append(genome)
+        noisy = []
+        for base in genome:
+            u = rng.random()
+            if u < lr_err * 0.5:            # insertion before the base
+                noisy.append(int(rng.integers(0, 4)))
+                noisy.append(int(base))
+            elif u < lr_err * 0.75:         # deletion
+                continue
+            elif u < lr_err:                # substitution
+                noisy.append(int((base + 1) % 4))
+            else:
+                noisy.append(int(base))
+        longs.append(SeqRecord(
+            f"r{i}", decode_codes(np.array(noisy, np.int8))))
+        for _ in range(sr_per):
+            st = int(rng.integers(0, read_len - 100))
+            sseq = genome[st:st + 100].copy()
+            if rng.random() < 0.5:
+                sseq = revcomp_codes(sseq)
+            srs.append(SeqRecord(f"s{si}", decode_codes(sseq),
+                                 qual=np.full(100, 30, np.uint8)))
+            si += 1
+    if with_truth:
+        return longs, srs, truths
+    return longs, srs
+
+
+# --------------------------------------------------------------------------
+# truth sidecar (the accuracy scoreboard's ground truth, obs/accuracy.py)
+# --------------------------------------------------------------------------
+
+def fantasticus_truth(longs, orig_fq_path: str):
+    """id -> error-free source codes for the reference sample's
+    ``long_error`` reads (`long_error_N_M` pairs with `long_orig_N` by
+    the third id field)."""
+    from proovread_tpu_torch.io import fastq
+    from proovread_tpu_torch.ops.encode import encode_ascii
+    origs = {r.id.split("_")[2]: encode_ascii(r.seq)
+             for r in fastq.FastqReader(orig_fq_path)}
+    truth = {}
+    for rec in longs:
+        key = (rec.id.split("_")[2]
+               if rec.id.startswith("long_error_") else None)
+        if key and key in origs:
+            truth[rec.id] = origs[key]
+    return truth
+
+
+def write_truth_sidecar(path: str, records, truths,
+                        breakpoints=None) -> None:
+    """Emit the truth sidecar next to the simulated FASTQs: one JSONL
+    meta line (``{"truth_schema": 1, "n_reads": N}``) then one record
+    per read — id, the error-free source sequence oriented as the read,
+    and the true chimera-junction coordinates (empty list when the read
+    is not chimeric). This is what lets CLI *subprocess* runs be scored
+    (``--truth``, ``obs/accuracy.py``) — the simulator's in-memory truth
+    arrays survive the process boundary. The schema is the reference's
+    (``proovread_tpu/obs/validate.py:TRUTH_RECORD_FIELDS``); ``records``
+    may be SeqRecords or bare id strings."""
+    import json
+    rows = []
+    for i, rec in enumerate(records):
+        bps = list(breakpoints[i]) if breakpoints is not None else []
+        rows.append({"id": str(getattr(rec, "id", rec)),
+                     "seq": decode_codes(np.asarray(truths[i], np.int8)),
+                     "breakpoints": [int(b) for b in bps]})
+    with open(path, "w") as fh:
+        fh.write(json.dumps({"truth_schema": 1,
+                             "n_reads": len(rows)}) + "\n")
+        for row in rows:
+            fh.write(json.dumps(row) + "\n")

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu")
+SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -53,6 +53,8 @@ _SIGNATURES = {
                          _P],
     "pt_sw_batch": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                     _P, _P, _P, _P, _P, _P],
+    "pt_lcs_lengths": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "pt_lcs_occupancy": [_I, _P, _P],
 }
 
 _lib = None

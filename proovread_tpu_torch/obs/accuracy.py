@@ -1,0 +1,578 @@
+"""Accuracy scoreboard: ground-truth identity scoring of a run.
+
+Port of the scoring half of ``proovread_tpu/obs/accuracy.py``:
+
+- **Identity for every read.** ``identity = LCS / max(len_read,
+  len_truth)``, the LCS from the bit-parallel CIPR/Hyyro recurrence in
+  ``O(n * ceil(m/64))`` word operations a pair. :func:`lcs_lengths` runs
+  the CUDA kernel ``csrc/lcs.cu`` for CUDA tensors (one warp a pair) and
+  its plain PyTorch version, a torch copy of the reference's lockstep
+  ``_lcs_group``, for CPU tensors. Both give the reference's integers.
+- **Residual error classes.** A banded unit-cost edit alignment with
+  traceback (host numpy, as in the reference) classifies the remaining
+  errors as sub/ins/del, and derives the *introduced* counts (per class
+  ``max(0, after - before)``), on a deterministic sample of reads
+  (``classify_cap``).
+- **Chimera correctness.** With junction coordinates in the truth sidecar,
+  each read's detected breakpoints (the QC record's ``chimera``
+  intervals) are matched against the truth within ``chimera_tol`` bp.
+
+Scores merge into the per-read QC records (``accuracy`` field), the
+``PipelineResult.qc`` aggregate and the ``accuracy_*`` gauges. Truth
+comes as a sidecar JSONL written next to simulated FASTQs
+(``io/simulate.py:write_truth_sidecar``), so a command-line run can be
+scored with ``--truth``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from proovread_tpu_torch import kernels
+
+# truth-sidecar schema version (writer: io/simulate.py:write_truth_sidecar)
+TRUTH_SCHEMA_VERSION = 1
+
+# -- the reference's gate thresholds (its gate tooling is not ported) ----
+# corrected identity must clear this absolute floor
+IDENTITY_FLOOR = 0.95
+# ... and may drop at most this much below the rolling-baseline median
+IDENTITY_DROP = 0.003
+# introduced-error growth allowed over the baseline median: this fraction
+# and this many absolute errors
+INTRODUCED_GROWTH = 1.0
+INTRODUCED_MIN_ABS = 10
+# rolling baseline: median over up to this many prior rows
+BASELINE_WINDOW = 3
+
+# class-breakdown sample size (identity itself is never sampled)
+CLASSIFY_CAP = 64
+# classification cell budget a read: the banded traceback keeps its whole
+# (rows x band-width) int32 matrix, so a read whose exact matrix would
+# exceed this many cells is not classified (logged; classes stay None)
+MAX_CLASSIFY_CELLS = 80_000_000
+# detected-vs-truth chimera junction match tolerance (bp)
+CHIMERA_TOL = 100
+
+_W = 64
+_BIG = 1 << 20
+
+# words of V a lane of csrc/lcs.cu keeps in registers: a pair takes the
+# smallest class that holds ceil(ceil(len(truth) / 64) / 32) words; a pair
+# above SMEM_MAX_WPL runs from a global-memory scratch instead
+LCS_CLASSES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+SMEM_MAX_WPL = 32
+
+
+def _liblog():
+    return logging.getLogger("proovread_tpu_torch.obs.accuracy")
+
+
+def _median(vals: List[float]) -> float:
+    """Median of ``vals`` (the reference's ``obs/regress.py:_median``)."""
+    s = sorted(vals)
+    n = len(s)
+    return s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2.0
+
+
+# --------------------------------------------------------------------------
+# bit-parallel LCS
+# --------------------------------------------------------------------------
+
+def pack_pairs(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], device
+               ) -> Tuple[torch.Tensor, ...]:
+    """``(read_codes, truth_codes)`` pairs -> (reads i8 flat, read offsets
+    i64 [P+1], truths i8 flat, truth offsets i64 [P+1]) on ``device``."""
+    out = []
+    for side in (0, 1):
+        seqs = [np.asarray(p[side], np.int8) for p in pairs]
+        off = np.zeros(len(seqs) + 1, np.int64)
+        off[1:] = np.cumsum([len(s) for s in seqs])
+        flat = (np.concatenate(seqs) if seqs else np.zeros(0, np.int8))
+        out += [torch.as_tensor(flat, device=device),
+                torch.as_tensor(off, device=device)]
+    return tuple(out)
+
+
+def _check(text, text_off, pat, pat_off):
+    """Host copies of the offsets, after checking what the kernel
+    dereferences."""
+    req = kernels.require
+    req(text.dtype == torch.int8 and pat.dtype == torch.int8
+        and text.dim() == 1 and pat.dim() == 1,
+        "lcs_lengths: reads and truths must be flat int8")
+    req(text_off.dtype == torch.int64 and pat_off.dtype == torch.int64
+        and text_off.dim() == 1 and text_off.shape == pat_off.shape
+        and text_off.numel() >= 1,
+        "lcs_lengths: offsets must be int64 [P+1], the same P for both")
+    req(len({t.device for t in (text, text_off, pat, pat_off)}) == 1,
+        "lcs_lengths: tensors on mixed devices")
+    to, po = text_off.cpu().numpy(), pat_off.cpu().numpy()
+    for name, off, flat in (("read", to, text), ("truth", po, pat)):
+        req(off[0] == 0 and off[-1] == flat.numel()
+            and bool((np.diff(off) >= 0).all()),
+            f"lcs_lengths: {name} offsets must rise from 0 to "
+            f"{flat.numel()}")
+    return to, po
+
+
+def lcs_lengths(text: torch.Tensor, text_off: torch.Tensor,
+                pat: torch.Tensor, pat_off: torch.Tensor) -> torch.Tensor:
+    """LCS length (int64 [P]) of each pair (read ``text[text_off[p]:
+    text_off[p+1]]``, truth ``pat[pat_off[p]:pat_off[p+1]]``); codes
+    outside A, C, G, T (0-3) never match. CPU tensors take the plain
+    version, CUDA tensors the kernel ``csrc/lcs.cu``."""
+    if text.device.type == "cpu":
+        return lcs_lengths_plain(text, text_off, pat, pat_off)
+    if text.device.type != "cuda":
+        raise ValueError(f"lcs_lengths: unsupported device {text.device}")
+    to, po = _check(text, text_off, pat, pat_off)
+    return _lcs_cuda(text, text_off, pat, pat_off, to, po)
+
+
+lcs_lengths.launches = 0
+
+
+def _lcs_cuda(text, text_off, pat, pat_off, to, po) -> torch.Tensor:
+    dev = text.device
+    P = len(to) - 1
+    n, m = np.diff(to), np.diff(po)
+    words = -(-m // _W)
+    wpl = -(-words // 32)                       # words of V a lane
+    glob = (wpl > SMEM_MAX_WPL) & (n > 0)
+    cls = np.asarray(LCS_CLASSES)
+    w = np.where(glob, wpl,
+                 cls[np.minimum(np.searchsorted(cls, wpl), len(cls) - 1)])
+    w = np.where((m == 0) | (n == 0), 0, w).astype(np.int32)
+    # a global pair's scratch: 4 mask rows, V and S, 32 lanes of w words
+    size = np.where(glob, 6 * 32 * w.astype(np.int64), 0)
+    gofs = np.where(glob, np.cumsum(size) - size, -1).astype(np.int64)
+    order = np.argsort(-(n * w.astype(np.int64)), kind="stable")
+    smem_w = int(w[~glob].max()) if (~glob).any() else 0
+    out = torch.empty(P, dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(int(size.sum()), 1), dtype=torch.int64,
+                          device=dev)
+    meta = [torch.as_tensor(a, device=dev) for a in
+            (order.astype(np.int32), w, gofs)]
+    text, text_off, pat, pat_off = (t.contiguous() for t in
+                                    (text, text_off, pat, pat_off))
+    if P > 0:
+        rc = kernels.lib().pt_lcs_lengths(
+            text.data_ptr(), text_off.data_ptr(), pat.data_ptr(),
+            pat_off.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
+            meta[2].data_ptr(), scratch.data_ptr(), P, smem_w,
+            out.data_ptr(), kernels.stream_of(text))
+        kernels.check(rc, "lcs_lengths")
+        lcs_lengths.launches += 1
+    return out
+
+
+_MIN64 = -(1 << 63)
+_POP8 = torch.tensor([bin(i).count("1") for i in range(256)],
+                     dtype=torch.int64)
+
+
+def _popcount_rows(v: torch.Tensor) -> torch.Tensor:
+    """int64 [R, k] -> [R] set-bit counts."""
+    b = v.contiguous().view(torch.uint8).to(torch.int64)
+    return _POP8.to(v.device)[b].sum(dim=1)
+
+
+def _mw_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Multiword addition over [R, k] int64 little-endian words (wrapping
+    adds are the reference's uint64 ones): a Kogge-Stone scan resolves
+    the carries, a word generating one when its sum overflows (unsigned
+    compare: both sides with the sign bit flipped) and propagating one
+    when its sum is all ones. The carry out of the top word is dropped."""
+    s = x + y
+    k = s.shape[1]
+    if k == 1:
+        return s
+    g = (s ^ _MIN64) < (x ^ _MIN64)          # generate
+    p = s == -1                              # propagate
+    shift = 1
+    while shift < k:
+        g_hi = g[:, shift:] | (p[:, shift:] & g[:, :-shift])
+        p_hi = p[:, shift:] & p[:, :-shift]
+        g[:, shift:] = g_hi
+        p[:, shift:] = p_hi
+        shift *= 2
+    carry_in = torch.zeros_like(s)
+    carry_in[:, 1:] = g[:, :-1].to(torch.int64)
+    return s + carry_in
+
+
+def _padded(flat, off, idx, width: int) -> torch.Tensor:
+    """Rows ``idx`` of a flat code array as int8 [R, width], padded with
+    N (4); codes outside 0-3 become N too."""
+    dev = flat.device
+    start = off[idx]
+    lens = off[idx + 1] - start
+    pos = torch.arange(width, device=dev)
+    valid = pos[None, :] < lens[:, None]
+    if flat.numel() == 0:
+        return torch.full((len(idx), width), 4, dtype=torch.int8,
+                          device=dev)
+    vals = flat[torch.where(valid, start[:, None] + pos[None, :], 0)]
+    vals = torch.where((vals >= 0) & (vals < 4), vals, 4)
+    return torch.where(valid, vals, 4).to(torch.int8)
+
+
+def _lcs_group(txt: torch.Tensor, pat: torch.Tensor) -> torch.Tensor:
+    """LCS length per row of (txt [R, n] codes, pat [R, 64k] codes), all
+    rows advanced in lockstep by the CIPR recurrence
+    ``V' = (V + (V & M)) | (V & ~M)``, V starting all ones: a pattern
+    position's bit reaches 0 when it joins the LCS, so LCS = the count of
+    zero bits. Pads and N never match (M bit 0) and the OR pins them at
+    1."""
+    R, n = txt.shape
+    k = pat.shape[1] // _W
+    dev = txt.device
+    if R == 0 or k == 0 or n == 0:
+        return torch.zeros(R, dtype=torch.int64, device=dev)
+    shifts = torch.tensor([(1 << b) - (1 << 64 if b == 63 else 0)
+                           for b in range(_W)], dtype=torch.int64,
+                          device=dev)
+    pm = torch.zeros((R, 5, k), dtype=torch.int64, device=dev)
+    for c in range(4):                           # row 4 (N/pad) stays 0
+        bits = (pat == c).view(R, k, _W).to(torch.int64)
+        pm[:, c, :] = (bits * shifts).sum(dim=2)
+    v = torch.full((R, k), -1, dtype=torch.int64, device=dev)
+    ridx = torch.arange(R, device=dev)
+    codes = txt.to(torch.int64)
+    for j in range(n):
+        m = pm[ridx, codes[:, j]]
+        u = v & m
+        v = _mw_add(v, u) | (v & ~m)
+    return k * _W - _popcount_rows(v)
+
+
+def lcs_lengths_plain(text, text_off, pat, pat_off,
+                      group: int = 256) -> torch.Tensor:
+    """The plain version of :func:`lcs_lengths`, on the tensors' device:
+    pairs sorted by length and advanced a group at a time, as the
+    reference's ``lcs_lengths`` does (a pair's result does not depend on
+    its group)."""
+    to, po = _check(text, text_off, pat, pat_off)
+    dev = text.device
+    P = len(to) - 1
+    n, m = np.diff(to), np.diff(po)
+    out = torch.zeros(P, dtype=torch.int64, device=dev)
+    order = sorted(range(P), key=lambda i: (m[i], n[i]))
+    for g0 in range(0, P, group):
+        idx_h = np.asarray(order[g0:g0 + group], np.int64)
+        idx = torch.as_tensor(idx_h, device=dev)
+        k = -(-int(m[idx_h].max()) // _W)
+        out[idx] = _lcs_group(
+            _padded(text, text_off, idx, int(n[idx_h].max())),
+            _padded(pat, pat_off, idx, k * _W))
+    return out
+
+
+def _lcs(pairs, device) -> np.ndarray:
+    """LCS length of each ``(read_codes, truth_codes)`` pair, run on
+    ``device``."""
+    return lcs_lengths(*pack_pairs(pairs, device)).cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# banded unit-cost edit alignment with traceback (error-class breakdown)
+# --------------------------------------------------------------------------
+
+def _banded_tb(a: np.ndarray, b: np.ndarray, w: int) -> Dict[str, int]:
+    """One banded pass, ``len(b) >= len(a)`` guaranteed by the caller.
+    Rows are vectorized over the diagonal band; the within-row horizontal
+    dependency (``dp[i][j-1] + 1``) closes via a min-plus prefix scan
+    (``min_t C0[d-t] + t  =  d + cummin(C0[d'] - d')``)."""
+    la, lb = len(a), len(b)
+    d = lb - la
+    width = d + 2 * w + 1                       # diag idx j - i + w
+    rows = np.full((la + 1, width), _BIG, np.int32)
+    offs = np.arange(width, dtype=np.int32)
+    j0 = offs - w
+    ok0 = (j0 >= 0) & (j0 <= lb)
+    rows[0, ok0] = j0[ok0]
+    for i in range(1, la + 1):
+        j = i + offs - w
+        valid = (j >= 0) & (j <= lb)
+        prev = rows[i - 1]
+        jj = np.clip(j, 1, lb)
+        # N (code 4+) never matches, as in the LCS identity
+        sub_cost = ((a[i - 1] != b[jj - 1])
+                    | (a[i - 1] >= 4)).astype(np.int32)
+        diag = np.where(j >= 1, prev + sub_cost, _BIG)
+        up = np.full(width, _BIG, np.int32)     # (i-1, j) lives at idx+1
+        up[:-1] = prev[1:] + 1
+        c0 = np.minimum(diag, up)
+        cur = np.minimum(c0, np.minimum.accumulate(c0 - offs) + offs)
+        cur[~valid] = _BIG
+        rows[i] = np.minimum(cur, _BIG)
+    dist = int(rows[la, d + w])
+
+    # traceback: count matches / substitutions / read-only bases (ins) /
+    # truth-only bases (del) along one optimal path
+    def cell(i: int, j: int) -> int:
+        idx = j - i + w
+        if idx < 0 or idx >= width:
+            return _BIG
+        return int(rows[i, idx])
+
+    i, j = la, lb
+    matches = sub = ins = dele = 0
+    while i > 0 or j > 0:
+        cur = cell(i, j)
+        is_match = i > 0 and j > 0 and a[i - 1] == b[j - 1] \
+            and a[i - 1] < 4
+        if i > 0 and j > 0 and cell(i - 1, j - 1) + int(
+                not is_match) == cur:
+            if is_match:
+                matches += 1
+            else:
+                sub += 1
+            i -= 1
+            j -= 1
+        elif i > 0 and cell(i - 1, j) + 1 == cur:
+            ins += 1
+            i -= 1
+        else:
+            dele += 1
+            j -= 1
+    return {"dist": dist, "matches": matches, "sub": sub,
+            "ins": ins, "del": dele}
+
+
+def edit_alignment(a, b, band: Optional[int] = None) -> Dict[str, int]:
+    """Exact unit-cost edit alignment of read ``a`` vs truth ``b`` with
+    class counts from one optimal path: ``sub`` substitutions, ``ins``
+    read bases absent from the truth, ``del`` truth bases absent from
+    the read, plus ``matches`` and ``dist``. The band doubles until the
+    Ukkonen condition ``dist <= band`` holds, so the result is optimal.
+    N (code 4+) never matches: an N==N column counts as a substitution."""
+    a = np.asarray(a, np.int8)
+    b = np.asarray(b, np.int8)
+    la, lb = len(a), len(b)
+    if la == 0 or lb == 0:
+        return {"dist": la + lb, "matches": 0, "sub": 0,
+                "ins": la, "del": lb}
+    swap = la > lb
+    if swap:
+        a, b, la, lb = b, a, lb, la
+    w = max(int(band), 1) if band else 64
+    while True:
+        res = _banded_tb(a, b, w)
+        if res["dist"] <= w or w >= la:
+            break
+        w *= 2
+    if swap:
+        res["ins"], res["del"] = res["del"], res["ins"]
+    return res
+
+
+# --------------------------------------------------------------------------
+# scoring
+# --------------------------------------------------------------------------
+
+def _classes(eb: Dict[str, int], ea: Dict[str, int]) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for k in ("sub", "ins", "del"):
+        out[f"{k}_before"] = int(eb[k])
+        out[f"{k}_after"] = int(ea[k])
+        out[f"{k}_introduced"] = max(0, int(ea[k]) - int(eb[k]))
+    return out
+
+
+def score_read_sets(before: Dict[str, np.ndarray],
+                    after: Dict[str, np.ndarray],
+                    truth: Dict[str, np.ndarray], *,
+                    classify_cap: Optional[int] = CLASSIFY_CAP,
+                    seed: int = 7,
+                    detected_chimera: Optional[Dict[str, list]] = None,
+                    truth_breakpoints: Optional[Dict[str, list]] = None,
+                    chimera_tol: int = CHIMERA_TOL,
+                    device="cuda",
+                    ) -> Tuple[Dict[str, Dict[str, Any]], Dict[str, Any]]:
+    """Score every read present in all three maps (id -> int8 codes); the
+    LCS of both read sets runs on ``device`` in one call.
+
+    Returns ``(per_read, summary)``: one accuracy record per read in the
+    QC ``accuracy``-field schema (identity for every read; class
+    breakdown on a deterministic ``classify_cap`` sample, each sampled
+    read also subject to the ``MAX_CLASSIFY_CELLS`` budget; chimera
+    correctness when ``truth_breakpoints`` is given), plus the flat
+    summary (mean identities, summed class counts)."""
+    ids = [i for i in truth if i in before and i in after]
+    per_read: Dict[str, Dict[str, Any]] = {}
+    if ids:
+        lcs = _lcs([(before[i], truth[i]) for i in ids]
+                   + [(after[i], truth[i]) for i in ids], device)
+        lcs_b, lcs_a = lcs[:len(ids)], lcs[len(ids):]
+        for x, rid in enumerate(ids):
+            tl = len(truth[rid])
+            per_read[rid] = {
+                "identity_before": round(
+                    float(lcs_b[x]) / max(len(before[rid]), tl, 1), 6),
+                "identity_after": round(
+                    float(lcs_a[x]) / max(len(after[rid]), tl, 1), 6),
+                "lcs_before": int(lcs_b[x]),
+                "lcs_after": int(lcs_a[x]),
+                "truth_len": int(tl),
+                "classes": None,
+                "chimera": None,
+            }
+        cl_ids = list(ids)
+        if classify_cap is not None and len(cl_ids) > classify_cap:
+            rng = np.random.default_rng(seed)
+            pick = sorted(rng.choice(len(ids), classify_cap,
+                                     replace=False))
+            cl_ids = [ids[int(i)] for i in pick]
+        lcs_by_id = {rid: (int(lcs_b[x]), int(lcs_a[x]))
+                     for x, rid in enumerate(ids)}
+
+        def _band_and_cells(read, tr, lcs):
+            # exact band bound from the known LCS: unit-cost edit dist
+            # <= indel-only dist = la + lb - 2*LCS, and a band >= dist is
+            # optimal, so the matrix size is known before allocating
+            la, lb = len(read), len(tr)
+            w = max(la + lb - 2 * lcs + 8, 16)
+            cells = (min(la, lb) + 1) * (abs(la - lb) + 2 * w + 1)
+            return w, cells
+
+        for rid in cl_ids:
+            wb, cb = _band_and_cells(before[rid], truth[rid],
+                                     lcs_by_id[rid][0])
+            wa, ca = _band_and_cells(after[rid], truth[rid],
+                                     lcs_by_id[rid][1])
+            if max(cb, ca) > MAX_CLASSIFY_CELLS:
+                _liblog().info(
+                    "accuracy: read %s not classified — banded "
+                    "traceback would need %d cells (> %d); identity "
+                    "is still scored", rid, max(cb, ca),
+                    MAX_CLASSIFY_CELLS)
+                continue
+            per_read[rid]["classes"] = _classes(
+                edit_alignment(before[rid], truth[rid], band=wb),
+                edit_alignment(after[rid], truth[rid], band=wa))
+        if truth_breakpoints is not None:
+            det = detected_chimera or {}
+            for rid in ids:
+                tbps = [int(t) for t in truth_breakpoints.get(rid, [])]
+                dbps = [(int(fr), int(to)) for fr, to in det.get(rid, [])]
+                matched = sum(
+                    1 for t in tbps
+                    if any(fr - chimera_tol <= t <= to + chimera_tol
+                           for fr, to in dbps))
+                per_read[rid]["chimera"] = {"truth": len(tbps),
+                                            "detected": len(dbps),
+                                            "matched": matched}
+    return per_read, summarize(per_read)
+
+
+def class_totals(classes: Sequence[Dict[str, int]], stage: str
+                 ) -> Optional[Dict[str, int]]:
+    """Summed sub/ins/del counts for one stage over per-read ``classes``
+    dicts: the one implementation the flat summary and the QC aggregate
+    (obs/qc.py) both build on."""
+    if not classes:
+        return None
+    return {k: int(sum(c[f"{k}_{stage}"] for c in classes))
+            for k in ("sub", "ins", "del")}
+
+
+def chimera_totals(chims: Sequence[Dict[str, int]]
+                   ) -> Optional[Dict[str, int]]:
+    """Summed truth/detected/matched junction counts (shared with the QC
+    aggregate, as :func:`class_totals` is)."""
+    if not chims:
+        return None
+    return {k: int(sum(c[k] for c in chims))
+            for k in ("truth", "detected", "matched")}
+
+
+def summarize(per_read: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Flat summary over per-read accuracy records."""
+    accs = list(per_read.values())
+    if not accs:
+        return {"n_scored": 0, "n_classified": 0,
+                "identity_before": None, "identity_after": None,
+                "identity_after_min": None, "errors_before": None,
+                "errors_after": None, "introduced": None, "chimera": None}
+    classes = [a["classes"] for a in accs if a["classes"] is not None]
+    chim = [a["chimera"] for a in accs if a["chimera"] is not None]
+    return {
+        "n_scored": len(accs),
+        "n_classified": len(classes),
+        "identity_before": round(float(np.mean(
+            [a["identity_before"] for a in accs])), 6),
+        "identity_after": round(float(np.mean(
+            [a["identity_after"] for a in accs])), 6),
+        "identity_after_min": round(float(min(
+            a["identity_after"] for a in accs)), 6),
+        "errors_before": class_totals(classes, "before"),
+        "errors_after": class_totals(classes, "after"),
+        "introduced": class_totals(classes, "introduced"),
+        "chimera": chimera_totals(chim),
+    }
+
+
+def apply_to_qc(recorder, longs, corrected, truth: Dict[str, np.ndarray],
+                truth_breakpoints: Optional[Dict[str, list]] = None, *,
+                classify_cap: Optional[int] = CLASSIFY_CAP,
+                device="cuda") -> Dict[str, Any]:
+    """Score a finished run and merge the verdicts into the QC recorder's
+    per-read records (``accuracy`` field). ``longs`` are the input
+    records (identity_before), ``corrected`` the untrimmed output records
+    (identity_after); detected chimera junctions come from the recorder's
+    own ``chimera`` breakpoints. The LCS runs on ``device``. Returns the
+    flat summary."""
+    from proovread_tpu_torch.ops.encode import encode_ascii
+    before = {r.id: encode_ascii(r.seq) for r in longs if r.id in truth}
+    after = {r.id: encode_ascii(r.seq) for r in corrected
+             if r.id in truth}
+    det = None
+    if truth_breakpoints is not None:
+        det = {rid: [(bp[0], bp[1]) for bp in rec["chimera"]]
+               for rid, rec in recorder.records.items()}
+    per_read, summary = score_read_sets(
+        before, after, truth, classify_cap=classify_cap,
+        detected_chimera=det, truth_breakpoints=truth_breakpoints,
+        device=device)
+    for rid, acc in per_read.items():
+        recorder.record_accuracy(rid, acc)
+    return summary
+
+
+# --------------------------------------------------------------------------
+# truth sidecar (reader; the writer lives with the simulators,
+# io/simulate.py:write_truth_sidecar)
+# --------------------------------------------------------------------------
+
+def load_truth_sidecar(path: str) -> Tuple[Dict[str, np.ndarray],
+                                           Dict[str, List[int]]]:
+    """Read a truth-sidecar JSONL: ``(truth_map, breakpoint_map)`` with
+    sequences encoded to int8 codes."""
+    from proovread_tpu_torch.ops.encode import encode_ascii
+    truth: Dict[str, np.ndarray] = {}
+    bps: Dict[str, List[int]] = {}
+    with open(path) as fh:
+        meta = None
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            obj = json.loads(line)
+            if meta is None:
+                if obj.get("truth_schema") != TRUTH_SCHEMA_VERSION:
+                    raise ValueError(
+                        f"{path}: truth_schema != {TRUTH_SCHEMA_VERSION}")
+                meta = obj
+                continue
+            truth[obj["id"]] = encode_ascii(obj["seq"])
+            bps[obj["id"]] = [int(b) for b in obj.get("breakpoints", [])]
+    if meta is None:
+        raise ValueError(f"{path}: empty truth sidecar (no meta line)")
+    return truth, bps

@@ -20,7 +20,13 @@ and counted as dropped), and the f32 mask-shortcut decision
 ``frac > shortcut_frac | frac - frac_prev < min_gain``.
 
 Each stage runs under a ``torch.profiler.record_function`` range (seed,
-align, vote, consensus) so a profile attributes device time per layer.
+align, vote, consensus) so a profile attributes device time per layer;
+``correct_pass`` also opens the reference's ``seed`` and ``consense``
+spans (``obs.trace``), which fence their outputs only while tracing.
+
+The per-read QC reductions (``qc_*``) run only while a QC recorder is
+installed (``obs.qc``): with QC off a pass runs no extra device work and
+no extra synchronization.
 
 The admission bin prefix sums are the reference's f32 sums in XLA's CPU
 order (``ops/scan.py``): once a pass's total span passes 2^24 they round,
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from proovread_tpu_torch import obs
 from proovread_tpu_torch.align import bsw, dseed
 from proovread_tpu_torch.align.params import AlignParams
 from proovread_tpu_torch.consensus.params import (NCSCORE_CONSTANT,
@@ -136,6 +143,48 @@ def device_assemble(call, lengths, Lp: int):
 def device_hcr_mask(qual, lengths, p):
     """(mask bool [B, L], masked fraction) for static MaskParams ``p``."""
     return hcr_mask_rows(qual, lengths, mask_params_vec(p))
+
+
+# --------------------------------------------------------------------------
+# per-read QC reductions (obs/qc.py): row reductions of tensors a pass
+# already produced, run only while a QC recorder is installed; integer
+# results (or integer-valued f32 sums) so the records are the reference's
+# --------------------------------------------------------------------------
+
+def qc_row_mask_counts(mask_cols: torch.Tensor) -> torch.Tensor:
+    """i32 [B]: HCR-masked columns per read (the numerator of the
+    masked-fraction trajectory; the host divides)."""
+    return mask_cols.sum(dim=1).to(torch.int32)
+
+
+def qc_pass_row_stats(call, codes: torch.Tensor, qual: torch.Tensor,
+                      lengths: torch.Tensor):
+    """Per-read correction deltas of one pass against its input state:
+    ``edits`` i32 [B], substituted (emitted base != input base) + inserted
+    (ins_len of emitted columns) + deleted (valid columns not emitted)
+    bases; ``uplift`` i32 [B], emitted columns whose called phred exceeds
+    the input phred. ``call`` is indexed by the pass's input columns."""
+    L = codes.shape[1]
+    pos = torch.arange(L, device=codes.device)[None, :]
+    valid = pos < lengths[:, None]
+    em = call.emitted & valid
+    subs = (em & (call.base != codes)).sum(dim=1)
+    ins = torch.where(em, call.ins_len, 0).sum(dim=1)
+    dels = (valid & ~call.emitted).sum(dim=1)
+    uplift = (em & (call.phred > qual.to(torch.int32))).sum(dim=1)
+    return (subs + ins + dels).to(torch.int32), uplift.to(torch.int32)
+
+
+def qc_finish_support(call, lengths: torch.Tensor) -> torch.Tensor:
+    """f32 [B]: summed finish-pass column coverage per read. The finish
+    pass votes unweighted, so coverage is integer-valued and the f32 sum
+    is exact, in any order of adds, while a read's total stays below 2^24
+    (49,152 columns of 300 votes do); the reference sums the same way.
+    The host divides by the column count."""
+    L = call.coverage.shape[1]
+    pos = torch.arange(L, device=lengths.device)[None, :]
+    valid = pos < lengths[:, None]
+    return torch.where(valid, call.coverage, 0.0).sum(dim=1)
 
 
 def bits_pileup(cns: ConsensusParams) -> bool:
@@ -556,9 +605,11 @@ class DeviceCorrector:
         W = bsw.band_lanes(ap)
         map_codes = (torch.where(mask_cols, N, codes).to(codes.dtype)
                      if mask_cols is not None else codes)
-        sread, strand, lread, diag, n_valid = _seed(
-            map_codes, lengths, q_codes, q_lengths, rc_codes, ap,
-            seed_stride, seed_min_votes)
+        with obs.span("seed", cat="kernel") as sp:
+            sread, strand, lread, diag, n_valid = _seed(
+                map_codes, lengths, q_codes, q_lengths, rc_codes, ap,
+                seed_stride, seed_min_votes)
+            sp.fence(n_valid)
         n_cand = int(n_valid)
         ignore_cols = (mask_cols if use_mask_as_ignore and mask_cols
                        is not None else None)
@@ -567,10 +618,14 @@ class DeviceCorrector:
         R_need = n_chunks * CH
         sread, strand, lread, diag = _pad_candidates(sread, strand, lread,
                                                      diag, R_need)
-        call, n_adm, n_elig, scalars, slabs = _fused_pass(
-            map_codes, ignore_cols, codes, qual, lengths, q_codes, rc_codes,
-            q_qual, q_lengths, sread, strand, lread, diag, n_cand, m=m, W=W,
-            CH=CH, n_chunks=n_chunks, ap=ap, cns=cns, collect=collect_aln)
+        with obs.span("consense", cat="kernel", n_cand=n_cand,
+                      chunks=n_chunks) as sp:
+            call, n_adm, n_elig, scalars, slabs = _fused_pass(
+                map_codes, ignore_cols, codes, qual, lengths, q_codes,
+                rc_codes, q_qual, q_lengths, sread, strand, lread, diag,
+                n_cand, m=m, W=W, CH=CH, n_chunks=n_chunks, ap=ap, cns=cns,
+                collect=collect_aln)
+            sp.fence(call)
         stats = DevicePassStats(n_candidates=n_cand, n_admitted=n_adm,
                                 n_eligible=n_elig)
         if not collect_aln:
@@ -608,6 +663,12 @@ class FusedResult:
     neligs: List[int]
     ndrops: List[int]
     shortcut: bool
+    # with collect_qc: per run pass, masked columns and lengths of each
+    # read (i32 [passes, B]), and the run's edits and uplift (i32 [B])
+    qc_masked: Optional[torch.Tensor] = None
+    qc_lengths: Optional[torch.Tensor] = None
+    qc_edits: Optional[torch.Tensor] = None
+    qc_uplift: Optional[torch.Tensor] = None
 
 
 def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
@@ -616,17 +677,27 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
                      m: int, W: int, CH: int, n_chunks: int,
                      ap: AlignParams, cns: ConsensusParams, n_rest: int,
                      Lp: int, seed_stride: int, seed_min_votes: int,
-                     shortcut_frac: float, min_gain: float
-                     ) -> FusedResult:
+                     shortcut_frac: float, min_gain: float,
+                     collect_qc: bool = False) -> FusedResult:
     """Passes 2..N with the reference's ``fused_iterations`` semantics.
 
     ``sels``: i32 [n_rest, Rsel] sampled short-read rows per pass (pad rows
     point at the zero-length sentinel read), or None when every pass uses
     the whole set. ``mask_pvs``: f32 [n_rest, 6] per-pass HCR mask params.
     Each pass reads the candidate count on the host (the chunk loop length);
-    the shortcut test is the reference's f32 arithmetic."""
+    the shortcut test is the reference's f32 arithmetic.
+
+    ``collect_qc`` also carries the reference's QC accumulators on the
+    device: each pass's masked-column counts and lengths per read, and the
+    run's base edits and phred uplift per read (``FusedResult.qc_*``).
+    Off, no QC reduction runs."""
     dev = codes.device
     fracs, ncands, nadms, neligs, ndrops = [], [], [], [], []
+    qc_m, qc_l = [], []
+    qc_e = qc_u = None
+    if collect_qc:
+        qc_e = torch.zeros(codes.shape[0], dtype=torch.int32, device=dev)
+        qc_u = torch.zeros_like(qc_e)
     frac_prev32 = np.float32(frac_prev)
     done = False
     it = 0
@@ -650,8 +721,16 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
             map_codes, mask_cols, codes, qual, lengths, qc, rcq, qq, qlen,
             sread, strand, lread, diag, n_cand, m=m, W=W, CH=CH,
             n_chunks=n_chunks, ap=ap, cns=cns, collect=False)
+        if collect_qc:
+            # deltas against this pass's input, before assembly shifts
+            # the columns
+            ed, up = qc_pass_row_stats(call, codes, qual, lengths)
+            qc_e, qc_u = qc_e + ed, qc_u + up
         codes, qual, lengths = assemble_rows(call, lengths, Lp)
         mask_cols, frac = hcr_mask_rows(qual, lengths, mask_pvs[it])
+        if collect_qc:
+            qc_m.append(qc_row_mask_counts(mask_cols))
+            qc_l.append(lengths)
         frac32 = np.float32(frac.item())
         gain = np.float32(frac32 - frac_prev32)
         done = bool((frac32 > np.float32(shortcut_frac))
@@ -663,5 +742,9 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
         ndrops.append(max(n_valid - R_need, 0))
         frac_prev32 = frac32
         it += 1
-    return FusedResult(codes, qual, lengths, mask_cols, fracs, ncands, nadms,
-                       neligs, ndrops, done)
+    out = FusedResult(codes, qual, lengths, mask_cols, fracs, ncands, nadms,
+                      neligs, ndrops, done)
+    if collect_qc:
+        out.qc_masked, out.qc_lengths = torch.stack(qc_m), torch.stack(qc_l)
+        out.qc_edits, out.qc_uplift = qc_e, qc_u
+    return out

@@ -15,7 +15,8 @@ to a per-base score cutoff under the PacBio scheme
 
 Port of ``proovread_tpu/pipeline/siamaera.py``: the same windows, merge
 rules and trims, mapped through ``TorchMapper`` (the ``csrc/sw.cu`` kernel
-on the card). The per-read QC recorder hooks are not ported.
+on the card). Each trim or drop lands on the read's QC record while a
+recorder is installed (``obs/qc.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from proovread_tpu_torch.align.mapper import TorchMapper
 from proovread_tpu_torch.align.params import AlignParams
 from proovread_tpu_torch.io.batch import pack_reads
 from proovread_tpu_torch.io.records import SeqRecord
+from proovread_tpu_torch.obs import qc as obs_qc
 from proovread_tpu_torch.ops.encode import (decode_codes, encode_ascii,
                                             revcomp_codes)
 
@@ -166,6 +168,8 @@ def siamaera_filter(
         if len(hsps) > 2 and drop_inconclusive:
             out[i] = None
             stats.dropped += 1
+            if (qrec := obs_qc.current()) is not None:
+                qrec.record_siamaera(r.id, "dropped")
             continue
         # junction estimate: HSP (qs,qe)~rc(ss,se) mirrors to read interval
         # (n-se, n-ss). Joined case: one HSP overlapping its own mirror,
@@ -195,5 +199,7 @@ def siamaera_filter(
             desc=(r.desc + " " if r.desc else "") + f"SIAMAERA:{a},{b - a}")
         out[i] = piece
         stats.trimmed += 1
+        if (qrec := obs_qc.current()) is not None:
+            qrec.record_siamaera(r.id, "trimmed", a, b - a)
 
     return [r for r in out if r is not None], stats

@@ -8,7 +8,9 @@ run the iterated short-read correction: ``sr``, ``mr``, ``sr-noccs`` and
 (``:904-956``) run as in the reference. A task the port does not run yet
 raises ``NotImplementedError`` naming it: ``ccs-1`` on a PacBio subread
 set, ``utg``, ``read-sam`` / ``read-bam`` and the legacy ``shrimp-*``
-schedule.
+schedule. Siamaera runs under its ``siamaera`` span, and the aggregate QC
+report is embedded again after it (``_embed_qc``), since its hits and the
+trim funnel land after ``Pipeline.run`` aggregated.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import re
 import time
 from typing import List, Optional, Sequence
 
+from proovread_tpu_torch import obs
 from proovread_tpu_torch.align.params import from_bwa_flags
 from proovread_tpu_torch.config import Config
 from proovread_tpu_torch.io.records import SeqRecord
@@ -118,6 +121,15 @@ def _pipeline_config(cfg: Config, mode: str, tasks: Sequence[str],
     )
 
 
+def _embed_qc(result: PipelineResult) -> None:
+    """(Re-)embed the aggregate QC report and its gauges (publishing the
+    gauges again is idempotent)."""
+    rec = obs.qc.current()
+    if rec is not None:
+        result.qc = rec.aggregate()
+        rec.to_metrics(result.qc)
+
+
 def _apply_siamaera(cfg: Config, result: PipelineResult,
                     device: str) -> None:
     """Final-output siamaera pass over the trimmed records
@@ -127,7 +139,8 @@ def _apply_siamaera(cfg: Config, result: PipelineResult,
         return
     from proovread_tpu_torch.pipeline.siamaera import siamaera_filter
     t0 = time.monotonic()
-    trimmed, stats = siamaera_filter(result.trimmed, device=device)
+    with obs.span("siamaera", cat="task"):
+        trimmed, stats = siamaera_filter(result.trimmed, device=device)
     result.trimmed = trimmed
     log.info("siamaera: %d checked, %d trimmed, %d dropped (%.1fs)",
              stats.checked, stats.trimmed, stats.dropped,
@@ -182,6 +195,7 @@ def run_tasks(
         result = Pipeline(pc).run(longs, shorts)
         result.ignored = ignored0 + result.ignored
         _apply_siamaera(cfg, result, device)
+        _embed_qc(result)
         return result
 
     raise ValueError(f"mode {mode!r}: no runnable tasks in {tasks}")

@@ -1,6 +1,7 @@
-"""Final output trimming (port of ``proovread_tpu/pipeline/trim.py``
-without its QC hooks): quality-window trimming, min-length filter, and
-chimera breakpoint splitting.
+"""Final output trimming (port of ``proovread_tpu/pipeline/trim.py``):
+quality-window trimming, min-length filter, and chimera breakpoint
+splitting, with each read's trim funnel recorded while a QC recorder is
+installed.
 
 Covers the reference's final-output path (``bin/proovread:904-956``):
 ``ChimeraToSeqFilter.pl`` (chim.tsv -> substr coordinates, ``--min-score
@@ -19,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from proovread_tpu_torch.io.records import SeqRecord
+from proovread_tpu_torch.obs import qc as obs_qc
 
 
 @dataclass(frozen=True)
@@ -92,12 +94,34 @@ def trim_records(
     results: Sequence,     # ConsensusResult list
     p: Optional[TrimParams] = None,
 ) -> List[SeqRecord]:
-    """chimera-split + window-trim + min-length over consensus results."""
+    """chimera-split + window-trim + min-length over consensus results.
+
+    With a QC recorder installed (obs/qc.py), each read's trim funnel
+    (chimera-split piece count, bases lost to the split margins, bases
+    lost to the quality window and the min-length filter, dropped pieces
+    counted whole, surviving bases) lands on its record."""
     p = p or TrimParams()
+    rec = obs_qc.current()
     out: List[SeqRecord] = []
     for res in results:
-        for piece in split_chimera(res.record, res.chimera, p):
+        pieces = split_chimera(res.record, res.chimera, p)
+        kept: List[SeqRecord] = []
+        trim_lost = 0
+        dropped = 0
+        for piece in pieces:
             t = trim_window(piece, p)  # enforces min_length on all paths
-            if t is not None:
-                out.append(t)
+            if t is None:
+                dropped += 1
+                trim_lost += len(piece)
+            else:
+                trim_lost += len(piece) - len(t)
+                kept.append(t)
+        if rec is not None:
+            rec.record_trim(
+                res.record.id, n_pieces=len(pieces),
+                chimera_bases_lost=(len(res.record)
+                                    - sum(len(pc) for pc in pieces)),
+                trim_bases_lost=trim_lost, pieces_dropped=dropped,
+                bases_out=sum(len(t) for t in kept))
+        out.extend(kept)
     return out

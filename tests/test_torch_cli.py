@@ -7,6 +7,12 @@ palindrome, over a 3 kb genome) with ``--no-checkpoint`` on both sides and
 siamaera on (the default config). Tolerance: the five read and table files
 byte-identical; ``parameter.log`` the same JSON except ``argv``, which
 names each package's program and carries the port's ``--device`` flag.
+The sr-noccs twin also writes ``--qc-out`` and ``--metrics-out`` and
+scores ``--truth`` (a sidecar of the genome slices the long reads came
+from): ``qc.jsonl`` byte-identical, ``metrics.json`` equal but for the
+values of ``bucket_seconds`` (timings) and the ``jax_retraces`` series (0
+in the port). A port-only ``--trace`` run passes the JAX package's trace,
+QC and metrics validators, with each QC ``bucket_span`` in the trace.
 The two runs are subprocesses at the lowest CPU priority: the
 reference's side runs its kernels in interpret mode for a minute or more
 and shares the machine with the suite's other workers. Also: every flag
@@ -25,8 +31,12 @@ import pytest
 from proovread_tpu.cli import main as jmain
 from proovread_tpu.io import fastq as jfastq
 from proovread_tpu.io.records import SeqRecord as JRecord
+from proovread_tpu.obs.validate import (validate_metrics, validate_qc,
+                                        validate_trace)
 
 from proovread_tpu_torch.cli import main as tmain
+
+from test_torch_pipeline import comparable_metrics
 
 ROOT = Path(__file__).resolve().parent.parent
 OUTPUTS = ("untrimmed.fq", "trimmed.fq", "trimmed.fa", "ignored.tsv",
@@ -37,22 +47,25 @@ def _revcomp(s: str) -> str:
     return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
 
 
-def _inputs(tmp_path, sr_len, n_srs, ids=None):
+def _inputs(tmp_path, sr_len, n_srs, ids=None, truth=False):
     """_mk_inputs' construction with ``sr_len`` short reads, and a fifth
     long read that is a palindrome (arm, junction, reverse-complemented
-    arm) for siamaera to trim."""
+    arm) for siamaera to trim. With ``truth``, also a truth sidecar of the
+    genome slices the long reads came from (the JAX package's writer)."""
     rng = np.random.default_rng(3)
     bases = "ACGT"
     genome = "".join(bases[i] for i in rng.integers(0, 4, 3000))
-    seqs = []
+    seqs, sources = [], []
     for _ in range(4):
         st = int(rng.integers(0, len(genome) - 900))
+        sources.append(genome[st:st + 900])
         seq = list(genome[st:st + 900])
         for mu in np.flatnonzero(rng.random(900) < 0.08):
             seq[mu] = bases[int(rng.integers(0, 4))]
         seqs.append("".join(seq))
     arm = genome[1000:1450]
     seqs.append(arm + genome[2000:2040] + _revcomp(arm))
+    sources.append(seqs[-1])
     ids = ids or [f"lr{i}" for i in range(len(seqs))]
     longs = [JRecord(i, s, qual=np.full(len(s), 5, np.uint8))
              for i, s in zip(ids, seqs)]
@@ -69,6 +82,12 @@ def _inputs(tmp_path, sr_len, n_srs, ids=None):
             for r in recs:
                 w.write(r)
         paths.append(str(p))
+    if truth:
+        from proovread_tpu.io.simulate import write_truth_sidecar
+        from proovread_tpu.ops.encode import encode_ascii
+        paths.append(str(tmp_path / "truth.jsonl"))
+        write_truth_sidecar(paths[-1], longs,
+                            [encode_ascii(t) for t in sources])
     return paths
 
 
@@ -76,14 +95,24 @@ def _inputs(tmp_path, sr_len, n_srs, ids=None):
 @pytest.mark.parametrize("mode,sr_len,n_srs", [("sr-noccs", 100, 400),
                                                ("mr-noccs", 250, 160)])
 def test_cli_outputs_match_jax(tmp_path, mode, sr_len, n_srs):
-    lp, sp = _inputs(tmp_path, sr_len, n_srs)
+    scored = mode == "sr-noccs"
+    lp, sp, *truth = _inputs(tmp_path, sr_len, n_srs, truth=scored)
     args = ["-l", lp, "-s", sp, "--no-checkpoint", "-q"]
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
     jout, tout = str(tmp_path / "jax" / "res"), str(tmp_path / "port" / "res")
-    for package, argv in (("proovread_tpu", args + ["-p", jout]),
+
+    def obs_args(side):
+        if not scored:
+            return []
+        return ["--truth", truth[0],
+                "--qc-out", str(tmp_path / side / "qc.jsonl"),
+                "--metrics-out", str(tmp_path / side / "metrics.json")]
+    for package, argv in (("proovread_tpu",
+                           args + ["-p", jout] + obs_args("jax")),
                           ("proovread_tpu_torch",
-                           args + ["-p", tout, "--device", "cpu"])):
+                           args + ["-p", tout, "--device", "cpu"]
+                           + obs_args("port"))):
         run = subprocess.run(
             ["nice", "-n", "19", sys.executable, "-m", package, *argv],
             cwd=ROOT, capture_output=True, text=True, timeout=900)
@@ -95,19 +124,61 @@ def test_cli_outputs_match_jax(tmp_path, mode, sr_len, n_srs):
     jlog = json.load(open(os.path.join(jout, "res.parameter.log")))
     tlog = json.load(open(os.path.join(tout, "res.parameter.log")))
     assert tlog["mode"] == mode                    # auto-detected
-    assert tlog.pop("argv")[1:] == args + ["-p", tout, "--device", "cpu"]
-    assert jlog.pop("argv")[1:] == args + ["-p", jout]
+    assert tlog.pop("argv")[1:] == (args + ["-p", tout, "--device", "cpu"]
+                                    + obs_args("port"))
+    assert jlog.pop("argv")[1:] == args + ["-p", jout] + obs_args("jax")
     assert tlog == jlog
     trimmed = open(os.path.join(tout, "res.trimmed.fq")).read()
     assert "SIAMAERA:" in trimmed                  # the palindrome was cut
+    if scored:
+        tqc, jqc = (tmp_path / side / "qc.jsonl" for side in ("port", "jax"))
+        assert tqc.read_bytes() == jqc.read_bytes()
+        stats = validate_qc(str(tqc), min_reads=5)
+        acc = stats["aggregate"]["accuracy"]
+        assert acc["n_scored"] == 5
+        assert acc["identity_after"]["mean"] > acc["identity_before"]["mean"]
+        tm, jm = (tmp_path / side / "metrics.json" for side in ("port", "jax"))
+        validate_metrics(str(tm), require=["candidates_total"])
+        assert comparable_metrics(json.loads(tm.read_text())) == \
+            comparable_metrics(json.loads(jm.read_text()))
+
+
+def test_cli_trace_qc_and_metrics_pass_the_validators(tmp_path):
+    """A port-only run with ``--trace``, ``--metrics-out`` and the
+    ``qc-out`` and ``truth-sidecar`` config keys: the span tree has the
+    run, bucket, pass and score-accuracy spans and covers its root, and
+    every QC record's ``bucket_span`` is a bucket span of the trace."""
+    lp, sp, truth = _inputs(tmp_path, 100, 400, truth=True)
+    cfg = tmp_path / "obs.cfg"
+    cfg.write_text(json.dumps({"qc-out": str(tmp_path / "qc.jsonl"),
+                               "truth-sidecar": truth}))
+    trace, metrics = str(tmp_path / "t.jsonl"), str(tmp_path / "m.json")
+    assert tmain(["-l", lp, "-s", sp, "-p", str(tmp_path / "out" / "res"),
+                  "--no-checkpoint", "--device", "cpu", "-q", "-c",
+                  str(cfg), "--trace", trace, "--metrics-out", metrics]) == 0
+    stats = validate_trace(trace, min_coverage=0.95)
+    assert stats["root"] == "run" and stats["n_buckets"] >= 1
+    events = [json.loads(ln) for ln in open(trace)][1:]
+    names = {e["name"] for e in events}
+    assert {"run", "bucket", "bwa-sr-1", "bwa-sr-finish", "siamaera",
+            "score-accuracy"} <= names
+    bucket_ids = {e["args"]["span_id"] for e in events
+                  if e["cat"] == "bucket"}
+    qc = validate_qc(str(tmp_path / "qc.jsonl"), min_reads=5)
+    assert qc["aggregate"]["accuracy"]["n_scored"] == 5
+    records = [json.loads(ln) for ln in open(tmp_path / "qc.jsonl")][1:]
+    assert {r["bucket_span"] for r in records} <= bucket_ids
+    assert all(r["bucket_span"] is not None for r in records)
+    m = json.load(open(metrics))
+    validate_metrics(metrics, require=["reads_processed"])
+    assert m["gauges"]["accuracy_reads_scored"]["series"][0]["value"] == 5
+    assert m["gauges"]["peak_live_bytes"]["series"][0]["value"] == 0
 
 
 @pytest.mark.parametrize("flag", [
     ["serve"], ["-u", "utg.fa"], ["--sam", "x.sam"], ["--bam", "x.bam"],
     ["--haplo-coverage"], ["--resume"], ["--mesh-shards", "2"],
     ["--mesh-pass-timeout", "5"], ["--bucket-timeout", "5"],
-    ["--trace", "t.jsonl"], ["--metrics-out", "m.json"],
-    ["--qc-out", "q.jsonl"], ["--truth", "t.jsonl"],
     ["--compile-ledger", "c.jsonl"], ["--compile-cache"],
     ["--xprof", "xp"], ["--debug"]], ids=lambda f: f[0])
 def test_refused_flags_name_themselves(tmp_path, capsys, flag):
@@ -116,6 +187,18 @@ def test_refused_flags_name_themselves(tmp_path, capsys, flag):
         ["-l", "l.fq", "-s", "s.fq", "-p", out, "--no-checkpoint"] + flag)
     assert tmain(argv) == 2
     assert flag[0] in capsys.readouterr().err
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("key", ["compile-ledger", "compile-cache-dir"])
+def test_refused_config_keys_name_themselves(tmp_path, capsys, key):
+    lp, sp = _inputs(tmp_path, 100, 10)
+    cfg = tmp_path / "c.cfg"
+    cfg.write_text(json.dumps({key: "x"}))
+    out = str(tmp_path / "res")
+    assert tmain(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
+                  "--device", "cpu", "-c", str(cfg)]) == 2
+    assert key in capsys.readouterr().err
     assert not os.path.exists(out)
 
 

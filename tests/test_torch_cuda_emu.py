@@ -9,7 +9,7 @@ for ``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or``,
 per-warp barriers for ``__syncwarp``, ``__ballot_sync`` and the
 ``__shfl_up_sync`` / ``__shfl_down_sync`` / ``__shfl_xor_sync`` /
 ``__shfl_sync`` exchanges (any 32- or 64-bit type), GCC builtins for
-``__popc``, ``__ffs`` and ``__clz``, and ``std::atomic_ref`` for
+``__popc``, ``__popcll``, ``__ffs`` and ``__clz``, and ``std::atomic_ref`` for
 ``atomicAdd`` (float, int, unsigned) and ``atomicOr``. The launch syntax
 and the ``__shared__`` qualifiers are rewritten mechanically before
 compiling.
@@ -55,6 +55,18 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <typename T>
 cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+struct cudaFuncAttributes { int numRegs; };
+template <typename T>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T*) {
+  a->numRegs = 0;
+  return 0;
+}
+template <typename T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*, int,
+                                                          size_t) {
+  *n = 1;
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 struct dim3 {
   unsigned x, y, z;
@@ -127,6 +139,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __clz(int x) { return x ? __builtin_clz(unsigned(x)) : 32; }
 inline float atomicAdd(float* p, float v) {
@@ -494,6 +507,45 @@ elif which == "sw":
         got, want = sw._sw_cuda(*args), sw.sw_batch_plain(*args)
         same(got, want)
         assert int(want.n_ops.max()) >= m // 2
+elif which.startswith("lcs"):
+    # read/truth pairs at the edges of the words and of the lanes' blocks:
+    # empty read, empty truth, truths of exactly 64, 2048 (a lane's block)
+    # and 4096 bases, a read longer than its truth, N codes on either
+    # side, runs of N in a truth, reads of ~12% errors; "lcs_global" puts
+    # every pair past one
+    # word a lane in the global-memory scratch instead of a register class
+    from proovread_tpu_torch.obs import accuracy as acc
+    if which == "lcs_global":
+        acc.SMEM_MAX_WPL = 1
+    tl = [0, 10, 64, 63, 65, 2048, 2049, 4096, 700, 130, 1, 3000, 2200, 90]
+    pairs = []
+    for i, n_t in enumerate(tl):
+        tr = rng.integers(0, 4, n_t).astype(np.int8)
+        rd = tr.copy()
+        err = rng.random(len(rd)) < 0.12
+        rd[err] = rng.integers(0, 5, int(err.sum()))
+        rd = np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.04))
+        if i == 1:
+            rd = np.zeros(0, np.int8)               # empty read
+        if i == 8:
+            rd = np.concatenate([rd, rng.integers(0, 4, 900)]).astype(np.int8)
+        if i == 9:
+            tr[::7] = 4                             # N in the truth
+            rd[::5] = 4                             # N in the read
+        if i == 11:
+            # runs of N in the truth: words that never match, all ones,
+            # that a carry from below must cross (in a lane, and between
+            # lanes)
+            tr[320:384] = 4
+            tr[1000:1300] = 4
+            tr[2040:2120] = 4
+        pairs.append((rd, tr))
+    args = acc.pack_pairs(pairs, "cpu")
+    to, po = acc._check(*args)
+    got = acc._lcs_cuda(*args, to, po)
+    want = acc.lcs_lengths_plain(*args)
+    same([got], [want])
+    assert int(want[0]) == 0 and int(want[1]) == 0 and int(want[2]) > 40
 print("EMU-OK", which)
 """
 
@@ -523,7 +575,7 @@ def emu_lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_EMU)
     (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
     srcs = []
-    for name in ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu"):
+    for name in ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu"):
         out = d / (Path(name).stem + ".cpp")
         out.write_text(_emulation_source((CSRC / name).read_text()))
         srcs.append(str(out))
@@ -543,7 +595,7 @@ def emu_lib(tmp_path_factory):
                                    "pileup_packed", "pileup_packed_clustered",
                                    "pileup_dense", "pileup_dense_clustered",
                                    "assemble", "assemble_long", "hcr",
-                                   "hcr_long", "sw"])
+                                   "hcr_long", "sw", "lcs", "lcs_global"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

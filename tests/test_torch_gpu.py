@@ -417,3 +417,41 @@ def test_packed_pileup_on_clustered_candidates_and_bad_metadata(cuda):
         keep = torch.as_tensor(ok, device=cuda)
         assert torch.equal(buf, pk.pileup_accumulate_packed_plain(
             c[0].clone(), c[1][keep], c[2][keep], c[3][keep]))
+
+
+@pytest.mark.parametrize("smem_max_wpl", [32, 1])
+def test_lcs_kernel_matches_plain(cuda, monkeypatch, smem_max_wpl):
+    """The accuracy scoreboard's LCS: empty reads and truths, truths of
+    exactly 64, 2048 (a lane's block) and 4096 bases, a read past its
+    truth, N codes and runs of them, ~12% errors; with ``smem_max_wpl`` 1
+    every pair past one word a lane runs from the global-memory
+    scratch."""
+    from proovread_tpu_torch.obs import accuracy as acc
+    monkeypatch.setattr(acc, "SMEM_MAX_WPL", smem_max_wpl)
+    rng = np.random.default_rng(smem_max_wpl)
+    pairs = []
+    for i, n_t in enumerate([0, 10, 64, 2048, 2049, 4096, 700, 130, 9000]
+                            + list(rng.integers(1, 6000, 40))):
+        tr = rng.integers(0, 4, int(n_t)).astype(np.int8)
+        rd = tr.copy()
+        err = rng.random(len(rd)) < 0.12
+        rd[err] = rng.integers(0, 5, int(err.sum()))
+        rd = np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.04))
+        if i == 1:
+            rd = rd[:0]
+        if i == 6:
+            rd = np.concatenate([rd, rng.integers(0, 4, 900)]).astype(np.int8)
+        if i == 7:
+            tr[::7] = 4
+            rd[::5] = 4
+        if i == 8:
+            tr[320:384] = 4                 # words that never match
+            tr[1000:1300] = 4
+        pairs.append((rd, tr))
+    args = acc.pack_pairs(pairs, cuda)
+    launches = acc.lcs_lengths.launches
+    got = acc.lcs_lengths(*args)
+    assert acc.lcs_lengths.launches == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), acc.lcs_lengths_plain(
+        *acc.pack_pairs(pairs, "cpu")))

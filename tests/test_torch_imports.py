@@ -44,7 +44,10 @@ def test_port_import_leaves_jax_unloaded():
             "import proovread_tpu_torch.pipeline.driver, "
             "proovread_tpu_torch.state, proovread_tpu_torch.kernels, "
             "proovread_tpu_torch.cli, "
-            "proovread_tpu_torch.pipeline.siamaera\n"
+            "proovread_tpu_torch.pipeline.siamaera, "
+            "proovread_tpu_torch.obs, proovread_tpu_torch.obs.accuracy, "
+            "proovread_tpu_torch.obs.memory, proovread_tpu_torch.obs.qc, "
+            "proovread_tpu_torch.io.simulate\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")

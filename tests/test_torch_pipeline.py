@@ -3,18 +3,26 @@
 The same seeded workload runs through the JAX package (``engine="device"``,
 Pallas kernels in interpret mode) and the port on the CPU. Tolerance: the
 untrimmed and trimmed records (id, sequence, qual, description), the
-ignored and chimera lists and every TaskReport must be identical."""
+ignored and chimera lists and every TaskReport must be identical;
+``result.metrics`` equal but for two fields (the values of
+``bucket_seconds``, which are timings, and the ``jax_retraces`` series,
+which the port never counts); and, with a QC recorder installed on both
+sides, every per-read QC record and ``result.qc`` equal."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 
+from proovread_tpu.obs import qc as jqc
 from proovread_tpu.pipeline.driver import Pipeline as JPipeline
 from proovread_tpu.pipeline.driver import PipelineConfig as JConfig
 from proovread_tpu.pipeline.trim import TrimParams as JTrim
 
 from proovread_tpu_torch.io.records import SeqRecord
+from proovread_tpu_torch.obs import qc as tqc
+from proovread_tpu_torch.obs.metrics import without_timings
 from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
 from proovread_tpu_torch.state import params_from_fields
 
@@ -63,6 +71,15 @@ def _rec_key(recs):
              r.desc) for r in recs]
 
 
+def comparable_metrics(metrics):
+    """A metrics dump without its two fields that may differ: the values
+    of ``bucket_seconds`` (timings; their counts stay) and the
+    ``jax_retraces`` series (0 in the port)."""
+    m = without_timings(metrics)
+    m["counters"]["jax_retraces"]["series"] = []
+    return m
+
+
 def _compare(jres, tres):
     assert _rec_key(tres.untrimmed) == _rec_key(jres.untrimmed)
     assert _rec_key(tres.trimmed) == _rec_key(jres.trimmed)
@@ -70,14 +87,48 @@ def _compare(jres, tres):
     assert tres.chimera == jres.chimera
     assert ([dataclasses.asdict(r) for r in tres.reports]
             == [dataclasses.asdict(r) for r in jres.reports])
+    assert comparable_metrics(tres.metrics) == comparable_metrics(
+        jres.metrics)
+    assert tres.qc == jres.qc
 
 
-def run_both(longs, srs, mode="sr", **kw):
+@contextlib.contextmanager
+def _no_jax_ledger():
+    """The JAX package's compile ledger off for the block. The port has
+    none (its ``compile_*`` and ``cache_*`` gauges stay at 0), and a ledger
+    that another test left installed in this process (a server that was
+    never drained) would fill the JAX side's."""
+    from proovread_tpu.obs import compilecache as jcc
+    led = jcc.current()
+    jcc.uninstall()
+    try:
+        yield
+    finally:
+        if led is not None:
+            jcc.install(led)
+
+
+def run_both(longs, srs, mode="sr", qc=True, **kw):
+    """Both pipelines on the same inputs, each under its own QC recorder
+    when ``qc``; returns (JAX result, port result), after holding the two
+    recorders' per-read records equal."""
     jcfg = JConfig(mode=mode, engine="device", **kw)
-    jres = JPipeline(jcfg).run(longs, srs)
     fields = dataclasses.asdict(jcfg)
     tcfg = params_from_fields(PipelineConfig, {**fields, "device": "cpu"})
-    tres = Pipeline(tcfg).run(_port_records(longs), _port_records(srs))
+    recs = {}
+    for name, run, mod, args in (
+            ("jax", JPipeline(jcfg).run, jqc, (longs, srs)),
+            ("port", Pipeline(tcfg).run, tqc,
+             (_port_records(longs), _port_records(srs)))):
+        with (mod.scope() if qc else contextlib.nullcontext()) as rec, \
+                _no_jax_ledger():
+            recs[name] = (run(*args), rec)
+    (jres, jrec), (tres, trec) = recs["jax"], recs["port"]
+    if qc:
+        assert trec.records == jrec.records
+        assert tres.qc is not None and len(trec.records) == len(longs)
+    else:
+        assert tres.qc is None and jres.qc is None
     return jres, tres
 
 
@@ -119,7 +170,7 @@ def test_pipeline_high_coverage_matches_jax(monkeypatch):
                         count("bits", tpk.pileup_accumulate_bits_plain))
     monkeypatch.setattr(tpk, "pileup_accumulate_packed_plain",
                         count("packed", tpk.pileup_accumulate_packed_plain))
-    jres, tres = run_both(longs, srs, **kw)
+    jres, tres = run_both(longs, srs, qc=False, **kw)
     _compare(jres, tres)
     assert [r.task for r in tres.reports] == [
         "bwa-sr-1", "bwa-sr-2", "bwa-sr-3", "bwa-sr-finish"]
