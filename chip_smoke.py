@@ -25,7 +25,8 @@ any failure exits non-zero:
    at the mr shapes (m=256 with 250 bp queries, W=96 and W=64), and the
    Smith-Waterman kernel of siamaera's mapper at its chunk (R=2048, m=256,
    n=384: half a read's window against its reverse complement, half chance
-   seeds), and the accuracy scoreboard's LCS kernel on 646 (read, truth)
+   seeds) and at the scan engine's sr chunk (R=4096, m=128, n=256, 100 bp
+   queries, BWA_SR), and the accuracy scoreboard's LCS kernel on 646 (read, truth)
    pairs at the E.coli-class spread (truths up to 45,000 bases) with the
    edge cases (empty read or truth, truths of 64, 2048 and 4096 bases, a
    read past its truth, N codes). Launcher, plain
@@ -47,7 +48,19 @@ any failure exits non-zero:
    accuracy aggregate must equal the JAX package's recorded config-4 row
    in ``ACCURACY_r10.json`` (read as data); then one ``--trace`` run on
    the card, whose span tree must hold the run, bucket, pass and
-   score-accuracy spans and every QC record's bucket span;
+   score-accuracy spans and every QC record's bucket span; then
+   ``Pipeline.run(engine="scan")`` on the card and the CPU, identical;
+   then, on config 4's genome with 80 kb of long reads (11 reads, two
+   buckets at ``batch_reads`` 8), the resilience ladder under
+   ``fault_spec="compile@b0.p2;oom@b1"`` (every pass run): each faulted
+   bucket walks fused -> eager -> chunk-halved -> host-scan and equals the
+   card's ``engine="scan"`` run on that bucket's reads, with the
+   reference's demotion reports and ``resilience_demotions{to_rung}`` and
+   ``device_faults{kind}`` counts; and the command line killed by
+   ``PROOVREAD_FAULT=compile@b1 --no-ladder`` with bucket 0 journaled, then
+   ``--resume``d: the five files, ``parameter.log`` (but its argv and the
+   journal's config keys) and ``qc.jsonl`` byte-identical to an
+   uninterrupted run's;
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
    genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
 5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
@@ -61,9 +74,11 @@ any failure exits non-zero:
    ``DeviceCorrector.correct_pass`` and two fused passes against the whole
    resident short-read set;
 7. the command line at E.coli class: phase 4's reads written as FASTQ,
-   ``cli.main`` with its defaults and ``--no-checkpoint`` (mode sr-noccs,
-   siamaera on), scored against the reads' truth (``--truth --qc-out
-   --metrics-out``): wall, bases/s (the wall without the scoring), peak
+   ``cli.main`` with its defaults (mode sr-noccs, siamaera on, the
+   checkpoint journal on), scored against the reads' truth (``--truth
+   --qc-out --metrics-out``): wall, bases/s (the wall without the
+   scoring), the journal's writes, bytes and write seconds (and that it is
+   removed at the end), peak
    memory, siamaera's seconds split into host seeding and Smith-Waterman,
    its candidates and counts, the bsw, sw and LCS launches and device
    time (CUDA events around each launch), the score-accuracy seconds
@@ -72,13 +87,26 @@ any failure exits non-zero:
    after and those introduced; every output read must be scored, and its
    mean identity after must reach the scoreboard's floor (0.95) and pass
    the identity before;
+9. kill and resume at E.coli class: phase 7's command without ``--truth``
+   under ``PROOVREAD_FAULT=compile@b3 --no-ladder`` must stop with buckets
+   0-2 journaled; ``--resume`` in the same output dir must then write
+   phase 7's five files and ``parameter.log`` (but its argv and the
+   journal's config keys) byte for byte, with 3 journal replays and 3
+   writes;
+10. the scan engine timed: ``Pipeline.run(engine="scan")`` on the card on
+   phase 4's first length bucket (104 reads) with all its short reads:
+   wall, passes, the sw kernel's launches and device time;
 8. mr at E.coli class: the same long reads with 30x of 250 bp short reads
    (mode mr-noccs), the same numbers and holds.
 
-Phases 4-8 each reset every kernel's launch count just before and read
+Phases 9 and 10 run between 7 and 8: they reuse phase 7's short reads.
+Phases 4-10 each reset every kernel's launch count just before and read
 them just after; each fails if a kernel of its path was not launched
 (phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble, HCR and the
-LCS), and phase 5 also if the bit-plane pileup was.
+LCS; phase 9 the same but the LCS; phase 10 sw), and phase 5 also if the
+bit-plane pileup was. No unfaulted phase may demote: phases 3-5 and 7-10
+fail on a ``resilience_demotions`` or ``device_faults`` count or a
+``demote-`` report (phase 6 drives ``DeviceCorrector`` below the ladder).
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
@@ -501,19 +529,20 @@ def check_bsw_v1(dev, ap, label, args, v2):
         shape=f"R={R} m={m} W={W} n={n}"), got, (q1, ign)
 
 
-def sw_inputs(rng, R=2048, m=256, n=384, band=40):
+def sw_inputs(rng, R=2048, m=256, n=384, band=40, qmax=None):
     """Siamaera-like candidates at the mapper's chunk shape: half are a
     read's own window against the reverse-complemented read on the
     matching strand (the plus-strand self-match siamaera drops after the
     alignment: the whole query aligns, so the walk runs its full length),
     half chance seeds against random windows; one in eight queries is
-    shorter than m (a read's last window), two are of length 0 and 1, and
-    both sides carry N codes."""
+    shorter than ``qmax`` (default m; a read's last window), two are of
+    length 0 and 1, and both sides carry N codes."""
+    qmax = qmax or m
     r = rng.integers(0, 4, (R, n)).astype(np.int8)
     q = np.full((R, m), 4, np.int8)
-    ql = np.full(R, m, np.int32)
+    ql = np.full(R, qmax, np.int32)
     short = rng.random(R) < 0.125
-    ql[short] = rng.integers(2, m, int(short.sum()))
+    ql[short] = rng.integers(2, qmax, int(short.sum()))
     ql[:2] = [0, 1]
     off = band + rng.integers(-8, 9, R)
     for i in range(R):
@@ -525,14 +554,17 @@ def sw_inputs(rng, R=2048, m=256, n=384, band=40):
     return q, r, ql
 
 
-def check_sw(rng, dev):
-    """The Smith-Waterman kernel against its plain version at siamaera's
-    shape (R=2048, m=256, n=384) with siamaera's mapper parameters."""
+def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None):
+    """The Smith-Waterman kernel against its plain version: by default at
+    siamaera's shape (R=2048, m=256, n=384) with siamaera's mapper
+    parameters; the scan engine's sr chunk is R=4096, m=128, n=256 with
+    100 bp queries and BWA_SR."""
     import torch
     from proovread_tpu_torch.align import sw
     from proovread_tpu_torch.align.params import AlignParams
-    ap = AlignParams(min_out_score=0.0, score_per_base=False)
-    q, r, ql = (torch.as_tensor(x, device=dev) for x in sw_inputs(rng))
+    ap = ap or AlignParams(min_out_score=0.0, score_per_base=False)
+    q, r, ql = (torch.as_tensor(x, device=dev)
+                for x in sw_inputs(rng, R, m, n, qmax=qmax))
     R, m = q.shape
     n = r.shape[1]
     got = sw.sw_batch(q, r, ql, ap)
@@ -540,7 +572,7 @@ def check_sw(rng, dev):
     torch.cuda.synchronize()
     pairs = list(zip(got, want))
     assert_equal("sw_batch", pairs)
-    long_walks = int((want.n_ops >= m - 8).sum())
+    long_walks = int((want.n_ops >= int(ql.max()) - 8).sum())
     if long_walks < R // 4:
         raise AssertionError(f"sw: weak inputs ({long_walks} long walks)")
     tm = launcher_times(lambda: sw._sw_cuda(q, r, ql, ap), KERNEL_NAMES["sw"])
@@ -1170,57 +1202,78 @@ def cli_outputs(out):
     return files, plog
 
 
-class SiamaeraProbe:
+class CallTimer:
+    """Wall seconds spent in named functions during a run: each target
+    (module or class, attribute, key, synchronise the card after it) is
+    replaced by a timed wrapper until exit. Nested targets count inside
+    their callers too."""
+
+    def __init__(self, targets):
+        self.targets, self.t, self.n = targets, {}, {}
+
+    def __enter__(self):
+        import torch
+        self.saved = []
+        for obj, name, key, sync in self.targets:
+            fn = getattr(obj, name)
+            self.saved.append((obj, name, fn))
+            self.t[key], self.n[key] = 0.0, 0
+
+            def timed(*a, _fn=fn, _key=key, _sync=sync, **k):
+                t0 = time.monotonic()
+                out = _fn(*a, **k)
+                if _sync:
+                    torch.cuda.synchronize()
+                self.t[_key] += time.monotonic() - t0
+                self.n[_key] += 1
+                return out
+            setattr(obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self.saved):
+            setattr(obj, name, fn)
+
+
+class SiamaeraProbe(CallTimer):
     """Times siamaera's parts inside a command-line run: the whole filter,
     its host seeding (``align/seed.py``: index and candidates) and its
     Smith-Waterman calls (synchronised), and counts its candidates and
     keeps its SiamaeraStats."""
 
-    def __enter__(self):
-        import torch
+    def __init__(self):
         from proovread_tpu_torch.align import mapper, seed
         from proovread_tpu_torch.pipeline import siamaera
-        self.t = dict(siamaera=0.0, seed=0.0, sw=0.0)
-        self.candidates, self.calls, self.stats = 0, 0, None
-        probe = self
+        super().__init__([(siamaera, "siamaera_filter", "siamaera", False),
+                          (seed, "build_index", "seed", False),
+                          (seed, "find_candidates", "seed", False),
+                          (mapper, "sw_batch", "sw", True)])
+        self.mods = (siamaera, mapper.TorchMapper)
+        self.candidates, self.stats = 0, None
 
-        def timed(key, fn, sync=False):
-            def wrapped(*a, **k):
-                t0 = time.monotonic()
-                out = fn(*a, **k)
-                if sync:
-                    torch.cuda.synchronize()
-                probe.t[key] += time.monotonic() - t0
-                return out
-            return wrapped
-
-        filt, mb = siamaera.siamaera_filter, mapper.TorchMapper.map_batch
+    def __enter__(self):
+        super().__enter__()
+        siamaera, mapper_cls = self.mods
+        filt, mb = siamaera.siamaera_filter, mapper_cls.map_batch
 
         def filter_(*a, **k):
-            out = timed("siamaera", filt)(*a, **k)
-            probe.calls += 1
-            probe.stats = out[1]
+            out = filt(*a, **k)
+            self.stats = out[1]
             return out
 
         def map_batch(self_, *a, **k):
             res = mb(self_, *a, **k)
-            probe.candidates += res.n_candidates
+            self.candidates += res.n_candidates
             return res
-        self._saved = [(siamaera, "siamaera_filter", filt),
-                       (seed, "build_index", seed.build_index),
-                       (seed, "find_candidates", seed.find_candidates),
-                       (mapper, "sw_batch", mapper.sw_batch),
-                       (mapper.TorchMapper, "map_batch", mb)]
+        self.saved += [(siamaera, "siamaera_filter", filt),
+                       (mapper_cls, "map_batch", mb)]
         siamaera.siamaera_filter = filter_
-        seed.build_index = timed("seed", seed.build_index)
-        seed.find_candidates = timed("seed", seed.find_candidates)
-        mapper.sw_batch = timed("sw", mapper.sw_batch, sync=True)
-        mapper.TorchMapper.map_batch = map_batch
+        mapper_cls.map_batch = map_batch
         return self
 
-    def __exit__(self, *exc):
-        for obj, name, fn in self._saved:
-            setattr(obj, name, fn)
+    @property
+    def calls(self) -> int:
+        return self.n["siamaera"]
 
 
 class KernelTimer:
@@ -1410,12 +1463,14 @@ class ScoreLog(logging.Handler):
 
 
 def cli_run(tmp, label, longs, srs, want_mode, truths):
-    """``cli.main`` with its defaults (and ``--no-checkpoint``) on the
+    """``cli.main`` with its defaults (the checkpoint journal on) on the
     workload's FASTQ files, scoring ``--truth`` into ``--qc-out`` and
-    ``--metrics-out``, with siamaera's parts, bsw's device time and the
-    scoring measured; holds that every output read was scored, and
-    corrected to at least the identity floor and above its input; returns
-    what phases 7 and 8 log."""
+    ``--metrics-out``, with siamaera's parts, bsw's device time, the
+    journal's writes and the scoring measured; holds that every output
+    read was scored, and corrected to at least the identity floor and
+    above its input, that nothing was demoted and that the journal is
+    gone; returns what phases 7 and 8 log, and the outputs
+    (``cli_outputs``)."""
     import torch
     from proovread_tpu_torch import cli
     from proovread_tpu_torch.align import sw
@@ -1429,13 +1484,13 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
     torch.cuda.reset_peak_memory_stats()
     sw0 = sw.sw_batch.launches
     with SiamaeraProbe() as probe, ScoreLog() as score, \
+            JournalProbe() as journal, \
             KernelTimer("pt_bsw_expand_v2") as bsw_t, \
             KernelTimer("pt_sw_batch") as sw_t, \
             KernelTimer("pt_lcs_lengths") as lcs_t:
         t0 = time.monotonic()
-        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
-                       "--truth", tp, "--qc-out", qc, "--metrics-out",
-                       mpath])
+        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--truth", tp,
+                       "--qc-out", qc, "--metrics-out", mpath])
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     if rc != 0:
@@ -1458,9 +1513,17 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
         raise AssertionError(f"cli {label}: {acc['n_scored']} of {n_out} "
                              f"reads scored, identity {before} -> {after}")
     with open(mpath) as fh:
-        gauges = json.load(fh)["gauges"]
+        metrics = json.load(fh)
+    gauges = metrics["gauges"]
     if gauges["accuracy_reads_scored"]["series"][0]["value"] != n_out:
         raise AssertionError(f"cli {label}: accuracy gauges not published")
+    no_demotion(f"cli {label}", metrics)
+    n_buckets = gauges["n_buckets"]["series"][0]["value"]
+    if journal.writes != n_buckets or os.path.exists(
+            os.path.join(out, ".proovread_ckpt")):
+        raise AssertionError(f"cli {label}: {journal.writes} journal "
+                             f"writes for {n_buckets} buckets, or the "
+                             "journal was left behind")
     bases = sum(len(r) for r in longs)
     n_bsw = len(bsw_t.events)
     return dict(
@@ -1481,7 +1544,251 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
         n_classified=acc["n_classified"], identity_before=before,
         identity_after=after, errors_before=acc["errors_before"],
         errors_after=acc["errors_after"], introduced=acc["introduced"],
-        lcs_launches=len(lcs_t.events), lcs_device_ms=lcs_t.total_ms())
+        lcs_launches=len(lcs_t.events), lcs_device_ms=lcs_t.total_ms(),
+        journal_writes=journal.writes, journal_bytes=journal.bytes,
+        journal_write_s=journal.s,
+        journal_bytes_per_base=journal.bytes / bases), (
+            files, without_journal_keys(plog))
+
+
+class JournalProbe:
+    """Counts the checkpoint journal's bucket writes inside a run, with
+    the bytes of the files written and the seconds the writes took."""
+
+    def __enter__(self):
+        from proovread_tpu_torch.pipeline import resilience
+        self.cls, self.put = resilience.CheckpointJournal, \
+            resilience.CheckpointJournal.put
+        self.writes, self.bytes, self.s = 0, 0, 0.0
+        probe, put = self, self.put
+
+        def timed(j, key, *a, **k):
+            t0 = time.monotonic()
+            put(j, key, *a, **k)
+            probe.s += time.monotonic() - t0
+            probe.writes += 1
+            probe.bytes += os.path.getsize(
+                os.path.join(j.path, f"bucket_{key}.json"))
+        self.cls.put = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.put = self.put
+
+
+def series(metrics, kind, name):
+    """{labels: value} of one metric of a metrics dump."""
+    return {tuple(sorted(s["labels"].items())): s["value"]
+            for s in metrics[kind][name]["series"]}
+
+
+def no_demotion(label, metrics, reports=()):
+    """The ladder hid nothing: no demotion, no absorbed device fault, no
+    demotion report in an unfaulted run."""
+    dem = series(metrics, "counters", "resilience_demotions")
+    faults = series(metrics, "counters", "device_faults")
+    demote = [r.task for r in reports if r.task.startswith("demote-")]
+    if dem or faults or demote:
+        raise AssertionError(f"{label}: demoted in an unfaulted run: "
+                             f"{dem} {faults} {demote}")
+
+
+def scan_card_vs_cpu(longs, srs, n_it):
+    """``Pipeline.run(engine="scan")`` on the card and on the CPU: records,
+    chimeras and reports identical, nothing demoted."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = run_pipeline(longs, srs, n_it, device, engine="scan")
+    (res, t_gpu), (res_cpu, t_cpu) = out["cuda"], out["cpu"]
+    if result_key(res) != result_key(res_cpu):
+        raise AssertionError("config 4 scan engine: card and CPU differ")
+    if not any(r.n_admitted for r in res.reports):
+        raise AssertionError("config 4 scan engine: nothing admitted")
+    no_demotion("config 4 scan engine", res.metrics, res.reports)
+    return dict(card_s=t_gpu, cpu_s=t_cpu, reads=len(res.untrimmed),
+                passes=[r.task for r in res.reports])
+
+
+def ladder_check(longs, srs, n_it, device="cuda"):
+    """The ladder on the card: ``compile@b0.p2;oom@b1`` walks both buckets
+    (batch_reads 8) fused -> eager -> chunk-halved -> host-scan. Each
+    faulted bucket's records, chimeras and pass reports equal the card's
+    ``engine="scan"`` run on that bucket's reads alone (same coverage,
+    sampling off, every pass run), and the demotion reports and counters
+    are the reference's."""
+    from proovread_tpu_torch.pipeline import driver as drv
+    kw = dict(batch_reads=8, sampling=False, mask_shortcut_frac=2.0,
+              mask_min_gain_frac=-1.0)
+    cfg = drv.PipelineConfig(**kw)
+    min_sr = int(np.median([len(r) for r in srs]))
+    kept, _ = drv.Pipeline(cfg).read_long(longs, min_sr)
+    groups = drv._bucket_records(kept, cfg.batch_reads)
+    if len(groups) != 2:
+        raise AssertionError(f"ladder: {len(groups)} buckets, not 2")
+    kw["coverage"] = (sum(len(r) for r in srs)
+                      / sum(len(r) for r in kept))
+    t0 = time.monotonic()
+    res, _ = run_pipeline(longs, srs, n_it, device,
+                          fault_spec="compile@b0.p2;oom@b1", **kw)
+    wall = time.monotonic() - t0
+    want_reports = []
+    for gi, (_, recs) in enumerate(groups):
+        alone, _ = run_pipeline(recs, srs, n_it, device, engine="scan",
+                                **kw)
+        ids = {r.id for r in recs}
+        got = [r for r in res.untrimmed if r.id in ids]
+        if (result_key(alone)[0] != [k for k in result_key(res)[0]
+                                     if k[0] in ids]
+                or alone.chimera != [c for c in res.chimera
+                                     if c[0] in ids] or len(got) != len(recs)):
+            raise AssertionError(f"ladder: bucket {gi} differs from the "
+                                 "scan engine")
+        rungs = ("eager", "chunk-halved", "host-scan")
+        kind = ("compile", "oom")[gi]
+        want_reports += [("demote-b%d" % gi, kind, r) for r in rungs]
+        want_reports += [(r.task, None, None) for r in alone.reports]
+    got_reports = [(r.task, r.note.split(" ")[0] if r.note else None,
+                    r.note.split("'")[3] if r.note else None)
+                   for r in res.reports]
+    if got_reports != want_reports:
+        raise AssertionError(f"ladder: reports {got_reports}")
+    dem = series(res.metrics, "counters", "resilience_demotions")
+    faults = series(res.metrics, "counters", "device_faults")
+    if (dem != {(("to_rung", r),): 2 for r in ("eager", "chunk-halved",
+                                                 "host-scan")}
+            or faults != {(("kind", "compile"),): 3, (("kind", "oom"),): 3}):
+        raise AssertionError(f"ladder: counters {dem} {faults}")
+    return dict(wall_s=wall, buckets=[len(g[1]) for g in groups],
+                demotions={k[0][1]: v for k, v in dem.items()},
+                device_faults={k[0][1]: v for k, v in faults.items()})
+
+
+def run_cli_faulted(argv, spec):
+    """``cli.main(argv)`` under ``PROOVREAD_FAULT=spec`` with the ladder
+    off: it must stop with the injected fault. Returns its message."""
+    from proovread_tpu_torch import cli
+    from proovread_tpu_torch.testing.faults import InjectedFault
+    os.environ["PROOVREAD_FAULT"] = spec
+    try:
+        cli.main([*argv, "--no-ladder"])
+    except InjectedFault as e:
+        return str(e)
+    finally:
+        os.environ.pop("PROOVREAD_FAULT", None)
+    raise AssertionError(f"PROOVREAD_FAULT={spec}: the run did not stop")
+
+
+def without_journal_keys(plog):
+    """parameter.log without the config keys that name the journal and the
+    resume (``checkpoint-dir`` lies in each run's own output dir)."""
+    return dict(plog, config={k: v for k, v in plog["config"].items()
+                              if k not in ("checkpoint-dir", "resume")})
+
+
+def resume_outputs(out):
+    files, plog = cli_outputs(out)
+    return files, without_journal_keys(plog)
+
+
+def cli_kill_resume(tmp, label, longs, srs, spec, n_journaled, ref=None,
+                    cfg=None, qc=False, device="cuda"):
+    """The command line killed by ``PROOVREAD_FAULT=spec`` under
+    ``--no-ladder`` with ``n_journaled`` buckets in its journal, then
+    ``--resume``d in the same output dir: its outputs (and with ``qc`` its
+    ``qc.jsonl``) equal ``ref`` or, without one, an uninterrupted run's;
+    the resumed run replays the journaled buckets, journals the rest,
+    demotes nothing and leaves no journal."""
+    from proovread_tpu_torch import cli
+    lp, sp = write_inputs(tmp, label, longs, srs)
+    base = ["-l", lp, "-s", sp, "-q", "--device", device] + (
+        ["-c", cfg] if cfg else [])
+
+    def argv(out, *extra):
+        return base + ["-p", out, *extra] + (
+            ["--qc-out", out + ".qc.jsonl"] if qc else [])
+    ref_qc = None
+    if ref is None:
+        ref_out = os.path.join(tmp, f"{label}-ref", "res")
+        if cli.main(argv(ref_out)) != 0:
+            raise AssertionError(f"cli {label}: uninterrupted run failed")
+        ref = resume_outputs(ref_out)
+        ref_qc = ref_out + ".qc.jsonl" if qc else None
+    out = os.path.join(tmp, label, "res")
+    t0 = time.monotonic()
+    killed = run_cli_faulted(argv(out), spec)
+    t_kill = time.monotonic() - t0
+    journal = os.path.join(out, ".proovread_ckpt")
+    n = len([f for f in os.listdir(journal) if f.startswith("bucket_")])
+    if n != n_journaled:
+        raise AssertionError(f"cli {label}: {n} buckets journaled, not "
+                             f"{n_journaled}")
+    mpath = os.path.join(tmp, f"{label}.resume.m")
+    t0 = time.monotonic()
+    if cli.main(argv(out, "--resume", "--metrics-out", mpath)) != 0:
+        raise AssertionError(f"cli {label}: --resume failed")
+    t_resume = time.monotonic() - t0
+    got = resume_outputs(out)
+    diff = [k for k in got[0] if got[0][k] != ref[0][k]]
+    if diff or got[1] != ref[1]:
+        raise AssertionError(f"cli {label}: the resumed run differs in "
+                             f"{diff or 'parameter.log'}")
+    if ref_qc and (open(out + ".qc.jsonl", "rb").read()
+                   != open(ref_qc, "rb").read()):
+        raise AssertionError(f"cli {label}: qc.jsonl differs after resume")
+    with open(mpath) as fh:
+        metrics = json.load(fh)
+    no_demotion(f"cli {label} --resume", metrics)
+    c = metrics["counters"]
+    replays = sum(x["value"] for x in
+                  c["checkpoint_journal_replays"]["series"])
+    writes = sum(x["value"] for x in c["checkpoint_journal_writes"]["series"])
+    n_buckets = metrics["gauges"]["n_buckets"]["series"][0]["value"]
+    if replays != n_journaled or writes != n_buckets - n_journaled:
+        raise AssertionError(f"cli {label}: {replays} replays, {writes} "
+                             f"writes of {n_buckets} buckets")
+    if os.path.exists(journal):
+        raise AssertionError(f"cli {label}: journal left after --resume")
+    return dict(killed=killed, killed_s=t_kill, resume_s=t_resume,
+                replays=replays, writes=writes, buckets=n_buckets)
+
+
+def scan_timed(longs, srs, n_it, n_reads=None):
+    """The scan engine on the card on the first length bucket of a
+    workload (its first ``n_reads`` reads), with all the workload's short
+    reads: wall, passes, the sw kernel's launches and device time, and the
+    wall split into host seeding, Smith-Waterman (synchronised),
+    admission, the vote scatter and the rest of each pass."""
+    import torch
+    from proovread_tpu_torch.align import seed, sw
+    from proovread_tpu_torch.pipeline import correct
+    from proovread_tpu_torch.pipeline import driver as drv
+    min_sr = int(np.median([len(r) for r in srs]))
+    kept, _ = drv.Pipeline(drv.PipelineConfig()).read_long(longs, min_sr)
+    recs = drv._bucket_records(kept, 256)[0][1][:n_reads]
+    coverage = sum(len(r) for r in srs) / sum(len(r) for r in kept)
+    sw0 = sw.sw_batch.launches
+    torch.cuda.reset_peak_memory_stats()
+    with KernelTimer("pt_sw_batch") as sw_t, CallTimer([
+            (correct.FastCorrector, "correct_batch", "pass", True),
+            (seed, "build_index", "seed", False),
+            (seed, "find_candidates", "seed", False),
+            (correct, "sw_batch", "sw", True),
+            (correct, "admit_mask", "admit", False),
+            (correct, "fused_accumulate", "votes", True)]) as ct:
+        res, wall = run_pipeline(recs, srs, n_it, "cuda", engine="scan",
+                                 coverage=coverage)
+    no_demotion("scan engine", res.metrics, res.reports)
+    bases = sum(len(r) for r in recs)
+    split = dict(ct.t)
+    split["pass_other"] = split["pass"] - sum(
+        split[k] for k in ("seed", "sw", "admit", "votes"))
+    return res, dict(
+        reads=len(recs), bases=bases, wall_s=wall,
+        corrected_bases_per_s=bases / wall,
+        passes=[(r.task, r.n_candidates, r.n_admitted) for r in res.reports],
+        sw_launches=sw.sw_batch.launches - sw0,
+        sw_device_ms=sw_t.total_ms(), seconds=split,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def same_host(a, b) -> bool:
@@ -1562,7 +1869,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-8 to leave out; such a "
+                     help="comma list of phases 2-10 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--profile", action="store_true",
                      help="rerun phases 4-6 under torch.profiler and print "
@@ -1723,6 +2030,11 @@ def main(argv=None) -> int:
         results["sw_batch"] = check_sw(rng, dev)
         report("sw_batch", results["sw_batch"])
         torch.cuda.empty_cache()
+        # the scan engine's sr chunk: host_chunk_rows = 4096 candidates,
+        # 100 bp queries packed to m = 128, BWA_SR's band of 40 (n = 256)
+        r = check_sw(rng, dev, R=4096, m=128, n=256, qmax=100, ap=BWA_SR)
+        report("sw_batch", dict(r, label="scan engine"))
+        torch.cuda.empty_cache()
         results["lcs_lengths"] = check_lcs(rng, dev)
         report("lcs_lengths", results["lcs_lengths"])
         log(f"phase2 peak device memory {peak2[0]:.2f} GiB")
@@ -1745,6 +2057,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"config 4{label}: nothing corrected")
             if kw and pileup_kernel.pileup_accumulate_packed.launches == packed0:
                 raise AssertionError("config 4 coverage 400: no packed pileup")
+            no_demotion(f"config 4{label}", res_gpu.metrics, res_gpu.reports)
             log(f"phase3 config 4{label}: card {t_gpu:.1f} s, CPU {t_cpu:.1f} "
                 f"s, {len(res_gpu.untrimmed)} reads, {len(res_gpu.trimmed)} "
                 f"trimmed, {len(res_gpu.chimera)} chimera, identical")
@@ -1795,6 +2108,21 @@ def main(argv=None) -> int:
                         f"{acc['identity_after']['mean']}")
             tr = cli_trace(tmp, "config4-trace", longs, srs, truths)
             log("phase3 cli config 4 --trace: " + json.dumps(tr))
+        # the scan engine, card against CPU
+        log("phase3 config 4 scan engine: " + json.dumps(
+            scan_card_vs_cpu(longs, srs, n_it)))
+        # the ladder and --resume need two buckets: config 4's genome with
+        # twice its long-read bases (11 reads) at batch_reads 8
+        l3, s3, _, _ = workload(10_000, 80_000, 4)
+        log("phase3 ladder compile@b0.p2;oom@b1: " + json.dumps(
+            ladder_check(l3, s3, 4)))
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg8 = os.path.join(tmp, "batch8.cfg")
+            with open(cfg8, "w") as fh:
+                json.dump({"batch-reads": 8}, fh)
+            log("phase3 cli kill at b1 and --resume: " + json.dumps(
+                cli_kill_resume(tmp, "config4-resume", l3, s3,
+                                "compile@b1", 1, cfg=cfg8, qc=True)))
 
     # -- phase 4: the main path ----------------------------------------------
     if "4" not in skip:
@@ -1809,6 +2137,7 @@ def main(argv=None) -> int:
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         report_passes(4, res)
+        no_demotion("phase 4", res.metrics, res.reports)
 
     if args.profile and "4" not in skip:
         profile_phase(4, lambda: run_pipeline(longs, srs, n_it, "cuda"), wall)
@@ -1833,6 +2162,7 @@ def main(argv=None) -> int:
                 l5, s5, n5, "cuda", coverage=200.0, sr_coverage=200.0,
                 finish_coverage=200.0), wall5)
         report_passes(5, res5)
+        no_demotion("phase 5", res5.metrics, res5.reports)
         fmax, cmax, n256, ncand = column_votes(first_bucket(
             l5, s5, coverage=200.0, qual_weighted=False, sr_coverage=200.0,
             finish_coverage=200.0), "cuda")
@@ -1863,20 +2193,37 @@ def main(argv=None) -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if not all(d["admitted"] for d in st6):
             raise AssertionError("phase 6: a pass admitted no candidate")
+        # (phase 6 drives DeviceCorrector directly: no ladder to demote)
         if args.profile:
             profile_phase(6, lambda: qual_chain(bucket, "cuda", n_rest=2,
                                                 finish=False), wall6)
 
     # -- phase 7: the command line at E.coli class ----------------------------
-    cli7 = None
-    if ("7" not in skip or "8" not in skip) and "4" in skip and "6" in skip:
+    cli7 = out7 = None
+    if (({"7", "8", "9", "10"} - skip) and "4" in skip and "6" in skip):
         longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
     if "7" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
-            cli7, _ = drive(7, lambda: cli_run(tmp, "ecoli-sr", longs, srs,
-                                               "sr-noccs", truths),
-                            required=cli_path)
+            (cli7, out7), _ = drive(7, lambda: cli_run(
+                tmp, "ecoli-sr", longs, srs, "sr-noccs", truths),
+                required=cli_path)
         log("phase7 " + json.dumps(cli7))
+
+    # -- phase 9: kill and resume at E.coli class -----------------------------
+    if "9" not in skip:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli9, _ = drive(9, lambda: cli_kill_resume(
+                tmp, "ecoli-resume", longs, srs, "compile@b3", 3, ref=out7),
+                required=cli_path[:-1])
+        log("phase9 " + json.dumps(cli9))
+
+    # -- phase 10: the scan engine timed at E.coli class ----------------------
+    if "10" not in skip:
+        (res10, scan10), _ = drive(10, lambda: scan_timed(longs, srs, 6, 20),
+                                   required=("sw_batch",))
+        report_passes(10, res10)
+        log("phase10 " + json.dumps(scan10))
+        del res10
 
     # -- phase 8: mr at E.coli class -----------------------------------------
     if "8" not in skip:
@@ -1885,9 +2232,9 @@ def main(argv=None) -> int:
         log(f"phase8 workload: {len(longs)} long reads, {len(srs8)} short "
             "reads of 250 bp")
         with tempfile.TemporaryDirectory() as tmp:
-            cli8, _ = drive(8, lambda: cli_run(tmp, "ecoli-mr", longs, srs8,
-                                               "mr-noccs", truths),
-                            required=cli_path)
+            (cli8, _), _ = drive(8, lambda: cli_run(
+                tmp, "ecoli-mr", longs, srs8, "mr-noccs", truths),
+                required=cli_path)
         log("phase8 " + json.dumps(cli8))
         if cli7 is not None:
             log(f"phase8 bsw device time a launch at m=256: "

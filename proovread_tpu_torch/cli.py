@@ -16,11 +16,17 @@ against a truth sidecar, scored on ``--device``), or their config keys
 ``trace-file``, ``metrics-out``, ``qc-out`` and ``truth-sidecar``; the
 artifacts are written even when the run fails. Flags whose features are
 not ported yet return 2 with a message naming the flag: ``serve``, ``-u``,
-``--sam``, ``--bam``, ``--haplo-coverage``, ``--resume``, the mesh flags,
-``--bucket-timeout``, ``--compile-ledger``, ``--compile-cache``,
-``--xprof`` and ``--debug``. The reference keeps a checkpoint journal
-unless ``--no-checkpoint`` is given; the port has no journal yet, so it
-asks for that flag.
+``--sam``, ``--bam``, ``--haplo-coverage``, the mesh flags,
+``--compile-ledger``, ``--compile-cache``, ``--xprof`` and ``--debug``.
+
+Resilience works as in the reference (``:276-297``, ``:620-645``): a
+per-bucket checkpoint journal at ``<pre>/.proovread_ckpt`` unless
+``--no-checkpoint``, removed once the outputs are written unless
+``--keep-temporary-files``; ``--resume`` re-enters the output dir of a
+crashed or killed run and replays the buckets the journal holds;
+``--bucket-timeout`` and ``--no-ladder``; and ``PROOVREAD_FAULT`` in the
+environment injects device faults (``testing/faults.py``). Demotions and
+replays are named in the task summary.
 """
 
 from __future__ import annotations
@@ -42,10 +48,9 @@ PROG = "proovread-tpu-torch"
 # parsed-argument name -> flag, for the flags the port does not run yet
 _UNPORTED_FLAGS = (
     ("unitigs", "-u/--unitigs"), ("sam", "--sam"), ("bam", "--bam"),
-    ("haplo_coverage", "--haplo-coverage"), ("resume", "--resume"),
+    ("haplo_coverage", "--haplo-coverage"),
     ("mesh_shards", "--mesh-shards"),
     ("mesh_pass_timeout", "--mesh-pass-timeout"),
-    ("bucket_timeout", "--bucket-timeout"),
     ("compile_ledger", "--compile-ledger"),
     ("compile_cache", "--compile-cache"), ("xprof", "--xprof"),
     ("debug", "--debug"),
@@ -91,16 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-sampling", action="store_true",
                     help="use all short reads every iteration")
     ap.add_argument("--resume", action="store_true",
-                    help="resume a crashed run (not supported by the port "
-                         "yet)")
+                    help="resume a crashed/killed run: completed buckets "
+                         "replay from <pre>/.proovread_ckpt and the rest "
+                         "compute; output is byte-identical to an "
+                         "uninterrupted run")
     ap.add_argument("--no-checkpoint", action="store_true",
-                    help="run without the per-bucket checkpoint journal "
-                         "(required: the port has no journal yet)")
+                    help="disable the per-bucket checkpoint journal")
     ap.add_argument("--bucket-timeout", type=float, metavar="SECONDS",
-                    help="per-bucket budget (not supported by the port yet)")
+                    help="soft wall-clock budget per length bucket; a "
+                         "breach counts as a device fault and demotes the "
+                         "bucket down the degradation ladder")
     ap.add_argument("--no-ladder", action="store_true",
-                    help="fail fast on device faults (the port always "
-                         "does)")
+                    help="fail fast on device faults instead of retrying "
+                         "buckets down the degradation ladder")
     ap.add_argument("--mesh-shards", type=int, metavar="N",
                     help="multi-device mesh (not supported by the port yet)")
     ap.add_argument("--mesh-pass-timeout", type=float, metavar="SECONDS",
@@ -231,9 +239,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _error("need -s")
     if not args.pre:
         return _error("-p/--pre is required")
-    if not args.no_checkpoint:
-        return _error("the checkpoint journal is not supported by the "
-                      "PyTorch port yet: pass --no-checkpoint")
 
     cfg = Config.load(args.cfg)
     for key in _UNPORTED_KEYS:
@@ -248,8 +253,22 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     outdir = args.pre
     os.makedirs(outdir, exist_ok=True)
-    if os.listdir(outdir) and not args.overwrite:
-        return _error(f"output dir {outdir!r} not empty (use --overwrite)")
+    # --resume must be able to re-enter the interrupted run's output dir
+    if os.listdir(outdir) and not (args.overwrite or args.resume):
+        return _error(f"output dir {outdir!r} not empty (use --overwrite, "
+                      "or --resume to continue a crashed run)")
+    # the journal is on by default: it is what makes --resume possible
+    if args.resume and args.no_checkpoint:
+        return _error("--resume needs the checkpoint journal; drop "
+                      "--no-checkpoint")
+    ckpt_dir = None
+    if not args.no_checkpoint:
+        ckpt_dir = os.path.join(outdir, ".proovread_ckpt")
+        cfg.data["checkpoint-dir"] = ckpt_dir
+    if args.resume:
+        cfg.data["resume"] = 1
+    if args.bucket_timeout is not None:
+        cfg.data["bucket-timeout"] = args.bucket_timeout
     if args.no_ladder:
         cfg.data["resilience-ladder"] = 0
     name = os.path.basename(outdir.rstrip("/")) or "proovread"
@@ -271,7 +290,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     t_start = time.monotonic()
     try:
-        rc = _run(args, argv, cfg, outdir, name, mode_auto, truth_path)
+        rc = _run(args, argv, cfg, outdir, name, mode_auto, truth_path,
+                  ckpt_dir)
     finally:
         # written even on a crashed run: the partial span tree, the QC
         # records that completed and the counters say where it died
@@ -347,9 +367,10 @@ def _report_pending_leaks() -> None:
 
 
 def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
-         truth_path: Optional[str] = None) -> int:
+         truth_path: Optional[str] = None,
+         ckpt_dir: Optional[str] = None) -> int:
     """Input read → task run → output write (→ accuracy scoring), all
-    inside the root ``run`` span."""
+    inside the root ``run`` span; then the journal ``ckpt_dir`` goes."""
     from proovread_tpu_torch import obs
     with obs.span("run", cat="run"):
         with obs.span("read-inputs", cat="io"):
@@ -459,12 +480,24 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
                             truth_path)
 
         for rep in result.reports:
+            if rep.note:
+                # demotions and journal replays carry their story here
+                log.info("task %-16s %s", rep.task, rep.note)
+                continue
             sat = ""
             if rep.n_dropped_cap or rep.n_dropped_cov:
                 sat = (f"  dropped {rep.n_dropped_cap} cap /"
                        f" {rep.n_dropped_cov} cov")
             log.info("task %-16s masked/supported %5.1f%%  candidates %d%s",
                      rep.task, rep.masked_frac * 100, rep.n_candidates, sat)
+        # the journal's job is done once the outputs are on disk (it holds
+        # every corrected read again); --keep-temporary-files keeps it
+        if ckpt_dir and os.path.isdir(ckpt_dir) \
+                and not args.keep_temporary_files:
+            import shutil
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            log.info("checkpoint journal removed (outputs written; "
+                     "--keep-temporary-files preserves it)")
         log.info("done: %d corrected, %d trimmed, %d ignored, %d chimera",
                  len(result.untrimmed), len(result.trimmed),
                  len(result.ignored), len(result.chimera))

@@ -1,16 +1,20 @@
-"""Consensus results and the chimera entropy detector (port of the subset of
-``proovread_tpu/consensus/engine.py`` the device finish path uses:
-``ConsensusResult``, ``chimera_runs``, ``chimera_score`` and
-``emit_prefix``; host numpy, ``Sam/Seq.pm:774-888``)."""
+"""Consensus results, host assembly and the chimera entropy detector (port of
+the part of ``proovread_tpu/consensus/engine.py`` that the device finish
+path and the scan engine use: ``ConsensusResult``, ``assemble_consensus``,
+``chimera_runs``, ``chimera_score``, ``chimera_scan``, ``window_counts``
+and ``emit_prefix``; host numpy, ``Sam/Seq.pm:774-888``). The batched
+``ConsensusEngine`` over alignment sets comes with the modes that use it."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from proovread_tpu_torch.consensus.cigar import ColumnStates
 from proovread_tpu_torch.io.records import SeqRecord
+from proovread_tpu_torch.ops.encode import N_STATES, decode_codes
 
 
 @dataclass
@@ -32,6 +36,56 @@ class ConsensusResult:
         if self.record.qual is None or len(self.record.qual) == 0:
             return 0.0
         return float((self.record.qual == 0).mean())
+
+
+def assemble_consensus(
+    rid, emitted, base, ins_len, ins_bases, freq, phred, coverage
+) -> ConsensusResult:
+    """Host assembly of one read's consensus call: emitted columns + inserted
+    bases -> sequence/qual/freq arrays and the trace cigar (M per emitted
+    column, +D per inserted base, I per dropped column — Sam::Seq trace
+    semantics, Sam/Seq.pm:1625-1635)."""
+    n = len(emitted)
+    emit_counts = np.where(emitted, 1 + ins_len, 0)
+    total = int(emit_counts.sum())
+    seq = np.zeros(total, np.int8)
+    quals = np.zeros(total, np.uint8)
+    freqs = np.zeros(total, np.float32)
+    # target offset of each column's first emitted base
+    offs = np.concatenate([[0], np.cumsum(emit_counts)[:-1]])
+    em = emitted.astype(bool)
+    seq[offs[em]] = base[em]
+    quals[offs[em]] = phred[em]
+    freqs[offs[em]] = freq[em]
+    ins_cols = np.flatnonzero(em & (ins_len > 0))
+    for c in ins_cols:
+        k = int(ins_len[c])
+        o = int(offs[c]) + 1
+        seq[o : o + k] = ins_bases[c, :k]
+        quals[o : o + k] = phred[c]
+        freqs[o : o + k] = freq[c]
+
+    cigar_parts = []
+    run_char, run_len = None, 0
+    for c in range(n):
+        chars = "I" if not em[c] else ("M" + "D" * int(ins_len[c]))
+        for ch in chars:
+            if ch == run_char:
+                run_len += 1
+            else:
+                if run_char is not None:
+                    cigar_parts.append(f"{run_len}{run_char}")
+                run_char, run_len = ch, 1
+    if run_char is not None:
+        cigar_parts.append(f"{run_len}{run_char}")
+
+    rec = SeqRecord(id=rid, seq=decode_codes(seq), qual=quals)
+    return ConsensusResult(
+        record=rec,
+        freqs=freqs,
+        coverage=coverage,
+        cigar="".join(cigar_parts),
+    )
 
 
 def chimera_runs(bin_bases, L, params, cover) -> List[Tuple[int, ...]]:
@@ -95,6 +149,40 @@ def chimera_score(runs, counts_fn, res, L, params
             emit_counts_prefix = emit_prefix(res, L)
         out.append((int(emit_counts_prefix[f]), int(emit_counts_prefix[t]), score))
     return out
+
+
+def chimera_scan(bin_bases, L, params, res, cover, select) -> List[Tuple[int, int, float]]:
+    """Chimera core (Sam/Seq.pm:774-888) in terms of the two stages above.
+
+    ``select(fl, tl, fr, tr)`` returns (left, right) lists of
+    :class:`ColumnStates` for alignments whose bin falls in those ranges."""
+    runs = chimera_runs(bin_bases, L, params, cover)
+    if not runs:
+        return []
+
+    def counts_fn(mat_from, Wn, fl, tl, fr, tr):
+        sel_l, sel_r = select(fl, tl, fr, tr)
+        return (window_counts(sel_l, mat_from, Wn),
+                window_counts(sel_r, mat_from, Wn))
+
+    return chimera_score(runs, counts_fn, res, L, params)
+
+
+def window_counts(sel: Sequence[ColumnStates], mat_from: int, Wn: int) -> np.ndarray:
+    """[Wn, S+1] plain state counts + merged-insertion pseudo-state."""
+    counts = np.zeros((Wn, N_STATES + 1), np.float64)
+    for cs in sel:
+        lo = max(cs.rpos, mat_from)
+        hi = min(cs.rpos + cs.span, mat_from + Wn)
+        if lo >= hi:
+            continue
+        w0, w1 = lo - cs.rpos, hi - cs.rpos
+        cols = np.arange(lo - mat_from, hi - mat_from)
+        st = cs.state[w0:w1].astype(np.int64)
+        has_ins = cs.ins_len[w0:w1] > 0
+        np.add.at(counts, (cols[~has_ins], st[~has_ins]), 1.0)
+        np.add.at(counts, (cols[has_ins], np.full(has_ins.sum(), N_STATES)), 1.0)
+    return counts
 
 
 def emit_prefix(res: ConsensusResult, L: int) -> np.ndarray:

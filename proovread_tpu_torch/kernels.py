@@ -61,6 +61,20 @@ _lib = None
 build_seconds = None
 
 
+class KernelBuildError(RuntimeError):
+    """The kernels did not build: no ``nvcc``, or it refused a source or
+    the link. The resilience ladder never absorbs it
+    (``pipeline/resilience.py:classify_fault``): a cheaper rung runs the
+    same kernels, so it would fail again, and nvcc's messages may carry a
+    device-fault mark such as "compile"."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a CUDA error. Never absorbed by
+    the resilience ladder: the error may be sticky (an illegal address
+    poisons the context), and a retry would hide a kernel fault."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -68,7 +82,7 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or PATH)")
     return found
 
 
@@ -117,14 +131,14 @@ def build() -> Path:
         if p.returncode != 0:
             errors.append(f"--- {name} ---\n{out.decode(errors='replace')}")
     if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
          *map(str, objs), "-o", str(tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     if link.returncode != 0:
-        raise RuntimeError("nvcc link failed:\n"
+        raise KernelBuildError("nvcc link failed:\n"
                            + link.stdout.decode(errors="replace"))
     os.replace(tmp, so)
     for obj in objs:
@@ -152,7 +166,7 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         msg = lib().pt_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")
 
 
 def require(cond: bool, msg: str) -> None:

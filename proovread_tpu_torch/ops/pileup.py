@@ -1,11 +1,13 @@
-"""Pileup tensors of a batch of long reads (port of the ``Pileup`` tuple of
-``proovread_tpu/ops/pileup.py``)."""
+"""Pileup tensors of a batch of long reads (port of the ``Pileup`` tuple and
+``init_pileup`` of ``proovread_tpu/ops/pileup.py``)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from proovread_tpu_torch.ops.encode import N_STATES
 
 
 def lane_sum(x: torch.Tensor) -> torch.Tensor:
@@ -38,3 +40,14 @@ class Pileup(NamedTuple):
     @property
     def coverage(self) -> torch.Tensor:
         return lane_sum(self.counts)
+
+
+def init_pileup(batch: int, length: int, ins_cap: int = 6,
+                device=None) -> Pileup:
+    """A zero pileup for ``batch`` reads of padded length ``length``."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return Pileup(counts=z(batch, length, N_STATES),
+                  ins_mbase=z(batch, length, N_STATES),
+                  ins_len_votes=z(batch, length, ins_cap),
+                  ins_base_votes=z(batch, length, ins_cap, 5))

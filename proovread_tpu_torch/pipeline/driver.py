@@ -1,30 +1,45 @@
-"""The iterative correction pipeline on the card (port of the device-engine
-branch of ``proovread_tpu/pipeline/driver.py``).
+"""The iterative correction pipeline (port of
+``proovread_tpu/pipeline/driver.py``).
 
-``Pipeline.run(long_records, short_records)`` runs, per length bucket: the
-stubby filter and bucketing, pass 1 eagerly (its candidate count sizes the
-later passes' candidate cap), passes 2..N with the on-device mask shortcut,
-the strict finish pass against the unmasked reads with chimera detection,
-and finally ``trim_records``.
+``Pipeline.run(long_records, short_records)`` runs, per bucket of long
+reads, the correction passes, the strict finish pass against the unmasked
+reads with chimera detection, and finally ``trim_records``. Two engines:
 
-Supported: ``engine="device"``, ``mode="sr"`` and ``mode="mr"`` (the mr
-task schedule: ``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N,
-``BWA_MR_FINISH`` for the finish), one device, flex off and the
-short-read set resident, at any coverage (past ``2*max_coverage+2 > 256``
-votes per lane the passes take the f32 packed-word pileup kernel). Every
-other setting raises ``NotImplementedError`` naming it.
+- ``engine="device"`` (the default): the stubby filter and length buckets;
+  pass 1 eagerly (its candidate count sizes the later passes' candidate
+  cap); passes 2..N in ``fused_iterations`` with the on-device mask
+  shortcut, or eagerly a pass at a time where a per-iteration
+  ``align_schedule`` asks for it; the finish pass. Every bucket runs under
+  the resilience ladder (``pipeline/resilience.py``): a device fault
+  retries it at the next-cheaper rung, ``fused`` -> ``eager`` ->
+  ``chunk-halved`` -> ``host-scan``, each demotion reported.
+- ``engine="scan"``: buckets of ``batch_reads`` reads in input order, each
+  pass a ``FastCorrector.correct_batch`` (``pipeline/correct.py``): host
+  seeding and admission, Smith-Waterman on the device, torch votes. It is
+  also the ladder's last rung.
+
+With ``checkpoint_dir`` set, each finished bucket is written to the
+checkpoint journal, and ``resume`` replays the buckets it holds. Fault
+injection (``fault_spec`` or ``PROOVREAD_FAULT``, ``testing/faults.py``)
+fires at the device engine's bucket entry, each pass and the fused span.
+
+Supported: ``mode="sr"`` and ``mode="mr"`` (the mr task schedule:
+``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N, ``BWA_MR_FINISH`` for
+the finish), one device, flex off and the short-read set resident, at any
+coverage (past ``2*max_coverage+2 > 256`` votes per lane the passes take
+the f32 packed-word pileup kernel). Every other setting raises
+``NotImplementedError`` naming it.
 
 Observability (``obs``): every run fills ``PipelineResult.metrics`` (the
 reference's KPI catalog, declared whole so a dump always has its schema),
 and fills ``PipelineResult.qc`` while a QC recorder is installed, from
-per-read reductions that run only then. Buckets and passes open spans
-that a tracer records. The resilience ladder, checkpoint journal, fault
-injection and serving are not ported: ``ladder=True`` changes nothing
-when no fault occurs, and a device fault raises.
+per-read reductions that run only then. Buckets, ladder attempts and
+passes open spans that a tracer records.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import os
 import time
@@ -52,9 +67,17 @@ from proovread_tpu_torch.pipeline.dcorrect import (DeviceCorrector,
                                                    device_hcr_mask,
                                                    device_revcomp,
                                                    fused_iterations)
-from proovread_tpu_torch.pipeline.masking import MaskParams
+from proovread_tpu_torch.pipeline.correct import FastCorrector
+from proovread_tpu_torch.pipeline.masking import MaskParams, mask_batch
+from proovread_tpu_torch.pipeline.resilience import (LADDER,
+                                                     CheckpointJournal,
+                                                     bucket_key,
+                                                     classify_fault,
+                                                     run_fingerprint,
+                                                     soft_deadline)
 from proovread_tpu_torch.pipeline.sampling import CoverageSampler
 from proovread_tpu_torch.pipeline.trim import TrimParams, trim_records
+from proovread_tpu_torch.testing.faults import FaultPlan
 
 log = logging.getLogger("proovread_tpu_torch")
 
@@ -164,9 +187,8 @@ def _bucket_metrics(tb0: float, batch_recs) -> None:
 
 def _declare_metrics(reg) -> None:
     """Declare the reference's whole KPI catalog, so zero-valued series
-    still appear in the dump. The mesh, fault, journal, compile and retrace
-    entries stay 0: the port has no mesh, ladder or journal yet, and
-    compiles nothing mid-run."""
+    still appear in the dump. The mesh, compile and retrace entries stay
+    0: the port has no mesh yet, and compiles nothing mid-run."""
     from proovread_tpu_torch.obs.qc import FUNNEL_KEYS
     c = reg.counter
     c("candidates_total", "candidates", "seed candidates probed by SW")
@@ -292,28 +314,26 @@ def _align_params_cfg(cfg: PipelineConfig,
 
 def _unsupported(cfg: PipelineConfig) -> Optional[str]:
     """Name of the first setting the port does not run, or None."""
-    env_fault = os.environ.get("PROOVREAD_FAULT")
     checks = (
-        (cfg.engine != "device", f"engine={cfg.engine!r}"),
+        (cfg.engine not in ("device", "scan"), f"engine={cfg.engine!r}"),
         (cfg.mode not in ("sr", "mr"), f"mode={cfg.mode!r}"),
         ((cfg.mesh_shards or 0) > 1, f"mesh_shards={cfg.mesh_shards}"),
         (cfg.haplo_coverage is not None,
          f"haplo_coverage={cfg.haplo_coverage}"),
-        (bool(cfg.checkpoint_dir), "checkpoint_dir"),
-        (cfg.resume, "resume"),
         (bool(cfg.debug_dir), "debug_dir"),
-        (cfg.bucket_timeout is not None, "bucket_timeout"),
-        (cfg.fault_spec is not None or bool(env_fault),
-         "fault injection (fault_spec / PROOVREAD_FAULT)"),
     )
     for bad, name in checks:
         if bad:
             return name
-    ap_rest = _align_params_cfg(cfg, 2)
-    if not all(_align_params_cfg(cfg, i) == ap_rest
-               for i in range(2, cfg.n_iterations + 1)):
-        return "align_schedule with per-iteration parameters"
     return None
+
+
+def _uniform_rest(cfg: PipelineConfig) -> bool:
+    """Passes 2..N share one parameter set (else they run eagerly: the
+    fused loop bakes in one)."""
+    ap_rest = _align_params_cfg(cfg, 2)
+    return all(_align_params_cfg(cfg, i) == ap_rest
+               for i in range(2, cfg.n_iterations + 1))
 
 
 class _SrDevice:
@@ -345,6 +365,9 @@ class _SrDevice:
 class Pipeline:
     def __init__(self, config: Optional[PipelineConfig] = None):
         self.config = config or PipelineConfig()
+        self._faults: Optional[FaultPlan] = None   # set per run
+        self._dcs: Dict[int, DeviceCorrector] = {}  # by device chunk
+        self._sr_scan = None      # (short-read list, its scan packing)
 
     def read_long(self, records: Sequence[SeqRecord], min_sr_len: int
                   ) -> Tuple[List[SeqRecord], List[Tuple[str, str]]]:
@@ -402,52 +425,243 @@ class Pipeline:
             coverage = sum(len(r) for r in short_records) / max(total_lr, 1)
         sampler = CoverageSampler(chunk_number=cfg.sr_chunk_number,
                                   chunk_step=cfg.sr_chunk_step)
-        # 16-row query padding keeps the bsw DP short (one step per row)
-        sr_all = pack_reads(short_records, pad_multiple=16)
-        sr_bytes = 3 * sr_all.codes.nbytes + sr_all.lengths.nbytes
-        if sr_bytes > cfg.sr_device_budget:
-            raise NotImplementedError(
-                f"short-read set of {sr_bytes} bytes over sr_device_budget "
-                f"({cfg.sr_device_budget}): the streaming regime is not "
-                "ported yet")
-        sr_dev = _SrDevice(sr_all, dev)
+
+        # -- resilience setup (pipeline/resilience.py) --------------------
+        self._faults = FaultPlan.from_spec(
+            cfg.fault_spec if cfg.fault_spec is not None
+            else os.environ.get("PROOVREAD_FAULT"))
+        if self._faults.active:
+            log.warning("fault injection active: %d rule(s)",
+                        len(self._faults.rules))
+        journal = None
+        if cfg.checkpoint_dir:
+            journal = CheckpointJournal(
+                cfg.checkpoint_dir,
+                run_fingerprint(cfg, [r.id for r in kept],
+                                len(short_records)),
+                resume=cfg.resume)
+            if cfg.resume:
+                log.info("resume: checkpoint journal at %s holds %d "
+                         "completed bucket(s)", cfg.checkpoint_dir,
+                         len(journal.entries))
         qc_rec = obs.qc.current()
+
+        def replay(key, gi, n_groups, span_id):
+            """Journal hit: splice the bucket's stored results, reports
+            and (QC on) per-read QC records back in, restore the sampler
+            rotation, and report the replay. With QC on, an entry written
+            without QC records is a miss: the bucket recomputes."""
+            hit = (journal.get(key, require_qc=qc_rec is not None)
+                   if journal is not None else None)
+            if hit is None:
+                return None
+            res_batch, chim, rep_h, sampler_fc, qc_payload = hit
+            if qc_rec is not None and qc_payload is not None:
+                qc_rec.splice(qc_payload, span_id=span_id)
+            reports.extend(rep_h)
+            sampler.first_chunk = sampler_fc
+            note = (f"bucket {gi} replayed from checkpoint journal "
+                    f"({len(res_batch)} reads; journal hit "
+                    f"{journal.hits}/{n_groups})")
+            reports.append(TaskReport(f"resume-b{gi}", 0.0, 0, 0,
+                                      note=note))
+            log.info("resume: %s", note)
+            return res_batch, chim
+
+        def run_bucket(gi, batch_recs, n_groups, compute, **span_args):
+            """One bucket: replayed from the journal, or computed and
+            journaled. Returns (results, chimeras)."""
+            key = bucket_key(batch_recs)
+            tb0 = time.monotonic()
+            with obs.span("bucket", cat="bucket", bucket=gi,
+                          reads=len(batch_recs),
+                          bases=sum(len(r) for r in batch_recs),
+                          **span_args) as bsp:
+                hit = replay(key, gi, n_groups, bsp.span_id)
+                if hit is not None:
+                    bsp.set(replayed=True)
+                    return hit
+                if qc_rec is not None:
+                    qc_rec.start_bucket(gi, batch_recs, span_id=bsp.span_id)
+                n_rep0 = len(reports)
+                res_batch, chim = compute()
+                if journal is not None:
+                    journal.put(
+                        key, gi, res_batch, chim, reports[n_rep0:],
+                        sampler.first_chunk,
+                        qc_records=(qc_rec.bucket_payload(
+                            [r.id for r in batch_recs])
+                            if qc_rec is not None else None))
+            # computed buckets only: a replay re-runs no admission
+            _bucket_metrics(tb0, batch_recs)
+            return res_batch, chim
 
         results: List[ConsensusResult] = []
         all_chim: List[Tuple[str, int, int, float]] = []
-        groups = _bucket_records(kept, cfg.batch_reads)
-        obs.metrics.gauge("n_buckets", unit="buckets").set(len(groups))
-        for gi, (pad, batch_recs) in enumerate(groups):
-            Lp = bucket_lp(pad, cfg.length_slack)
-            tb0 = time.monotonic()
-            with obs.span("bucket", cat="bucket", bucket=gi, Lp=Lp,
-                          reads=len(batch_recs),
-                          bases=sum(len(r) for r in batch_recs)) as bsp:
-                if qc_rec is not None:
-                    qc_rec.start_bucket(gi, batch_recs, span_id=bsp.span_id)
-                res_batch, chim = self._run_batch_device(
-                    batch_recs, sr_dev, len(short_records), sampler,
-                    coverage, min_sr_len, reports, Lp, dev, gi)
-            _bucket_metrics(tb0, batch_recs)
-            results.extend(res_batch)
-            all_chim.extend(chim)
-            log.info("bucket %d done (%d reads, Lp %d)", gi, len(batch_recs),
-                     Lp)
-        results.sort(key=lambda r: natural_key(r.record.id))
+        if cfg.engine == "device":
+            # 16-row query padding keeps the bsw DP short (one step per row)
+            sr_all = pack_reads(short_records, pad_multiple=16)
+            sr_bytes = 3 * sr_all.codes.nbytes + sr_all.lengths.nbytes
+            if sr_bytes > cfg.sr_device_budget:
+                raise NotImplementedError(
+                    f"short-read set of {sr_bytes} bytes over "
+                    f"sr_device_budget ({cfg.sr_device_budget}): the "
+                    "streaming regime is not ported yet")
+            sr_dev = _SrDevice(sr_all, dev)
+            groups = _bucket_records(kept, cfg.batch_reads)
+            obs.metrics.gauge("n_buckets", unit="buckets").set(len(groups))
+            for gi, (pad, batch_recs) in enumerate(groups):
+                Lp = bucket_lp(pad, cfg.length_slack)
+                res_batch, chim = run_bucket(
+                    gi, batch_recs, len(groups),
+                    lambda: self._run_bucket_resilient(
+                        gi, batch_recs, sr_dev, short_records, sampler,
+                        coverage, min_sr_len, reports, Lp, dev), Lp=Lp)
+                results.extend(res_batch)
+                all_chim.extend(chim)
+                log.info("bucket %d done (%d reads, Lp %d)", gi,
+                         len(batch_recs), Lp)
+            # restore read_long's natural output order across buckets
+            results.sort(key=lambda r: natural_key(r.record.id))
+        else:
+            sr_all = self._scan_sr_all(short_records)
+            starts = list(range(0, len(kept), cfg.batch_reads))
+            obs.metrics.gauge("n_buckets", unit="buckets").set(len(starts))
+            for bi, start in enumerate(starts):
+                batch_recs = kept[start:start + cfg.batch_reads]
+                res_batch, chim = run_bucket(
+                    bi, batch_recs, len(starts),
+                    lambda: self._run_batch(
+                        batch_recs, sr_all, short_records, sampler,
+                        coverage, min_sr_len, reports, dev))
+                results.extend(res_batch)
+                all_chim.extend(chim)
+        if journal is not None and cfg.resume:
+            log.info("resume: %d journal hit(s); journal now holds %d "
+                     "completed bucket(s)", journal.hits,
+                     len(journal.entries))
         untrimmed = [r.record for r in results]
         trimmed = trim_records(results, cfg.trim)
         return PipelineResult(untrimmed, trimmed, ignored, all_chim, reports)
 
+    def _get_dc(self, chunk: int) -> DeviceCorrector:
+        """DeviceCorrector per chunk size (the chunk-halved rung needs its
+        own)."""
+        if chunk not in self._dcs:
+            self._dcs[chunk] = DeviceCorrector(chunk=chunk)
+        return self._dcs[chunk]
+
+    def _level_chunk(self, level) -> int:
+        """Device chunk at a ladder rung: the configured value at the top
+        rungs, the divided chunk rounded to the 128-row floor below."""
+        cfg = self.config
+        if level.chunk_div == 1:
+            return cfg.device_chunk
+        return max(128, (cfg.device_chunk // level.chunk_div // 128) * 128)
+
+    def _scan_sr_all(self, short_records) -> ReadBatch:
+        """The short reads packed for the scan engine (the SW windows
+        round to 128-lane multiples); built once per short-read list."""
+        if self._sr_scan is None or self._sr_scan[0] is not short_records:
+            self._sr_scan = (short_records,
+                             pack_reads(short_records, pad_multiple=128))
+        return self._sr_scan[1]
+
+    def _run_bucket_resilient(self, gi, batch_recs, sr_dev, short_records,
+                              sampler, coverage, min_sr_len, reports, Lp,
+                              dev):
+        """One length bucket under the fault boundary: on a device fault
+        (``resilience.classify_fault``), retry the bucket at the
+        next-cheaper ladder rung, recording the demotion in the report
+        stream and the counters. Other exceptions propagate. Each attempt
+        restarts the bucket from its records with the sampler rotation,
+        the KPI counters and the QC records rewound, so a retried bucket
+        equals a fresh run at that rung."""
+        cfg = self.config
+        levels = list(LADDER) if cfg.ladder else [LADDER[0]]
+        if cfg.ladder:
+            # drop rungs that would re-run an identical regime: with a
+            # per-iteration schedule the top rung already runs the eager
+            # loop; at device_chunk 128 the halved chunk clamps back to it
+            if not _uniform_rest(cfg):
+                levels = [lv for lv in levels if lv.name != "fused"]
+            levels = [lv for lv in levels
+                      if (lv.host or lv.chunk_div == 1
+                          or self._level_chunk(lv) != cfg.device_chunk)]
+        reg = obs.metrics.current()
+        qc_rec = obs.qc.current()
+        qc_ids = [r.id for r in batch_recs] if qc_rec is not None else []
+        for li, level in enumerate(levels):
+            n_rep0 = len(reports)
+            sampler_fc0 = sampler.first_chunk
+            m_snap = reg.snapshot() if reg is not None else None
+            qc_snap = (qc_rec.snapshot(qc_ids)
+                       if qc_rec is not None else None)
+            try:
+                with obs.span("attempt", cat="attempt", rung=level.name,
+                              bucket=gi), \
+                        soft_deadline(cfg.bucket_timeout,
+                                      what=f"bucket {gi}"):
+                    if level.host:
+                        return self._run_batch(
+                            batch_recs, self._scan_sr_all(short_records),
+                            short_records, sampler, coverage, min_sr_len,
+                            reports, dev)
+                    return self._run_batch_device(
+                        batch_recs, sr_dev, len(short_records), sampler,
+                        coverage, min_sr_len, reports, Lp, dev, gi=gi,
+                        level=level)
+            except Exception as e:                      # noqa: BLE001
+                kind = classify_fault(e)
+                if kind is None or not cfg.ladder or li == len(levels) - 1:
+                    raise
+                head = (str(e).splitlines() or [""])[0][:160]
+            # the failed attempt is over and its exception dropped: its
+            # tensors are released before the next rung allocates
+            if kind == "oom":
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            # drop its partial pass reports and rewind the sampler, the KPI
+            # counters and the per-read QC trajectories
+            del reports[n_rep0:]
+            sampler.first_chunk = sampler_fc0
+            if m_snap is not None:
+                reg.restore(m_snap)
+            if qc_rec is not None:
+                qc_rec.restore(qc_ids, qc_snap)
+            nxt = levels[li + 1]
+            obs.metrics.counter("device_faults", unit="faults").inc(
+                1, kind=kind)
+            obs.metrics.counter("resilience_demotions",
+                                unit="demotions").inc(1, to_rung=nxt.name)
+            at = f"rung '{level.name}'"
+            note = (f"{kind} fault at {at}: demoted "
+                    f"bucket {gi} to '{nxt.name}' — {head}")
+            reports.append(TaskReport(f"demote-b{gi}", 0.0, 0, 0, note=note))
+            log.warning("bucket %d: %s fault at %s — retrying at %r (%s)",
+                        gi, kind, at, nxt.name, head)
+        raise AssertionError("unreachable: ladder exhausted without raise")
+
     def _run_batch_device(self, batch_recs, sr_dev, n_short, sampler,
-                          coverage, min_sr_len, reports, Lp, dev, gi=0):
+                          coverage, min_sr_len, reports, Lp, dev, gi=0,
+                          level=None):
+        """The device engine on one bucket at a ladder rung (``level``,
+        default the top 'fused' one): pass 1 eager, passes 2..N fused or
+        eager, the finish pass."""
         from proovread_tpu_torch.pipeline.dcorrect import (
             qc_finish_support, qc_pass_row_stats, qc_row_mask_counts)
         cfg = self.config
+        if level is None:
+            level = LADDER[0]
+        faults = self._faults
+        if faults is not None and faults.active:
+            faults.check(gi)                    # bucket-entry site
         B0 = len(batch_recs)
         rows = batch_rows(B0, cfg.batch_reads)
         pad_recs = [SeqRecord(f"_pad{i}", "A" * 8) for i in range(rows - B0)]
         lr = pack_reads(list(batch_recs) + pad_recs, pad_len=Lp)
-        dc = DeviceCorrector(chunk=cfg.device_chunk)
+        dc = self._get_dc(self._level_chunk(level))
         codes = torch.as_tensor(lr.codes, device=dev)
         qual = torch.as_tensor(lr.qual, device=dev)
         lengths = torch.as_tensor(lr.lengths, device=dev)
@@ -466,45 +680,81 @@ class Pipeline:
             return (sampler.select(n_short, coverage, target)
                     if cfg.sampling else np.arange(n_short))
 
+        def inj(pass_):
+            # fault-injection site (testing/faults.py): device passes only
+            if faults is not None and faults.active:
+                faults.check(gi, pass_)
+
         def shortcut():
             obs.metrics.counter("mask_shortcut_hits", unit="events").inc()
 
         cns = iteration_consensus_params(cfg, coverage)
-        ap_rest = _align_params_cfg(cfg, 2)
         task = f"bwa-{cfg.mode[:2]}"
 
+        def eager_pass(it, codes, qual, lengths, mask_cols, **span_args):
+            """One iteration pass through ``correct_pass``, its report and
+            QC rows. Returns the new read state, masked fraction and the
+            pass's candidate count."""
+            with obs.span(f"{task}-{it}", cat="pass", bucket=gi,
+                          **span_args):
+                inj(it)
+                qc, rcq, qq, qlen = sr_dev.take(select(cfg.sr_coverage))
+                call, stats = dc.correct_pass(
+                    codes, qual, lengths, mask_cols, qc, rcq, qq, qlen,
+                    _align_params_cfg(cfg, it), cns,
+                    seed_stride=cfg.seed_stride)
+                if qc_on:
+                    ed, up = qc_pass_row_stats(call, codes, qual, lengths)
+                codes, qual, lengths = device_assemble(call, lengths, Lp)
+                mask_cols, frac = device_hcr_mask(qual, lengths, mask_p(it))
+                new_frac = float(frac)
+                n_adm, n_el = int(stats.n_admitted), int(stats.n_eligible)
+                if qc_on:
+                    mrow, nlen, ed, up = (t.cpu().numpy() for t in (
+                        qc_row_mask_counts(mask_cols), lengths, ed, up))
+                    qc_rec.record_pass(qc_ids, mrow[:B0], nlen[:B0])
+                    qc_rec.record_edits(qc_ids, ed[:B0], up[:B0])
+                _record_report(reports, TaskReport(
+                    f"{task}-{it}", new_frac, int(stats.n_candidates), n_adm,
+                    n_dropped_cov=max(0, n_el - n_adm)))
+            return codes, qual, lengths, mask_cols, new_frac, \
+                int(stats.n_candidates)
+
+        def stop(new_frac, prev_frac):
+            return (new_frac > cfg.mask_shortcut_frac
+                    or new_frac - prev_frac < cfg.mask_min_gain_frac)
+
         # -- pass 1: eager; its candidate count sizes the later passes' cap
-        with obs.span(f"{task}-1", cat="pass", bucket=gi):
-            qc, rcq, qq, qlen = sr_dev.take(select(cfg.sr_coverage))
-            call, stats = dc.correct_pass(
-                codes, qual, lengths, None, qc, rcq, qq, qlen,
-                _align_params_cfg(cfg, 1), cns, seed_stride=cfg.seed_stride)
-            if qc_on:
-                ed, up = qc_pass_row_stats(call, codes, qual, lengths)
-            codes, qual, lengths = device_assemble(call, lengths, Lp)
-            mask_cols, frac = device_hcr_mask(qual, lengths, mask_p(1))
-            n_cand_seen = int(stats.n_candidates)
-            new_frac = float(frac)
-            n_adm, n_el = int(stats.n_admitted), int(stats.n_eligible)
-            if qc_on:
-                mrow, nlen, ed, up = (t.cpu().numpy() for t in (
-                    qc_row_mask_counts(mask_cols), lengths, ed, up))
-                qc_rec.record_pass(qc_ids, mrow[:B0], nlen[:B0])
-                qc_rec.record_edits(qc_ids, ed[:B0], up[:B0])
-            _record_report(reports, TaskReport(
-                f"{task}-1", new_frac, n_cand_seen, n_adm,
-                n_dropped_cov=max(0, n_el - n_adm)))
-        gain = new_frac - masked_frac
-        masked_frac = new_frac
+        codes, qual, lengths, mask_cols, new_frac, n_cand_seen = eager_pass(
+            1, codes, qual, lengths, None)
         first_fused = 2
-        if (masked_frac > cfg.mask_shortcut_frac
-                or gain < cfg.mask_min_gain_frac):
+        if stop(new_frac, masked_frac):
             shortcut()
             first_fused = cfg.n_iterations + 1
+        masked_frac = new_frac
 
-        # -- passes 2..N -------------------------------------------------
+        # -- passes 2..N eagerly: a per-iteration schedule (the fused loop
+        # bakes in one parameter set) and the ladder's demoted rungs
+        if ((not _uniform_rest(cfg) or not level.fused)
+                and first_fused <= cfg.n_iterations):
+            for it in range(first_fused, cfg.n_iterations + 1):
+                codes, qual, lengths, mask_cols, new_frac, _ = eager_pass(
+                    it, codes, qual, lengths, mask_cols, eager=True)
+                done = stop(new_frac, masked_frac)
+                masked_frac = new_frac
+                if done:
+                    shortcut()
+                    break
+            first_fused = cfg.n_iterations + 1
+
+        # -- passes 2..N fused --------------------------------------------
+        ap_rest = _align_params_cfg(cfg, 2)
         n_fused = cfg.n_iterations - first_fused + 1
         if n_fused > 0:
+            # the fused loop covers its whole pass span, so a fault
+            # addressed to any covered pass takes the whole span down
+            if faults is not None and faults.active:
+                faults.check_span(gi, first_fused, cfg.n_iterations)
             sels_l = [select(cfg.sr_coverage) for _ in range(n_fused)]
             full_set = all(len(s) == n_short for s in sels_l)
             Rsel = max(max(len(s) for s in sels_l), 512)
@@ -552,8 +802,10 @@ class Pipeline:
                 shortcut()
 
         # -- finish: strict params, unmasked reads, no ref-qual votes,
-        # chimera detection
+        # chimera detection; the injection harness addresses it as pass
+        # n_iterations + 1
         with obs.span(f"{task}-finish", cat="pass", bucket=gi):
+            inj(cfg.n_iterations + 1)
             ap = _align_params_cfg(cfg, None)
             cns = finish_consensus_params(cfg, coverage)
             qc, rcq, qq, qlen = sr_dev.take(select(cfg.finish_coverage))
@@ -609,6 +861,109 @@ class Pipeline:
                 for (f, t, s) in o.chimera]
         return out_res, chim
 
+    def _run_batch(self, batch_recs, sr_all, short_records, sampler,
+                   coverage, min_sr_len, reports, dev):
+        """The scan engine on one bucket (``FastCorrector`` a pass, host
+        HCR masking between passes), the ladder's host-scan rung. Its QC
+        records are the device engine's, from the same integer counts."""
+        cfg = self.config
+        lr = pack_reads(batch_recs)
+        B, L = lr.codes.shape
+        qc_rec = obs.qc.current()
+        qc_on = qc_rec is not None
+        qc_ids = list(lr.ids)
+
+        cur_codes = lr.codes.copy()
+        cur_quals: List[np.ndarray] = [lr.qual[i] for i in range(B)]
+        cur_lengths = lr.lengths.copy()
+        cur_ids = list(lr.ids)
+        mask_codes = None
+        mcrs: Optional[List[List[Tuple[int, int]]]] = None
+        # seeded so the min-gain shortcut never fires on iteration 1
+        # (bin/proovread:2026-2047)
+        masked_frac = -cfg.mask_min_gain_frac
+
+        def select(target):
+            return (sampler.select(len(short_records), coverage, target)
+                    if cfg.sampling else np.arange(len(short_records)))
+
+        def corrector(ap, cns):
+            return FastCorrector(align_params=ap, cns_params=cns,
+                                 chunk_rows=cfg.host_chunk_rows, device=dev)
+
+        it = 1
+        while it <= cfg.n_iterations:
+            task = f"bwa-{cfg.mode[:2]}-{it}"
+            with obs.span(task, cat="pass", engine="scan"):
+                # the reference's scan engine takes the built-in schedule
+                # for its iterations (and the configured one at the finish)
+                fc = corrector(_align_params(cfg.mode, it),
+                               iteration_consensus_params(cfg, coverage))
+                sr = _take_batch(sr_all, select(cfg.sr_coverage))
+                cur_batch = ReadBatch(ids=cur_ids, codes=cur_codes,
+                                      qual=_stack_quals(cur_quals, L),
+                                      lengths=cur_lengths)
+                out, stats = fc.correct_batch(
+                    cur_batch, sr, ignore_coords=mcrs,
+                    mask_codes=mask_codes)
+                # next iteration state: corrected reads (new coordinates)
+                nb = pack_reads([o.record for o in out], pad_len=None)
+                cur_codes, cur_lengths = nb.codes, nb.lengths
+                cur_ids = list(nb.ids)
+                cur_quals = [nb.qual[i] for i in range(nb.batch_size)]
+                L = nb.pad_len
+                mp = (cfg.hcr_mask if it < 4
+                      else cfg.hcr_mask_late).scaled(min_sr_len)
+                mask_codes, mcrs, new_frac = mask_batch(
+                    cur_codes, cur_quals, cur_lengths, mp)
+                if qc_on:
+                    qc_rec.record_pass(
+                        qc_ids, [sum(ln for (_off, ln) in mcrs[i])
+                                 for i in range(B)], cur_lengths)
+                    qc_rec.record_edits(qc_ids, stats.qc_rows["edits"],
+                                        stats.qc_rows["uplift"])
+                gain = new_frac - masked_frac
+                masked_frac = new_frac
+                _record_report(reports, TaskReport(
+                    task, masked_frac, stats.n_candidates,
+                    stats.n_admitted, n_dropped_cov=stats.n_dropped_cov))
+            it += 1
+            if it <= cfg.n_iterations and (
+                    masked_frac > cfg.mask_shortcut_frac
+                    or gain < cfg.mask_min_gain_frac):
+                obs.metrics.counter("mask_shortcut_hits",
+                                    unit="events").inc()
+                break
+
+        # finish: strict params, unmasked reads, no ref-qual votes, no MCR,
+        # chimera detection (bin/proovread:1573-1579)
+        with obs.span(f"bwa-{cfg.mode[:2]}-finish", cat="pass",
+                      engine="scan"):
+            fc = corrector(_align_params_cfg(cfg, None),
+                           finish_consensus_params(cfg, coverage))
+            sr = _take_batch(sr_all, select(cfg.finish_coverage))
+            cur_batch = ReadBatch(ids=cur_ids, codes=cur_codes,
+                                  qual=_stack_quals(cur_quals, L),
+                                  lengths=cur_lengths)
+            out, stats = fc.correct_batch(cur_batch, sr, detect_chimera=True)
+            if qc_on:
+                qr = stats.qc_rows
+                qc_rec.record_edits(qc_ids, qr["edits"], qr["uplift"])
+                qc_rec.record_finish(
+                    qc_ids, [len(o.record) for o in out], qr["admitted"],
+                    qr["support_sum"], cur_lengths)
+                for o in out:
+                    if o.chimera:
+                        qc_rec.record_chimera(o.record.id, o.chimera)
+            frac_phred0 = (float(np.mean([o.masked_frac for o in out]))
+                           if out else 0.0)
+            _record_report(reports, TaskReport(
+                f"bwa-{cfg.mode[:2]}-finish", 1.0 - frac_phred0,
+                stats.n_candidates, stats.n_admitted,
+                n_dropped_cov=stats.n_dropped_cov))
+        chim = [(o.record.id, f, t, s) for o in out for (f, t, s) in o.chimera]
+        return out, chim
+
 
 # batch-rows x padded-length budget of one device batch
 CELL_BUDGET = 128 * 16384
@@ -650,4 +1005,16 @@ def _bucket_records(kept, batch_size: int,
         for j in range(0, len(recs), eff):
             group = recs[j:j + eff]
             out.append((max(len(r) for r in group), group))
+    return out
+
+
+def _take_batch(batch: ReadBatch, idx: np.ndarray) -> ReadBatch:
+    return ReadBatch(ids=[batch.ids[i] for i in idx], codes=batch.codes[idx],
+                     qual=batch.qual[idx], lengths=batch.lengths[idx])
+
+
+def _stack_quals(quals: List[np.ndarray], L: int) -> np.ndarray:
+    out = np.zeros((len(quals), L), np.uint8)
+    for i, q in enumerate(quals):
+        out[i, :len(q)] = q[:L]
     return out

@@ -23,14 +23,19 @@ locked down by our own golden tests:
 
 The resulting intervals serve double duty, as in the reference: N-masking of
 the next iteration's mapping target, and MCR ignore-coords for the next
-consensus call (``bin/bam2cns:382-391``). The port computes them on the
-device (``ops/assemble_kernel.py:hcr_mask_rows``); this module keeps the
-parameters.
+consensus call (``bin/bam2cns:382-391``). The device engine computes them
+on the card (``ops/assemble_kernel.py:hcr_mask_rows``); ``mask_batch`` here
+is the scan engine's host twin, in numpy.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from proovread_tpu_torch.ops.encode import N
 
 
 @dataclass(frozen=True)
@@ -58,3 +63,67 @@ class MaskParams:
             self.mask_reduce, self.end_ratio,
         )
 
+
+def _runs(mask: np.ndarray) -> List[Tuple[int, int]]:
+    """[(start, end)) of True runs."""
+    if mask.size == 0:
+        return []
+    d = np.diff(mask.astype(np.int8))
+    starts = np.flatnonzero(d == 1) + 1
+    ends = np.flatnonzero(d == -1) + 1
+    if mask[0]:
+        starts = np.concatenate([[0], starts])
+    if mask[-1]:
+        ends = np.concatenate([ends, [len(mask)]])
+    return list(zip(starts.tolist(), ends.tolist()))
+
+
+def hcr_intervals(qual: np.ndarray, length: int, p: MaskParams) -> List[Tuple[int, int]]:
+    """Final mask intervals [(offset, len)] for one read's consensus quals."""
+    q = qual[:length]
+    inq = (q >= p.phred_min) & (q <= p.phred_max)
+    runs = [(s, e) for s, e in _runs(inq) if e - s >= p.mask_min_len]
+    if not runs:
+        return []
+
+    # merge across short unmasked gaps
+    merged = [list(runs[0])]
+    for s, e in runs[1:]:
+        if s - merged[-1][1] < p.unmask_min_len:
+            merged[-1][1] = e
+        else:
+            merged.append([s, e])
+
+    out = []
+    red = p.mask_reduce
+    end_red = int(round(p.mask_reduce * p.end_ratio))
+    for s, e in merged:
+        s2 = s + (end_red if s == 0 else red)
+        e2 = e - (end_red if e == length else red)
+        if e2 - s2 > 0:
+            out.append((s2, e2 - s2))
+    return out
+
+
+def mask_batch(
+    codes: np.ndarray,        # int8 [B, L] current consensus codes
+    quals: Sequence[np.ndarray],  # per-read consensus phreds (true lengths)
+    lengths: np.ndarray,
+    p: MaskParams,
+) -> Tuple[np.ndarray, List[List[Tuple[int, int]]], float]:
+    """Apply HCR masking to a packed batch.
+
+    Returns (masked codes copy, per-read MCR interval lists, masked_frac —
+    the driver's "Masked : xx.x%" KPI, bin/proovread:1716-1718)."""
+    masked = codes.copy()
+    mcrs: List[List[Tuple[int, int]]] = []
+    n_masked = 0
+    total = int(np.sum(lengths))
+    for i in range(codes.shape[0]):
+        iv = hcr_intervals(np.asarray(quals[i]), int(lengths[i]), p)
+        mcrs.append(iv)
+        for off, ln in iv:
+            masked[i, off:off + ln] = N
+            n_masked += ln
+    frac = n_masked / total if total else 0.0
+    return masked, mcrs, frac

@@ -3,16 +3,22 @@
 ``python -m proovread_tpu`` and ``python -m proovread_tpu_torch --device
 cpu`` run on the same seeded inputs (``tests/test_cli.py:_mk_inputs``
 sizes: 4 long reads of 900 bp with 8% substitutions, plus one siamaera
-palindrome, over a 3 kb genome) with ``--no-checkpoint`` on both sides and
-siamaera on (the default config). Tolerance: the five read and table files
-byte-identical; ``parameter.log`` the same JSON except ``argv``, which
-names each package's program and carries the port's ``--device`` flag.
+palindrome, over a 3 kb genome) with the default command on both sides
+(the checkpoint journal on) and siamaera on (the default config).
+Tolerance: the five read and table files byte-identical; ``parameter.log``
+the same JSON except ``argv``, which names each package's program and
+carries the port's ``--device`` flag, and the config's ``checkpoint-dir``,
+which is each run's own ``<pre>/.proovread_ckpt``; no journal is left.
 The sr-noccs twin also writes ``--qc-out`` and ``--metrics-out`` and
 scores ``--truth`` (a sidecar of the genome slices the long reads came
 from): ``qc.jsonl`` byte-identical, ``metrics.json`` equal but for the
 values of ``bucket_seconds`` (timings) and the ``jax_retraces`` series (0
 in the port). A port-only ``--trace`` run passes the JAX package's trace,
 QC and metrics validators, with each QC ``bucket_span`` in the trace.
+Port-only runs hold the journal: the default command writes what
+``--no-checkpoint`` writes; a run killed by ``PROOVREAD_FAULT`` under
+``--no-ladder`` and then ``--resume``d writes the uninterrupted run's bytes,
+``qc.jsonl`` included.
 The two runs are subprocesses at the lowest CPU priority: the
 reference's side runs its kernels in interpret mode for a minute or more
 and shares the machine with the suite's other workers. Also: every flag
@@ -27,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from proovread_tpu.cli import main as jmain
 from proovread_tpu.io import fastq as jfastq
@@ -43,12 +50,23 @@ OUTPUTS = ("untrimmed.fq", "trimmed.fq", "trimmed.fa", "ignored.tsv",
            "chim.tsv")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    workers on a few cores, and torch's CPU kernels in each spreading over
+    every core slow all of them down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _revcomp(s: str) -> str:
     return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
 
 
-def _inputs(tmp_path, sr_len, n_srs, ids=None, truth=False):
-    """_mk_inputs' construction with ``sr_len`` short reads, and a fifth
+def _inputs(tmp_path, sr_len, n_srs, ids=None, truth=False, n_long=4):
+    """_mk_inputs' construction with ``sr_len`` short reads, and a last
     long read that is a palindrome (arm, junction, reverse-complemented
     arm) for siamaera to trim. With ``truth``, also a truth sidecar of the
     genome slices the long reads came from (the JAX package's writer)."""
@@ -56,7 +74,7 @@ def _inputs(tmp_path, sr_len, n_srs, ids=None, truth=False):
     bases = "ACGT"
     genome = "".join(bases[i] for i in rng.integers(0, 4, 3000))
     seqs, sources = [], []
-    for _ in range(4):
+    for _ in range(n_long):
         st = int(rng.integers(0, len(genome) - 900))
         sources.append(genome[st:st + 900])
         seq = list(genome[st:st + 900])
@@ -97,7 +115,7 @@ def _inputs(tmp_path, sr_len, n_srs, ids=None, truth=False):
 def test_cli_outputs_match_jax(tmp_path, mode, sr_len, n_srs):
     scored = mode == "sr-noccs"
     lp, sp, *truth = _inputs(tmp_path, sr_len, n_srs, truth=scored)
-    args = ["-l", lp, "-s", sp, "--no-checkpoint", "-q"]
+    args = ["-l", lp, "-s", sp, "-q"]
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
     jout, tout = str(tmp_path / "jax" / "res"), str(tmp_path / "port" / "res")
@@ -127,6 +145,10 @@ def test_cli_outputs_match_jax(tmp_path, mode, sr_len, n_srs):
     assert tlog.pop("argv")[1:] == (args + ["-p", tout, "--device", "cpu"]
                                     + obs_args("port"))
     assert jlog.pop("argv")[1:] == args + ["-p", jout] + obs_args("jax")
+    for log_, out in ((tlog, tout), (jlog, jout)):
+        ckpt = os.path.join(out, ".proovread_ckpt")
+        assert log_["config"].pop("checkpoint-dir") == ckpt
+        assert not os.path.exists(ckpt)
     assert tlog == jlog
     trimmed = open(os.path.join(tout, "res.trimmed.fq")).read()
     assert "SIAMAERA:" in trimmed                  # the palindrome was cut
@@ -177,8 +199,8 @@ def test_cli_trace_qc_and_metrics_pass_the_validators(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["serve"], ["-u", "utg.fa"], ["--sam", "x.sam"], ["--bam", "x.bam"],
-    ["--haplo-coverage"], ["--resume"], ["--mesh-shards", "2"],
-    ["--mesh-pass-timeout", "5"], ["--bucket-timeout", "5"],
+    ["--haplo-coverage"], ["--mesh-shards", "2"],
+    ["--mesh-pass-timeout", "5"],
     ["--compile-ledger", "c.jsonl"], ["--compile-cache"],
     ["--xprof", "xp"], ["--debug"]], ids=lambda f: f[0])
 def test_refused_flags_name_themselves(tmp_path, capsys, flag):
@@ -203,11 +225,84 @@ def test_refused_config_keys_name_themselves(tmp_path, capsys, key):
 
 
 def test_checkpoint_journal_needs_no_checkpoint(tmp_path, capsys):
+    """``--resume`` needs the journal: with ``--no-checkpoint`` it returns
+    2 naming that flag, as the reference does."""
     out = str(tmp_path / "res")
-    assert tmain(["-l", "l.fq", "-s", "s.fq", "-p", out,
-                  "--device", "cpu"]) == 2
+    argv = ["-l", "l.fq", "-s", "s.fq", "-p", out, "--device", "cpu",
+            "--resume", "--no-checkpoint"]
+    assert tmain(argv) == 2 == jmain(argv[:6] + argv[8:])
     assert "--no-checkpoint" in capsys.readouterr().err
-    assert not os.path.exists(out)
+    assert not os.listdir(out)
+
+
+def _outputs(out):
+    """The five read and table files of output dir ``out``, and
+    parameter.log without its ``argv`` and the config keys that name the
+    run's journal."""
+    pre = os.path.join(out, os.path.basename(out))
+    files = {suf: open(f"{pre}.{suf}", "rb").read() for suf in OUTPUTS}
+    plog = json.load(open(f"{pre}.parameter.log"))
+    plog.pop("argv")
+    for key in ("checkpoint-dir", "resume"):
+        plog["config"].pop(key)
+    return files, plog
+
+
+def test_default_command_leaves_no_journal(tmp_path):
+    """The default command (journal on) writes what ``--no-checkpoint``
+    writes, and removes the journal once the outputs are written;
+    ``--keep-temporary-files`` keeps it."""
+    lp, sp = _inputs(tmp_path, 100, 400)
+    cfg = tmp_path / "c.cfg"
+    cfg.write_text(json.dumps({"device-chunk": 128}))
+    outs = {}
+    for name, extra in (("plain", ["--no-checkpoint"]), ("ckpt", []),
+                        ("keep", ["--keep-temporary-files"])):
+        out = str(tmp_path / name / "res")
+        assert tmain(["-l", lp, "-s", sp, "-p", out, "--device", "cpu",
+                      "-q", "-c", str(cfg), *extra]) == 0
+        outs[name] = _outputs(out)
+    assert outs["ckpt"] == outs["plain"] == outs["keep"]
+    assert not os.path.exists(tmp_path / "ckpt" / "res" / ".proovread_ckpt")
+    kept = tmp_path / "keep" / "res" / ".proovread_ckpt"
+    assert (kept / "meta.json").exists()
+    assert len(list(kept.glob("bucket_*.json"))) == 1
+
+
+def test_fault_then_resume_writes_the_same_bytes(tmp_path, monkeypatch):
+    """Two buckets of 9 reads. ``PROOVREAD_FAULT=compile@b1``
+    with ``--no-ladder`` kills the run at bucket 1 with bucket 0
+    journaled; ``--resume`` in the same output dir replays bucket 0 and
+    writes the uninterrupted run's files and ``qc.jsonl`` byte for byte."""
+    from proovread_tpu_torch.testing.faults import InjectedCompileError
+    lp, sp = _inputs(tmp_path, 100, 400, n_long=8)
+    cfg = tmp_path / "b.cfg"
+    cfg.write_text(json.dumps({"batch-reads": 8, "device-chunk": 128}))
+
+    def run(out, *extra):
+        return tmain(["-l", lp, "-s", sp, "-p", str(out), "--device", "cpu",
+                      "-q", "-c", str(cfg), "--qc-out",
+                      str(out) + ".qc.jsonl", "--metrics-out",
+                      str(out) + ".metrics.json", *extra])
+    ref = tmp_path / "ref" / "res"
+    assert run(ref) == 0
+    out = tmp_path / "run" / "res"
+    monkeypatch.setenv("PROOVREAD_FAULT", "compile@b1")
+    with pytest.raises(InjectedCompileError):
+        run(out, "--no-ladder")
+    journal = tmp_path / "run" / "res" / ".proovread_ckpt"
+    assert len(list(journal.glob("bucket_*.json"))) == 1
+    monkeypatch.delenv("PROOVREAD_FAULT")
+    assert run(out) == 2                       # not empty: needs --resume
+    assert run(out, "--resume") == 0
+    assert _outputs(str(out)) == _outputs(str(ref))
+    assert ((tmp_path / "run" / "res.qc.jsonl").read_bytes()
+            == (tmp_path / "ref" / "res.qc.jsonl").read_bytes())
+    m = json.load(open(str(out) + ".metrics.json"))["counters"]
+    assert m["checkpoint_journal_replays"]["series"][0]["value"] == 1
+    assert m["checkpoint_journal_writes"]["series"][0]["value"] == 1
+    assert m["resilience_demotions"]["series"] == []
+    assert not journal.exists()
 
 
 def test_argument_checks_match_jax(tmp_path):

@@ -455,3 +455,89 @@ def test_lcs_kernel_matches_plain(cuda, monkeypatch, smem_max_wpl):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), acc.lcs_lengths_plain(
         *acc.pack_pairs(pairs, "cpu")))
+
+
+@pytest.mark.parametrize("m,n,qmax", [(128, 256, 100), (256, 384, 250)],
+                         ids=["sr", "mr"])
+def test_sw_kernel_at_scan_engine_shapes(cuda, m, n, qmax):
+    """The scan engine's chunks: 4096 candidates of 100 bp queries packed
+    to m = 128 against n = 256 windows (sr), 250 bp queries at m = 256
+    against n = 384 (mr); queries planted in their windows and chance
+    pairs."""
+    from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.align.params import BWA_MR, BWA_SR
+    rng = np.random.default_rng(m)
+    R = 4096
+    r = rng.integers(0, 4, (R, n)).astype(np.int8)
+    ql = rng.integers(qmax // 2, qmax + 1, R).astype(np.int32)
+    q = np.full((R, m), 4, np.int8)
+    for i in range(R):
+        src = (r[i, 40:40 + qmax].copy() if i % 2 else
+               rng.integers(0, 4, qmax).astype(np.int8))
+        err = rng.random(qmax) < 0.03
+        src[err] = rng.integers(0, 5, int(err.sum()))
+        q[i, :ql[i]] = src[:ql[i]]
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    ap = BWA_SR if m == 128 else BWA_MR
+    got = sw.sw_batch(t(q), t(r), t(ql), ap)
+    want = sw.sw_batch_plain(t(q), t(r), t(ql), ap)
+    assert _equal(got, want)
+    assert int((want.n_ops >= qmax // 2).sum()) > R // 3
+
+
+def _scan_dataset(seed, n_long=10, read_len=300, G=600, n_sr=45):
+    """Uniform-length long reads with 8% CLR-like errors and error-free
+    100 bp short reads on both strands."""
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.ops.encode import decode_codes, revcomp_codes
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, G).astype(np.int8)
+    longs = []
+    for i in range(n_long):
+        a = int(rng.integers(0, G - read_len))
+        src = genome[a:a + read_len]
+        keep = rng.random(read_len) > 0.04
+        noisy = np.where(rng.random(read_len) < 0.04,
+                         (src + 1) % 4, src)[keep].astype(np.int8)
+        longs.append(SeqRecord(f"r{i}", decode_codes(noisy)))
+    srs = []
+    for i in range(n_sr):
+        st = int(rng.integers(0, G - 100))
+        s = genome[st:st + 100].copy()
+        if rng.random() < 0.5:
+            s = revcomp_codes(s)
+        srs.append(SeqRecord(f"s{i}", decode_codes(s),
+                             qual=np.full(100, 30, np.uint8)))
+    return longs, srs
+
+
+@pytest.mark.parametrize("fault", [None, "compile@b0.p2;oom@b1"])
+def test_scan_engine_same_on_card_and_cpu(cuda, fault):
+    """``engine="scan"`` on the card equals it on the CPU (records, trimmed
+    records, chimeras, reports), and so does the ladder's walk of two
+    faulted buckets down to the host-scan rung; the card's sw kernel
+    runs."""
+    from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
+    from proovread_tpu_torch.pipeline.trim import TrimParams
+    longs, srs = _scan_dataset(3)
+    kw = dict(n_iterations=2, sampling=False, batch_reads=8,
+              host_chunk_rows=512, trim=TrimParams(min_length=150))
+    if fault is None:
+        kw["engine"] = "scan"
+    else:
+        kw.update(device_chunk=256, fault_spec=fault)
+
+    def key(res):
+        recs = lambda rs: [(r.id, r.seq, r.qual.tobytes())  # noqa: E731
+                           for r in rs]
+        return recs(res.untrimmed), recs(res.trimmed), res.chimera, \
+            res.reports
+    launches = sw.sw_batch.launches
+    card = Pipeline(PipelineConfig(device="cuda", **kw)).run(longs, srs)
+    assert sw.sw_batch.launches > launches
+    cpu = Pipeline(PipelineConfig(device="cpu", **kw)).run(longs, srs)
+    assert key(card) == key(cpu)
+    assert sum(r.n_admitted for r in card.reports) > 0
+    demos = [r for r in card.reports if r.task.startswith("demote")]
+    assert len(demos) == (0 if fault is None else 6)

@@ -1,6 +1,8 @@
 """The port stands alone: no ``jax`` and no ``proovread_tpu`` imports, CUDA
-asked for without a card raises, and unsupported settings raise
-``NotImplementedError`` naming the setting."""
+asked for without a card raises, unsupported settings raise
+``NotImplementedError`` naming the setting, and the resilience settings
+(the journal, resume, a bucket timeout, fault injection, the scan engine)
+run."""
 
 import ast
 import os
@@ -47,7 +49,11 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.pipeline.siamaera, "
             "proovread_tpu_torch.obs, proovread_tpu_torch.obs.accuracy, "
             "proovread_tpu_torch.obs.memory, proovread_tpu_torch.obs.qc, "
-            "proovread_tpu_torch.io.simulate\n"
+            "proovread_tpu_torch.io.simulate, "
+            "proovread_tpu_torch.testing.faults, "
+            "proovread_tpu_torch.pipeline.resilience, "
+            "proovread_tpu_torch.pipeline.correct, "
+            "proovread_tpu_torch.ops.fused\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")
@@ -79,15 +85,11 @@ def test_cuda_without_card_raises():
 
 
 @pytest.mark.parametrize("setting,kw", [
-    ("engine", dict(engine="scan")),
+    ("engine", dict(engine="host")),
     ("mode", dict(mode="utg")),
     ("mesh_shards", dict(mesh_shards=2)),
     ("haplo_coverage", dict(haplo_coverage=0.0)),
-    ("checkpoint_dir", dict(checkpoint_dir="ckpt")),
-    ("resume", dict(resume=True)),
     ("debug_dir", dict(debug_dir="dbg")),
-    ("bucket_timeout", dict(bucket_timeout=10.0)),
-    ("fault", dict(fault_spec="oom@b0")),
     ("sr_device_budget", dict(sr_device_budget=10)),
 ])
 def test_unsupported_settings_raise(setting, kw):
@@ -95,6 +97,25 @@ def test_unsupported_settings_raise(setting, kw):
     cfg = PipelineConfig(device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=setting):
         Pipeline(cfg).run(*_tiny())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="scan"), dict(checkpoint_dir="ckpt"),
+    dict(checkpoint_dir="ckpt", resume=True), dict(bucket_timeout=600.0),
+    dict(fault_spec="oom@b9"), dict(ladder=False, fault_spec="")],
+    ids=["scan", "checkpoint_dir", "resume", "bucket_timeout", "fault",
+         "no_ladder"])
+def test_resilience_settings_run(tmp_path, kw):
+    """The resilience settings and the scan engine run on the CPU and
+    correct the read, with no demotion."""
+    from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
+    if "checkpoint_dir" in kw:
+        kw = {**kw, "checkpoint_dir": str(tmp_path / kw["checkpoint_dir"])}
+    res = Pipeline(PipelineConfig(device="cpu", n_iterations=2,
+                                  device_chunk=128, host_chunk_rows=512,
+                                  **kw)).run(*_tiny())
+    assert [r.id for r in res.untrimmed] == ["r0"]
+    assert not any(r.task.startswith("demote") for r in res.reports)
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):

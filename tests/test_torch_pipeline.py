@@ -112,7 +112,7 @@ def run_both(longs, srs, mode="sr", qc=True, **kw):
     """Both pipelines on the same inputs, each under its own QC recorder
     when ``qc``; returns (JAX result, port result), after holding the two
     recorders' per-read records equal."""
-    jcfg = JConfig(mode=mode, engine="device", **kw)
+    jcfg = JConfig(**{"mode": mode, "engine": "device", **kw})
     fields = dataclasses.asdict(jcfg)
     tcfg = params_from_fields(PipelineConfig, {**fields, "device": "cpu"})
     recs = {}
