@@ -26,10 +26,16 @@ any failure exits non-zero:
    Smith-Waterman kernel of siamaera's mapper at its chunk (R=2048, m=256,
    n=384: half a read's window against its reverse complement, half chance
    seeds) and at the scan engine's sr chunk (R=4096, m=128, n=256, 100 bp
-   queries, BWA_SR), and the accuracy scoreboard's LCS kernel on 646 (read, truth)
-   pairs at the E.coli-class spread (truths up to 45,000 bases) with the
-   edge cases (empty read or truth, truths of 64, 2048 and 4096 bases, a
-   read past its truth, N codes). Launcher, plain
+   queries, BWA_SR) and at the ccs/utg chunk (R=4096, m=512, n=640,
+   512-base windows, CCS_ALIGN), the accuracy scoreboard's LCS kernel on
+   646 (read, truth) pairs at the E.coli-class spread (truths up to 45,000
+   bases) with the edge cases (empty read or truth, truths of 64, 2048 and
+   4096 bases, a read past its truth, N codes), and the ordered vote
+   scatter (``csrc/scatter.cu``) on 16 M random fractional weights with
+   heavy duplication onto a 256 x 24576 x 6 target and on the four
+   scatters of one real ``ccs-1`` chunk (phase 11's subreads at 400 kb of
+   molecules), each twice, also equal to ``index_add_`` of the kept
+   entries in index order on CPU copies. Launcher, plain
    and library times (median of CUDA-event timings after a warm-up), the
    kernels' own device time and the device operations of one launcher
    call (torch.profiler), and each kernel's bound from its bytes and
@@ -38,9 +44,9 @@ any failure exits non-zero:
    short reads), on the card and on the CPU, all identical: ``Pipeline.run``
    (4 iterations; records, qual, chimeras and task reports), the same at
    coverage 400 (every pass on the packed-word pileup), and the
-   qual-weighted ``DeviceCorrector`` chain (pass 1, three fused passes, a
+   qual-weighted ``DeviceCorrector`` chain (pass 1, fused passes, a
    finish pass collecting alignments: consensus calls, read state, pass
-   counts and alignment data), and the command line (``cli.main``, siamaera
+   counts and alignment data; three fused passes), and the command line (``cli.main``, siamaera
    on) in sr-noccs and, with 30x of 250 bp short reads, mr-noccs: all six
    output files (``parameter.log`` but its argv), and, scored against the
    workload's truth (``--truth --qc-out --metrics-out``), ``qc.jsonl``
@@ -60,7 +66,17 @@ any failure exits non-zero:
    ``PROOVREAD_FAULT=compile@b1 --no-ladder`` with bucket 0 journaled, then
    ``--resume``d: the five files, ``parameter.log`` (but its argv and the
    journal's config keys) and ``qc.jsonl`` byte-identical to an
-   uninterrupted run's;
+   uninterrupted run's; and the command line, scored, in the modes of
+   ``ccs-1``, ``-u`` and ``--haplo-coverage``: config 4's genome as PacBio
+   subreads (16 kb of molecules) in ``sr``, config 4's long reads with
+   unitigs in ``sr+utg-noccs`` and ``utg-noccs``, and two haplotypes
+   (``haplotype_workload``) with ``--haplo-coverage`` bare and 12 in
+   ``sr-noccs``: all six files and ``qc.jsonl`` identical on card and
+   CPU. Every CPU half of phase 3 runs in a subprocess of 4 threads at low
+   priority (``CpuSide``) started after phase 2, under the work of phases
+   3-13 (so their walls are taken beside it; phase 2's times are not);
+   phase 3 runs the card halves, and the two sides are compared, and
+   phase 3's comparison lines logged, after phase 13;
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
    genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
 5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
@@ -94,19 +110,47 @@ any failure exits non-zero:
    journal's config keys) byte for byte, with 3 journal replays and 3
    writes;
 10. the scan engine timed: ``Pipeline.run(engine="scan")`` on the card on
-   phase 4's first length bucket (104 reads) with all its short reads:
+   20 reads of phase 4's first length bucket with every third short read
+   (10x; cut to keep the whole run short):
    wall, passes, the sw kernel's launches and device time;
-8. mr at E.coli class: the same long reads with 30x of 250 bp short reads
-   (mode mr-noccs), the same numbers and holds.
+8. mr at E.coli class: the first half of the same long reads (2.5 Mb, cut
+   to keep the whole run short) with 30x of 250 bp short reads (mode
+   mr-noccs), the same numbers and holds, but the scoring classifies 16
+   sampled reads' errors, not the default 64 (also a cut for time;
+   identity is scored for every read);
+11. subreads at E.coli class: 2 Mb of molecules of phase 4's genome as
+   PacBio subreads (``subread_workload``: one subread in 1 ZMW of 5, 2-4
+   of alternating strand in the rest, CLR errors, ~5 Mb) with phase 7's
+   short reads, ``cli.main`` with its defaults (mode sr: ``ccs-1``, then
+   the passes), scored: phase 7's numbers plus the ``ccs-1`` seconds,
+   ``CcsStats``, reads and bases after it, its sw and scatter launches and
+   device time, and every subread's identity against its molecule;
+12. unitigs at E.coli class: phase 4's CLR reads, phase 7's short reads
+   and 15-30 kb unitigs tiling the genome at ~1.2x with 0.1%
+   substitutions (``unitig_workload``), ``cli.main -u`` (mode
+   sr+utg-noccs), scored: phase 7's numbers plus the ``utg`` seconds split
+   into host seeding, sw, the scatter and the consensus call, and its
+   TaskReport;
+13. flex at E.coli class: two haplotypes (A = B with a SNP every 200
+   bases), 5 Mb of CLR reads half from each, 8x of A's and 30x of B's
+   short reads, ``cli.main --haplo-coverage`` (mode sr-noccs), scored:
+   the passes, the reads with a finite own-haplotype estimate and their
+   median, the identity of A's and B's reads against their own haplotype,
+   and the share of A's reads (and of their SNP columns) that keep A's
+   bases, with flex and, in the same phase, without it (siamaera off).
 
-Phases 9 and 10 run between 7 and 8: they reuse phase 7's short reads.
-Phases 4-10 each reset every kernel's launch count just before and read
-them just after; each fails if a kernel of its path was not launched
-(phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble, HCR and the
-LCS; phase 9 the same but the LCS; phase 10 sw), and phase 5 also if the
-bit-plane pileup was. No unfaulted phase may demote: phases 3-5 and 7-10
-fail on a ``resilience_demotions`` or ``device_faults`` count or a
-``demote-`` report (phase 6 drives ``DeviceCorrector`` below the ladder).
+Phases 9 and 10 run between 7 and 8, and 11-13 after 8: 9-12 reuse phase
+7's short reads. Phases 4-13 each reset every kernel's launch count just
+before and read them just after; each fails if a kernel of its path was
+not launched (phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble,
+HCR and the LCS; phase 9 the same but the LCS; phase 10 sw; phases 11 and
+12 those of 7 and the scatter; phase 13 those of 7 but sw), and phase 5
+also if the bit-plane pileup was. No unfaulted phase may demote: phases
+3-5 and 7-13 fail on a ``resilience_demotions`` or ``device_faults``
+count or a ``demote-`` report (phase 6 drives ``DeviceCorrector`` below
+the ladder). Every scored phase holds that every output read was scored
+and that the mean identity after reaches 0.95 and passes the one before;
+phase 13 holds that for haplotype B's reads, and A's by the SNP share.
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
@@ -125,9 +169,9 @@ device time and launches of every port kernel in each. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
 lines (the full run takes no arguments).
 
-The functions of phases 3-6 take the device as an argument, and those of
-phases 7-8 run ``cli.main``, so the same code runs on the CPU at a small
-size.
+The functions of phases 3-6 and 11-13 take the device as an argument,
+and those of phases 7-8 run ``cli.main``, so the same code runs on the
+CPU at a small size.
 """
 
 from __future__ import annotations
@@ -219,7 +263,7 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def launcher_times(fn, names, reps: int = 5) -> dict:
+def launcher_times(fn, names, reps: int = 5, entry=None) -> dict:
     """Times of one call of a kernel's launcher ``fn``: ``ms``, its median
     CUDA-event time (host syncs and launch gaps included); ``kernel_ms``,
     the device time of the kernels of one call whose names hold one of
@@ -228,7 +272,14 @@ def launcher_times(fn, names, reps: int = 5) -> dict:
     lists, packing, copies), and ``device_ops``, the kernels, memsets and
     copies of one call. The last three from torch.profiler over ``reps``
     calls after a warm-up: each distinct kernel's mean time times its
-    launches a call."""
+    launches a call. Only ``check_sw`` at m=512 passes ``entry``: the
+    profiler records no launch of that shape after phase 2's earlier
+    checks, though it does in a process that profiles that shape first
+    (cause not found). There, when the profiler records no launch of
+    ``names`` three times over, the kernel's time comes from CUDA events
+    around each call of the C ``entry`` instead (``KernelTimer``; nothing
+    else runs on the stream between them), and ``device_ms`` /
+    ``device_ops`` are then not measured (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -250,7 +301,18 @@ def launcher_times(fn, names, reps: int = 5) -> dict:
         if mine:
             break
     else:
-        raise AssertionError(f"the profiler saw no launch of {names}")
+        seen = sorted({e.key[:48] for e in evs})
+        if entry is None:
+            raise AssertionError(f"the profiler saw no launch of {names} "
+                                 f"(it saw {seen})")
+        log(f"launcher_times: the profiler saw no launch of {names} (it saw "
+            f"{seen}); timing {entry} with CUDA events")
+        with KernelTimer(entry) as kt:
+            for _ in range(reps):
+                fn()
+        return dict(ms=ms, kernel_ms=kt.total_ms() / max(len(kt.events), 1),
+                    device_ms=None, device_ops=None,
+                    kernel_timed_by="cuda events")
     attr = ("self_device_time_total" if hasattr(
         evs[0], "self_device_time_total") else "self_cuda_time_total")
 
@@ -277,6 +339,7 @@ KERNEL_NAMES = {
     "hcr": ("hcr_scan_kernel",),
     "sw": ("sw_kernel",),
     "lcs": ("lcs_kernel",),
+    "scatter": ("scatter_ordered_kernel",),
 }
 
 
@@ -575,7 +638,8 @@ def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None):
     long_walks = int((want.n_ops >= int(ql.max()) - 8).sum())
     if long_walks < R // 4:
         raise AssertionError(f"sw: weak inputs ({long_walks} long walks)")
-    tm = launcher_times(lambda: sw._sw_cuda(q, r, ql, ap), KERNEL_NAMES["sw"])
+    tm = launcher_times(lambda: sw._sw_cuda(q, r, ql, ap), KERNEL_NAMES["sw"],
+                        entry="pt_sw_batch" if m == 512 else None)
     plain_ms = time_ms(lambda: sw.sw_batch_plain(q, r, ql, ap), reps=3,
                        warmup=1)
     steps = m + n
@@ -1003,6 +1067,133 @@ def lcs_classes(pairs):
                 regs=regs.value, warps_per_sm=warps.value)
 
 
+def scatter_bound(idx, keep, n_cells):
+    """The ordered scatter's bound: what the function ``target[idx[k]] +=
+    w[k]`` must move, ``keep`` read once (a byte an entry), each kept
+    entry's index (8) and weight (4) once, each touched cell read and
+    written once (4 + 4), over the card's memory rate (the kernel's sort
+    permutation is its design's, not the function's). Returns (bound ms,
+    by, kept, touched)."""
+    import torch
+    live = keep & (idx >= 0) & (idx < n_cells)
+    kept = int(live.sum())
+    touched = int(torch.unique(idx[live]).numel())
+    n_bytes = idx.numel() + kept * (8 + 4) + touched * 8
+    b_ms, b_by = bound(n_bytes, 0)
+    return b_ms, b_by, kept, touched
+
+
+def hold_scatter(label, target, idx, w, keep):
+    """The scatter kernel (public wrapper) against its plain version on the
+    same card inputs, twice, and against ``index_add_`` of the kept entries
+    in index order on CPU copies: bitwise. Returns the largest |kernel -
+    plain| over both runs."""
+    import torch
+    from proovread_tpu_torch.ops import scatter as sc
+    got = sc.scatter_add_ordered(target.clone(), idx, w, keep)
+    again = sc.scatter_add_ordered(target.clone(), idx, w, keep)
+    want = sc.scatter_add_ordered_plain(target.clone(), idx, w, keep)
+    torch.cuda.synchronize()
+    assert_equal(f"scatter {label}", [(got, want), (again, want)])
+    live = (keep & (idx >= 0) & (idx < target.numel())).cpu()
+    cpu = target.cpu().index_add_(0, idx.cpu()[live], w.cpu()[live])
+    if not torch.equal(cpu, got.cpu()):
+        raise AssertionError(f"scatter {label}: differs from the CPU's "
+                             "index_add_")
+    return max_abs_err([(got, want), (again, want)])
+
+
+def scatter_times(target, idx, w, keep):
+    """Launcher, kernel, plain and ``index_add_`` times of one scatter
+    (``index_add_`` adds the same weights, zero where not kept, with
+    atomics in no order: the same function but for the order), and its
+    bound."""
+    from proovread_tpu_torch.ops import scatter as sc
+    tm = launcher_times(
+        lambda: sc.scatter_add_ordered(target.clone(), idx, w, keep),
+        KERNEL_NAMES["scatter"])
+    plain_ms = time_ms(lambda: sc.scatter_add_ordered_plain(
+        target.clone(), idx, w, keep), reps=3, warmup=1)
+    wz = w.masked_fill(~keep, 0.0).reshape(-1)
+    flat_idx = idx.reshape(-1)
+    lib_ms = time_ms(lambda: target.clone().index_add_(0, flat_idx, wz))
+    clone_ms = time_ms(lambda: target.clone())
+    b_ms, b_by, kept, touched = scatter_bound(idx, keep, target.numel())
+    return dict(tm, ms=tm["ms"] - clone_ms, plain_ms=plain_ms - clone_ms,
+                library_ms=lib_ms - clone_ms, clone_ms=clone_ms,
+                bound_ms=b_ms, bound_by=b_by, entries=idx.numel(),
+                kept=kept, touched=touched)
+
+
+def check_scatter(rng, dev, B=256, L=24576, M=16 << 20):
+    """The ordered scatter-add on random fractional weights with heavy
+    duplication: M entries onto a B x L x 6 pileup's counts, 9 in 10 onto
+    a set of hot cells (~100 entries each), 1 in 10 onto 1% of those
+    (segments of a few hundred), the rest anywhere; 7 in 10 kept; a
+    non-zero target. Returns the row's numbers."""
+    import torch
+    N = B * L * 6
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    hot = torch.randint(0, N, (M // 100,), device=dev, generator=g)
+    u = torch.rand(M, device=dev, generator=g)
+    pick = torch.randint(0, hot.numel(), (M,), device=dev, generator=g)
+    pick = torch.where(u < 0.1, pick % max(1, hot.numel() // 100), pick)
+    idx = torch.where(u < 0.95, hot[pick],
+                      torch.randint(0, N, (M,), device=dev, generator=g))
+    w = (torch.rand(M, device=dev, generator=g)
+         * torch.where(u < 0.5, 0.83, 37.0)).to(torch.float32)
+    keep = torch.rand(M, device=dev, generator=g) < 0.7
+    target = torch.rand(N, device=dev, generator=g) * 3
+    err = hold_scatter("random", target, idx, w, keep)
+    seg = torch.bincount(idx[keep])
+    r = scatter_times(target, idx, w, keep)
+    return dict(r, max_abs_err=err, shape=f"M={M} N={N} ({B}x{L}x6)",
+                longest_segment=int(seg.max()))
+
+
+def ccs_chunk_scatters(dev):
+    """The four scatters of one real ``ccs-1`` chunk on the card: phase
+    11's subread simulation at 400 kb of molecules (about 1 Mb of
+    subreads, more than one chunk of 4096 candidates) through
+    ``ccs_correct``, its first ``fused_accumulate`` call's inputs captured
+    (the targets as they were before it). Returns [(name, target, idx, w,
+    keep)]."""
+    from proovread_tpu_torch.ops import fused
+    from proovread_tpu_torch.pipeline import ccs
+    recs, _, _ = subread_workload(400_000, 400_000, seed=5)
+    seen, orig = [], fused.scatter_add_ordered
+
+    def capture(target, idx, w, keep):
+        if len(seen) < 4:
+            seen.append((target.clone(), idx, w, keep))
+        return orig(target, idx, w, keep)
+    fused.scatter_add_ordered = capture
+    try:
+        ccs.ccs_correct(recs, device="cuda")
+    finally:
+        fused.scatter_add_ordered = orig
+    names = ("counts", "ins_mbase", "ins_len_votes", "ins_base_votes")
+    return [(n,) + c for n, c in zip(names, seen)]
+
+
+def check_ccs_scatter(dev):
+    """The scatter kernel on the real layout of one ccs chunk: each of the
+    four scatters held (``hold_scatter``); the times of the largest
+    (``counts``) are the row's."""
+    out, err = {}, 0.0
+    scatters = ccs_chunk_scatters(dev)
+    for name, target, idx, w, keep in scatters:
+        err = max(err, hold_scatter(f"ccs {name}", target, idx, w, keep))
+        b_ms, _, kept, touched = scatter_bound(idx, keep, target.numel())
+        out[name] = dict(entries=idx.numel(), kept=kept, touched=touched,
+                         bound_ms=b_ms)
+    name, target, idx, w, keep = scatters[0]
+    r = scatter_times(target, idx, w, keep)
+    return dict(r, max_abs_err=err, shape=f"ccs chunk {name}: "
+                f"{tuple(idx.shape)} entries onto {target.numel()} cells",
+                scatters=out)
+
+
 # --------------------------------------------------------------------------
 # phases 3-6: the pipeline and the qual-weighted pass
 # --------------------------------------------------------------------------
@@ -1016,6 +1207,145 @@ def workload(genome_size, long_bases, n_iterations, sr_coverage=30.0,
     longs, truths = simulate_long_reads(genome, long_bases, seed=1)
     srs = simulate_short_reads(genome, sr_coverage, read_len=sr_len, seed=2)
     return longs, srs, n_iterations, truths
+
+
+def _molecules(rng, genome, total_bases, mean_len=7000, min_len=500):
+    """(start, length) of reads drawn as ``simulate_long_reads`` draws
+    them: log-normal lengths around ``mean_len``, uniform starts."""
+    G = len(genome)
+    out, tot = [], 0
+    while tot < total_bases:
+        ln = int(np.clip(rng.lognormal(np.log(mean_len), 0.55), min_len,
+                         G - 1))
+        out.append((int(rng.integers(0, G - ln)), ln))
+        tot += ln
+    return out
+
+
+def subread_workload(genome_size, molecule_bases, seed=3):
+    """PacBio CLR subreads: molecules of ``random_genome(genome_size)``
+    (phase 4's genome at 1.25 Mb) drawn as ``simulate_long_reads`` draws
+    reads, ~``molecule_bases`` in all; one ZMW a molecule, one subread in
+    1 of 5 ZMWs and 2-4 of alternating strand in the rest, each an
+    independent CLR error draw (sub 0.02, ins 0.08, del 0.05, phred 10),
+    ids ``m<movie>/<hole>/<start>_<end>``. Returns (subreads, truths, the
+    ZMW of each subread): a truth is the molecule oriented as its
+    subread."""
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.io.simulate import _apply_errors, random_genome
+    from proovread_tpu_torch.ops.encode import decode_codes, revcomp_codes
+    genome = random_genome(genome_size, seed=0)
+    rng = np.random.default_rng(seed)
+    recs, truths, zmw = [], [], []
+    for hole, (st, ln) in enumerate(_molecules(rng, genome, molecule_bases)):
+        mol = genome[st:st + ln]
+        n_sub = 1 if rng.random() < 0.2 else int(rng.integers(2, 5))
+        flip0, pos = int(rng.integers(0, 2)), 0
+        for k in range(n_sub):
+            src = mol if (k + flip0) % 2 == 0 else revcomp_codes(mol)
+            mut = _apply_errors(src, rng, 0.02, 0.08, 0.05)
+            recs.append(SeqRecord(
+                f"m150101_120000_42137_c1/{hole + 10}/{pos}_{pos + len(mut)}",
+                decode_codes(mut), qual=np.full(len(mut), 10, np.uint8)))
+            truths.append(src)
+            zmw.append(hole)
+            pos += len(mut) + 45
+    return recs, truths, zmw
+
+
+def unitig_workload(genome_size, frag=(15_000, 30_000), seed=4):
+    """Assembly unitigs of ``random_genome(genome_size)``: fragments of
+    ``frag`` bases that tile the genome at about 1.2x (each next one starts
+    a sixth of a fragment before the last one ends, at least 1 kb), 0.1%
+    substitutions, either orientation, no qualities (FASTA)."""
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.io.simulate import random_genome
+    from proovread_tpu_torch.ops.encode import decode_codes, revcomp_codes
+    genome = random_genome(genome_size, seed=0)
+    rng = np.random.default_rng(seed)
+    G, st, out = len(genome), 0, []
+    while True:
+        ln = int(rng.integers(frag[0], frag[1] + 1))
+        end = min(st + ln, G)
+        f = genome[st:end].copy()
+        sub = rng.random(len(f)) < 0.001
+        f[sub] = (f[sub] + 1 + rng.integers(0, 3, int(sub.sum()))) % 4
+        if rng.random() < 0.5:
+            f = revcomp_codes(f)
+        out.append(SeqRecord(f"utg{len(out)}", decode_codes(f)))
+        if end == G:
+            return out
+        st = end - max(1000, ln // 6)
+
+
+def haplotype_workload(genome_size, long_bases, seed=6):
+    """A heterozygous genome: haplotype B ``random_genome(genome_size)``,
+    haplotype A B with a SNP every 200 bases; CLR reads (as
+    ``simulate_long_reads`` draws them) of ``long_bases``, half from each
+    haplotype; 100 bp short reads, 8x of A and 30x of B. Returns (long
+    reads, short reads, truths (each read's own haplotype, oriented as
+    the read), per read (haplotype, start, length, reversed), A, B)."""
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.io.simulate import (_apply_errors,
+                                                 random_genome,
+                                                 simulate_short_reads)
+    from proovread_tpu_torch.ops.encode import decode_codes, revcomp_codes
+    hap_b = random_genome(genome_size, seed=0)
+    hap_a = hap_b.copy()
+    rng = np.random.default_rng(seed)
+    snps = np.arange(100, genome_size, 200)
+    hap_a[snps] = (hap_a[snps] + 1 + rng.integers(0, 3, len(snps))) % 4
+    longs, truths, meta = [], [], []
+    for name, hap in (("A", hap_a), ("B", hap_b)):
+        for i, (st, ln) in enumerate(_molecules(rng, hap, long_bases // 2)):
+            src = hap[st:st + ln]
+            mut = _apply_errors(src, rng, 0.02, 0.08, 0.05)
+            rev = bool(rng.random() < 0.5)
+            if rev:
+                mut, src = revcomp_codes(mut), revcomp_codes(src)
+            longs.append(SeqRecord(f"hap{name}_{i}", decode_codes(mut),
+                                   qual=np.full(len(mut), 10, np.uint8)))
+            truths.append(src)
+            meta.append((name, st, ln, rev))
+    srs = (simulate_short_reads(hap_a, 8.0, seed=7, id_prefix="srA")
+           + simulate_short_reads(hap_b, 30.0, seed=8, id_prefix="srB"))
+    return longs, srs, truths, meta, hap_a, hap_b
+
+
+def snp_share(untrimmed, meta, longs, hap_a, hap_b, flank=8, slack=60):
+    """Haplotype-A reads whose SNP columns keep A's base: each SNP 30+
+    bases inside an A read is looked for in the corrected read (turned to
+    the genome's strand) as A's and as B's 17-mer around it, within
+    ``slack`` of where it should be. Returns (share of A reads with a
+    found SNP that show more A 17-mers than B ones, share of found SNP
+    columns that show A's, A reads with a found SNP)."""
+    from proovread_tpu_torch.ops.encode import decode_codes
+    comp = str.maketrans("ACGT", "TGCA")
+    snps = np.flatnonzero(hap_a != hap_b)
+    by_id = {r.id: r.seq for r in untrimmed}
+    keep = n_reads = a_cols = b_cols = 0
+    for rec, (name, st, ln, rev) in zip(longs, meta):
+        if name != "A" or rec.id not in by_id:
+            continue
+        cor = by_id[rec.id]
+        if rev:
+            cor = cor.translate(comp)[::-1]
+        a_n = b_n = 0
+        for p in snps[(snps >= st + 30) & (snps < st + ln - 30)]:
+            o = int(p - st)
+            seg = cor[max(0, o - slack):o + slack]
+            wa = decode_codes(hap_a[p - flank:p + flank + 1])
+            wb = decode_codes(hap_b[p - flank:p + flank + 1])
+            if wa in seg:
+                a_n += 1
+            elif wb in seg:
+                b_n += 1
+        if a_n + b_n:
+            n_reads += 1
+            keep += a_n > b_n
+            a_cols, b_cols = a_cols + a_n, b_cols + b_n
+    return (keep / max(n_reads, 1), a_cols / max(a_cols + b_cols, 1),
+            n_reads)
 
 
 def run_pipeline(longs, srs, n_iterations, device, **kw):
@@ -1189,6 +1519,22 @@ def write_inputs(tmp, label, longs, srs):
     return paths
 
 
+def input_args(tmp, label, longs, srs, utgs=None):
+    """``-l``, ``-s`` (when there are short reads) and ``-u`` (unitigs as
+    FASTA) arguments for the workload's files."""
+    from proovread_tpu_torch.io.fasta import FastaWriter
+    lp, sp = write_inputs(tmp, label, longs, srs)
+    argv = ["-l", lp] + (["-s", sp] if srs else [])
+    if utgs:
+        up = os.path.join(tmp, f"{label}.utg.fa")
+        with open(up, "wb") as fh:
+            w = FastaWriter(fh)
+            for r in utgs:
+                w.write(r)
+        argv += ["-u", up]
+    return argv
+
+
 def cli_outputs(out):
     """The five read and table files' bytes and parameter.log without its
     argv (which names the device and the output directory)."""
@@ -1325,57 +1671,6 @@ def read_qc(path):
     return lines[0], lines[1:]
 
 
-def cli_card_vs_cpu(tmp, label, longs, srs, want_mode, truths=None):
-    """``cli.main`` on the workload's FASTQ files with ``--device cuda``
-    and ``--device cpu``: every output identical; with ``truths``, both
-    runs also score ``--truth`` and write ``--qc-out`` and
-    ``--metrics-out``, and the QC files are identical byte for byte and
-    the metrics but for their timings. Returns the walls, the card's
-    files and its QC meta line (None unscored)."""
-    from proovread_tpu_torch import cli
-    from proovread_tpu_torch.obs.metrics import without_timings
-    lp, sp = write_inputs(tmp, label, longs, srs)
-    tp = write_truth(tmp, label, longs, truths) if truths else None
-    got, walls, obs_files = {}, {}, {}
-    for device in ("cuda", "cpu"):
-        out = os.path.join(tmp, f"{label}-{device}", "res")
-        extra = []
-        if tp:
-            obs_files[device] = (os.path.join(tmp, f"{label}-{device}.qc"),
-                                 os.path.join(tmp, f"{label}-{device}.m"))
-            extra = ["--truth", tp, "--qc-out", obs_files[device][0],
-                     "--metrics-out", obs_files[device][1]]
-        t0 = time.monotonic()
-        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
-                       "--device", device, "-q", *extra])
-        walls[device] = time.monotonic() - t0
-        if rc != 0:
-            raise AssertionError(f"cli {label} --device {device}: exit {rc}")
-        got[device] = cli_outputs(out)
-    files, plog = got["cuda"]
-    if plog["mode"] != want_mode:
-        raise AssertionError(f"cli {label}: mode {plog['mode']}")
-    diff = [k for k in files if files[k] != got["cpu"][0][k]]
-    if diff or plog != got["cpu"][1]:
-        raise AssertionError(f"cli {label}: card and CPU differ in "
-                             f"{diff or 'parameter.log'}")
-    if not files["untrimmed.fq"]:
-        raise AssertionError(f"cli {label}: nothing corrected")
-    meta = None
-    if tp:
-        qc_b, m_b = ({d: open(obs_files[d][i], "rb").read()
-                      for d in obs_files} for i in (0, 1))
-        if qc_b["cuda"] != qc_b["cpu"]:
-            raise AssertionError(f"cli {label}: card and CPU qc.jsonl "
-                                 "differ")
-        if without_timings(json.loads(m_b["cuda"])) != without_timings(
-                json.loads(m_b["cpu"])):
-            raise AssertionError(f"cli {label}: card and CPU metrics "
-                                 "differ")
-        meta, _ = read_qc(obs_files["cuda"][0])
-    return walls, files, meta
-
-
 def recorded_accuracy(config):
     """The JAX package's recorded accuracy row of a bench config, read as
     data from ``ACCURACY_r10.json`` beside this script."""
@@ -1462,35 +1757,111 @@ class ScoreLog(logging.Handler):
         logging.getLogger("proovread_tpu_torch").removeHandler(self)
 
 
-def cli_run(tmp, label, longs, srs, want_mode, truths):
+class TaskProbe:
+    """One task function inside a command-line run (``obj.name``, e.g. the
+    ``ccs-1`` or ``utg`` task): its wall seconds (synchronised), its
+    return value, and, while it ran, the seconds of the run's
+    ``CallTimer`` keys and the launches of its ``KernelTimer``s."""
+
+    def __init__(self, obj, name, calls, timers):
+        self.obj, self.name, self.calls, self.timers = (obj, name, calls,
+                                                        timers)
+        self.wall, self.out, self.s, self.marks = 0.0, None, {}, {}
+
+    def __enter__(self):
+        import torch
+        self.fn = fn = getattr(self.obj, self.name)
+
+        def counted(c):
+            return dict(c.t, **({"candidates": c.candidates}
+                                if hasattr(c, "candidates") else {}))
+
+        def run(*a, **k):
+            t_in = [counted(c) for c in self.calls]
+            ev = {key: len(t.events) for key, t in self.timers.items()}
+            t0 = time.monotonic()
+            self.out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.wall += time.monotonic() - t0
+            for c, before in zip(self.calls, t_in):
+                for key, v in counted(c).items():
+                    self.s[key] = v - before[key]
+            self.marks = {key: (ev[key], len(t.events))
+                          for key, t in self.timers.items()}
+            return self.out
+        setattr(self.obj, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.fn)
+
+    def launches(self, key) -> int:
+        a, b = self.marks[key]
+        return b - a
+
+    def device_ms(self, key) -> float:
+        import torch
+        torch.cuda.synchronize()
+        a, b = self.marks[key]
+        return float(sum(x.elapsed_time(y)
+                         for x, y in self.timers[key].events[a:b]))
+
+
+def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
+            hold_identity=True, tasks=(), classify_cap=None):
     """``cli.main`` with its defaults (the checkpoint journal on) on the
-    workload's FASTQ files, scoring ``--truth`` into ``--qc-out`` and
-    ``--metrics-out``, with siamaera's parts, bsw's device time, the
-    journal's writes and the scoring measured; holds that every output
-    read was scored, and corrected to at least the identity floor and
-    above its input, that nothing was demoted and that the journal is
-    gone; returns what phases 7 and 8 log, and the outputs
-    (``cli_outputs``)."""
+    workload's files (``utgs``, unitigs, as ``-u``; ``extra`` arguments),
+    scoring ``--truth`` into ``--qc-out`` and ``--metrics-out``, with
+    siamaera's parts, bsw's, sw's, the scatter's and the LCS's device
+    time, the journal's writes and the scoring measured, and each of
+    ``tasks`` ((key, module, function name)) probed (``TaskProbe``), and
+    with ``classify_cap`` the scoring's class breakdown on that many
+    sampled reads instead of the scoreboard's 64 (identity is scored for
+    every read either way); holds
+    that every output read was scored, and (``hold_identity``) corrected
+    to at least the identity floor and above its input, that nothing was
+    demoted and that the journal is gone; returns what phases 7, 8 and
+    11-13 log, the outputs (``cli_outputs``), the task probes and the QC
+    records."""
+    import contextlib
+    import functools
     import torch
     from proovread_tpu_torch import cli
     from proovread_tpu_torch.align import sw
+    from proovread_tpu_torch.consensus import engine
+    from proovread_tpu_torch.obs import accuracy
     from proovread_tpu_torch.obs.accuracy import IDENTITY_FLOOR
+    from proovread_tpu_torch.pipeline import correct
     t0 = time.monotonic()
-    lp, sp = write_inputs(tmp, label, longs, srs)
+    inputs = input_args(tmp, label, longs, srs, utgs)
     tp = write_truth(tmp, label, longs, truths)
     t_write = time.monotonic() - t0
     out = os.path.join(tmp, label, "res")
     qc, mpath = (os.path.join(tmp, f"{label}.{x}") for x in ("qc", "m"))
     torch.cuda.reset_peak_memory_stats()
     sw0 = sw.sw_batch.launches
-    with SiamaeraProbe() as probe, ScoreLog() as score, \
-            JournalProbe() as journal, \
-            KernelTimer("pt_bsw_expand_v2") as bsw_t, \
-            KernelTimer("pt_sw_batch") as sw_t, \
-            KernelTimer("pt_lcs_lengths") as lcs_t:
+    with contextlib.ExitStack() as stack:
+        if classify_cap is not None:
+            apply = accuracy.apply_to_qc
+            stack.callback(setattr, accuracy, "apply_to_qc", apply)
+            accuracy.apply_to_qc = functools.partial(
+                apply, classify_cap=classify_cap)
+        probe = stack.enter_context(SiamaeraProbe())
+        score = stack.enter_context(ScoreLog())
+        journal = stack.enter_context(JournalProbe())
+        calls = stack.enter_context(CallTimer([
+            (engine, "call_consensus", "consensus_call", True),
+            (correct, "call_consensus", "consensus_call", True)]))
+        timers = {key: stack.enter_context(KernelTimer(f"pt_{key}"))
+                  for key in ("bsw_expand_v2", "sw_batch", "lcs_lengths",
+                              "scatter_add_ordered")}
+        bsw_t, sw_t, lcs_t, sc_t = timers.values()
+        probes = {key: stack.enter_context(
+            TaskProbe(obj, name, (probe, calls), timers))
+            for key, obj, name in tasks}
         t0 = time.monotonic()
-        rc = cli.main(["-l", lp, "-s", sp, "-p", out, "--truth", tp,
-                       "--qc-out", qc, "--metrics-out", mpath])
+        rc = cli.main([*inputs, "-p", out, "--truth", tp, "--qc-out", qc,
+                       "--metrics-out", mpath, *extra])
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     if rc != 0:
@@ -1503,13 +1874,13 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
         raise AssertionError(f"cli {label}: siamaera did not run")
     if score.s is None:
         raise AssertionError(f"cli {label}: no accuracy line logged")
-    meta, _ = read_qc(qc)
+    meta, qc_recs = read_qc(qc)
     acc = meta["aggregate"]["accuracy"]
     n_out = files["untrimmed.fq"].count(b"\n") // 4
     before, after = acc["identity_before"]["mean"], acc["identity_after"][
         "mean"]
-    if acc["n_scored"] != n_out or not (IDENTITY_FLOOR <= after
-                                        and after > before):
+    if acc["n_scored"] != n_out or (hold_identity and not (
+            IDENTITY_FLOOR <= after and after > before)):
         raise AssertionError(f"cli {label}: {acc['n_scored']} of {n_out} "
                              f"reads scored, identity {before} -> {after}")
     with open(mpath) as fh:
@@ -1526,6 +1897,12 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
                              "journal was left behind")
     bases = sum(len(r) for r in longs)
     n_bsw = len(bsw_t.events)
+    # siamaera's own seeding, Smith-Waterman and candidates: the probes
+    # also count the ccs-1 and utg tasks' (the same host seeder and
+    # mapper), less a probe of the whole task run ("run"), which holds
+    # siamaera itself
+    inner = [pr for key, pr in probes.items() if key != "run"]
+    seed_s = probe.t["seed"] - sum(pr.s.get("seed", 0.0) for pr in inner)
     return dict(
         mode=plog["mode"], wall_s=wall, write_inputs_s=t_write,
         score_accuracy_s=score.s, wall_unscored_s=wall - score.s,
@@ -1533,8 +1910,11 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
         untrimmed_bytes=len(files["untrimmed.fq"]),
         trimmed_bytes=len(files["trimmed.fq"]),
-        siamaera_s=probe.t["siamaera"], siamaera_seed_s=probe.t["seed"],
-        siamaera_sw_s=probe.t["sw"], siamaera_candidates=probe.candidates,
+        siamaera_s=probe.t["siamaera"], siamaera_seed_s=seed_s,
+        siamaera_sw_s=probe.t["sw"] - sum(pr.s.get("sw", 0.0)
+                                          for pr in inner),
+        siamaera_candidates=probe.candidates - sum(
+            pr.s.get("candidates", 0) for pr in inner),
         siamaera_stats=vars(probe.stats),
         sw_launches=sw.sw_batch.launches - sw0,
         sw_device_ms=sw_t.total_ms(), bsw_launches=n_bsw,
@@ -1547,8 +1927,10 @@ def cli_run(tmp, label, longs, srs, want_mode, truths):
         lcs_launches=len(lcs_t.events), lcs_device_ms=lcs_t.total_ms(),
         journal_writes=journal.writes, journal_bytes=journal.bytes,
         journal_write_s=journal.s,
-        journal_bytes_per_base=journal.bytes / bases), (
-            files, without_journal_keys(plog))
+        journal_bytes_per_base=journal.bytes / bases,
+        scatter_launches=len(sc_t.events),
+        scatter_device_ms=sc_t.total_ms()), (
+            files, without_journal_keys(plog)), (probes, qc_recs)
 
 
 class JournalProbe:
@@ -1591,22 +1973,6 @@ def no_demotion(label, metrics, reports=()):
     if dem or faults or demote:
         raise AssertionError(f"{label}: demoted in an unfaulted run: "
                              f"{dem} {faults} {demote}")
-
-
-def scan_card_vs_cpu(longs, srs, n_it):
-    """``Pipeline.run(engine="scan")`` on the card and on the CPU: records,
-    chimeras and reports identical, nothing demoted."""
-    out = {}
-    for device in ("cuda", "cpu"):
-        out[device] = run_pipeline(longs, srs, n_it, device, engine="scan")
-    (res, t_gpu), (res_cpu, t_cpu) = out["cuda"], out["cpu"]
-    if result_key(res) != result_key(res_cpu):
-        raise AssertionError("config 4 scan engine: card and CPU differ")
-    if not any(r.n_admitted for r in res.reports):
-        raise AssertionError("config 4 scan engine: nothing admitted")
-    no_demotion("config 4 scan engine", res.metrics, res.reports)
-    return dict(card_s=t_gpu, cpu_s=t_cpu, reads=len(res.untrimmed),
-                passes=[r.task for r in res.reports])
 
 
 def ladder_check(longs, srs, n_it, device="cuda"):
@@ -1791,6 +2157,390 @@ def scan_timed(longs, srs, n_it, n_reads=None):
         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+# --------------------------------------------------------------------------
+# phases 3 and 11-13: subreads (ccs-1), unitigs (utg) and flex mode
+# --------------------------------------------------------------------------
+
+# phase 3's CPU side: a subprocess of this script runs ``cpu_side``
+CPU_SIDE = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.cpu_side(sys.argv[2])
+"""
+
+COVERAGE_400 = dict(coverage=400.0, sr_coverage=400.0, finish_coverage=400.0)
+
+
+def cpu_side(tmp) -> None:
+    """Phase 3's CPU halves, in the subprocess ``CpuSide`` starts: config
+    4's ``Pipeline.run`` (default and coverage 400), the qual-weighted
+    chain and the scan engine, pickled to ``cpu_side.pkl``, then each
+    command line of ``cli_runs.json`` (``--device cpu``), its exit code and
+    wall to ``cli_runs.done``."""
+    import pickle
+    from proovread_tpu_torch import cli
+    longs, srs, n_it, _ = workload(10_000, 40_000, 4)
+    out = {}
+    for label, kw in (("", {}), (" coverage 400", COVERAGE_400)):
+        res, t = run_pipeline(longs, srs, n_it, "cpu", **kw)
+        out["pipeline" + label] = (result_key(res), t)
+    t0 = time.monotonic()
+    out["qual_chain"] = qual_chain(first_bucket(longs, srs), "cpu",
+                                   n_rest=3, finish=True)
+    out["qual_chain_s"] = time.monotonic() - t0
+    res, t = run_pipeline(longs, srs, n_it, "cpu", engine="scan")
+    out["scan"] = (result_key(res), t)
+    with open(os.path.join(tmp, "cpu_side.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    done = []
+    with open(os.path.join(tmp, "cli_runs.json")) as fh:
+        runs = json.load(fh)
+    for argv in runs:
+        t0 = time.monotonic()
+        rc = cli.main(argv)
+        done.append([rc, time.monotonic() - t0])
+    with open(os.path.join(tmp, "cli_runs.done"), "w") as fh:
+        json.dump(done, fh)
+
+
+class CpuSide:
+    """Phase 3's CPU halves, run from the end of phase 2 on in a
+    subprocess of 4 threads at low priority (``cpu_side``), under the
+    work of the card phases 3-13:
+    config 4's pipeline runs, qual-weighted chain and scan engine, and the
+    command line, scored, in sr-noccs and mr-noccs and in the modes of
+    ``ccs-1``, ``-u`` and ``--haplo-coverage``: PacBio subreads (16 kb of
+    molecules) in ``sr``; config 4's long reads with unitigs (3-5 kb
+    fragments) in ``sr+utg-noccs`` and, without short reads,
+    ``utg-noccs``; two haplotypes (40 kb of long reads) with
+    ``--haplo-coverage`` bare and 12 in ``sr-noccs``. Phase 3 runs the
+    card halves (``run_cli`` for the command lines); ``compare``, at the
+    end of the script, holds the two sides identical: records, reports
+    and chimeras; every ``ConsensusCall`` field of the chain; all six
+    files, ``qc.jsonl`` and the metrics but for their timings."""
+
+    def __init__(self, tmp):
+        longs, srs, _, truths = workload(10_000, 40_000, 4)
+        _, srs_mr, _, _ = workload(10_000, 40_000, 4, sr_len=250)
+        subs, sub_truths, _ = subread_workload(10_000, 16_000)
+        utgs = unitig_workload(10_000, frag=(3_000, 5_000))
+        hl, hs, ht, _, _, _ = haplotype_workload(10_000, 40_000)
+        self.tmp, self.proc, self.cases, self.card = tmp, None, [], {}
+        for label, (lr, sr, mode, tr, ut, extra) in (
+                ("sr-noccs", (longs, srs, "sr-noccs", truths, None, [])),
+                ("mr-noccs", (longs, srs_mr, "mr-noccs", truths, None, [])),
+                ("sr subreads", (subs, srs, "sr", sub_truths, None, [])),
+                ("sr+utg-noccs", (longs, srs, "sr+utg-noccs", truths, utgs,
+                                  [])),
+                ("utg-noccs", (longs, [], "utg-noccs", truths, utgs, [])),
+                ("flex bare", (hl, hs, "sr-noccs", ht, None,
+                               ["--haplo-coverage"])),
+                ("flex 12", (hl, hs, "sr-noccs", ht, None,
+                             ["--haplo-coverage", "12"]))):
+            name = "config4-" + label.replace(" ", "-")
+            self.cases.append((label, name, input_args(tmp, name, lr, sr, ut),
+                               write_truth(tmp, name, lr, tr), mode, extra))
+
+    def _out(self, name, device):
+        return os.path.join(self.tmp, f"{name}-{device}")
+
+    def _argv(self, case, device):
+        _, name, inputs, tp, _, extra = case
+        out = self._out(name, device)
+        return [*inputs, "-p", os.path.join(out, "res"), "--no-checkpoint",
+                "--device", device, "-q", "--truth", tp, "--qc-out",
+                out + ".qc", "--metrics-out", out + ".m", *extra]
+
+    def start(self) -> None:
+        with open(os.path.join(self.tmp, "cli_runs.json"), "w") as fh:
+            json.dump([self._argv(c, "cpu") for c in self.cases], fh)
+        self.err = open(os.path.join(self.tmp, "cpu_side.err"), "w")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            ["nice", "-n", "10", sys.executable, "-c", CPU_SIDE, here,
+             self.tmp], cwd=here, env=dict(os.environ, OMP_NUM_THREADS="4"),
+            stdout=subprocess.DEVNULL, stderr=self.err)
+
+    def run_cli(self) -> None:
+        """The command lines' card halves."""
+        from proovread_tpu_torch import cli
+        for case in self.cases:
+            t0 = time.monotonic()
+            rc = cli.main(self._argv(case, "cuda"))
+            self.card[case[0]] = time.monotonic() - t0
+            if rc != 0:
+                raise AssertionError(f"cli {case[1]} on the card: exit {rc}")
+
+    def compare(self, card) -> None:
+        """Wait for the CPU side, then hold it identical to the card's
+        (``card``: phase 3's pipeline keys, the chain and the scan engine's
+        keys) and log each comparison."""
+        import pickle
+        from proovread_tpu_torch.obs.metrics import without_timings
+        t0 = time.monotonic()
+        if self.proc.wait(timeout=1200) != 0:
+            self.err.flush()
+            with open(self.err.name) as fh:
+                raise AssertionError("phase 3's CPU side failed: "
+                                     + fh.read()[-3000:])
+        log(f"phase3 waited {time.monotonic() - t0:.1f} s for the CPU side")
+        with open(os.path.join(self.tmp, "cpu_side.pkl"), "rb") as fh:
+            cpu = pickle.load(fh)
+        for label in ("", " coverage 400"):
+            key, t_gpu, counts = card["pipeline" + label]
+            if key != cpu["pipeline" + label][0]:
+                raise AssertionError(f"config 4{label}: card and CPU differ")
+            log(f"phase3 config 4{label}: card {t_gpu:.1f} s, CPU "
+                f"{cpu['pipeline' + label][1]:.1f} s, {counts}, identical")
+        (h_gpu, st_gpu), t_gpu = card["qual_chain"]
+        h_cpu, st_cpu = cpu["qual_chain"]
+        strip = lambda st: [{k: v for k, v in d.items()  # noqa: E731
+                             if k != "seconds"} for d in st]
+        if not same_host(h_gpu, h_cpu) or strip(st_gpu) != strip(st_cpu):
+            diff = [k for k in h_gpu if k not in h_cpu
+                    or h_gpu[k].tobytes() != h_cpu[k].tobytes()]
+            raise AssertionError(f"config 4 qual-weighted chain: card and CPU"
+                                 f" differ in {diff or 'pass counts'}")
+        log(f"phase3 config 4 qual-weighted chain: card {t_gpu:.1f} s, CPU "
+            f"{cpu['qual_chain_s']:.1f} s, {len(st_gpu)} passes, identical: "
+            + json.dumps(strip(st_gpu)))
+        key, t_gpu, counts = card["scan"]
+        if key != cpu["scan"][0]:
+            raise AssertionError("config 4 scan engine: card and CPU differ")
+        log(f"phase3 config 4 scan engine: card {t_gpu:.2f} s, CPU "
+            f"{cpu['scan'][1]:.1f} s, {counts}, identical")
+        with open(os.path.join(self.tmp, "cli_runs.done")) as fh:
+            done = json.load(fh)
+        for (label, name, _, _, mode, _), (rc, cpu_s) in zip(self.cases,
+                                                              done):
+            if rc != 0:
+                raise AssertionError(f"cli {name} on the CPU: exit {rc}")
+            got = {d: cli_outputs(os.path.join(self._out(name, d), "res"))
+                   for d in ("cuda", "cpu")}
+            files, plog = got["cuda"]
+            if plog["mode"] != mode:
+                raise AssertionError(f"cli {name}: mode {plog['mode']}")
+            diff = [k for k in files if files[k] != got["cpu"][0][k]]
+            if diff or plog != got["cpu"][1]:
+                raise AssertionError(f"cli {name}: card and CPU differ in "
+                                     f"{diff or 'parameter.log'}")
+            qc_b, m_b = ({d: open(self._out(name, d) + ext, "rb").read()
+                          for d in ("cuda", "cpu")} for ext in (".qc", ".m"))
+            if qc_b["cuda"] != qc_b["cpu"]:
+                raise AssertionError(f"cli {name}: card and CPU qc.jsonl "
+                                     "differ")
+            if without_timings(json.loads(m_b["cuda"])) != without_timings(
+                    json.loads(m_b["cpu"])):
+                raise AssertionError(f"cli {name}: card and CPU metrics "
+                                     "differ")
+            acc = read_qc(self._out(name, "cuda") + ".qc")[0][
+                "aggregate"]["accuracy"]
+            log(f"phase3 cli config 4 {label}: card {self.card[label]:.1f} s,"
+                f" CPU {cpu_s:.1f} s, {files['untrimmed.fq'].count(b'\n') // 4}"
+                f" untrimmed, {files['trimmed.fa'].count(b'>')} trimmed; all "
+                "six files and qc.jsonl identical, metrics but timings; "
+                f"identity {acc['identity_before']['mean']} -> "
+                f"{acc['identity_after']['mean']}")
+            if label == "sr-noccs":
+                # the JAX package's recorded config-4 row (sr-noccs)
+                acc = hold_accuracy("config 4 sr-noccs", acc,
+                                    recorded_accuracy(4))
+                log("phase3 config 4 sr-noccs accuracy == the JAX package's "
+                    "ACCURACY_r10.json row: " + json.dumps(acc))
+
+    def close(self) -> None:
+        """Stop the CPU side if it still runs, and remove the files."""
+        import shutil
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+# phase 8's class-breakdown sample (the scoreboard's default classifies
+# 64 reads, ~30 s of host numpy a run at E.coli class), cut to keep the
+# whole run short
+CLASSIFY_MR = 16
+
+
+def device_args(device: str):
+    """The command line's device flag for ``device`` (none for the card,
+    the default a user runs)."""
+    return [] if device == "cuda" else ["--device", device]
+
+
+def phase11(tmp, srs, genome=1_250_000, molecule_bases=2_000_000,
+            device="cuda"):
+    """Subreads at E.coli class: 2 Mb of molecules of phase 4's genome as
+    PacBio subreads (~5 Mb) with phase 7's short reads, through
+    ``cli.main`` with its defaults (mode sr: ``ccs-1``, then the passes),
+    scored. Returns what it logs; the kernels of its path must launch."""
+    from proovread_tpu_torch.obs.accuracy import score_read_sets
+    from proovread_tpu_torch.ops.encode import encode_ascii
+    from proovread_tpu_torch.pipeline import tasks
+    subs, truths, zmw = subread_workload(genome, molecule_bases)
+    r, _, (probes, _) = cli_run(tmp, "ecoli-subreads", subs, srs, "sr",
+                                truths, extra=device_args(device),
+                                tasks=[("ccs", tasks, "ccs_correct")])
+    pr = probes["ccs"]
+    ccs_out, st = pr.out
+    # identity before: every subread against its molecule (the scored
+    # run's own before is the reference subreads')
+    codes = {x.id: encode_ascii(x.seq) for x in subs}
+    _, summ = score_read_sets(codes, codes, dict(zip(codes, truths)),
+                              classify_cap=0, device=device)
+    n_sub_bases = sum(len(x) for x in subs)
+    r.update(
+        subreads=len(subs), zmws=len(set(zmw)), subread_bases=n_sub_bases,
+        subread_bases_per_s=n_sub_bases / r["wall_unscored_s"],
+        ccs_s=pr.wall, ccs_stats=vars(st), ccs_reads=len(ccs_out),
+        ccs_bases=sum(len(x) for x in ccs_out),
+        ccs_seed_s=pr.s["seed"], ccs_consensus_call_s=pr.s["consensus_call"],
+        ccs_sw_launches=pr.launches("sw_batch"),
+        ccs_sw_device_ms=pr.device_ms("sw_batch"),
+        ccs_scatter_launches=pr.launches("scatter_add_ordered"),
+        ccs_scatter_device_ms=pr.device_ms("scatter_add_ordered"),
+        subread_identity=summ["identity_before"])
+    if st.primary == 0:
+        raise AssertionError("phase 11: ccs-1 made no consensus")
+    return r
+
+
+def phase12(tmp, longs, srs, truths, genome=1_250_000, device="cuda"):
+    """Unitigs at E.coli class: phase 4's CLR reads, phase 7's short reads
+    and 15-30 kb unitigs tiling the genome at ~1.2x, through ``cli.main
+    -u`` (mode sr+utg-noccs), scored. Returns what it logs."""
+    import dataclasses
+    from proovread_tpu_torch.pipeline import utg
+    utgs = unitig_workload(genome, frag=(min(15_000, genome // 3),
+                                         min(30_000, genome // 2)))
+    r, _, (probes, _) = cli_run(tmp, "ecoli-utg", longs, srs,
+                                "sr+utg-noccs", truths, utgs=utgs,
+                                extra=device_args(device),
+                                tasks=[("utg", utg, "utg_correct")])
+    pr = probes["utg"]
+    _, rep = pr.out
+    r.update(
+        unitigs=len(utgs), unitig_bases=sum(len(x) for x in utgs),
+        utg_s=pr.wall, utg_seed_s=pr.s["seed"], utg_sw_s=pr.s["sw"],
+        utg_sw_launches=pr.launches("sw_batch"),
+        utg_sw_device_ms=pr.device_ms("sw_batch"),
+        utg_scatter_launches=pr.launches("scatter_add_ordered"),
+        utg_scatter_device_ms=pr.device_ms("scatter_add_ordered"),
+        utg_consensus_call_s=pr.s["consensus_call"],
+        utg_report=dataclasses.asdict(rep))
+    if rep.n_admitted == 0:
+        raise AssertionError("phase 12: utg admitted no alignment")
+    return r
+
+
+class HaploProbe:
+    """The flex estimates of a run: each device bucket's calls of
+    ``estimate_haplo_coverage``, the running minimum a read of the bucket
+    gets over them."""
+
+    def __enter__(self):
+        import torch
+        from proovread_tpu_torch.pipeline import dcorrect, driver
+        self.mods = (dcorrect, driver.Pipeline)
+        self.est, self.buckets = dcorrect.estimate_haplo_coverage, []
+        self.run = driver.Pipeline._run_batch_device
+        probe, est, run = self, self.est, self.run
+
+        def estimate(*a, **k):
+            hpl = est(*a, **k)
+            b = probe.buckets[-1]
+            b[1] = hpl if b[1] is None else torch.minimum(b[1], hpl)
+            return hpl
+
+        def run_batch(self_, batch_recs, *a, **k):
+            probe.buckets.append([len(batch_recs), None])
+            return run(self_, batch_recs, *a, **k)
+        dcorrect.estimate_haplo_coverage = estimate
+        driver.Pipeline._run_batch_device = run_batch
+        return self
+
+    def __exit__(self, *exc):
+        dcorrect, pipe = self.mods
+        dcorrect.estimate_haplo_coverage = self.est
+        pipe._run_batch_device = self.run
+
+    def per_read(self) -> np.ndarray:
+        return np.concatenate([h[:n].cpu().numpy() for n, h in self.buckets
+                               if h is not None] or [np.zeros(0)])
+
+
+def phase13(tmp, genome=1_250_000, long_bases=5_000_000, device="cuda"):
+    """Flex at E.coli class: two haplotypes (a SNP every 200 bases), 5 Mb
+    of CLR reads half from each, 8x of A's and 30x of B's short reads,
+    through ``cli.main --haplo-coverage`` (mode sr-noccs), scored; then,
+    in the same phase, the same command without flex (siamaera off,
+    unscored, on A's reads) for the SNP share. Holds: every read scored;
+    haplotype B's reads reach the identity floor and pass their input;
+    A's reads keep more of A's SNP bases with flex than without. Returns
+    what it logs."""
+    import io
+    from proovread_tpu_torch import cli
+    from proovread_tpu_torch.io.fastq import FastqReader
+    from proovread_tpu_torch.obs.accuracy import IDENTITY_FLOOR
+    from proovread_tpu_torch.pipeline import tasks
+    hl, hs, ht, meta, hap_a, hap_b = haplotype_workload(genome, long_bases)
+    with HaploProbe() as hp:
+        r, _, (probes, qc_recs) = cli_run(
+            tmp, "ecoli-flex", hl, hs, "sr-noccs", ht,
+            extra=[*device_args(device), "--haplo-coverage"],
+            hold_identity=False, tasks=[("run", tasks, "run_tasks")])
+    est = hp.per_read()
+    finite = est[np.isfinite(est)]
+    reports = probes["run"].out.reports
+    ident = {"A": [], "B": []}
+    hap_of = {x.id: m[0] for x, m in zip(hl, meta)}
+    for rec in qc_recs:
+        a = rec.get("accuracy")
+        if a is not None:
+            ident[hap_of[rec["id"]]].append((a["identity_before"],
+                                             a["identity_after"]))
+    mean = {h: np.mean(v, axis=0).tolist() if v else None
+            for h, v in ident.items()}
+    # without flex: the same command on A's reads, siamaera off, unscored
+    nos = os.path.join(tmp, "nosiamaera.cfg")
+    with open(nos, "w") as fh:
+        json.dump({"siamaera": None}, fh)
+    out0 = os.path.join(tmp, "ecoli-noflex", "res")
+    reads_a = [x for x, m in zip(hl, meta) if m[0] == "A"]
+    t0 = time.monotonic()
+    rc = cli.main([*input_args(tmp, "ecoli-noflex", reads_a, hs), "-p", out0,
+                   "--no-checkpoint", "-q", "-c", nos,
+                   *device_args(device)])
+    wall0 = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 13 without flex: exit {rc}")
+
+    def recs(out):
+        return list(FastqReader(io.BytesIO(cli_outputs(out)[0][
+            "untrimmed.fq"])))
+    share_flex = snp_share(recs(os.path.join(tmp, "ecoli-flex", "res")),
+                           meta, hl, hap_a, hap_b)
+    share_plain = snp_share(recs(out0), meta, hl, hap_a, hap_b)
+    r.update(
+        passes=[x.task for x in reports if x.task.startswith("bwa-")],
+        reads_a=len(ident["A"]), reads_b=len(ident["B"]),
+        identity_a=mean["A"], identity_b=mean["B"],
+        estimates=int(est.size), finite_estimates=int(finite.size),
+        median_estimate=float(np.median(finite)) if finite.size else None,
+        snp_share_flex=share_flex, snp_share_plain=share_plain,
+        wall_plain_s=wall0)
+    b_before, b_after = mean["B"]
+    if not (b_after >= IDENTITY_FLOOR and b_after > b_before):
+        raise AssertionError(f"phase 13: haplotype B identity {b_before} "
+                             f"-> {b_after}")
+    if not share_flex[1] > share_plain[1]:
+        raise AssertionError(f"phase 13: SNP share with flex {share_flex} "
+                             f"not above without {share_plain}")
+    return r
+
+
 def same_host(a, b) -> bool:
     return a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
@@ -1807,7 +2557,7 @@ def result_key(res):
 # the port's CUDA kernels (csrc/*.cu), by the names the profiler shows
 # (a template kernel with its argument: pileup_col_kernel<PackedWords>)
 PORT_KERNEL = re.compile(
-    r"\b((?:bsw|sw|pileup|assemble|hcr|lcs)_\w*kernel)\b"
+    r"\b((?:bsw|sw|pileup|assemble|hcr|lcs|scatter)_\w*kernel)\b"
     r"(?:<(?:\(anonymous namespace\)::)?(\w+)>)?")
 
 
@@ -1869,7 +2619,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-10 to leave out; such a "
+                     help="comma list of phases 2-13 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--profile", action="store_true",
                      help="rerun phases 4-6 under torch.profiler and print "
@@ -1891,6 +2641,8 @@ def main(argv=None) -> int:
                                                   BWA_SR, BWA_SR_FINISH)
     from proovread_tpu_torch.obs import accuracy
     from proovread_tpu_torch.ops import assemble_kernel, pileup_kernel
+    from proovread_tpu_torch.ops import scatter
+    from proovread_tpu_torch.pipeline.ccs import CCS_ALIGN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1938,12 +2690,20 @@ def main(argv=None) -> int:
                         "proovread_tpu_torch/csrc/lcs.cu",
                         "proovread_tpu/obs/accuracy.py:203 (numpy "
                         "lcs_lengths, no Pallas kernel)"),
+        # a port-only kernel: the reference's vote scatters are XLA
+        "scatter_add_ordered": (
+            scatter.scatter_add_ordered,
+            "proovread_tpu_torch/csrc/scatter.cu",
+            "proovread_tpu/ops/pileup.py:57 and ops/fused.py:59 (XLA "
+            "scatter-adds in accumulate and fused_accumulate, no Pallas "
+            "kernel)"),
     }
     # the phase whose path each kernel's launch count is read from
     path_phase = {"bsw_expand_v2": 4, "pileup_accumulate_bits": 4,
                   "assemble_rows": 4, "hcr_mask_rows": 4,
                   "pileup_accumulate_packed": 5, "bsw_expand": 6,
-                  "pileup_accumulate": 6, "sw_batch": 7, "lcs_lengths": 7}
+                  "pileup_accumulate": 6, "sw_batch": 7, "lcs_lengths": 7,
+                  "scatter_add_ordered": 11}
     # the command-line runs (scored against their truth) also go through
     # the main path's kernels
     cli_path = ("sw_batch", "bsw_expand_v2", "pileup_accumulate_bits",
@@ -2037,80 +2797,64 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         results["lcs_lengths"] = check_lcs(rng, dev)
         report("lcs_lengths", results["lcs_lengths"])
+        torch.cuda.empty_cache()
+        # the ccs and utg windows: 512 bases at m = 512, CCS_ALIGN's band
+        # of 40 (n = 640), ccs-1's chunk of 4096 candidates
+        r = check_sw(rng, dev, R=4096, m=512, n=640, ap=CCS_ALIGN)
+        report("sw_batch", dict(r, label="ccs chunk"))
+        torch.cuda.empty_cache()
+        r = check_scatter(rng, dev)
+        report("scatter_add_ordered", dict(r, label="random"))
+        torch.cuda.empty_cache()
+        results["scatter_add_ordered"] = check_ccs_scatter(dev)
+        report("scatter_add_ordered", results["scatter_add_ordered"])
         log(f"phase2 peak device memory {peak2[0]:.2f} GiB")
         torch.cuda.empty_cache()
 
-    # -- phase 3 -------------------------------------------------------------
+    cpu3 = None
+    if "3" not in skip:
+        # phase 3's CPU side starts once phase 2's kernel times are taken,
+        # and runs under the card phases 3-13
+        import atexit
+        cpu3 = CpuSide(tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
+        atexit.register(cpu3.close)
+        cpu3.start()
+
+    # -- phase 3: the card halves (the CPU side is compared at the end) ------
+    card3 = {}
     if "3" not in skip:
         longs, srs, n_it, truths = workload(10_000, 40_000, 4)
-        for label, kw in (("", {}),
-                          (" coverage 400", dict(coverage=400.0,
-                                                 sr_coverage=400.0,
-                                                 finish_coverage=400.0))):
+        for label, kw in (("", {}), (" coverage 400", COVERAGE_400)):
             packed0 = pileup_kernel.pileup_accumulate_packed.launches
             res_gpu, t_gpu = run_pipeline(longs, srs, n_it, "cuda", **kw)
-            res_cpu, t_cpu = run_pipeline(longs, srs, n_it, "cpu", **kw)
-            if result_key(res_gpu) != result_key(res_cpu):
-                raise AssertionError(f"config 4{label}: card and CPU differ")
             if not res_gpu.untrimmed or not any(r.n_admitted for r in
                                                 res_gpu.reports):
                 raise AssertionError(f"config 4{label}: nothing corrected")
             if kw and pileup_kernel.pileup_accumulate_packed.launches == packed0:
                 raise AssertionError("config 4 coverage 400: no packed pileup")
             no_demotion(f"config 4{label}", res_gpu.metrics, res_gpu.reports)
-            log(f"phase3 config 4{label}: card {t_gpu:.1f} s, CPU {t_cpu:.1f} "
-                f"s, {len(res_gpu.untrimmed)} reads, {len(res_gpu.trimmed)} "
-                f"trimmed, {len(res_gpu.chimera)} chimera, identical")
-        bucket = first_bucket(longs, srs)
+            card3["pipeline" + label] = (
+                result_key(res_gpu), t_gpu,
+                f"{len(res_gpu.untrimmed)} reads, {len(res_gpu.trimmed)} "
+                f"trimmed, {len(res_gpu.chimera)} chimera")
         t0 = time.monotonic()
-        h_gpu, st_gpu = qual_chain(bucket, "cuda", n_rest=3, finish=True)
-        t_gpu = time.monotonic() - t0
-        t0 = time.monotonic()
-        h_cpu, st_cpu = qual_chain(bucket, "cpu", n_rest=3, finish=True)
-        t_cpu = time.monotonic() - t0
-        strip = lambda st: [{k: v for k, v in d.items()  # noqa: E731
-                             if k != "seconds"} for d in st]
-        if not same_host(h_gpu, h_cpu) or strip(st_gpu) != strip(st_cpu):
-            diff = [k for k in h_gpu if k not in h_cpu
-                    or h_gpu[k].tobytes() != h_cpu[k].tobytes()]
-            raise AssertionError(f"config 4 qual-weighted chain: card and CPU"
-                                 f" differ in {diff or 'pass counts'}")
-        if not all(d["admitted"] for d in st_gpu):
+        chain = qual_chain(first_bucket(longs, srs), "cuda", n_rest=3,
+                           finish=True)
+        card3["qual_chain"] = (chain, time.monotonic() - t0)
+        if not all(d["admitted"] for d in chain[1]):
             raise AssertionError("config 4 qual-weighted: a pass admitted 0")
-        log(f"phase3 config 4 qual-weighted chain: card {t_gpu:.1f} s, CPU "
-            f"{t_cpu:.1f} s, {len(st_gpu)} passes, identical: "
-            + json.dumps(strip(st_gpu)))
-        # the command line in sr-noccs (100 bp short reads) and mr-noccs
-        # (30x of 250 bp short reads), siamaera on: every output file
-        # identical on the card and on the CPU
-        _, srs_mr, _, _ = workload(10_000, 40_000, 4, sr_len=250)
+        # the command line: sr-noccs and mr-noccs, and the modes of ccs-1,
+        # -u and --haplo-coverage, each scored (card halves)
+        cpu3.run_cli()
         with tempfile.TemporaryDirectory() as tmp:
-            for label, shorts, mode in (("sr", srs, "sr-noccs"),
-                                        ("mr", srs_mr, "mr-noccs")):
-                walls, files, meta = cli_card_vs_cpu(
-                    tmp, f"config4-{label}", longs, shorts, mode, truths)
-                log(f"phase3 cli config 4 {mode}: card "
-                    f"{walls['cuda']:.1f} s, CPU {walls['cpu']:.1f} s, "
-                    f"{files['untrimmed.fq'].count(b'\n') // 4} untrimmed"
-                    f" records, {files['trimmed.fa'].count(b'>')} trimmed, "
-                    "all six files identical (parameter.log but its argv)"
-                    ", qc.jsonl identical, metrics identical but timings")
-                acc = meta["aggregate"]["accuracy"]
-                if mode == "sr-noccs":
-                    # the JAX package's recorded config-4 row (sr-noccs)
-                    acc = hold_accuracy("config 4 sr-noccs", acc,
-                                        recorded_accuracy(4))
-                    log("phase3 config 4 sr-noccs accuracy == the JAX "
-                        "package's ACCURACY_r10.json row: " + json.dumps(acc))
-                else:
-                    log(f"phase3 config 4 {mode} accuracy: identity "
-                        f"{acc['identity_before']['mean']} -> "
-                        f"{acc['identity_after']['mean']}")
             tr = cli_trace(tmp, "config4-trace", longs, srs, truths)
             log("phase3 cli config 4 --trace: " + json.dumps(tr))
-        # the scan engine, card against CPU
-        log("phase3 config 4 scan engine: " + json.dumps(
-            scan_card_vs_cpu(longs, srs, n_it)))
+        res, t = run_pipeline(longs, srs, n_it, "cuda", engine="scan")
+        if not any(r.n_admitted for r in res.reports):
+            raise AssertionError("config 4 scan engine: nothing admitted")
+        no_demotion("config 4 scan engine", res.metrics, res.reports)
+        card3["scan"] = (result_key(res), t, f"{len(res.untrimmed)} reads, "
+                         f"passes {[r.task for r in res.reports]}")
         # the ladder and --resume need two buckets: config 4's genome with
         # twice its long-read bases (11 reads) at batch_reads 8
         l3, s3, _, _ = workload(10_000, 80_000, 4)
@@ -2200,13 +2944,14 @@ def main(argv=None) -> int:
 
     # -- phase 7: the command line at E.coli class ----------------------------
     cli7 = out7 = None
-    if (({"7", "8", "9", "10"} - skip) and "4" in skip and "6" in skip):
+    if (({"7", "8", "9", "10", "11", "12"} - skip) and "4" in skip
+            and "6" in skip):
         longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
     if "7" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
-            (cli7, out7), _ = drive(7, lambda: cli_run(
+            (cli7, out7, _), _ = drive(7, lambda: cli_run(
                 tmp, "ecoli-sr", longs, srs, "sr-noccs", truths),
-                required=cli_path)
+            required=cli_path)
         log("phase7 " + json.dumps(cli7))
 
     # -- phase 9: kill and resume at E.coli class -----------------------------
@@ -2219,7 +2964,8 @@ def main(argv=None) -> int:
 
     # -- phase 10: the scan engine timed at E.coli class ----------------------
     if "10" not in skip:
-        (res10, scan10), _ = drive(10, lambda: scan_timed(longs, srs, 6, 20),
+        (res10, scan10), _ = drive(10, lambda: scan_timed(longs, srs[::3], 6,
+                                                          20),
                                    required=("sw_batch",))
         report_passes(10, res10)
         log("phase10 " + json.dumps(scan10))
@@ -2227,13 +2973,15 @@ def main(argv=None) -> int:
 
     # -- phase 8: mr at E.coli class -----------------------------------------
     if "8" not in skip:
-        del srs
         _, srs8, _, _ = workload(1_250_000, 5_000_000, 6, sr_len=250)
-        log(f"phase8 workload: {len(longs)} long reads, {len(srs8)} short "
+        # half phase 7's long reads (the first 2.5 Mb), to keep the run short
+        half = len(longs) // 2
+        log(f"phase8 workload: {half} long reads, {len(srs8)} short "
             "reads of 250 bp")
         with tempfile.TemporaryDirectory() as tmp:
-            (cli8, _), _ = drive(8, lambda: cli_run(
-                tmp, "ecoli-mr", longs, srs8, "mr-noccs", truths),
+            (cli8, _, _), _ = drive(8, lambda: cli_run(
+                tmp, "ecoli-mr", longs[:half], srs8, "mr-noccs",
+                truths[:half], classify_cap=CLASSIFY_MR),
                 required=cli_path)
         log("phase8 " + json.dumps(cli8))
         if cli7 is not None:
@@ -2242,6 +2990,28 @@ def main(argv=None) -> int:
                 f"{cli8['bsw_ms_per_launch'] / cli7['bsw_ms_per_launch']:.2f}"
                 f"x phase 7's at m=112 ({cli7['bsw_ms_per_launch']:.4f} ms)")
         del srs8
+
+    # -- phases 11-13: subreads, unitigs, flex at E.coli class ---------------
+    sub_path = cli_path + ("scatter_add_ordered",)
+    if "11" not in skip:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli11, _ = drive(11, lambda: phase11(tmp, srs),
+                             required=sub_path)
+        log("phase11 " + json.dumps(cli11))
+    if "12" not in skip:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli12, _ = drive(12, lambda: phase12(tmp, longs, srs, truths),
+                             required=sub_path)
+        log("phase12 " + json.dumps(cli12))
+    if "13" not in skip:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli13, _ = drive(13, lambda: phase13(tmp),
+                             required=cli_path[1:])
+        log("phase13 " + json.dumps(cli13))
+
+    # -- phase 3: the CPU side against the card's -----------------------------
+    if cpu3 is not None:
+        cpu3.compare(card3)
 
     if skip:
         log(f"phases {sorted(skip)} skipped: no result printed")

@@ -5,7 +5,8 @@ Per call: seed (host k-mer index, ``align/seed.py``) -> extract candidate
 ref windows -> batched SW extension + traceback on the device
 (``align/sw.py:sw_batch``, the ``csrc/sw.cu`` kernel on the card) ->
 threshold (per-base ``-T``, ``proovread.cfg:325``) -> Alignment records
-grouped into per-long-read ``AlnSet``s. Chunks of ``chunk_rows`` (2048)
+grouped into per-long-read ``AlnSet``s, each carrying the caller's
+``ConsensusParams`` for its filters and admission. Chunks of ``chunk_rows`` (2048)
 candidates, window clipping and the records are the reference's; the last
 chunk is not padded to a full one (the reference pads it only to keep one
 jitted shape).
@@ -23,6 +24,7 @@ from proovread_tpu_torch.align import seed as seed_mod
 from proovread_tpu_torch.align.params import AlignParams
 from proovread_tpu_torch.align.sw import ops_to_cigar, sw_batch
 from proovread_tpu_torch.consensus.alnset import Alignment, AlnSet
+from proovread_tpu_torch.consensus.params import ConsensusParams
 from proovread_tpu_torch.device import resolve
 from proovread_tpu_torch.io.batch import ReadBatch
 
@@ -55,12 +57,15 @@ class TorchMapper:
         self,
         refs: ReadBatch,
         queries: ReadBatch,
+        cns_params: Optional[ConsensusParams] = None,
         candidate_filter=None,
     ) -> MapResult:
         p = self.params
+        cns = cns_params or ConsensusParams()
         dev = resolve(self.device)
         B, L = refs.codes.shape
-        alnsets = [AlnSet(ref_id=refs.ids[i], ref_len=int(refs.lengths[i]))
+        alnsets = [AlnSet(ref_id=refs.ids[i], ref_len=int(refs.lengths[i]),
+                          params=cns)
                    for i in range(B)]
 
         rc_codes = seed_mod.revcomp_batch(queries.codes, queries.lengths)

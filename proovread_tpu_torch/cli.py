@@ -14,10 +14,14 @@ memory sampled at span boundaries and a leak report at exit),
 ``--metrics-out FILE``, ``--qc-out FILE`` and ``--truth FILE`` (identity
 against a truth sidecar, scored on ``--device``), or their config keys
 ``trace-file``, ``metrics-out``, ``qc-out`` and ``truth-sidecar``; the
-artifacts are written even when the run fails. Flags whose features are
-not ported yet return 2 with a message naming the flag: ``serve``, ``-u``,
-``--sam``, ``--bam``, ``--haplo-coverage``, the mesh flags,
-``--compile-ledger``, ``--compile-cache``, ``--xprof`` and ``--debug``.
+artifacts are written even when the run fails. Every mode of the
+reference but the SAM/BAM re-entry runs: ``sr`` and ``mr`` (with the
+``ccs-1`` subread consensus on PacBio subread ids), ``-noccs``, ``*+utg``
+and ``utg`` with ``-u/--unitigs``, and flex mode with
+``--haplo-coverage``. Flags whose features are not ported yet return 2
+with a message naming the flag: ``serve``, ``--sam``, ``--bam``, the mesh
+flags, ``--compile-ledger``, ``--compile-cache``, ``--xprof`` and
+``--debug``.
 
 Resilience works as in the reference (``:276-297``, ``:620-645``): a
 per-bucket checkpoint journal at ``<pre>/.proovread_ckpt`` unless
@@ -47,8 +51,7 @@ PROG = "proovread-tpu-torch"
 
 # parsed-argument name -> flag, for the flags the port does not run yet
 _UNPORTED_FLAGS = (
-    ("unitigs", "-u/--unitigs"), ("sam", "--sam"), ("bam", "--bam"),
-    ("haplo_coverage", "--haplo-coverage"),
+    ("sam", "--sam"), ("bam", "--bam"),
     ("mesh_shards", "--mesh-shards"),
     ("mesh_pass_timeout", "--mesh-pass-timeout"),
     ("compile_ledger", "--compile-ledger"),
@@ -70,10 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-s", "--short-reads", action="append", default=[],
                     help="short-read FASTQ/FASTA (repeatable)")
     ap.add_argument("-u", "--unitigs", action="append", default=[],
-                    help="unitig FASTA (not supported by the port yet)")
+                    help="unitig FASTA (enables utg tasks)")
     ap.add_argument("-p", "--pre", help="output directory/prefix")
     ap.add_argument("-m", "--mode", default="auto",
-                    help="correction mode (auto|sr|mr|sr-noccs|mr-noccs)")
+                    help="correction mode (auto|sr|mr|*-noccs|*+utg|utg)")
     ap.add_argument("--sam", help="external SAM mapping (not supported by "
                                   "the port yet)")
     ap.add_argument("--bam", help="external BAM mapping (not supported by "
@@ -92,7 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="accept short reads longer than 1000bp "
                          "(bin/proovread:457-464 guard)")
     ap.add_argument("--haplo-coverage", type=float, nargs="?", const=-1.0,
-                    help="flex mode (not supported by the port yet)")
+                    help="flex mode (proovread-flex role): bare flag = "
+                         "estimate each read's own-haplotype coverage on "
+                         "the device and tighten admission; a float value "
+                         "= explicit per-read coverage cutoff")
     ap.add_argument("--no-sampling", action="store_true",
                     help="use all short reads every iteration")
     ap.add_argument("--resume", action="store_true",
@@ -235,8 +241,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if not args.long_reads:
         return _error("-l/--long-reads is required")
-    if not args.short_reads:
-        return _error("need -s")
+    if not (args.short_reads or args.unitigs):
+        return _error("need -s, -u, --sam or --bam")
     if not args.pre:
         return _error("-p/--pre is required")
 
@@ -375,7 +381,9 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
     with obs.span("run", cat="run"):
         with obs.span("read-inputs", cat="io"):
             longs = _read_records(args.long_reads)
-            shorts = _read_records(args.short_reads)
+            shorts = (_read_records(args.short_reads) if args.short_reads
+                      else [])
+            utgs = _read_records(args.unitigs) if args.unitigs else []
 
         with obs.span("preflight", cat="host"):
             sr_lens = (np.array([len(r) for r in shorts]) if shorts
@@ -406,7 +414,8 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
             from proovread_tpu_torch.pipeline.ccs import is_subread_set
             mode = args.mode
             if mode == "auto":
-                mode = mode_auto(min_sr_len, False, is_subread_set(longs))
+                mode = mode_auto(min_sr_len, bool(utgs),
+                                 is_subread_set(longs))
             tasks = cfg.tasks(mode)
             log.info("mode %s: tasks %s", mode, " ".join(tasks))
 
@@ -418,16 +427,17 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
                     "mode": mode, "tasks": tasks,
                     "n_long_reads": len(longs),
                     "n_short_reads": len(shorts),
-                    "n_unitigs": 0, "median_sr_len": min_sr_len,
+                    "n_unitigs": len(utgs), "median_sr_len": min_sr_len,
                     "config": cfg.data,
                 }, indent=2))
 
         from proovread_tpu_torch.pipeline.tasks import run_tasks
         with obs.span("tasks", cat="mode", mode=mode):
             result = run_tasks(
-                cfg, mode, tasks, longs, shorts, coverage=args.coverage,
-                lr_min_length=args.lr_min_length,
-                sampling=not args.no_sampling, device=args.device)
+                cfg, mode, tasks, longs, shorts, utgs,
+                coverage=args.coverage, lr_min_length=args.lr_min_length,
+                sampling=not args.no_sampling,
+                haplo_coverage=args.haplo_coverage, device=args.device)
 
         # -- reference output layout (bin/proovread:904-956) --------------
         with obs.span("write-outputs", cat="io"):

@@ -1,9 +1,20 @@
-"""Consensus results, host assembly and the chimera entropy detector (port of
-the part of ``proovread_tpu/consensus/engine.py`` that the device finish
-path and the scan engine use: ``ConsensusResult``, ``assemble_consensus``,
-``chimera_runs``, ``chimera_score``, ``chimera_scan``, ``window_counts``
-and ``emit_prefix``; host numpy, ``Sam/Seq.pm:774-888``). The batched
-``ConsensusEngine`` over alignment sets comes with the modes that use it."""
+"""Consensus engine: host packing -> pileup + call on the device -> host
+assembly, plus the chimera entropy detector (port of
+``proovread_tpu/consensus/engine.py``).
+
+``ConsensusEngine`` is the per-worker flow of ``bin/bam2cns:375-491``
+(generate_consensus / detect_chimera) over alignment sets: score filters,
+binned admission, state-matrix consensus with MCR ignore-coords, optional
+chimera scan with breakpoint projection through the consensus cigar (-I, +D:
+``bin/bam2cns:461-491``); the ``ccs-1`` and ``utg`` tasks run on it. The
+alignment windows go into the pileup through ``ops/pileup.py:accumulate``
+(the ordered scatter kernel ``csrc/scatter.cu`` on the card), so the
+qual-weighted votes sum to the reference's bits on every device.
+``ConsensusResult``, ``assemble_consensus``, ``chimera_runs``,
+``chimera_score``, ``chimera_scan``, ``window_counts`` and ``emit_prefix``
+are also what the device finish path and the scan engine use (host numpy,
+``Sam/Seq.pm:774-888``). ``variant_table`` is not ported yet.
+"""
 
 from __future__ import annotations
 
@@ -11,9 +22,18 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from proovread_tpu_torch.consensus.cigar import ColumnStates
+from proovread_tpu_torch.consensus.alnset import AlnSet
+from proovread_tpu_torch.consensus.cigar import (ColumnStates,
+                                                 expand_alignment,
+                                                 phreds_to_freqs)
+from proovread_tpu_torch.consensus.params import ConsensusParams
+from proovread_tpu_torch.device import resolve
+from proovread_tpu_torch.io.batch import ReadBatch
 from proovread_tpu_torch.io.records import SeqRecord
+from proovread_tpu_torch.ops import pileup as pileup_ops
+from proovread_tpu_torch.ops.consensus_call import call_consensus
 from proovread_tpu_torch.ops.encode import N_STATES, decode_codes
 
 
@@ -36,6 +56,188 @@ class ConsensusResult:
         if self.record.qual is None or len(self.record.qual) == 0:
             return 0.0
         return float((self.record.qual == 0).mean())
+
+
+def _round_up(n: int, m: int) -> int:
+    return max(m, ((n + m - 1) // m) * m)
+
+
+class ConsensusEngine:
+    """Batched consensus over groups of long reads, on ``device``.
+
+    ``cell_budget`` bounds the transient [chunk_rows x window] tensors; the
+    chunk row count adapts to the window width so that unitig-scale
+    alignments do not blow memory. Chunks are added in order, each row by
+    row, so the order of the votes into a cell, and with it every f32 sum,
+    does not depend on the chunk size.
+    """
+
+    def __init__(self, params: Optional[ConsensusParams] = None,
+                 cell_budget: int = 1 << 22, device: str = "cuda"):
+        self.params = params or ConsensusParams()
+        self.cell_budget = cell_budget
+        self.device = device
+
+    # -- packing ---------------------------------------------------------
+    def _expand_sets(self, alnsets: Sequence[AlnSet]
+                     ) -> List[List[Tuple[ColumnStates, int]]]:
+        """Per read: [(column states, index into aset.alns)] — the index keeps
+        bin bookkeeping aligned after taboo-trim drops."""
+        out = []
+        for aset in alnsets:
+            cols = []
+            for j, a in enumerate(aset.alns):
+                cs = expand_alignment(a.pos0, a.ops, a.lens, a.seq_codes,
+                                      a.qual, self.params)
+                if cs is not None:
+                    cols.append((cs, j))
+            out.append(cols)
+        return out
+
+    def _build_pileup(
+        self,
+        expanded: Sequence[Sequence[Tuple[ColumnStates, int]]],
+        L: int,
+        ignore_mask: Optional[np.ndarray] = None,
+        ref_codes: Optional[np.ndarray] = None,
+        ref_freqs: Optional[np.ndarray] = None,
+    ) -> pileup_ops.Pileup:
+        dev = resolve(self.device)
+        B = len(expanded)
+        K = self.params.ins_cap
+        pile = pileup_ops.init_pileup(B, L, K, device=dev)
+
+        flat: List[Tuple[int, ColumnStates]] = [
+            (i, cs) for i, group in enumerate(expanded) for cs, _ in group]
+        if flat:
+            W = _round_up(max(cs.span for _, cs in flat), 128)
+            R = max(1, min(len(flat), self.cell_budget // W))
+            ign = (torch.as_tensor(ignore_mask, device=dev)
+                   if ignore_mask is not None else None)
+            for start in range(0, len(flat), R):
+                chunk = flat[start:start + R]
+                read_idx = np.zeros(R, np.int32)
+                rpos = np.zeros(R, np.int32)
+                state = np.full((R, W), -1, np.int8)
+                freq = np.zeros((R, W), np.float32)
+                ins_len = np.zeros((R, W), np.int16)
+                ins_bases = np.zeros((R, W, K), np.int8)
+                valid = np.zeros(R, bool)
+                for j, (ri, cs) in enumerate(chunk):
+                    n = cs.span
+                    read_idx[j] = ri
+                    rpos[j] = cs.rpos
+                    state[j, :n] = cs.state
+                    freq[j, :n] = cs.freq
+                    ins_len[j, :n] = cs.ins_len
+                    ins_bases[j, :n] = cs.ins_bases
+                    valid[j] = True
+                pileup_ops.accumulate(
+                    pile, *(torch.as_tensor(a, device=dev) for a in (
+                        read_idx, rpos, state, freq, ins_len, ins_bases,
+                        valid)), ign)
+
+        if (self.params.use_ref_qual and ref_codes is not None
+                and ref_freqs is not None):
+            # the read's own bases vote with phred->freq weight, after all
+            # alignment votes (Sam/Seq.pm:255-266); never through the
+            # insertion tensors
+            onehot = ((ref_codes[:, :, None]
+                       == np.arange(N_STATES)[None, None, :])
+                      .astype(np.float32) * ref_freqs[:, :, None])
+            pile = pile._replace(
+                counts=pile.counts + torch.as_tensor(onehot, device=dev))
+        return pile
+
+    # -- main entry ------------------------------------------------------
+    def consensus_batch(
+        self,
+        refs: ReadBatch,
+        alnsets: Sequence[AlnSet],
+        ignore_coords: Optional[Sequence[Sequence[Tuple[int, int]]]] = None,
+        detect_chimera: bool = False,
+    ) -> List[ConsensusResult]:
+        """Correct a batch of long reads.
+
+        ``refs``: the long reads (packed); ``alnsets[i]``: alignments onto
+        read i (admission is applied here if not already done);
+        ``ignore_coords[i]``: [offset, length] regions whose columns take no
+        votes (MCRs from previous iterations, utg overlap windows).
+        """
+        B, L = refs.codes.shape
+        if len(alnsets) != B:
+            raise ValueError(f"{len(alnsets)} alignment sets for {B} reads")
+        for aset in alnsets:
+            if aset.bin_bases is None:
+                aset.filter_by_scores()
+                aset.admit()
+            # pre-admitted sets keep their bin bookkeeping untouched:
+            # re-filtering here would desync aln_bins/bin_bases from alns
+
+        expanded = self._expand_sets(alnsets)
+
+        ignore_mask = None
+        if ignore_coords is not None:
+            ignore_mask = np.zeros((B, L), bool)
+            for i, regions in enumerate(ignore_coords):
+                for off, ln in regions or []:
+                    ignore_mask[i, max(0, off):off + ln] = True
+
+        ref_freqs = None
+        if self.params.use_ref_qual:
+            ref_freqs = phreds_to_freqs(
+                refs.qual.astype(np.float32)).astype(np.float32)
+            ref_freqs *= refs.position_mask()
+
+        pile = self._build_pileup(expanded, L, ignore_mask=ignore_mask,
+                                  ref_codes=refs.codes, ref_freqs=ref_freqs)
+        call = call_consensus(
+            pile, torch.as_tensor(refs.codes, device=pile.counts.device),
+            self.params.max_ins_length)
+        del pile
+        emitted, base, ins_len, ins_bases, freq, phred, coverage = (
+            x.cpu().numpy() for x in (
+                call.emitted, call.base, call.ins_len, call.ins_bases,
+                call.freq, call.phred, call.coverage))
+
+        results = []
+        for i in range(B):
+            n = int(refs.lengths[i])
+            res = assemble_consensus(
+                refs.ids[i], emitted[i, :n], base[i, :n], ins_len[i, :n],
+                ins_bases[i, :n], freq[i, :n], phred[i, :n],
+                coverage[i, :n])
+            if detect_chimera:
+                res.chimera = self._chimera(alnsets[i], expanded[i], n, res)
+            results.append(res)
+        return results
+
+    # -- chimera (Sam/Seq.pm:774-888 + bam2cns:461-491) ------------------
+    def _chimera(self, aset: AlnSet,
+                 expanded: Sequence[Tuple[ColumnStates, int]], L: int,
+                 res: "ConsensusResult") -> List[Tuple[int, int, float]]:
+        p = self.params
+        bb = aset.bin_bases
+        if bb is None or len(bb) <= 20:
+            return []
+        # cheap prescreen before the O(total aligned bases) cover build
+        if not (np.asarray(bb)[5:-5] <= p.bin_max_bases / 5 + 1).any():
+            return []
+        # plain full coverage for the covered-window check (the chimera
+        # scan recomputes its own matrix without ignore coords or
+        # weighting, bam2cns:461)
+        cover = np.zeros(L)
+        for cs, _ in expanded:
+            a, b = max(0, cs.rpos), min(L, cs.rpos + cs.span)
+            cover[a:b] += 1
+        aln_bins = aset.aln_bins
+
+        def select(fl, tl, fr, tr):
+            sel_l = [cs for cs, j in expanded if fl <= aln_bins[j] <= tl]
+            sel_r = [cs for cs, j in expanded if fr <= aln_bins[j] <= tr]
+            return sel_l, sel_r
+
+        return chimera_scan(aset.bin_bases, L, p, res, cover, select)
 
 
 def assemble_consensus(

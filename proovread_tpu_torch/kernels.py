@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu")
+SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu",
+           "scatter.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -55,6 +56,7 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _P],
     "pt_lcs_lengths": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "pt_lcs_occupancy": [_I, _P, _P],
+    "pt_scatter_add_ordered": [_P, _P, _P, _P, _I, _P],
 }
 
 _lib = None

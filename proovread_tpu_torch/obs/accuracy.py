@@ -288,30 +288,50 @@ def _banded_tb(a: np.ndarray, b: np.ndarray, w: int) -> Dict[str, int]:
     """One banded pass, ``len(b) >= len(a)`` guaranteed by the caller.
     Rows are vectorized over the diagonal band; the within-row horizontal
     dependency (``dp[i][j-1] + 1``) closes via a min-plus prefix scan
-    (``min_t C0[d-t] + t  =  d + cummin(C0[d'] - d')``)."""
+    (``min_t C0[d-t] + t  =  d + cummin(C0[d'] - d')``). Cells off the
+    truth (``j < 0`` or ``j > lb``) hold ``_BIG``; each row is computed
+    in place in preallocated buffers, a few numpy calls a row, since the
+    narrow bands of corrected reads are bound by call overhead."""
     la, lb = len(a), len(b)
     d = lb - la
     width = d + 2 * w + 1                       # diag idx j - i + w
-    rows = np.full((la + 1, width), _BIG, np.int32)
+    rows = np.empty((la + 1, width), np.int32)
     offs = np.arange(width, dtype=np.int32)
     j0 = offs - w
-    ok0 = (j0 >= 0) & (j0 <= lb)
-    rows[0, ok0] = j0[ok0]
+    rows[0] = np.where((j0 >= 0) & (j0 <= lb), j0, _BIG)
+    # row i's truth bases b[j-1], j = i - w + offs, are bp[i:i + width];
+    # the pad lies under cells that are _BIG either way (j < 1 has no
+    # diagonal, j > lb is masked)
+    bp = np.full(la + width + 1, 4, np.int8)
+    bp[w + 1:w + 1 + lb] = b
+    neq = np.empty(width, bool)
+    diag = np.empty(width, np.int32)
+    up = np.full(width, _BIG, np.int32)         # (i-1, j) lives at idx+1
+    c0 = np.empty(width, np.int32)
+    scan = np.empty(width, np.int32)
     for i in range(1, la + 1):
-        j = i + offs - w
-        valid = (j >= 0) & (j <= lb)
-        prev = rows[i - 1]
-        jj = np.clip(j, 1, lb)
+        prev, cur = rows[i - 1], rows[i]
+        ai = a[i - 1]
         # N (code 4+) never matches, as in the LCS identity
-        sub_cost = ((a[i - 1] != b[jj - 1])
-                    | (a[i - 1] >= 4)).astype(np.int32)
-        diag = np.where(j >= 1, prev + sub_cost, _BIG)
-        up = np.full(width, _BIG, np.int32)     # (i-1, j) lives at idx+1
-        up[:-1] = prev[1:] + 1
-        c0 = np.minimum(diag, up)
-        cur = np.minimum(c0, np.minimum.accumulate(c0 - offs) + offs)
-        cur[~valid] = _BIG
-        rows[i] = np.minimum(cur, _BIG)
+        if ai >= 4:
+            np.add(prev, 1, out=diag)
+        else:
+            np.not_equal(bp[i:i + width], ai, out=neq)
+            np.add(prev, neq, out=diag)
+        if i <= w:
+            diag[:w + 1 - i] = _BIG             # j < 1: no diagonal
+        np.add(prev[1:], 1, out=up[:-1])
+        np.minimum(diag, up, out=c0)
+        np.subtract(c0, offs, out=scan)
+        np.minimum.accumulate(scan, out=scan)
+        np.add(scan, offs, out=scan)
+        np.minimum(c0, scan, out=cur)
+        np.minimum(cur, _BIG, out=cur)
+        if i < w:
+            cur[:w - i] = _BIG                  # j < 0
+        hi = lb - i + w + 1                     # j > lb from here
+        if hi < width:
+            cur[max(hi, 0):] = _BIG
     dist = int(rows[la, d + w])
 
     # traceback: count matches / substitutions / read-only bases (ins) /

@@ -7,12 +7,11 @@ DP column per step, end to start) into pileup votes and adds them into the
 ``Pileup`` tensors where the tensors lie, with the reference's rules: the
 bowtie2/bwa "1D1I" rewrite, positional InDelTaboo trimming, the kept-region
 admission (>= min_aln_length and >= 70% kept), MCR ignore columns and
-insertion-run votes attached to the column before the run. Plain torch
-(``index_add_`` over flat indices). On the CPU ``index_add_`` into a 1-D
-tensor adds in index order, the order of XLA's CPU scatter, so fractional
-(qual-weighted) votes sum to the reference's bits; on the card its atomics
-add in any order, which changes nothing for the integer-valued votes of
-the sr and mr passes.
+insertion-run votes attached to the column before the run. Its four
+scatters go through ``ops/scatter.py:scatter_add_ordered`` (the kernel
+``csrc/scatter.cu`` on the card), which adds each cell's votes in index
+order, the order of XLA's CPU scatter: fractional (qual-weighted) votes sum
+to the reference's bits on every device.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import torch
 from proovread_tpu_torch.align.sw import OP_D, OP_I, OP_M, OP_NONE
 from proovread_tpu_torch.ops.encode import GAP
 from proovread_tpu_torch.ops.pileup import Pileup
+from proovread_tpu_torch.ops.scatter import scatter_add_ordered
 
 
 # round((phred^2/120)*100)/100 (Sam/Seq.pm:151-156) as XLA compiles the
@@ -51,13 +51,6 @@ def add_ref_votes(pile: Pileup, ref_codes: torch.Tensor,
     onehot = ((ref_codes.to(torch.int64)[:, :, None] == lanes)
               .to(torch.float32) * w[:, :, None])
     return pile._replace(counts=pile.counts + onehot)
-
-
-def _add(flat_target: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-         keep: torch.Tensor) -> None:
-    """``flat_target[idx] += w`` where ``keep``, in row-major order of the
-    [R, T] arrays (the reference scatters with the rest dropped)."""
-    flat_target.index_add_(0, idx[keep], w[keep])
 
 
 def fused_accumulate(
@@ -160,16 +153,17 @@ def fused_accumulate(
     m_has_ins = is_m & prev_is_i         # M whose forward successor is I
 
     st = state.clamp(0, S - 1).to(torch.int64)
-    _add(pile.counts.view(-1), flat * S + st, weight, plain)
-    _add(pile.ins_mbase.view(-1), flat * S + st, weight, m_has_ins)
+    add = scatter_add_ordered
+    add(pile.counts.view(-1), flat * S + st, weight, plain)
+    add(pile.ins_mbase.view(-1), flat * S + st, weight, m_has_ins)
     # insertion votes attach to the column before the run: at step s that
     # is this step's column (I steps share the M's j)
     # (a run's length is its forward end's offset + 1, voted at bucket
     # length - 1)
     w_i = torch.where(is_i, w_m, 0.0)
     kk = ins_off.clamp(0, K - 1).to(torch.int64)
-    _add(pile.ins_len_votes.view(-1), flat * K + kk, w_i, run_end)
+    add(pile.ins_len_votes.view(-1), flat * K + kk, w_i, run_end)
     ib = qbase.clamp(0, 4).to(torch.int64)
-    _add(pile.ins_base_votes.view(-1), (flat * K + kk) * 5 + ib, w_i,
-         is_i & (ins_off < K))
+    add(pile.ins_base_votes.view(-1), (flat * K + kk) * 5 + ib, w_i,
+        is_i & (ins_off < K))
     return pile

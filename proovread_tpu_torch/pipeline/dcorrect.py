@@ -85,12 +85,15 @@ def device_reverse_rows(x: torch.Tensor, lengths: torch.Tensor
 
 
 def device_admit(lread, pos0, span, score, passed, ref_lens,
-                 params: ConsensusParams) -> torch.Tensor:
+                 params: ConsensusParams,
+                 budget_r: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Binned admission (consensus/alnset.py:admit_mask semantics): per
     (read, bin), candidates ranked by ncscore, admitted while the bin's
     span budget before them is <= bin_max_bases. The span sums are the
     reference's f32 prefix sums in its order (``ops/scan.py``), so past
-    2^24 summed bases they round as the reference's do."""
+    2^24 summed bases they round as the reference's do. ``budget_r`` (f32
+    [B]) caps the budget per read: flex mode's filter_by_coverage
+    (Sam/Seq.pm:1059-1084) expressed in the admission budget."""
     R = lread.shape[0]
     dev = lread.device
     if R == 0:
@@ -129,10 +132,52 @@ def device_admit(lread, pos0, span, score, passed, ref_lens,
     first = torch.searchsorted(sbins, sbins, side="left")
     before = torch.where(first > 0, cum[torch.clamp(first - 1, min=0)], 0.0)
     cum_before = (cum - sspans) - before
-    admit = keep[order] & (cum_before <= float(params.bin_max_bases))
+    if budget_r is None:
+        budget = float(params.bin_max_bases)
+    else:
+        budget = torch.minimum(
+            budget_r[torch.clamp(lr, min=0)],
+            torch.tensor(float(params.bin_max_bases), dtype=f32,
+                         device=dev))[order]
+    admit = keep[order] & (cum_before <= budget)
     out = torch.zeros(R, dtype=torch.bool, device=dev)
     out[order] = admit
     return out
+
+
+def estimate_haplo_coverage(plain_counts, ins_mbase, coverage, ref_codes,
+                            lengths) -> torch.Tensor:
+    """``Sam::Seq::haplo_coverage`` (Sam/Seq.pm:1136-1172) on the pileup
+    tensors: variant columns have >= 2 single-base A/C/G/T states at freq
+    >= 4 and no qualifying non-ATGC or composite (insertion) state; each
+    gives the freq of the state that agrees with the read's own base (0
+    when that base does not qualify). The estimate is the 75th percentile
+    of those (sorted, index ``((n_sel - 1) * 3) // 4``). It stands when
+    (#variant cols / #cols with coverage >= 1.5x estimate) > 0.00015, in
+    f32 as the reference divides. Returns f32 [B], +inf where there is no
+    significant estimate (no tightening)."""
+    B, L, S = plain_counts.shape
+    dev = plain_counts.device
+    base_counts = plain_counts[:, :, :4]
+    valid = (torch.arange(L, device=dev)[None, :]
+             < lengths.to(torch.int64)[:, None])
+    n_qual = (base_counts >= 4.0).sum(-1)
+    # a qualifying N/gap or composite state disqualifies the whole column
+    bad = ((plain_counts[:, :, 4:].amax(-1) >= 4.0)
+           | (ins_mbase.amax(-1) >= 4.0))
+    rc = ref_codes.to(torch.int64).clamp(0, 3)
+    fc = torch.gather(base_counts, 2, rc[:, :, None])[:, :, 0]
+    sel = valid & ~bad & (n_qual >= 2)
+    fc_eff = torch.where((ref_codes < 4) & (fc >= 4.0), fc, 0.0)
+    inf = float("inf")
+    svals = torch.sort(torch.where(sel, fc_eff, inf), dim=1).values
+    n_sel = sel.sum(1)
+    q_idx = torch.where(n_sel > 0, ((n_sel - 1) * 3) // 4, 0)
+    hpl = torch.gather(svals, 1, q_idx[:, None])[:, 0]
+    high = (valid & (coverage >= 1.5 * hpl[:, None])).sum(1)
+    df = n_sel.to(torch.float32) / torch.clamp(high, min=1).to(torch.float32)
+    ok = (n_sel > 0) & (high > 0) & (df > 0.00015)
+    return torch.where(ok, hpl, inf)
 
 
 def device_assemble(call, lengths, Lp: int):
@@ -335,17 +380,20 @@ def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
                 q_codes, rc_codes, q_qual, q_lengths,
                 sread, strand, lread, diag, n_cand: int,
                 m: int, W: int, CH: int, n_chunks: int,
-                ap: AlignParams, cns: ConsensusParams, collect: bool):
+                ap: AlignParams, cns: ConsensusParams, collect: bool,
+                budget_r=None, haplo: bool = False):
     """One full correction pass over ``n_chunks`` chunks of CH candidate
     rows: the reference's unrolled pass for qual-weighted votes, else its
     scanned pass. Chunks that start at or past ``n_cand`` are dead: their
     rows carry the reference's dead-chunk values and are neither aligned
-    nor voted."""
+    nor voted. ``budget_r`` caps the admission budget per read; ``haplo``
+    also returns the flex estimate (``estimate_haplo_coverage``) from the
+    pileup before the ref votes (the last of six outputs, else None)."""
     impl = _fused_pass_unrolled if cns.qual_weighted else _fused_pass_scanned
     return impl(map_codes, ignore_cols, codes, qual, lengths, q_codes,
                 rc_codes, q_qual, q_lengths, sread, strand, lread, diag,
                 n_cand, m=m, W=W, CH=CH, n_chunks=n_chunks, ap=ap, cns=cns,
-                collect=collect)
+                collect=collect, budget_r=budget_r, haplo=haplo)
 
 
 class _PassRows:
@@ -372,11 +420,18 @@ class _PassRows:
         self.ws[sl] = win_start
 
     def finish(self, codes, qual, lengths, pileup, pad, lread, sread, strand,
-               admitted, cns, collect, slabs):
+               admitted, cns, collect, slabs, haplo=False):
         """Consensus over the pileup, and the pass's outputs."""
         Lp = codes.shape[1]
+        hpl = None
         with record_function("consensus"):
             pile = unpack_pileup(pileup, pad, Lp)
+            if haplo:
+                # flex mode: the read's own-haplotype coverage, from the
+                # pileup before the ref votes
+                hpl = estimate_haplo_coverage(
+                    pile.counts - pile.ins_mbase, pile.ins_mbase,
+                    pile.coverage, codes, lengths)
             if cns.use_ref_qual:
                 pos = torch.arange(Lp, device=codes.device)[None, :]
                 lmask = (pos < lengths[:, None]).to(torch.float32)
@@ -386,10 +441,10 @@ class _PassRows:
         n_admitted = admitted.sum()
         n_eligible = (self.passed & (self.span > 0)).sum()
         if not collect:
-            return call, n_admitted, n_eligible, None, None
+            return call, n_admitted, n_eligible, None, None, hpl
         scalars = (lread, self.pos0, self.span, admitted, self.qs, self.qe,
                    self.ws, self.rs, self.re, sread, strand, self.score)
-        return call, n_admitted, n_eligible, scalars, slabs
+        return call, n_admitted, n_eligible, scalars, slabs, hpl
 
 
 def _threshold(ap: AlignParams, res, qlen):
@@ -403,7 +458,7 @@ def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
                         sread, strand, lread, diag, n_cand: int,
                         m: int, W: int, CH: int, n_chunks: int,
                         ap: AlignParams, cns: ConsensusParams,
-                        collect: bool):
+                        collect: bool, budget_r=None, haplo: bool = False):
     """Unweighted votes (the reference's ``_fused_pass_scanned``): bsw v2
     per chunk, admission over the pass, then packed vote words into the
     bit-plane or the packed-word pileup kernel."""
@@ -444,7 +499,7 @@ def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
 
     with record_function("vote"):
         admitted = device_admit(lread, rows.pos0, rows.span, rows.score,
-                                rows.passed, lengths, cns)
+                                rows.passed, lengths, cns, budget_r)
         pileup = torch.zeros((B, Lpile, PACK_LANES), dtype=torch.float32,
                              device=dev)
         use_bits = bits_pileup(cns)
@@ -458,7 +513,7 @@ def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
             else:
                 pileup_accumulate_packed(pileup, w, lread[sl].to(i32), w0p)
     return rows.finish(codes, qual, lengths, pileup, pad, lread, sread,
-                       strand, admitted, cns, collect, slabs)
+                       strand, admitted, cns, collect, slabs, haplo)
 
 
 def _gather_and_align(map_codes, ignore_cols, q_codes, rc_codes, q_qual,
@@ -494,7 +549,7 @@ def _fused_pass_unrolled(map_codes, ignore_cols, codes, qual, lengths,
                          sread, strand, lread, diag, n_cand: int,
                          m: int, W: int, CH: int, n_chunks: int,
                          ap: AlignParams, cns: ConsensusParams,
-                         collect: bool):
+                         collect: bool, budget_r=None, haplo: bool = False):
     """Qual-weighted votes (the reference's ``_fused_pass_unrolled``): per
     chunk gather + bsw v1 (chunk 0 always, later chunks while they hold a
     candidate), admission over the pass, then per live chunk a dense
@@ -530,7 +585,7 @@ def _fused_pass_unrolled(map_codes, ignore_cols, codes, qual, lengths,
 
     with record_function("vote"):
         admitted = device_admit(lread, rows.pos0, rows.span, rows.score,
-                                rows.passed, lengths, cns)
+                                rows.passed, lengths, cns, budget_r)
         pileup = torch.zeros((B, Lpile, PACK_LANES), dtype=torch.float32,
                              device=dev)
         for c, (st, qr, il, qs, qe, q, qq, ign) in enumerate(chunks):
@@ -543,7 +598,7 @@ def _fused_pass_unrolled(map_codes, ignore_cols, codes, qual, lengths,
             pileup_accumulate(pileup, votes, lread[sl].to(i32), w0p)
             del votes
     return rows.finish(codes, qual, lengths, pileup, pad, lread, sread,
-                       strand, admitted, cns, collect, slabs)
+                       strand, admitted, cns, collect, slabs, haplo)
 
 
 def _pad_candidates(sread, strand, lread, diag, R_need: int):
@@ -596,10 +651,14 @@ class DeviceCorrector:
                      ap: AlignParams, cns: ConsensusParams,
                      use_mask_as_ignore: bool = True,
                      seed_stride: int = 8, seed_min_votes: int = 2,
-                     collect_aln: bool = False):
+                     collect_aln: bool = False, budget_r=None,
+                     haplo: bool = False):
         """One correction pass with a chunk count sized from this pass's
         candidate count (``q_qual``, the short reads' phreds, weights the
-        votes of a qual-weighted ``cns``)."""
+        votes of a qual-weighted ``cns``). Returns (call, stats), with
+        ``collect_aln`` (call, stats, AlnData), else with ``haplo`` (call,
+        stats, the flex estimate f32 [B]). ``budget_r`` caps each read's
+        admission budget (flex mode)."""
         B, Lp = codes.shape
         m = q_codes.shape[1]
         W = bsw.band_lanes(ap)
@@ -620,14 +679,16 @@ class DeviceCorrector:
                                                      diag, R_need)
         with obs.span("consense", cat="kernel", n_cand=n_cand,
                       chunks=n_chunks) as sp:
-            call, n_adm, n_elig, scalars, slabs = _fused_pass(
+            call, n_adm, n_elig, scalars, slabs, hpl = _fused_pass(
                 map_codes, ignore_cols, codes, qual, lengths, q_codes,
                 rc_codes, q_qual, q_lengths, sread, strand, lread, diag,
                 n_cand, m=m, W=W, CH=CH, n_chunks=n_chunks, ap=ap, cns=cns,
-                collect=collect_aln)
+                collect=collect_aln, budget_r=budget_r, haplo=haplo)
             sp.fence(call)
         stats = DevicePassStats(n_candidates=n_cand, n_admitted=n_adm,
                                 n_eligible=n_elig)
+        if haplo and not collect_aln:
+            return call, stats, hpl
         if not collect_aln:
             return call, stats
 
@@ -717,7 +778,7 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
                                                      diag, R_need)
         n_valid = int(n_valid)
         n_cand = min(n_valid, R_need)
-        call, n_adm, n_elig, _, _ = _fused_pass(
+        call, n_adm, n_elig, _, _, _ = _fused_pass(
             map_codes, mask_cols, codes, qual, lengths, qc, rcq, qq, qlen,
             sread, strand, lread, diag, n_cand, m=m, W=W, CH=CH,
             n_chunks=n_chunks, ap=ap, cns=cns, collect=False)

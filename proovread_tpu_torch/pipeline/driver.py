@@ -9,7 +9,13 @@ reads with chimera detection, and finally ``trim_records``. Two engines:
   pass 1 eagerly (its candidate count sizes the later passes' candidate
   cap); passes 2..N in ``fused_iterations`` with the on-device mask
   shortcut, or eagerly a pass at a time where a per-iteration
-  ``align_schedule`` asks for it; the finish pass. Every bucket runs under
+  ``align_schedule`` asks for it; the finish pass. Flex mode
+  (``haplo_coverage``, the ``proovread-flex`` role) runs every pass
+  eagerly, twice: uncapped for the read's own-haplotype coverage estimate
+  (``dcorrect.estimate_haplo_coverage``), then with each read's admission
+  budget cut to the running minimum of the estimates (and to
+  ``haplo_coverage`` itself when it is positive); the finish refreshes the
+  estimate the same way. Every bucket runs under
   the resilience ladder (``pipeline/resilience.py``): a device fault
   retries it at the next-cheaper rung, ``fused`` -> ``eager`` ->
   ``chunk-halved`` -> ``host-scan``, each demotion reported.
@@ -25,8 +31,8 @@ fires at the device engine's bucket entry, each pass and the fused span.
 
 Supported: ``mode="sr"`` and ``mode="mr"`` (the mr task schedule:
 ``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N, ``BWA_MR_FINISH`` for
-the finish), one device, flex off and the short-read set resident, at any
-coverage (past ``2*max_coverage+2 > 256`` votes per lane the passes take
+the finish), flex on or off, one device and the short-read set resident,
+at any coverage (past ``2*max_coverage+2 > 256`` votes per lane the passes take
 the f32 packed-word pileup kernel). Every other setting raises
 ``NotImplementedError`` naming it.
 
@@ -318,8 +324,6 @@ def _unsupported(cfg: PipelineConfig) -> Optional[str]:
         (cfg.engine not in ("device", "scan"), f"engine={cfg.engine!r}"),
         (cfg.mode not in ("sr", "mr"), f"mode={cfg.mode!r}"),
         ((cfg.mesh_shards or 0) > 1, f"mesh_shards={cfg.mesh_shards}"),
-        (cfg.haplo_coverage is not None,
-         f"haplo_coverage={cfg.haplo_coverage}"),
         (bool(cfg.debug_dir), "debug_dir"),
     )
     for bad, name in checks:
@@ -581,9 +585,10 @@ class Pipeline:
         levels = list(LADDER) if cfg.ladder else [LADDER[0]]
         if cfg.ladder:
             # drop rungs that would re-run an identical regime: with a
-            # per-iteration schedule the top rung already runs the eager
-            # loop; at device_chunk 128 the halved chunk clamps back to it
-            if not _uniform_rest(cfg):
+            # per-iteration schedule or in flex mode the top rung already
+            # runs the eager loop; at device_chunk 128 the halved chunk
+            # clamps back to it
+            if not _uniform_rest(cfg) or cfg.haplo_coverage is not None:
                 levels = [lv for lv in levels if lv.name != "fused"]
             levels = [lv for lv in levels
                       if (lv.host or lv.chunk_div == 1
@@ -648,7 +653,7 @@ class Pipeline:
                           level=None):
         """The device engine on one bucket at a ladder rung (``level``,
         default the top 'fused' one): pass 1 eager, passes 2..N fused or
-        eager, the finish pass."""
+        eager (all eager in flex mode), the finish pass."""
         from proovread_tpu_torch.pipeline.dcorrect import (
             qc_finish_support, qc_pass_row_stats, qc_row_mask_counts)
         cfg = self.config
@@ -691,18 +696,28 @@ class Pipeline:
         cns = iteration_consensus_params(cfg, coverage)
         task = f"bwa-{cfg.mode[:2]}"
 
-        def eager_pass(it, codes, qual, lengths, mask_cols, **span_args):
+        def eager_pass(it, codes, qual, lengths, mask_cols, budget_of=None,
+                       **span_args):
             """One iteration pass through ``correct_pass``, its report and
-            QC rows. Returns the new read state, masked fraction and the
-            pass's candidate count."""
+            QC rows. In flex mode (``budget_of``, from the pass's estimate
+            to its admission budget) the pass runs twice on the
+            same sample: uncapped for the estimate, whose consensus is
+            dropped, then under the budget. Returns the new read state,
+            masked fraction and the pass's candidate count."""
             with obs.span(f"{task}-{it}", cat="pass", bucket=gi,
                           **span_args):
                 inj(it)
                 qc, rcq, qq, qlen = sr_dev.take(select(cfg.sr_coverage))
+                ap_i = _align_params_cfg(cfg, it)
+                budget = None
+                if budget_of is not None:
+                    _, _, hpl = dc.correct_pass(
+                        codes, qual, lengths, mask_cols, qc, rcq, qq, qlen,
+                        ap_i, cns, seed_stride=cfg.seed_stride, haplo=True)
+                    budget = budget_of(hpl)
                 call, stats = dc.correct_pass(
                     codes, qual, lengths, mask_cols, qc, rcq, qq, qlen,
-                    _align_params_cfg(cfg, it), cns,
-                    seed_stride=cfg.seed_stride)
+                    ap_i, cns, seed_stride=cfg.seed_stride, budget_r=budget)
                 if qc_on:
                     ed, up = qc_pass_row_stats(call, codes, qual, lengths)
                 codes, qual, lengths = device_assemble(call, lengths, Lp)
@@ -724,14 +739,49 @@ class Pipeline:
             return (new_frac > cfg.mask_shortcut_frac
                     or new_frac - prev_frac < cfg.mask_min_gain_frac)
 
-        # -- pass 1: eager; its candidate count sizes the later passes' cap
-        codes, qual, lengths, mask_cols, new_frac, n_cand_seen = eager_pass(
-            1, codes, qual, lengths, None)
-        first_fused = 2
-        if stop(new_frac, masked_frac):
-            shortcut()
-            first_fused = cfg.n_iterations + 1
-        masked_frac = new_frac
+        flex_budget = None
+        if cfg.haplo_coverage is not None:
+            # -- flex mode (proovread-flex): every pass eager, each pass's
+            # estimate tightening its own admission budget, as a running
+            # minimum over the passes (once masking hides the variant
+            # columns the estimate degenerates to +inf, but the early one
+            # still applies), under an explicit cutoff when one is given
+            if cfg.haplo_coverage > 0:
+                flex_budget = torch.full(
+                    (codes.shape[0],), cfg.haplo_coverage * cns.bin_size,
+                    dtype=torch.float32, device=dev)
+            fixed = flex_budget
+
+            def budget_of(hpl):
+                nonlocal flex_budget
+                new_b = hpl * cns.bin_size
+                flex_budget = (new_b if flex_budget is None
+                               else torch.minimum(flex_budget, new_b))
+                if fixed is not None:
+                    flex_budget = torch.minimum(flex_budget, fixed)
+                return flex_budget
+
+            mask_cols = None
+            for it in range(1, cfg.n_iterations + 1):
+                codes, qual, lengths, mask_cols, new_frac, _ = eager_pass(
+                    it, codes, qual, lengths, mask_cols,
+                    budget_of=budget_of, flex=True)
+                done = stop(new_frac, masked_frac)
+                masked_frac = new_frac
+                if done:
+                    shortcut()
+                    break
+            first_fused = cfg.n_iterations + 1       # no fused passes
+        else:
+            # -- pass 1: eager; its candidate count sizes the later
+            # passes' cap
+            codes, qual, lengths, mask_cols, new_frac, n_cand_seen = \
+                eager_pass(1, codes, qual, lengths, None)
+            first_fused = 2
+            if stop(new_frac, masked_frac):
+                shortcut()
+                first_fused = cfg.n_iterations + 1
+            masked_frac = new_frac
 
         # -- passes 2..N eagerly: a per-iteration schedule (the fused loop
         # bakes in one parameter set) and the ladder's demoted rungs
@@ -809,9 +859,19 @@ class Pipeline:
             ap = _align_params_cfg(cfg, None)
             cns = finish_consensus_params(cfg, coverage)
             qc, rcq, qq, qlen = sr_dev.take(select(cfg.finish_coverage))
+            if cfg.haplo_coverage is not None:
+                # the finish maps the unmasked reads, so its own estimate
+                # holds again: refresh the running-minimum budget first
+                _, _, hpl = dc.correct_pass(
+                    codes, qual, lengths, None, qc, rcq, qq, qlen, ap, cns,
+                    seed_stride=cfg.seed_stride, haplo=True)
+                new_b = hpl * cns.bin_size
+                flex_budget = (new_b if flex_budget is None
+                               else torch.minimum(flex_budget, new_b))
             call, stats, aln = dc.correct_pass(
                 codes, qual, lengths, None, qc, rcq, qq, qlen, ap, cns,
-                seed_stride=cfg.seed_stride, collect_aln=True)
+                seed_stride=cfg.seed_stride, collect_aln=True,
+                budget_r=flex_budget)
             with obs.span("finish-fetch", cat="kernel"):
                 new_codes, new_qual, new_len = device_assemble(call, lengths,
                                                                Lp)

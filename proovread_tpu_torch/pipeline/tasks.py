@@ -1,16 +1,18 @@
 """Config-driven task orchestration — the role of ``bin/proovread``'s task
 state machine (``:705-900``) above the device pipeline.
 
-Port of ``proovread_tpu/pipeline/tasks.py:run_tasks`` for the modes that
-run the iterated short-read correction: ``sr``, ``mr``, ``sr-noccs`` and
-``mr-noccs``. ``read-long``, the ``bwa-{sr,mr}-N`` + finish passes
-(delegated to :class:`Pipeline`) and the final trim + siamaera output stage
-(``:904-956``) run as in the reference. A task the port does not run yet
-raises ``NotImplementedError`` naming it: ``ccs-1`` on a PacBio subread
-set, ``utg``, ``read-sam`` / ``read-bam`` and the legacy ``shrimp-*``
-schedule. Siamaera runs under its ``siamaera`` span, and the aggregate QC
-report is embedded again after it (``_embed_qc``), since its hits and the
-trim funnel land after ``Pipeline.run`` aggregated.
+Port of ``proovread_tpu/pipeline/tasks.py:run_tasks``: ``read-long``, the
+optional ``ccs-1`` subread pre-consensus (``:871-895``,
+``pipeline/ccs.py``), the optional ``utg`` unitig pass
+(``pipeline/utg.py``), the iterated ``bwa-{sr,mr}-N`` + finish passes
+(delegated to :class:`Pipeline`, flex mode with ``haplo_coverage``), the
+utg-only output, and the final trim + siamaera output stage
+(``:904-956``). The external-mapping re-entry modes (``read-sam`` /
+``read-bam``) and the legacy ``shrimp-*`` schedule raise
+``NotImplementedError`` naming the task. Siamaera runs under its
+``siamaera`` span, and the aggregate QC report is embedded again after it
+(``_embed_qc``), since its hits and the trim funnel land after
+``Pipeline.run`` aggregated.
 """
 
 from __future__ import annotations
@@ -24,18 +26,18 @@ from proovread_tpu_torch import obs
 from proovread_tpu_torch.align.params import from_bwa_flags
 from proovread_tpu_torch.config import Config
 from proovread_tpu_torch.io.records import SeqRecord
-from proovread_tpu_torch.pipeline.ccs import is_subread_set
+from proovread_tpu_torch.pipeline.ccs import ccs_correct, is_subread_set
 from proovread_tpu_torch.pipeline.driver import (Pipeline, PipelineConfig,
-                                                 PipelineResult)
+                                                 PipelineResult, TaskReport,
+                                                 _declare_metrics)
 from proovread_tpu_torch.pipeline.masking import MaskParams
-from proovread_tpu_torch.pipeline.trim import TrimParams
+from proovread_tpu_torch.pipeline.trim import TrimParams, trim_window
 
 log = logging.getLogger("proovread_tpu_torch")
 
 
 def _unported_task(task: str) -> bool:
-    return (task in ("utg", "read-sam", "read-bam") or task.endswith("-utg")
-            or task.startswith("shrimp-"))
+    return task in ("read-sam", "read-bam") or task.startswith("shrimp-")
 
 
 def _trim_params(cfg: Config) -> TrimParams:
@@ -70,7 +72,7 @@ def _align_schedule(cfg: Config, base: str):
 
 
 def _pipeline_config(cfg: Config, mode: str, tasks: Sequence[str],
-                     coverage, lr_min_length, sampling,
+                     coverage, lr_min_length, sampling, haplo=None,
                      device: str = "cuda") -> PipelineConfig:
     base = "mr" if mode.startswith("mr") else "sr"
     n_iter = sum(1 for t in tasks
@@ -95,6 +97,7 @@ def _pipeline_config(cfg: Config, mode: str, tasks: Sequence[str],
         sr_chunk_step=int(cfg.get("sr-chunk-step")),
         sr_trim=bool(int(cfg.get("sr-trim"))),
         align_schedule=_align_schedule(cfg, base),
+        haplo_coverage=haplo,
         trim=_trim_params(cfg),
         indel_taboo_length=int(cfg.get("sr-indel-taboo-length")),
         coverage_scale=float(cfg.get("coverage-scale-factor")),
@@ -153,18 +156,21 @@ def run_tasks(
     tasks: Sequence[str],
     longs: List[SeqRecord],
     shorts: List[SeqRecord],
+    utgs: Optional[List[SeqRecord]] = None,
     coverage: Optional[float] = None,
     lr_min_length: Optional[int] = None,
     sampling: bool = True,
+    haplo_coverage: Optional[float] = None,
     device: str = "cuda",
 ) -> PipelineResult:
-    """Run ``tasks`` of ``mode``; the passes and siamaera run on
-    ``device``."""
+    """Run ``tasks`` of ``mode``; ``ccs-1``, ``utg``, the passes and
+    siamaera run on ``device``."""
     for t in tasks:
         if _unported_task(t):
             raise NotImplementedError(
                 f"task {t!r} (mode {mode!r}) is not supported by the PyTorch "
                 "port yet")
+    reports: List[TaskReport] = []
 
     # -- read-long: input normalization for every mode
     # (bin/proovread:1368-1520; min_sr fallback 200 for utg-only modes,
@@ -180,10 +186,34 @@ def run_tasks(
             log.info("ccs-1: ids are not PacBio subreads, skipping "
                      "(-noccs fallback, bin/proovread:1512-1517)")
         else:
-            raise NotImplementedError(
-                "task 'ccs-1' (subread consensus of PacBio subread ids) is "
-                "not supported by the PyTorch port yet; use mode "
-                f"'{mode.split('-')[0]}-noccs'")
+            t0 = time.monotonic()
+            ccs_cfg = cfg.get("ccs") or {}
+            with obs.span("ccs-1", cat="task"):
+                longs, st = ccs_correct(
+                    longs,
+                    min_subreads=int(ccs_cfg.get("--min-subreads", 2)),
+                    window=int(ccs_cfg.get("--window", 512)),
+                    overlap=int(ccs_cfg.get("--overlap", 64)),
+                    batch_refs=int(ccs_cfg.get("--batch-refs", 256)),
+                    device=device)
+            reports.append(TaskReport("ccs-1", 0.0, 0, st.primary))
+            log.info("ccs-1: %d primary, %d single, %d secondary dropped "
+                     "(%.1fs)", st.primary, st.single, st.secondary,
+                     time.monotonic() - t0)
+
+    # -- utg pass ---------------------------------------------------------
+    utg_corrected = False
+    if any(t == "utg" or t.endswith("-utg") for t in tasks):
+        if not utgs:
+            raise ValueError(f"mode {mode!r} needs -u/--unitigs input")
+        from proovread_tpu_torch.pipeline.utg import utg_correct
+        t0 = time.monotonic()
+        with obs.span("utg", cat="task"):
+            longs, utg_rep = utg_correct(cfg, longs, utgs, device=device)
+        reports.append(utg_rep)
+        log.info("utg: masked %.1f%% (%.1fs)", utg_rep.masked_frac * 100,
+                 time.monotonic() - t0)
+        utg_corrected = True
 
     # -- iterated short-read correction ----------------------------------
     base = "mr" if mode.startswith("mr") else "sr"
@@ -191,11 +221,33 @@ def run_tasks(
         if not shorts:
             raise ValueError(f"mode {mode!r} needs -s/--short-reads input")
         pc = _pipeline_config(cfg, mode, tasks, coverage, lr_min_length,
-                              sampling, device=device)
+                              sampling, haplo=haplo_coverage, device=device)
         result = Pipeline(pc).run(longs, shorts)
+        result.reports = reports + result.reports
         result.ignored = ignored0 + result.ignored
         _apply_siamaera(cfg, result, device)
         _embed_qc(result)
+        return result
+
+    if utg_corrected:
+        # utg-only mode: the corrected reads come straight from the utg
+        # pass; the trimmed output gets the quality-window + min-length
+        # trim of every other mode (bin/proovread:923-933)
+        with obs.metrics.scope() as reg:
+            _declare_metrics(reg)
+            trim = _trim_params(cfg)
+            trimmed = [t for r in longs
+                       if (t := trim_window(r, trim)) is not None]
+            obs.metrics.counter("reads_processed", unit="reads").inc(
+                len(longs))
+            obs.metrics.counter("bases_processed", unit="bases").inc(
+                sum(len(r) for r in longs))
+            result = PipelineResult(
+                untrimmed=longs, trimmed=trimmed,
+                ignored=ignored0, chimera=[], reports=reports)
+            _apply_siamaera(cfg, result, device)
+            _embed_qc(result)
+            result.metrics = reg.as_dict()
         return result
 
     raise ValueError(f"mode {mode!r}: no runnable tasks in {tasks}")

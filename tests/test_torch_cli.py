@@ -15,6 +15,8 @@ from): ``qc.jsonl`` byte-identical, ``metrics.json`` equal but for the
 values of ``bucket_seconds`` (timings) and the ``jax_retraces`` series (0
 in the port). A port-only ``--trace`` run passes the JAX package's trace,
 QC and metrics validators, with each QC ``bucket_span`` in the trace.
+``tests/test_torch_cli_modes.py`` holds the same for the modes of
+``ccs-1``, ``-u`` and ``--haplo-coverage``.
 Port-only runs hold the journal: the default command writes what
 ``--no-checkpoint`` writes; a run killed by ``PROOVREAD_FAULT`` under
 ``--no-ladder`` and then ``--resume``d writes the uninterrupted run's bytes,
@@ -22,8 +24,7 @@ Port-only runs hold the journal: the default command writes what
 The two runs are subprocesses at the lowest CPU priority: the
 reference's side runs its kernels in interpret mode for a minute or more
 and shares the machine with the suite's other workers. Also: every flag
-the port does not run returns 2 naming itself, and PacBio subread ids in
-``sr`` mode raise naming ``ccs-1``."""
+the port does not run returns 2 naming itself."""
 
 import json
 import os
@@ -198,8 +199,8 @@ def test_cli_trace_qc_and_metrics_pass_the_validators(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["serve"], ["-u", "utg.fa"], ["--sam", "x.sam"], ["--bam", "x.bam"],
-    ["--haplo-coverage"], ["--mesh-shards", "2"],
+    ["serve"], ["--sam", "x.sam"], ["--bam", "x.bam"],
+    ["--mesh-shards", "2"],
     ["--mesh-pass-timeout", "5"],
     ["--compile-ledger", "c.jsonl"], ["--compile-cache"],
     ["--xprof", "xp"], ["--debug"]], ids=lambda f: f[0])
@@ -323,11 +324,3 @@ def _jax_template(tmp_path):
     p = str(tmp_path / "j.cfg")
     Config.create_template(p)
     return open(p).read()
-
-
-def test_subreads_in_sr_mode_name_ccs(tmp_path):
-    ids = [f"m140_1/{h}/0_900" for h in range(5)]
-    lp, sp = _inputs(tmp_path, 100, 40, ids=ids)
-    with pytest.raises(NotImplementedError, match="ccs-1"):
-        tmain(["-l", lp, "-s", sp, "-p", str(tmp_path / "res"),
-               "--no-checkpoint", "--device", "cpu", "-q"])

@@ -546,6 +546,25 @@ elif which.startswith("lcs"):
     want = acc.lcs_lengths_plain(*args)
     same([got], [want])
     assert int(want[0]) == 0 and int(want[1]) == 0 and int(want[2]) > 40
+elif which == "scatter":
+    # fractional weights onto a few hot cells (segments up to ~100 long,
+    # crossing the blocks' edges), a keep mask, indices past the target,
+    # a non-zero target; then an empty keep (no launch)
+    from proovread_tpu_torch.ops import scatter as sc
+    N, M = 300, 3000
+    hot = rng.integers(0, N, 40)
+    idx = np.where(rng.random(M) < 0.8, rng.choice(hot, M),
+                   rng.integers(0, N + 5, M)).astype(np.int64)
+    w = (rng.random(M) * rng.choice([0.01, 1.0, 37.0], M)).astype(np.float32)
+    keep = rng.random(M) < 0.7
+    base = (rng.random(N) * 3).astype(np.float32)
+    args = (t(idx), t(w), t(keep))
+    n0 = sc.scatter_add_ordered.launches
+    got = sc._scatter_cuda(t(base.copy()), *args)
+    same([got], [sc.scatter_add_ordered_plain(t(base.copy()), *args)])
+    assert sc.scatter_add_ordered.launches == n0 + 1
+    none = t(np.zeros(M, bool))
+    same([sc._scatter_cuda(t(base.copy()), t(idx), t(w), none)], [t(base)])
 print("EMU-OK", which)
 """
 
@@ -575,7 +594,8 @@ def emu_lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_EMU)
     (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
     srcs = []
-    for name in ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu"):
+    for name in ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu",
+                 "scatter.cu"):
         out = d / (Path(name).stem + ".cpp")
         out.write_text(_emulation_source((CSRC / name).read_text()))
         srcs.append(str(out))
@@ -595,7 +615,8 @@ def emu_lib(tmp_path_factory):
                                    "pileup_packed", "pileup_packed_clustered",
                                    "pileup_dense", "pileup_dense_clustered",
                                    "assemble", "assemble_long", "hcr",
-                                   "hcr_long", "sw", "lcs", "lcs_global"])
+                                   "hcr_long", "sw", "lcs", "lcs_global",
+                                   "scatter"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

@@ -541,3 +541,110 @@ def test_scan_engine_same_on_card_and_cpu(cuda, fault):
     assert sum(r.n_admitted for r in card.reports) > 0
     demos = [r for r in card.reports if r.task.startswith("demote")]
     assert len(demos) == (0 if fault is None else 6)
+
+
+@pytest.mark.parametrize("M,N", [(1, 7), (5000, 97), (300_000, 4096)])
+def test_scatter_kernel_matches_plain_and_cpu(cuda, M, N):
+    """The ordered scatter on fractional weights onto few hot cells
+    (segments of hundreds), indices past the target, twice: the kernel ==
+    its plain version on the card == ``index_add_`` on the CPU, bitwise."""
+    from proovread_tpu_torch.ops import scatter as sc
+    rng = np.random.default_rng(M)
+    hot = rng.integers(0, N, max(1, N // 8))
+    idx = np.where(rng.random(M) < 0.9, rng.choice(hot, M),
+                   rng.integers(0, N + 3, M)).astype(np.int64)
+    w = (rng.random(M) * rng.choice([0.01, 0.83, 37.0], M)).astype(
+        np.float32)
+    keep = rng.random(M) < 0.7
+    base = (rng.random(N) * 3).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    launches = sc.scatter_add_ordered.launches
+    got = sc.scatter_add_ordered(t(base), t(idx), t(w), t(keep))
+    again = sc.scatter_add_ordered(t(base), t(idx), t(w), t(keep))
+    assert sc.scatter_add_ordered.launches == launches + 2 * (keep.any())
+    want = sc.scatter_add_ordered_plain(t(base), t(idx), t(w), t(keep))
+    live = keep & (idx < N)
+    cpu = torch.as_tensor(base).index_add_(0, torch.as_tensor(idx[live]),
+                                           torch.as_tensor(w[live]))
+    assert _equal([got, again, got], [want, want, cpu])
+
+
+def test_accumulate_and_engine_same_on_card_and_cpu(cuda):
+    """``ops/pileup.py:accumulate`` through the scatter kernel, and a
+    qual-weighted ``ConsensusEngine.consensus_batch`` with ignore coords
+    and ref-qual votes: the card's tensors and results equal the CPU's."""
+    from proovread_tpu_torch.consensus.alnset import Alignment, AlnSet
+    from proovread_tpu_torch.consensus.engine import ConsensusEngine
+    from proovread_tpu_torch.consensus.params import ConsensusParams
+    from proovread_tpu_torch.io.batch import pack_reads
+    from proovread_tpu_torch.io.records import SeqRecord
+    rng = np.random.default_rng(9)
+    refs = [SeqRecord(f"r{i}", "".join("ACGT"[c] for c in rng.integers(
+        0, 4, 900)), qual=rng.integers(0, 30, 900).astype(np.uint8))
+        for i in range(3)]
+    cns = ConsensusParams(qual_weighted=True, use_ref_qual=True)
+
+    def sets():
+        out = []
+        r2 = np.random.default_rng(10)
+        for rec in refs:
+            alns = []
+            for k in range(120):
+                n = int(r2.integers(60, 140))
+                pos = int(r2.integers(0, 900 - n))
+                cig = f"{n // 2}M{int(r2.integers(1, 4))}I{n - n // 2}M"
+                ql = n + int(cig.split("M")[1].split("I")[0])
+                alns.append(Alignment.from_cigar_str(
+                    f"q{k}", pos, r2.integers(0, 4, ql), cig,
+                    qual=r2.integers(5, 41, ql).astype(np.uint8),
+                    score=float(r2.integers(50, 400))))
+            out.append(AlnSet(rec.id, len(rec), alns, params=cns))
+        return out
+    ign = [[(100, 40)], [], [(850, 80)]]
+    res = {d: ConsensusEngine(cns, cell_budget=1 << 15,
+                              device=d).consensus_batch(
+        pack_reads(refs), sets(), ignore_coords=ign)
+        for d in ("cuda", "cpu")}
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert (a.record.seq, a.cigar) == (b.record.seq, b.cigar)
+        assert a.record.qual.tobytes() == b.record.qual.tobytes()
+        assert a.freqs.tobytes() == b.freqs.tobytes()
+        assert a.coverage.tobytes() == b.coverage.tobytes()
+
+
+def test_ccs_and_flex_same_on_card_and_cpu(cuda):
+    """``ccs_correct`` (qual-weighted scan-engine votes through the
+    scatter kernel) and ``Pipeline.run`` in flex mode: the card's records
+    equal the CPU's."""
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.ops.encode import decode_codes, revcomp_codes
+    from proovread_tpu_torch.ops import scatter as sc
+    from proovread_tpu_torch.pipeline.ccs import ccs_correct
+    from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
+    rng = np.random.default_rng(12)
+    subs = []
+    for hole in range(4):
+        mol = rng.integers(0, 4, 700).astype(np.int8)
+        for k in range(3):
+            src = mol if k % 2 == 0 else revcomp_codes(mol)
+            keep = rng.random(len(src)) > 0.05
+            noisy = np.where(rng.random(len(src)) < 0.05, (src + 1) % 4,
+                             src)[keep].astype(np.int8)
+            subs.append(SeqRecord(f"m1_2/{hole}/{k * 800}_{k * 800 + 700}",
+                                  decode_codes(noisy),
+                                  qual=np.full(len(noisy), 9, np.uint8)))
+    launches = sc.scatter_add_ordered.launches
+    card, st = ccs_correct(subs, window=128, overlap=32, device="cuda")
+    assert sc.scatter_add_ordered.launches > launches
+    cpu, st_cpu = ccs_correct(subs, window=128, overlap=32, device="cpu")
+    assert vars(st) == vars(st_cpu) and st.primary == 4
+    assert [(r.id, r.seq, r.qual.tobytes()) for r in card] == \
+        [(r.id, r.seq, r.qual.tobytes()) for r in cpu]
+    longs, srs = _scan_dataset(5)
+    kw = dict(n_iterations=2, sampling=False, batch_reads=8,
+              device_chunk=256, haplo_coverage=-1.0)
+    flex = {d: Pipeline(PipelineConfig(device=d, **kw)).run(longs, srs)
+            for d in ("cuda", "cpu")}
+    assert [(r.id, r.seq, r.qual.tobytes()) for r in flex["cuda"].untrimmed] \
+        == [(r.id, r.seq, r.qual.tobytes()) for r in flex["cpu"].untrimmed]
+    assert flex["cuda"].reports == flex["cpu"].reports

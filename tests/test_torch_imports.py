@@ -2,7 +2,7 @@
 asked for without a card raises, unsupported settings raise
 ``NotImplementedError`` naming the setting, and the resilience settings
 (the journal, resume, a bucket timeout, fault injection, the scan engine)
-run."""
+and flex mode (``haplo_coverage`` bare and explicit) run."""
 
 import ast
 import os
@@ -53,7 +53,12 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.testing.faults, "
             "proovread_tpu_torch.pipeline.resilience, "
             "proovread_tpu_torch.pipeline.correct, "
-            "proovread_tpu_torch.ops.fused\n"
+            "proovread_tpu_torch.ops.fused, proovread_tpu_torch.ops.scatter, "
+            "proovread_tpu_torch.ops.pileup, "
+            "proovread_tpu_torch.consensus.engine, "
+            "proovread_tpu_torch.pipeline.ccs, "
+            "proovread_tpu_torch.pipeline.utg, "
+            "proovread_tpu_torch.pipeline.tasks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")
@@ -88,7 +93,6 @@ def test_cuda_without_card_raises():
     ("engine", dict(engine="host")),
     ("mode", dict(mode="utg")),
     ("mesh_shards", dict(mesh_shards=2)),
-    ("haplo_coverage", dict(haplo_coverage=0.0)),
     ("debug_dir", dict(debug_dir="dbg")),
     ("sr_device_budget", dict(sr_device_budget=10)),
 ])
@@ -102,12 +106,13 @@ def test_unsupported_settings_raise(setting, kw):
 @pytest.mark.parametrize("kw", [
     dict(engine="scan"), dict(checkpoint_dir="ckpt"),
     dict(checkpoint_dir="ckpt", resume=True), dict(bucket_timeout=600.0),
-    dict(fault_spec="oom@b9"), dict(ladder=False, fault_spec="")],
+    dict(fault_spec="oom@b9"), dict(ladder=False, fault_spec=""),
+    dict(haplo_coverage=-1.0), dict(haplo_coverage=12.0)],
     ids=["scan", "checkpoint_dir", "resume", "bucket_timeout", "fault",
-         "no_ladder"])
+         "no_ladder", "flex", "flex_cutoff"])
 def test_resilience_settings_run(tmp_path, kw):
-    """The resilience settings and the scan engine run on the CPU and
-    correct the read, with no demotion."""
+    """The resilience settings, the scan engine and flex mode run on the
+    CPU and correct the read, with no demotion."""
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
     if "checkpoint_dir" in kw:
         kw = {**kw, "checkpoint_dir": str(tmp_path / kw["checkpoint_dir"])}
