@@ -4,8 +4,10 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero:
 
-1. setup: the card's name and power limit, torch/CUDA versions, and the
-   kernel build from ``proovread_tpu_torch/csrc`` (seconds printed);
+1. setup: the card's name and power limit, torch/CUDA versions, the
+   kernel build from ``proovread_tpu_torch/csrc`` (seconds printed), the
+   registers, shared memory and spills ptxas reports for the kernels of
+   ``sw.cu`` and ``scatter.cu``, and the f32 rate of the bounds;
 2. every kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (bsw v2 and v1 at W=96 and W=64,
    R=8192, m=112; the three pileups at B=256, Lp=24576, R=8192, n=208;
@@ -27,15 +29,20 @@ any failure exits non-zero:
    n=384: half a read's window against its reverse complement, half chance
    seeds) and at the scan engine's sr chunk (R=4096, m=128, n=256, 100 bp
    queries, BWA_SR) and at the ccs/utg chunk (R=4096, m=512, n=640,
-   512-base windows, CCS_ALIGN), the accuracy scoreboard's LCS kernel on
+   512-base windows, CCS_ALIGN), and on a real ``utg`` chunk (the first
+   2048 candidates ``utg_correct`` sends the kernel on phase 12's genome
+   and unitigs: windows aligned end to end), the accuracy scoreboard's LCS kernel on
    646 (read, truth) pairs at the E.coli-class spread (truths up to 45,000
    bases) with the edge cases (empty read or truth, truths of 64, 2048 and
    4096 bases, a read past its truth, N codes), and the ordered vote
    scatter (``csrc/scatter.cu``) on 16 M random fractional weights with
-   heavy duplication onto a 256 x 24576 x 6 target and on the four
-   scatters of one real ``ccs-1`` chunk (phase 11's subreads at 400 kb of
-   molecules), each twice, also equal to ``index_add_`` of the kept
-   entries in index order on CPU copies. Launcher, plain
+   heavy duplication onto a 256 x 24576 x 6 target, on 4 M with segments
+   of 1,000 and more, and on the four scatters of one real ``ccs-1``
+   chunk (phase 11's subreads at 400 kb of molecules) and of the real
+   ``utg`` chunk's first ``accumulate``, each twice, also equal to
+   ``index_add_`` of the kept entries in index order on CPU copies, with
+   their segment lengths (and the public call's sort alone timed
+   beside). Launcher, plain
    and library times (median of CUDA-event timings after a warm-up), the
    kernels' own device time and the device operations of one launcher
    call (torch.profiler), and each kernel's bound from its bytes and
@@ -129,8 +136,9 @@ any failure exits non-zero:
    and 15-30 kb unitigs tiling the genome at ~1.2x with 0.1%
    substitutions (``unitig_workload``), ``cli.main -u`` (mode
    sr+utg-noccs), scored: phase 7's numbers plus the ``utg`` seconds split
-   into host seeding, sw, the scatter and the consensus call, and its
-   TaskReport;
+   into host seeding, sw, the scatter and the consensus call, each sw
+   launch's device time and its C call's host time (least, median,
+   largest; so in phase 11), and its TaskReport;
 13. flex at E.coli class: two haplotypes (A = B with a SNP every 200
    bases), 5 Mb of CLR reads half from each, 8x of A's and 30x of B's
    short reads, ``cli.main --haplo-coverage`` (mode sr-noccs), scored:
@@ -177,6 +185,7 @@ CPU at a small size.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import logging
 import os
@@ -192,8 +201,13 @@ import numpy as np
 # INT32 rate is the Hopper white paper's 64 INT32 lanes an SM x 132 SMs at
 # the 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 PEAK_INT32_OPS_PER_S = 16.7e12
+# f32 lanes an SM a clock for one add, max or compare. No bound here counts
+# a fused multiply-add (the data sheet's 67 TFLOP/s counts one as two): the
+# bsw and sw DPs are built with -fmad=false, and the pileups and the
+# scatter add. The f32 rate of every bound is this x the card's SMs x its
+# maximum SM clock (f32_ops_per_s)
+F32_LANES_PER_SM_CLOCK = 128
 # free card memory phase 1 waits for: about twice the most that a phase
 # holds (PERF.md, section 5)
 NEED_FREE_GIB = 8.0
@@ -209,6 +223,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+_F32_RATE = []
+
+
+def f32_ops_per_s() -> float:
+    """The bounds' f32 rate: ``F32_LANES_PER_SM_CLOCK`` x SMs x the
+    maximum SM clock (33.45 x 10^12/s on an H100 SXM at 1,980 MHz)."""
+    import torch
+    if not _F32_RATE:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _F32_RATE.append(F32_LANES_PER_SM_CLOCK * sms * max_sm_clock_hz())
+    return _F32_RATE[0]
 
 
 def card_memory() -> str:
@@ -337,15 +373,18 @@ KERNEL_NAMES = {
     "ordered": ("pileup_ordered_kernel",),
     "assemble": ("assemble_count_kernel", "assemble_tiles_kernel"),
     "hcr": ("hcr_scan_kernel",),
-    "sw": ("sw_kernel",),
+    "sw": ("sw_dp_kernel", "sw_walk_kernel"),
     "lcs": ("lcs_kernel",),
     "scatter": ("scatter_ordered_kernel",),
 }
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float | None = None):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over ``ops_per_s`` (default: the f32
+    rate, ``f32_ops_per_s``)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    t_ops = n_ops / (ops_per_s or f32_ops_per_s()) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -471,8 +510,8 @@ def check_bsw(rng, dev, ap, label, m=112, ql=100):
     # substitution score (compare, select, add to the diagonal), the
     # insertion and deletion gaps (two subtracts, a max and the direction
     # compare each), H (three maxima) and its two source compares. None of
-    # them is an FMA, and the peak counts an FMA as two, so the bound is
-    # optimistic by up to 2x. Only rows up to each query's length are needed.
+    # them is an FMA, so they run at the unfused rate (f32_ops_per_s). Only
+    # rows up to each query's length are needed.
     ops_per_cell = 16
     b_ms, b_by = bound(n_bytes, dp_rows(args[3], m) * W * ops_per_cell)
     return dict(max_abs_err=max_abs_err(
@@ -617,17 +656,22 @@ def sw_inputs(rng, R=2048, m=256, n=384, band=40, qmax=None):
     return q, r, ql
 
 
-def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None):
+def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None,
+             chunk=None):
     """The Smith-Waterman kernel against its plain version: by default at
     siamaera's shape (R=2048, m=256, n=384) with siamaera's mapper
     parameters; the scan engine's sr chunk is R=4096, m=128, n=256 with
-    100 bp queries and BWA_SR."""
+    100 bp queries and BWA_SR. ``chunk`` (q, r, qlen, params on the card,
+    as ``utg_chunk_inputs`` captures them) replaces the synthetic inputs."""
     import torch
     from proovread_tpu_torch.align import sw
     from proovread_tpu_torch.align.params import AlignParams
-    ap = ap or AlignParams(min_out_score=0.0, score_per_base=False)
-    q, r, ql = (torch.as_tensor(x, device=dev)
-                for x in sw_inputs(rng, R, m, n, qmax=qmax))
+    if chunk is not None:
+        q, r, ql, ap = chunk
+    else:
+        ap = ap or AlignParams(min_out_score=0.0, score_per_base=False)
+        q, r, ql = (torch.as_tensor(x, device=dev)
+                    for x in sw_inputs(rng, R, m, n, qmax=qmax))
     R, m = q.shape
     n = r.shape[1]
     got = sw.sw_batch(q, r, ql, ap)
@@ -1103,11 +1147,26 @@ def hold_scatter(label, target, idx, w, keep):
     return max_abs_err([(got, want), (again, want)])
 
 
+def segment_lengths(idx, keep, n_cells) -> dict:
+    """Kept entries a touched cell (the sorted segments the kernel folds):
+    mean, median, 99th percentile and longest."""
+    import torch
+    live = keep & (idx >= 0) & (idx < n_cells)
+    seg = torch.unique(idx[live], return_counts=True)[1].double()
+    if seg.numel() == 0:
+        return dict(mean=0.0, median=0.0, p99=0.0, longest=0)
+    return dict(mean=float(seg.mean()), median=float(seg.median()),
+                p99=float(torch.quantile(seg, 0.99)),
+                longest=int(seg.max()))
+
+
 def scatter_times(target, idx, w, keep):
     """Launcher, kernel, plain and ``index_add_`` times of one scatter
     (``index_add_`` adds the same weights, zero where not kept, with
-    atomics in no order: the same function but for the order), and its
-    bound."""
+    atomics in no order: the same function but for the order), its bound,
+    the public call's stable sort of the int32 keys alone (``sort_ms``)
+    and the segment lengths."""
+    import torch
     from proovread_tpu_torch.ops import scatter as sc
     tm = launcher_times(
         lambda: sc.scatter_add_ordered(target.clone(), idx, w, keep),
@@ -1119,36 +1178,57 @@ def scatter_times(target, idx, w, keep):
     lib_ms = time_ms(lambda: target.clone().index_add_(0, flat_idx, wz))
     clone_ms = time_ms(lambda: target.clone())
     b_ms, b_by, kept, touched = scatter_bound(idx, keep, target.numel())
+    n = target.numel()
+    live = keep.reshape(-1) & (flat_idx >= 0) & (flat_idx < n)
+    key = torch.where(live, flat_idx.to(torch.int32), n)
+    sort_ms = time_ms(lambda: torch.sort(key, stable=True))
     return dict(tm, ms=tm["ms"] - clone_ms, plain_ms=plain_ms - clone_ms,
                 library_ms=lib_ms - clone_ms, clone_ms=clone_ms,
                 bound_ms=b_ms, bound_by=b_by, entries=idx.numel(),
-                kept=kept, touched=touched)
+                kept=kept, touched=touched, sort_ms=sort_ms,
+                segments=segment_lengths(idx, keep, n))
 
 
-def check_scatter(rng, dev, B=256, L=24576, M=16 << 20):
-    """The ordered scatter-add on random fractional weights with heavy
-    duplication: M entries onto a B x L x 6 pileup's counts, 9 in 10 onto
-    a set of hot cells (~100 entries each), 1 in 10 onto 1% of those
-    (segments of a few hundred), the rest anywhere; 7 in 10 kept; a
-    non-zero target. Returns the row's numbers."""
+def scatter_inputs(rng, dev, B=256, L=24576, M=16 << 20, hot_cells=None):
+    """Random fractional weights with heavy duplication: M entries onto a
+    B x L x 6 pileup's counts, 9 in 10 onto a set of hot cells (~100
+    entries each), 1 in 10 onto 1% of those (segments of a few hundred),
+    the rest anywhere; 7 in 10 kept; a non-zero target. With
+    ``hot_cells``, 19 in 20 entries go to that many cells instead
+    (segments of thousands). Returns (target, idx, w, keep, hot)."""
     import torch
     N = B * L * 6
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
-    hot = torch.randint(0, N, (M // 100,), device=dev, generator=g)
+    hot = torch.randint(0, N, (hot_cells or M // 100,), device=dev,
+                        generator=g)
     u = torch.rand(M, device=dev, generator=g)
     pick = torch.randint(0, hot.numel(), (M,), device=dev, generator=g)
-    pick = torch.where(u < 0.1, pick % max(1, hot.numel() // 100), pick)
+    if hot_cells is None:
+        pick = torch.where(u < 0.1, pick % max(1, hot.numel() // 100), pick)
     idx = torch.where(u < 0.95, hot[pick],
                       torch.randint(0, N, (M,), device=dev, generator=g))
     w = (torch.rand(M, device=dev, generator=g)
          * torch.where(u < 0.5, 0.83, 37.0)).to(torch.float32)
     keep = torch.rand(M, device=dev, generator=g) < 0.7
     target = torch.rand(N, device=dev, generator=g) * 3
-    err = hold_scatter("random", target, idx, w, keep)
-    seg = torch.bincount(idx[keep])
+    return target, idx, w, keep, hot
+
+
+def check_scatter(rng, dev, B=256, L=24576, M=16 << 20, hot_cells=None):
+    """The ordered scatter-add on ``scatter_inputs``. Returns the row's
+    numbers."""
+    import torch
+    target, idx, w, keep, hot = scatter_inputs(rng, dev, B, L, M, hot_cells)
+    err = hold_scatter("random" if hot_cells is None else "long segments",
+                       target, idx, w, keep)
+    seg = torch.bincount(idx[keep], minlength=target.numel())
     r = scatter_times(target, idx, w, keep)
-    return dict(r, max_abs_err=err, shape=f"M={M} N={N} ({B}x{L}x6)",
-                longest_segment=int(seg.max()))
+    return dict(r, max_abs_err=err, shape=f"M={M} N={target.numel()} "
+                f"({B}x{L}x6)", shortest_hot_segment=int(seg[hot].min()))
+
+
+# the four scatters of an accumulate, in its order
+SCATTER_NAMES = ("counts", "ins_mbase", "ins_len_votes", "ins_base_votes")
 
 
 def ccs_chunk_scatters(dev):
@@ -1172,24 +1252,75 @@ def ccs_chunk_scatters(dev):
         ccs.ccs_correct(recs, device="cuda")
     finally:
         fused.scatter_add_ordered = orig
-    names = ("counts", "ins_mbase", "ins_len_votes", "ins_base_votes")
-    return [(n,) + c for n, c in zip(names, seen)]
+    return [(n,) + c for n, c in zip(SCATTER_NAMES, seen)]
 
 
-def check_ccs_scatter(dev):
-    """The scatter kernel on the real layout of one ccs chunk: each of the
-    four scatters held (``hold_scatter``); the times of the largest
-    (``counts``) are the row's."""
+class _Captured(Exception):
+    """Stops a run once the calls it was started for have been captured."""
+
+
+def utg_chunk_inputs(dev, genome_size=1_250_000, long_bases=1_000_000):
+    """The first full ``sw_batch`` chunk and the first ``accumulate``
+    call's four scatters of a real ``utg`` run on the card: phase 12's
+    genome and unitigs (``unitig_workload``, 512-base windows at m = 512,
+    n = 640), ``long_bases`` of its CLR reads (one batch of 128 long
+    reads), through ``utg_correct`` until the consensus engine's first
+    ``accumulate`` (after the mapper's chunks of 2048 candidates); the run
+    stops there. Returns ((q, r, qlen, params), [(name, target, idx, w,
+    keep)]), the targets as they were before the scatter."""
+    from proovread_tpu_torch.align import mapper
+    from proovread_tpu_torch.config import Config
+    from proovread_tpu_torch.io.simulate import (random_genome,
+                                                 simulate_long_reads)
+    from proovread_tpu_torch.ops import pileup
+    from proovread_tpu_torch.pipeline import utg
+    genome = random_genome(genome_size, seed=0)
+    longs, _ = simulate_long_reads(genome, long_bases, seed=1)
+    utgs = unitig_workload(genome_size)
+    chunks, scatters = [], []
+    orig_sw, orig_add = mapper.sw_batch, pileup.scatter_add_ordered
+    chunk = mapper.TorchMapper().chunk_rows
+
+    def capture_sw(q, r, qlen, params):
+        if q.shape[0] == chunk and not chunks:
+            chunks.append((q.clone(), r.clone(), qlen.clone(), params))
+        return orig_sw(q, r, qlen, params)
+
+    def capture_add(target, idx, w, keep):
+        scatters.append((target.clone(), idx.clone(), w.clone(),
+                         keep.clone()))
+        orig_add(target, idx, w, keep)
+        if len(scatters) == 4:
+            raise _Captured
+        return target
+    mapper.sw_batch, pileup.scatter_add_ordered = capture_sw, capture_add
+    try:
+        utg.utg_correct(Config(), longs, utgs, device=str(dev))
+    except _Captured:
+        pass
+    finally:
+        mapper.sw_batch, pileup.scatter_add_ordered = orig_sw, orig_add
+    if not chunks or len(scatters) < 4:
+        raise AssertionError("utg chunk: no sw_batch call of a whole chunk "
+                             "or no accumulate")
+    return chunks[0], [(n,) + c for n, c in zip(SCATTER_NAMES, scatters)]
+
+
+def check_chunk_scatters(label, scatters):
+    """The scatter kernel on the real layout of one chunk's ``accumulate``
+    (ccs or utg): each of the four scatters held (``hold_scatter``), with
+    its segment lengths; the times of the largest (``counts``) are the
+    row's."""
     out, err = {}, 0.0
-    scatters = ccs_chunk_scatters(dev)
     for name, target, idx, w, keep in scatters:
-        err = max(err, hold_scatter(f"ccs {name}", target, idx, w, keep))
+        err = max(err, hold_scatter(f"{label} {name}", target, idx, w, keep))
         b_ms, _, kept, touched = scatter_bound(idx, keep, target.numel())
         out[name] = dict(entries=idx.numel(), kept=kept, touched=touched,
-                         bound_ms=b_ms)
+                         bound_ms=b_ms, segments=segment_lengths(
+                             idx, keep, target.numel()))
     name, target, idx, w, keep = scatters[0]
     r = scatter_times(target, idx, w, keep)
-    return dict(r, max_abs_err=err, shape=f"ccs chunk {name}: "
+    return dict(r, max_abs_err=err, shape=f"{label} {name}: "
                 f"{tuple(idx.shape)} entries onto {target.numel()} cells",
                 scatters=out)
 
@@ -1622,25 +1753,46 @@ class SiamaeraProbe(CallTimer):
         return self.n["siamaera"]
 
 
+# seconds the garbage collector has run while a KernelTimer was entered,
+# and the start of the collection under way
+_GC = [0.0, None]
+
+
+def _gc_clock(phase, info) -> None:
+    if phase == "start":
+        _GC[1] = time.perf_counter()
+    elif _GC[1] is not None:
+        _GC[0] += time.perf_counter() - _GC[1]
+        _GC[1] = None
+
+
 class KernelTimer:
     """CUDA events around every call of one C entry point of the kernel
     library: the device time of its launches, with nothing else on the
-    stream between the two events."""
+    stream between the two events; and the host time of each call, and
+    how much of it the garbage collector took."""
 
     def __init__(self, entry):
-        self.entry, self.events = entry, []
+        self.entry, self.events, self.host_ms, self.gc_ms = entry, [], [], []
 
     def __enter__(self):
         import torch
         from proovread_tpu_torch import kernels
         self.lib = kernels.lib()
         self.orig = orig = getattr(self.lib, self.entry)
+        # one clock for nested timers: the first entered installs it
+        self.own_gc = _gc_clock not in gc.callbacks
+        if self.own_gc:
+            gc.callbacks.append(_gc_clock)
 
         def timed(*a):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
+            g0, h0 = _GC[0], time.perf_counter()
             rc = orig(*a)
+            self.host_ms.append((time.perf_counter() - h0) * 1e3)
+            self.gc_ms.append((_GC[0] - g0) * 1e3)
             e1.record()
             self.events.append((e0, e1))
             return rc
@@ -1649,6 +1801,8 @@ class KernelTimer:
 
     def __exit__(self, *exc):
         setattr(self.lib, self.entry, self.orig)
+        if self.own_gc:
+            gc.callbacks.remove(_gc_clock)
 
     def total_ms(self) -> float:
         import torch
@@ -1805,6 +1959,24 @@ class TaskProbe:
         a, b = self.marks[key]
         return float(sum(x.elapsed_time(y)
                          for x, y in self.timers[key].events[a:b]))
+
+    def launch_ms(self, key) -> dict:
+        """Each launch's device time (events) and the host time of its C
+        call: their least, median and largest; and the garbage
+        collector's ms inside the C calls, in all and in the call that
+        took the host longest."""
+        import torch
+        torch.cuda.synchronize()
+        a, b = self.marks[key]
+        t = self.timers[key]
+        dev = [x.elapsed_time(y) for x, y in t.events[a:b]]
+        q = lambda v: dict(min=float(np.min(v)), median=float(  # noqa: E731
+            np.median(v)), max=float(np.max(v))) if v else {}
+        gc_ms = t.gc_ms[a:b]
+        return dict(device=q(dev), host=q(t.host_ms[a:b]),
+                    gc_ms=float(sum(gc_ms)), gc_ms_in_longest=float(
+                        gc_ms[int(np.argmax(t.host_ms[a:b]))])
+                    if gc_ms else 0.0)
 
 
 def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
@@ -2399,6 +2571,7 @@ def phase11(tmp, srs, genome=1_250_000, molecule_bases=2_000_000,
         ccs_seed_s=pr.s["seed"], ccs_consensus_call_s=pr.s["consensus_call"],
         ccs_sw_launches=pr.launches("sw_batch"),
         ccs_sw_device_ms=pr.device_ms("sw_batch"),
+        ccs_sw_launch_ms=pr.launch_ms("sw_batch"),
         ccs_scatter_launches=pr.launches("scatter_add_ordered"),
         ccs_scatter_device_ms=pr.device_ms("scatter_add_ordered"),
         subread_identity=summ["identity_before"])
@@ -2426,6 +2599,7 @@ def phase12(tmp, longs, srs, truths, genome=1_250_000, device="cuda"):
         utg_s=pr.wall, utg_seed_s=pr.s["seed"], utg_sw_s=pr.s["sw"],
         utg_sw_launches=pr.launches("sw_batch"),
         utg_sw_device_ms=pr.device_ms("sw_batch"),
+        utg_sw_launch_ms=pr.launch_ms("sw_batch"),
         utg_scatter_launches=pr.launches("scatter_add_ordered"),
         utg_scatter_device_ms=pr.device_ms("scatter_add_ordered"),
         utg_consensus_call_s=pr.s["consensus_call"],
@@ -2657,6 +2831,12 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {time.monotonic() - t0:.1f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'})")
     dev = torch.device("cuda")
+    for src in ("sw.cu", "scatter.cu"):
+        log(f"ptxas {src}: " + json.dumps(kernels.ptxas_usage(src)))
+    log(f"f32 bound rate {f32_ops_per_s():.4g} operations/s "
+        f"({F32_LANES_PER_SM_CLOCK} lanes x "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+        f"x {max_sm_clock_hz() / 1e6:.0f} MHz)")
     wait_for_card_memory()
 
     wrappers = {
@@ -2803,11 +2983,29 @@ def main(argv=None) -> int:
         r = check_sw(rng, dev, R=4096, m=512, n=640, ap=CCS_ALIGN)
         report("sw_batch", dict(r, label="ccs chunk"))
         torch.cuda.empty_cache()
+        # a real utg chunk (phase 12's path): 2048 unitig windows of 512
+        # bases against long reads, nearly all aligned end to end
+        utg_sw, utg_scatters = utg_chunk_inputs(dev)
+        r = check_sw(rng, dev, chunk=utg_sw)
+        del utg_sw
+        report("sw_batch", dict(r, label="utg chunk"))
+        torch.cuda.empty_cache()
         r = check_scatter(rng, dev)
         report("scatter_add_ordered", dict(r, label="random"))
         torch.cuda.empty_cache()
-        results["scatter_add_ordered"] = check_ccs_scatter(dev)
+        # segments of 1,000 and more: 4 M entries, 19 in 20 onto 2,000
+        # cells (~1,330 kept each)
+        r = check_scatter(rng, dev, M=4 << 20, hot_cells=2000)
+        report("scatter_add_ordered", dict(r, label="long segments"))
+        if r["shortest_hot_segment"] < 1000:
+            raise AssertionError("scatter long segments: weak inputs")
+        torch.cuda.empty_cache()
+        results["scatter_add_ordered"] = check_chunk_scatters(
+            "ccs chunk", ccs_chunk_scatters(dev))
         report("scatter_add_ordered", results["scatter_add_ordered"])
+        r = check_chunk_scatters("utg chunk", utg_scatters)
+        del utg_scatters
+        report("scatter_add_ordered", r)
         log(f"phase2 peak device memory {peak2[0]:.2f} GiB")
         torch.cuda.empty_cache()
 

@@ -118,9 +118,11 @@ def _sw_cuda(q, r, qlen, params: AlignParams) -> SWResult:
     i32 = torch.empty((5, R), dtype=torch.int32, device=dev)
     ops_rev = torch.empty((R, m + n), dtype=torch.int8, device=dev)
     steps = torch.empty((2, R, m + n), dtype=torch.int16, device=dev)
-    # direction bytes of every DP cell a walk may visit, written once and
-    # read at most m+n times a candidate
-    dirs = torch.empty((R, m, n), dtype=torch.uint8, device=dev)
+    # five decision bit-planes of K = n/32 bits a lane a DP row, packed in
+    # one record of 8 (5K <= 64) or 16 bytes, written once; the walk kernel
+    # reads tiles of them
+    rec = 8 if 5 * (n // 32) <= 64 else 16
+    dirs = torch.empty(R * m * 32 * rec, dtype=torch.uint8, device=dev)
     p = params
     if R > 0:
         rc_ = kernels.lib().pt_sw_batch(

@@ -2,7 +2,9 @@
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a`` with ``-fmad=false`` (the Smith-Waterman kernels must round
-every f32 multiply and add separately, as the JAX reference does), then
+every f32 multiply and add separately, as the JAX reference does) and
+``-Xptxas -v`` (each kernel's registers, shared memory and spills, kept in
+``build_log`` and read by ``ptxas_usage``), then
 linked into one shared library with a plain C interface that is loaded with
 ``ctypes``. The library is keyed by a hash of the sources and flags, so a
 fresh checkout builds it at first use and later calls reuse it. It lands in
@@ -17,7 +19,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +32,7 @@ SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu",
            "scatter.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,11 +60,13 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _P],
     "pt_lcs_lengths": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "pt_lcs_occupancy": [_I, _P, _P],
-    "pt_scatter_add_ordered": [_P, _P, _P, _P, _I, _P],
+    "pt_scatter_add_ordered": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
 build_seconds = None
+# source name -> what nvcc printed while compiling it (ptxas's report)
+build_log: dict = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -101,21 +107,29 @@ def build_dir() -> Path:
     return Path(cache) / "proovread_tpu_torch" / "kernels"
 
 
-def _digest() -> str:
+def _digest(src_dir: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((SRC_DIR / name).read_bytes())
+        h.update((src_dir / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(src_dir: Path | None = None,
+          out_dir: Path | None = None) -> Path:
     """Compile the kernels (if this source hash has no library yet) and
-    return the library path."""
+    return the library path. ``build_log`` gets nvcc's output of each
+    source, saved beside the library for later loads. ``src_dir`` and
+    ``out_dir`` (default: the package's sources, ``build_dir()``) let a
+    tool build another copy of the sources."""
     global build_seconds
-    out_dir = build_dir()
-    so = out_dir / f"libproovread_kernels_{_digest()}.so"
+    src_dir = Path(src_dir or SRC_DIR)
+    out_dir = Path(out_dir or build_dir())
+    so = out_dir / f"libproovread_kernels_{_digest(src_dir)}.so"
+    log_path = so.with_suffix(".log.json")
     if so.exists():
+        if log_path.exists():
+            build_log.update(json.loads(log_path.read_text()))
         return so
     t0 = time.monotonic()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -123,15 +137,16 @@ def build() -> Path:
     objs, procs = [], []
     for name in SOURCES:
         obj = out_dir / f"{Path(name).stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(SRC_DIR / name), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src_dir / name), "-o", str(obj)]
         procs.append((name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         objs.append(obj)
-    errors = []
+    errors, logs = [], {}
     for name, p in procs:
         out, _ = p.communicate()
+        logs[name] = out.decode(errors="replace")
         if p.returncode != 0:
-            errors.append(f"--- {name} ---\n{out.decode(errors='replace')}")
+            errors.append(f"--- {name} ---\n{logs[name]}")
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -142,25 +157,78 @@ def build() -> Path:
     if link.returncode != 0:
         raise KernelBuildError("nvcc link failed:\n"
                            + link.stdout.decode(errors="replace"))
+    log_tmp = log_path.with_suffix(f".{os.getpid()}.tmp")
+    log_tmp.write_text(json.dumps(logs))
+    os.replace(log_tmp, log_path)
     os.replace(tmp, so)
     for obj in objs:
         obj.unlink(missing_ok=True)
+    build_log.update(logs)
     build_seconds = time.monotonic() - t0
     return so
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                         r"(?:, (\d+) bytes smem)?")
+
+
+def ptxas_usage(source: str) -> dict:
+    """Registers, static shared memory and spills of each kernel of
+    ``source`` (a name in ``SOURCES``), from ptxas's report in
+    ``build_log``: {kernel: {"registers", "smem_bytes", "stack_bytes",
+    "spill_stores", "spill_loads"}}. A kernel's name is its demangled
+    name and template arguments (``sw_kernel<20>``) where ``c++filt`` is
+    installed, else the mangled one."""
+    usage, fn = {}, None
+    for line in build_log.get(source, "").splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            usage[fn].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            usage[fn].update(registers=int(m.group(1)),
+                             smem_bytes=int(m.group(2) or 0))
+    filt = shutil.which("c++filt")
+    if filt and usage:
+        names = subprocess.run([filt], input="\n".join(usage), text=True,
+                               capture_output=True).stdout.splitlines()
+        if len(names) == len(usage):
+            short = [re.search(r"(\w+(?:<[^()]*>)?)\((?!anonymous)", nm)
+                     for nm in names]
+            usage = {(m.group(1) if m else nm): u for m, nm, u in
+                     zip(short, names, usage.values())}
+    return usage
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built library, loaded, with every C entry's argtypes set."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.pt_error_string.argtypes = [ctypes.c_int]
+    handle.pt_error_string.restype = ctypes.c_char_p
+    return handle
 
 
 def lib():
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.pt_error_string.argtypes = [ctypes.c_int]
-        handle.pt_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        _lib = load(build())
     return _lib
 
 

@@ -9,11 +9,13 @@ scatter, so fractional (qual-weighted) votes sum to the reference's bits.
 ``target`` is a flat f32 view, updated in place.
 
 CUDA tensors go through the kernel ``csrc/scatter.cu`` (no atomics: a
-thread a sorted segment), CPU tensors through the plain version: stable
-sort by cell, then round r adds each cell's r-th entry with one
-``index_add_`` whose indices are unique, so no two adds collide and the
-result is the same on any device. ``torch.index_add_`` on the card adds
-with atomics in no order; it is not used here.
+thread a sorted segment), with no host sync: every entry is keyed as int32
+by its cell, or by ``n`` where it is dropped, and stable-sorted once; the
+kernel skips the keys ``n``. CPU tensors go through the plain version: stable sort by
+cell, then round r adds each cell's r-th entry with one ``index_add_``
+whose indices are unique, so no two adds collide and the result is the
+same on any device. ``torch.index_add_`` on the card adds with atomics in
+no order; it is not used here.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from proovread_tpu_torch import kernels
 def _sorted_segments(target: torch.Tensor, idx: torch.Tensor,
                      keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cells i64 [M], entries i64 [M]) of the kept in-range entries,
-    sorted by cell and, within a cell, by entry index."""
+    sorted by cell and, within a cell, by entry index (the plain
+    version's; ``torch.nonzero`` reads its count on the host)."""
     n = target.numel()
     idx = idx.reshape(-1)
     live = keep.reshape(-1) & (idx >= 0) & (idx < n)
@@ -49,6 +52,8 @@ def _check(target, idx, w, keep) -> None:
         "scatter_add_ordered: idx, w and keep must have one shape")
     req(len({t.device for t in (target, idx, w, keep)}) == 1,
         "scatter_add_ordered: tensors on mixed devices")
+    req(target.numel() < (1 << 31) - 1 and idx.numel() < (1 << 31),
+        "scatter_add_ordered: target or entries past 2^31")
 
 
 def scatter_add_ordered(target: torch.Tensor, idx: torch.Tensor,
@@ -69,15 +74,20 @@ scatter_add_ordered.launches = 0
 
 
 def _scatter_cuda(target, idx, w, keep) -> torch.Tensor:
-    cells, order = _sorted_segments(target, idx, keep)
-    M = cells.numel()
-    kernels.require(M < (1 << 31), "scatter_add_ordered: over 2^31 entries")
+    """Every entry keyed by its cell (int32; ``n`` where dropped or out of
+    range: the checks bound ``n`` and the entry count from the shapes),
+    one stable sort, one launch over all entries. No host sync."""
+    n, M = target.numel(), idx.numel()
     if M == 0:
         return target
+    flat = idx.reshape(-1)
+    live = keep.reshape(-1) & (flat >= 0) & (flat < n)
+    keys, order = torch.sort(torch.where(live, flat.to(torch.int32), n),
+                             stable=True)
     w = w.reshape(-1).contiguous()
     rc = kernels.lib().pt_scatter_add_ordered(
-        target.data_ptr(), cells.data_ptr(), order.data_ptr(), w.data_ptr(),
-        M, kernels.stream_of(target))
+        target.data_ptr(), keys.data_ptr(), order.data_ptr(), w.data_ptr(),
+        M, n, kernels.stream_of(target))
     kernels.check(rc, "scatter_add_ordered")
     scatter_add_ordered.launches += 1
     return target

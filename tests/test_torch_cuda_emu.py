@@ -9,7 +9,8 @@ for ``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or``,
 per-warp barriers for ``__syncwarp``, ``__ballot_sync`` and the
 ``__shfl_up_sync`` / ``__shfl_down_sync`` / ``__shfl_xor_sync`` /
 ``__shfl_sync`` exchanges (any 32- or 64-bit type), GCC builtins for
-``__popc``, ``__popcll``, ``__ffs`` and ``__clz``, and ``std::atomic_ref`` for
+``__popc``, ``__popcll``, ``__ffs`` and ``__clz``, ``__float_as_uint``,
+``__funnelshift_l``, ``uint2``/``uint4`` and their ``make_``, ``float4``, and ``std::atomic_ref`` for
 ``atomicAdd`` (float, int, unsigned) and ``atomicOr``. The launch syntax
 and the ``__shared__`` qualifiers are rewritten mechanically before
 compiling.
@@ -33,6 +34,7 @@ CUDA_RUNTIME_EMU = r"""
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -46,7 +48,7 @@ using std::min;
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __align__(x)
+#define __align__(x) __attribute__((aligned(x)))
 #define __launch_bounds__(...)
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -137,6 +139,21 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   for (int l = 0; l < 32 && w0 + l < nt; ++l)
     if (x[w0 + l]) r |= 1u << l;
   return r;
+}
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+  return unsigned(((uint64_t(hi) << 32 | lo) << (s & 31)) >> 32);
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
@@ -480,24 +497,34 @@ elif which == "hcr_long":
         want = ak.hcr_mask_plain(t(qual), lens, pvi)
         same(got, want)
         assert int(want[1].sum()) > 0 and int(want[1][0]) == 0
-elif which == "sw":
-    # siamaera-like candidates at a small size: queries planted in their
-    # windows (some with an indel), chance pairs, N codes, empty and short
-    # queries; R not a multiple of the block's four candidates
+elif which.startswith("sw"):
+    # "sw": siamaera-like candidates at a small size: queries planted in
+    # their windows (some with an indel), chance pairs, N codes, empty and
+    # short queries; R not a multiple of the block's four candidates.
+    # "sw640": n = 640 (K = 20, 32-bit plane words) with full-length walks
+    # (queries planted end to end, some with a deletion or insertion run)
+    # past several of the walk's 32-row tiles and its lane windows
     from proovread_tpu_torch.align import sw
     from proovread_tpu_torch.align.params import AlignParams, BWA_SR_FINISH
-    R, m, n = 23, 32, 128
+    if which == "sw":
+        R, m, n = 23, 32, 128
+        ql = rng.integers(1, m + 1, R).astype(np.int32)
+        ql[:3] = [0, m, 1]
+    else:
+        R, m, n = 6, 96, 640
+        ql = np.full(R, m, np.int32)
+        ql[5] = 70
     r = rng.integers(0, 4, (R, n)).astype(np.int8)
-    ql = rng.integers(1, m + 1, R).astype(np.int32)
-    ql[:3] = [0, m, 1]
     q = np.full((R, m), 4, np.int8)
     for i in range(R):
-        st = int(rng.integers(0, n - m))
+        st = int(rng.integers(0, n - m)) if which == "sw" else 200 + 40 * i
         src = r[i, st:st + m].copy()
-        if i % 3 == 0:
+        if which == "sw" and i % 3 == 0:
             src = rng.integers(0, 4, m).astype(np.int8)
         elif i % 3 == 1:
             src = np.insert(src, 9, [1, 2])[:m]
+        elif which == "sw640" and i % 3 == 2:
+            src = np.concatenate([src[:40], src[70:], src[:30]])[:m]
         q[i, :ql[i]] = src[:ql[i]]
     q[5, 3] = 4
     r[::6, 40:44] = 4
@@ -507,6 +534,8 @@ elif which == "sw":
         got, want = sw._sw_cuda(*args), sw.sw_batch_plain(*args)
         same(got, want)
         assert int(want.n_ops.max()) >= m // 2
+        if which == "sw640":
+            assert int((want.n_ops >= m - 8).sum()) >= 4, want.n_ops
 elif which.startswith("lcs"):
     # read/truth pairs at the edges of the words and of the lanes' blocks:
     # empty read, empty truth, truths of exactly 64, 2048 (a lane's block)
@@ -546,25 +575,51 @@ elif which.startswith("lcs"):
     want = acc.lcs_lengths_plain(*args)
     same([got], [want])
     assert int(want[0]) == 0 and int(want[1]) == 0 and int(want[2]) > 40
-elif which == "scatter":
-    # fractional weights onto a few hot cells (segments up to ~100 long,
-    # crossing the blocks' edges), a keep mask, indices past the target,
-    # a non-zero target; then an empty keep (no launch)
+elif which.startswith("scatter"):
+    # "scatter": fractional weights onto a few hot cells (segments up to
+    # ~100 long, crossing the blocks' edges), a keep mask, indices past the
+    # target and negative ones, a non-zero target; then an empty keep.
+    # "scatter_long": segments of 65 to ~870 entries that cross thread
+    # blocks (256 sorted entries), beside short ones; an entry count that
+    # is no multiple of 32. "scatter_edges": every entry dropped,
+    # every entry onto one cell, and one entry.
     from proovread_tpu_torch.ops import scatter as sc
-    N, M = 300, 3000
-    hot = rng.integers(0, N, 40)
-    idx = np.where(rng.random(M) < 0.8, rng.choice(hot, M),
-                   rng.integers(0, N + 5, M)).astype(np.int64)
-    w = (rng.random(M) * rng.choice([0.01, 1.0, 37.0], M)).astype(np.float32)
-    keep = rng.random(M) < 0.7
-    base = (rng.random(N) * 3).astype(np.float32)
-    args = (t(idx), t(w), t(keep))
-    n0 = sc.scatter_add_ordered.launches
-    got = sc._scatter_cuda(t(base.copy()), *args)
-    same([got], [sc.scatter_add_ordered_plain(t(base.copy()), *args)])
-    assert sc.scatter_add_ordered.launches == n0 + 1
-    none = t(np.zeros(M, bool))
-    same([sc._scatter_cuda(t(base.copy()), t(idx), t(w), none)], [t(base)])
+    cases = []
+    if which == "scatter":
+        N, M = 300, 3000
+        hot = rng.integers(0, N, 40)
+        idx = np.where(rng.random(M) < 0.8, rng.choice(hot, M),
+                       rng.integers(-3, N + 5, M))
+        cases.append((N, idx, rng.random(M) < 0.7))
+    elif which == "scatter_long":
+        N, M = 500, 4001
+        seg = rng.choice([0, 7, 11, 123], M, p=[0.25, 0.25, 0.2, 0.3])
+        idx = np.where(rng.random(M) < 0.9, seg, rng.integers(0, N, M))
+        cases.append((N, idx, rng.random(M) < 0.8))
+    else:
+        N, M = 50, 1500
+        cases += [(N, rng.integers(0, N, M), np.zeros(M, bool)),
+                  (N, np.full(M, 17), rng.random(M) < 0.9),
+                  (N, np.full(1, 3), np.ones(1, bool))]
+    for N, idx, keep in cases:
+        M = len(idx)
+        w = (rng.random(M) * rng.choice([0.01, 1.0, 37.0], M)).astype(
+            np.float32)
+        base = (rng.random(N) * 3).astype(np.float32)
+        args = (t(idx.astype(np.int64)), t(w), t(keep))
+        want = sc.scatter_add_ordered_plain(t(base.copy()), *args)
+        n0 = sc.scatter_add_ordered.launches
+        got = sc._scatter_cuda(t(base.copy()), *args)
+        same([got], [want])
+        assert sc.scatter_add_ordered.launches == n0 + 1
+        live = keep & (idx >= 0) & (idx < N)
+        cnt = np.bincount(idx[live], minlength=N)
+        if which == "scatter_long":
+            assert cnt.max() > 800 and (cnt > 64).sum() >= 4, cnt.max()
+        if which == "scatter":
+            none = t(np.zeros(M, bool))
+            same([sc._scatter_cuda(t(base.copy()), args[0], args[1], none)],
+                 [t(base)])
 print("EMU-OK", which)
 """
 
@@ -615,8 +670,9 @@ def emu_lib(tmp_path_factory):
                                    "pileup_packed", "pileup_packed_clustered",
                                    "pileup_dense", "pileup_dense_clustered",
                                    "assemble", "assemble_long", "hcr",
-                                   "hcr_long", "sw", "lcs", "lcs_global",
-                                   "scatter"])
+                                   "hcr_long", "sw", "sw640", "lcs",
+                                   "lcs_global", "scatter", "scatter_long",
+                                   "scatter_edges"])
 def test_kernel_source_matches_plain(emu_lib, which):
     out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
                          cwd=ROOT, capture_output=True, text=True,

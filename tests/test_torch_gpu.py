@@ -71,10 +71,11 @@ def test_bsw_kernel_matches_plain_at_mr_shapes(cuda, finish):
     assert _equal(bsw.bsw_expand_v2(*args), bsw.bsw_expand_v2_plain(*args))
 
 
-@pytest.mark.parametrize("m,n", [(32, 128), (256, 384)])
+@pytest.mark.parametrize("m,n", [(32, 128), (256, 384), (512, 640)])
 def test_sw_kernel_matches_plain(cuda, m, n):
     """Siamaera's Smith-Waterman: queries planted in their windows,
-    chance pairs, short and empty queries, N codes."""
+    chance pairs, short and empty queries, N codes; n = 640 is the ccs and
+    utg shape (K = 20, walks of up to 512 steps)."""
     from proovread_tpu_torch.align import sw
     from proovread_tpu_torch.align.params import AlignParams, BWA_SR_FINISH
     rng = np.random.default_rng(n)
@@ -543,15 +544,20 @@ def test_scan_engine_same_on_card_and_cpu(cuda, fault):
     assert len(demos) == (0 if fault is None else 6)
 
 
-@pytest.mark.parametrize("M,N", [(1, 7), (5000, 97), (300_000, 4096)])
-def test_scatter_kernel_matches_plain_and_cpu(cuda, M, N):
+@pytest.mark.parametrize("M,N,n_hot,hot_frac", [
+    (1, 7, 0, 0.9), (5000, 97, 0, 0.9), (300_000, 4096, 0, 0.9),
+    (300_001, 1_000_000, 64, 0.5), (200_000, 50, 6, 1.0)],
+    ids=["one", "small", "hot", "long-segments", "few-cells"])
+def test_scatter_kernel_matches_plain_and_cpu(cuda, M, N, n_hot, hot_frac):
     """The ordered scatter on fractional weights onto few hot cells
-    (segments of hundreds), indices past the target, twice: the kernel ==
-    its plain version on the card == ``index_add_`` on the CPU, bitwise."""
+    (segments of hundreds; "long-segments": a few segments of thousands
+    that cross many thread blocks, beside single entries; "few-cells":
+    segments of ~3000), indices past the target, twice: the kernel == its
+    plain version on the card == ``index_add_`` on the CPU, bitwise."""
     from proovread_tpu_torch.ops import scatter as sc
     rng = np.random.default_rng(M)
-    hot = rng.integers(0, N, max(1, N // 8))
-    idx = np.where(rng.random(M) < 0.9, rng.choice(hot, M),
+    hot = rng.integers(0, N, n_hot or max(1, N // 8))
+    idx = np.where(rng.random(M) < hot_frac, rng.choice(hot, M),
                    rng.integers(0, N + 3, M)).astype(np.int64)
     w = (rng.random(M) * rng.choice([0.01, 0.83, 37.0], M)).astype(
         np.float32)
@@ -561,12 +567,59 @@ def test_scatter_kernel_matches_plain_and_cpu(cuda, M, N):
     launches = sc.scatter_add_ordered.launches
     got = sc.scatter_add_ordered(t(base), t(idx), t(w), t(keep))
     again = sc.scatter_add_ordered(t(base), t(idx), t(w), t(keep))
-    assert sc.scatter_add_ordered.launches == launches + 2 * (keep.any())
+    assert sc.scatter_add_ordered.launches == launches + 2
     want = sc.scatter_add_ordered_plain(t(base), t(idx), t(w), t(keep))
     live = keep & (idx < N)
     cpu = torch.as_tensor(base).index_add_(0, torch.as_tensor(idx[live]),
                                            torch.as_tensor(w[live]))
     assert _equal([got, again, got], [want, want, cpu])
+    if n_hot == 64:
+        assert np.bincount(idx[live]).max() > 1000
+
+
+@pytest.mark.parametrize("case", ["dropped", "one-cell"])
+def test_scatter_kernel_all_dropped_or_one_cell(cuda, case):
+    """Every entry dropped (the target unchanged), and every kept entry
+    onto one cell (one segment across every warp's range)."""
+    from proovread_tpu_torch.ops import scatter as sc
+    rng = np.random.default_rng(5)
+    M, N = 100_003, 333
+    idx = (rng.integers(0, N, M) if case == "dropped"
+           else np.full(M, 101)).astype(np.int64)
+    keep = (np.zeros(M, bool) if case == "dropped" else rng.random(M) < 0.9)
+    w = (rng.random(M) * 0.37).astype(np.float32)
+    base = (rng.random(N) * 3).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    got = sc.scatter_add_ordered(t(base), t(idx), t(w), t(keep))
+    want = sc.scatter_add_ordered_plain(t(base), t(idx), t(w), t(keep))
+    cpu = torch.as_tensor(base).index_add_(0, torch.as_tensor(idx[keep]),
+                                           torch.as_tensor(w[keep]))
+    assert _equal([got, got], [want, cpu])
+    if case == "dropped":
+        assert _equal([got], [torch.as_tensor(base)])
+
+
+def test_scatter_public_call_does_not_sync(cuda):
+    """The public call keys, sorts and launches without reading anything
+    back to the host: it passes under ``set_sync_debug_mode("error")``."""
+    from proovread_tpu_torch.ops import scatter as sc
+    rng = np.random.default_rng(11)
+    M, N = 50_000, 4096
+    t = lambda x: torch.as_tensor(x, device=cuda)   # noqa: E731
+    idx = t(rng.integers(-5, N + 5, M).astype(np.int64))
+    w = t(rng.random(M).astype(np.float32))
+    keep = t(rng.random(M) < 0.6)
+    base = t(np.zeros(N, np.float32))
+    sc.scatter_add_ordered(base.clone(), idx, w, keep)   # builds, loads
+    target = base.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sc.scatter_add_ordered(target, idx, w, keep)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = sc.scatter_add_ordered_plain(base.clone(), idx, w, keep)
+    assert _equal([target], [want])
 
 
 def test_accumulate_and_engine_same_on_card_and_cpu(cuda):
