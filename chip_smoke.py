@@ -34,7 +34,12 @@ any failure exits non-zero:
    and unitigs: windows aligned end to end), the accuracy scoreboard's LCS kernel on
    646 (read, truth) pairs at the E.coli-class spread (truths up to 45,000
    bases) with the edge cases (empty read or truth, truths of 64, 2048 and
-   4096 bases, a read past its truth, N codes), and the ordered vote
+   4096 bases, a read past its truth, N codes; its blocks, warps a pair,
+   registers and occupancy logged), the scoreboard's banded traceback
+   kernel (``csrc/edit.cu``) on 64 pairs before (~15% errors) and after
+   (~0.1%) correction at E.coli-class lengths and its edge cases (also
+   against the host numpy ``edit_alignment``, in the background), and the
+   ordered vote
    scatter (``csrc/scatter.cu``) on 16 M random fractional weights with
    heavy duplication onto a 256 x 24576 x 6 target, on 4 M with segments
    of 1,000 and more, and on the four scatters of one real ``ccs-1``
@@ -81,7 +86,8 @@ any failure exits non-zero:
    ``sr-noccs``: all six files and ``qc.jsonl`` identical on card and
    CPU. Every CPU half of phase 3 runs in a subprocess of 4 threads at low
    priority (``CpuSide``) started after phase 2, under the work of phases
-   3-13 (so their walls are taken beside it; phase 2's times are not);
+   3-13 (so their walls are taken beside it and beside the traceback
+   holds, ``EditHold``; phase 2's times are not);
    phase 3 runs the card halves, and the two sides are compared, and
    phase 3's comparison lines logged, after phase 13;
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
@@ -103,8 +109,9 @@ any failure exits non-zero:
    scoring), the journal's writes, bytes and write seconds (and that it is
    removed at the end), peak
    memory, siamaera's seconds split into host seeding and Smith-Waterman,
-   its candidates and counts, the bsw, sw and LCS launches and device
-   time (CUDA events around each launch), the score-accuracy seconds
+   its candidates and counts, the bsw, sw, LCS and traceback launches
+   and device time (CUDA events around each launch), the score-accuracy
+   seconds
    (from the command line's ``accuracy:`` log line), the
    reads scored, identity before and after, the error classes before and
    after and those introduced; every output read must be scored, and its
@@ -151,7 +158,8 @@ Phases 9 and 10 run between 7 and 8, and 11-13 after 8: 9-12 reuse phase
 7's short reads. Phases 4-13 each reset every kernel's launch count just
 before and read them just after; each fails if a kernel of its path was
 not launched (phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble,
-HCR and the LCS; phase 9 the same but the LCS; phase 10 sw; phases 11 and
+HCR, the LCS and the traceback; phase 9 the same but the scoreboard's two;
+phase 10 sw; phases 11 and
 12 those of 7 and the scatter; phase 13 those of 7 but sw), and phase 5
 also if the bit-plane pileup was. No unfaulted phase may demote: phases
 3-5 and 7-13 fail on a ``resilience_demotions`` or ``device_faults``
@@ -159,6 +167,12 @@ count or a ``demote-`` report (phase 6 drives ``DeviceCorrector`` below
 the ladder). Every scored phase holds that every output read was scored
 and that the mean identity after reaches 0.95 and passes the one before;
 phase 13 holds that for haplotype B's reads, and A's by the SNP share.
+Every pair the scoreboard classifies on the card in phases 7, 11 and 12,
+and phase 2's traceback pairs, are held in background subprocesses
+(``EditHold``; phase 2's started after phase 2's kernel times, the others
+after their phase) against the host numpy ``edit_alignment`` and (but
+phase 2's, whose plain run is its check's) ``edit_alignments_plain``; the
+script waits for them at the end.
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
@@ -185,11 +199,13 @@ CPU at a small size.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -374,7 +390,8 @@ KERNEL_NAMES = {
     "assemble": ("assemble_count_kernel", "assemble_tiles_kernel"),
     "hcr": ("hcr_scan_kernel",),
     "sw": ("sw_dp_kernel", "sw_walk_kernel"),
-    "lcs": ("lcs_kernel",),
+    "lcs": ("lcs_wave_kernel", "lcs_global_kernel"),
+    "edit": ("edit_kernel",),
     "scatter": ("scatter_ordered_kernel",),
 }
 
@@ -1078,37 +1095,140 @@ def check_lcs(rng, dev):
     word_steps = sum(st * -(-len(t) // 64)
                      for st, (_, t) in zip(steps, pairs))
     b_ms, b_by = bound(n_bytes, 6.0 * word_steps, PEAK_INT32_OPS_PER_S)
+    layout = lcs_layout(pairs)
     return dict(max_abs_err=max_abs_err([(got.float(), want.float())]),
                 **tm, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, word_steps=word_steps,
-                longest_chain_steps=max(steps), classes=lcs_classes(pairs),
+                ns_a_chain_step=tm["kernel_ms"] * 1e6
+                / layout["longest_chain_steps"], **layout,
                 shape=f"P={len(pairs)} bases={n_bytes}")
 
 
-def lcs_classes(pairs):
-    """The LCS kernel's register classes among ``pairs``, as its wrapper
-    picks them (0: the global scratch), with the pairs in each, and the
-    kernel's registers a thread and resident warps an SM at the launch's
-    shared memory (its largest shared-memory class): one kernel holds
-    every class, so every pair's warp reserves the registers of the
-    largest."""
+def lcs_layout(pairs):
+    """How the LCS kernel runs ``pairs`` (``accuracy.lcs_plan``): its
+    blocks, warps a block, the longest pair's warps and chain of steps
+    (read length + 32 per further warp), pairs by warps and on the global
+    scratch, and the kernel's registers a thread and resident blocks an SM
+    at that block size."""
     import ctypes
     from proovread_tpu_torch import kernels
     from proovread_tpu_torch.obs import accuracy as acc
-    count = {}
-    for r, t in pairs:
-        if len(r) == 0 or len(t) == 0:
-            continue
-        wpl = -(-(-(-len(t) // 64)) // 32)
-        c = (0 if wpl > acc.SMEM_MAX_WPL
-             else min(c for c in acc.LCS_CLASSES if c >= wpl))
-        count[c] = count.get(c, 0) + 1
-    smem_w = max((c for c in count if c > 0), default=0)
-    regs, warps = ctypes.c_int(), ctypes.c_int()
+    n = np.asarray([len(r) for r, _ in pairs])
+    m = np.asarray([len(t) for _, t in pairs])
+    plan = acc.lcs_plan(n, m)
+    K = plan["warps"]
+    chain = np.where((n > 0) & (m > 0), n + 32 * (K - 1), 0)
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
     kernels.check(kernels.lib().pt_lcs_occupancy(
-        smem_w, ctypes.byref(regs), ctypes.byref(warps)), "lcs_occupancy")
-    return dict(pairs_by_class={str(c): n for c, n in sorted(count.items())},
-                regs=regs.value, warps_per_sm=warps.value)
+        plan["warps_per_block"], ctypes.byref(regs), ctypes.byref(blocks)),
+        "lcs_occupancy")
+    return dict(blocks=plan["blocks"],
+                warps_per_block=plan["warps_per_block"],
+                longest_pair_warps=int(K[int(np.argmax(chain))]),
+                longest_chain_steps=int(chain.max()),
+                pairs_by_warps={str(x): c for x, c in
+                                plan["pairs_by_warps"].items()},
+                global_pairs=len(plan["glob"]), regs=regs.value,
+                blocks_per_sm=blocks.value,
+                ptxas=kernels.ptxas_usage("lcs.cu"))
+
+
+def edit_bands(pairs, lcs):
+    """The scoreboard's band of each (read, truth) pair from its LCS
+    (``score_read_sets``: la + lb - 2 LCS + 8, at least 16) and the cells
+    of its banded matrix."""
+    la = np.asarray([len(r) for r, _ in pairs])
+    lb = np.asarray([len(t) for _, t in pairs])
+    w = np.maximum(la + lb - 2 * np.asarray(lcs) + 8, 16)
+    return w, (np.minimum(la, lb) + 1) * (np.abs(la - lb) + 2 * w + 1)
+
+
+def edit_inputs(rng, dev, n_each=32):
+    """(read, truth) pairs as the scoreboard classifies them at E.coli
+    class: ``n_each`` reads with the CLR simulator's errors (~15%, the
+    reads before correction) and ``n_each`` with ~0.1% (after), truths of
+    lognormal length (mean ~8 kb) redrawn while the banded matrix would
+    pass ``MAX_CLASSIFY_CELLS`` (as the scoreboard skips such reads), the
+    first truth 12,000 bases; then the edge cases: an empty
+    read, an empty truth, a read past its truth, N on either side, an
+    identical pair. Returns the pairs and their bands (``edit_bands``,
+    from their LCS on the card)."""
+    from proovread_tpu_torch.io.simulate import _apply_errors
+    from proovread_tpu_torch.obs import accuracy as acc
+    pairs, draws = [], 0
+    for errs in ((0.02, 0.08, 0.05), (0.0004, 0.0003, 0.0003)):
+        while len(pairs) < (n_each if errs[0] > 0.01 else 2 * n_each):
+            n_t = int(np.clip(rng.lognormal(np.log(7000), 0.55), 500,
+                              45_000))
+            draws += 1
+            if draws == 1:
+                n_t = 12_000            # ~70 M cells at ~15% errors
+            tr = rng.integers(0, 4, n_t).astype(np.int8)
+            pr = (_apply_errors(tr, rng, *errs), tr)
+            lcs = acc._lcs([pr], dev)
+            if edit_bands([pr], lcs)[1][0] <= acc.MAX_CLASSIFY_CELLS:
+                pairs.append(pr)
+    tr = rng.integers(0, 4, 900).astype(np.int8)
+    rd = _apply_errors(tr, rng, 0.02, 0.08, 0.05)
+    rd_n, tr_n = rd.copy(), tr.copy()
+    rd_n[::6] = 4
+    tr_n[::9] = 4
+    pairs += [(rd[:0], tr), (rd, tr[:0]),
+              (np.concatenate([rd, rng.integers(0, 4, 400)]).astype(np.int8),
+               tr), (rd_n, tr_n), (tr.copy(), tr)]
+    lcs = acc._lcs(pairs, dev)
+    return pairs, edit_bands(pairs, lcs)[0]
+
+
+# the banded unit-cost recurrence's own INT32 operations a cell: the
+# match compare, the diagonal add, the up add, their minimum, the left
+# add, the minimum with it, the clamp to _BIG, and the two decisions
+# (the diagonal gives the cell, the up gives it)
+EDIT_OPS_A_CELL = 9
+
+
+def check_edit(rng, dev, hold):
+    """The scoreboard's banded traceback kernel against its plain version
+    (CPU tensors) on ``edit_inputs`` (bitwise); the plain version runs
+    once, on the host, and that run is its time (``plain_ms``). The same
+    pairs and the kernel's result go to ``hold`` (an ``EditHold``), which
+    holds them against the host numpy ``edit_alignment`` once phase 2's
+    kernel times are taken."""
+    from proovread_tpu_torch.obs import accuracy as acc
+    pairs, bands = edit_inputs(rng, dev)
+    args = acc.pack_pairs(pairs, dev)
+    got = acc.edit_alignments(*args, bands)
+    hold.start("phase2", [(pairs, bands, [
+        dict(zip(("dist", "matches", "sub", "ins", "del"), r))
+        for r in got.cpu().tolist()])], plain=False)
+    t0 = time.monotonic()
+    want = acc.edit_alignments_plain(*acc.pack_pairs(pairs, "cpu"), bands)
+    plain_ms = (time.monotonic() - t0) * 1e3
+    assert_equal("edit_alignments", [(got.cpu(), want)])
+    if int(want[0, 0]) < 1000 or int(want[:, 3].sum()) == 0:
+        raise AssertionError(f"edit: weak inputs ({want[0].tolist()})")
+    tm = launcher_times(lambda: acc.edit_alignments(*args, bands),
+                        KERNEL_NAMES["edit"])
+    # each input byte once, the bands and the five outputs a pair; the
+    # recurrence counts EDIT_OPS_A_CELL INT32 operations a cell (the
+    # kernel's scan and band masks are its design's, not the function's);
+    # the walk's steps are not counted. A throughput figure: the floor is
+    # the longest pair's chain of rows, each a scan across its band
+    la = np.asarray([min(len(a), len(b)) for a, b in pairs])
+    width = np.asarray([abs(len(a) - len(b)) for a, b in pairs]) \
+        + 2 * np.asarray(bands) + 1
+    cells = int((la * width).sum())
+    n_bytes = sum(len(a) + len(b) for a, b in pairs) + 48 * len(pairs)
+    b_ms, b_by = bound(n_bytes, EDIT_OPS_A_CELL * cells,
+                       PEAK_INT32_OPS_PER_S)
+    return dict(max_abs_err=max_abs_err([(got.cpu().float(),
+                                          want.float())]),
+                **tm, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, cells=cells,
+                longest_chain_rows=int(la.max()),
+                longest_row_cells=int(width[int(np.argmax(la))]),
+                widest_row_cells=int(width.max()),
+                shape=f"P={len(pairs)} bases={n_bytes}")
 
 
 def scatter_bound(idx, keep, n_cells):
@@ -1891,6 +2011,133 @@ def cli_trace(tmp, label, longs, srs, truths):
                                     for e in buckets))
 
 
+EDIT_SIDE = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.edit_side(sys.argv[2]))
+"""
+
+
+def edit_side(path) -> int:
+    """The background half of ``EditHold``: the pairs of ``path`` (an
+    ``.npz``) through the host numpy ``edit_alignment`` and, where the
+    file asks, through ``edit_alignments_plain`` (CPU tensors), each held
+    equal to the kernel's result; writes ``path.json``; 0 if all
+    agree."""
+    import torch
+    from proovread_tpu_torch.obs import accuracy as acc
+    torch.set_num_threads(1)
+    z = np.load(path)
+    rd, ro, tr, to, band, got, want_plain = (
+        z[k] for k in ("rd", "ro", "tr", "to", "band", "got", "plain"))
+    pairs = [(rd[ro[i]:ro[i + 1]], tr[to[i]:to[i + 1]])
+             for i in range(len(ro) - 1)]
+    t0 = time.monotonic()
+    host = [[acc.edit_alignment(a, b, band=int(w))[k] for k in
+             ("dist", "matches", "sub", "ins", "del")]
+            for (a, b), w in zip(pairs, band)]
+    out = dict(pairs=len(pairs), equal_host=host == got.tolist(),
+               host_s=time.monotonic() - t0)
+    if want_plain:
+        t0 = time.monotonic()
+        plain = acc.edit_alignments_plain(*acc.pack_pairs(pairs, "cpu"),
+                                          band).tolist()
+        out.update(equal_plain=plain == got.tolist(),
+                   plain_s=time.monotonic() - t0)
+    with open(path + ".json", "w") as fh:
+        json.dump(out, fh)
+    return 0 if out["equal_host"] and out.get("equal_plain", True) else 1
+
+
+class EditHold:
+    """Every pair a command-line run's scoreboard classified on the card
+    (``accuracy._edit``: the kernel's call), held after the run, in a
+    niced subprocess of one thread each (``edit_side``), against the host
+    numpy ``edit_alignment`` and ``edit_alignments_plain``; phase 2's
+    pairs (``start``) wait for ``launch`` after phase 2's kernel times.
+    ``check`` at the end of the script waits for them and fails on any
+    difference."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_edit_")
+        self.queued, self.procs = [], {}
+
+    @contextlib.contextmanager
+    def probe(self, label):
+        from proovread_tpu_torch.obs import accuracy
+        orig, calls = accuracy._edit, []
+
+        def recorded(pairs, bands, device):
+            res = orig(pairs, bands, device)
+            calls.append((pairs, bands, res))
+            return res
+        accuracy._edit = recorded
+        try:
+            yield
+        finally:
+            accuracy._edit = orig
+        if calls:
+            self.start(label, calls)
+            self.launch()
+
+    def start(self, label, calls, plain=True) -> None:
+        """Keep ``calls`` (the kernel's pairs, bands and results) for
+        ``launch``; ``plain``: also through the plain version."""
+        pairs = [p for c in calls for p in c[0]]
+        path = os.path.join(self.tmp, f"{label}.npz")
+        off = lambda k: np.concatenate(  # noqa: E731
+            [[0], np.cumsum([len(p[k]) for p in pairs])]).astype(np.int64)
+        np.savez(path, rd=np.concatenate([p[0] for p in pairs]),
+                 ro=off(0), tr=np.concatenate([p[1] for p in pairs]),
+                 to=off(1), band=np.asarray([b for c in calls for b in c[1]],
+                                            np.int64),
+                 got=np.asarray([[r[k] for k in ("dist", "matches", "sub",
+                                                 "ins", "del")]
+                                 for c in calls for r in c[2]], np.int64),
+                 plain=plain)
+        self.queued.append((label, path))
+
+    def launch(self) -> None:
+        """Start a subprocess for every kept run."""
+        here = os.path.dirname(os.path.abspath(__file__))
+        for label, path in self.queued:
+            err = open(path + ".err", "w")
+            self.procs[label] = (subprocess.Popen(
+                ["nice", "-n", "10", sys.executable, "-c", EDIT_SIDE, here,
+                 path], cwd=here, env=dict(os.environ, OMP_NUM_THREADS="1"),
+                stdout=subprocess.DEVNULL, stderr=err), path, err)
+        self.queued = []
+
+    def check(self) -> dict:
+        """Wait for every run's hold; raise on a difference."""
+        self.launch()
+        out = {}
+        t0 = time.monotonic()
+        for label, (proc, path, err) in self.procs.items():
+            rc = proc.wait(timeout=900)
+            err.close()
+            if not os.path.exists(path + ".json"):
+                with open(err.name) as fh:
+                    raise AssertionError(f"{label}: the edit hold failed: "
+                                         + fh.read()[-3000:])
+            with open(path + ".json") as fh:
+                out[label] = json.load(fh)
+            if rc != 0:
+                raise AssertionError(f"{label}: the traceback kernel "
+                                     f"differs: {out[label]}")
+        log(f"edit hold: waited {time.monotonic() - t0:.1f} s; "
+            + json.dumps(out))
+        return out
+
+    def close(self) -> None:
+        for proc, _, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 class ScoreLog(logging.Handler):
     """The seconds of a command-line run's score-accuracy step, from the
     ``accuracy:`` line it logs."""
@@ -1980,7 +2227,8 @@ class TaskProbe:
 
 
 def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
-            hold_identity=True, tasks=(), classify_cap=None):
+            hold_identity=True, tasks=(), classify_cap=None,
+            edit_hold=None):
     """``cli.main`` with its defaults (the checkpoint journal on) on the
     workload's files (``utgs``, unitigs, as ``-u``; ``extra`` arguments),
     scoring ``--truth`` into ``--qc-out`` and ``--metrics-out``, with
@@ -1989,7 +2237,8 @@ def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
     ``tasks`` ((key, module, function name)) probed (``TaskProbe``), and
     with ``classify_cap`` the scoring's class breakdown on that many
     sampled reads instead of the scoreboard's 64 (identity is scored for
-    every read either way); holds
+    every read either way), and with ``edit_hold`` (an ``EditHold``) every
+    classified pair and the kernel's result held in the background; holds
     that every output read was scored, and (``hold_identity``) corrected
     to at least the identity floor and above its input, that nothing was
     demoted and that the journal is gone; returns what phases 7, 8 and
@@ -2026,8 +2275,10 @@ def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
             (correct, "call_consensus", "consensus_call", True)]))
         timers = {key: stack.enter_context(KernelTimer(f"pt_{key}"))
                   for key in ("bsw_expand_v2", "sw_batch", "lcs_lengths",
-                              "scatter_add_ordered")}
-        bsw_t, sw_t, lcs_t, sc_t = timers.values()
+                              "scatter_add_ordered", "edit_alignments")}
+        bsw_t, sw_t, lcs_t, sc_t, edit_t = timers.values()
+        if edit_hold is not None:
+            stack.enter_context(edit_hold.probe(label))
         probes = {key: stack.enter_context(
             TaskProbe(obj, name, (probe, calls), timers))
             for key, obj, name in tasks}
@@ -2097,6 +2348,7 @@ def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
         identity_after=after, errors_before=acc["errors_before"],
         errors_after=acc["errors_after"], introduced=acc["introduced"],
         lcs_launches=len(lcs_t.events), lcs_device_ms=lcs_t.total_ms(),
+        edit_launches=len(edit_t.events), edit_device_ms=edit_t.total_ms(),
         journal_writes=journal.writes, journal_bytes=journal.bytes,
         journal_write_s=journal.s,
         journal_bytes_per_base=journal.bytes / bases,
@@ -2543,7 +2795,7 @@ def device_args(device: str):
 
 
 def phase11(tmp, srs, genome=1_250_000, molecule_bases=2_000_000,
-            device="cuda"):
+            device="cuda", edit_hold=None):
     """Subreads at E.coli class: 2 Mb of molecules of phase 4's genome as
     PacBio subreads (~5 Mb) with phase 7's short reads, through
     ``cli.main`` with its defaults (mode sr: ``ccs-1``, then the passes),
@@ -2554,7 +2806,8 @@ def phase11(tmp, srs, genome=1_250_000, molecule_bases=2_000_000,
     subs, truths, zmw = subread_workload(genome, molecule_bases)
     r, _, (probes, _) = cli_run(tmp, "ecoli-subreads", subs, srs, "sr",
                                 truths, extra=device_args(device),
-                                tasks=[("ccs", tasks, "ccs_correct")])
+                                tasks=[("ccs", tasks, "ccs_correct")],
+                                edit_hold=edit_hold)
     pr = probes["ccs"]
     ccs_out, st = pr.out
     # identity before: every subread against its molecule (the scored
@@ -2580,7 +2833,8 @@ def phase11(tmp, srs, genome=1_250_000, molecule_bases=2_000_000,
     return r
 
 
-def phase12(tmp, longs, srs, truths, genome=1_250_000, device="cuda"):
+def phase12(tmp, longs, srs, truths, genome=1_250_000, device="cuda",
+            edit_hold=None):
     """Unitigs at E.coli class: phase 4's CLR reads, phase 7's short reads
     and 15-30 kb unitigs tiling the genome at ~1.2x, through ``cli.main
     -u`` (mode sr+utg-noccs), scored. Returns what it logs."""
@@ -2591,7 +2845,8 @@ def phase12(tmp, longs, srs, truths, genome=1_250_000, device="cuda"):
     r, _, (probes, _) = cli_run(tmp, "ecoli-utg", longs, srs,
                                 "sr+utg-noccs", truths, utgs=utgs,
                                 extra=device_args(device),
-                                tasks=[("utg", utg, "utg_correct")])
+                                tasks=[("utg", utg, "utg_correct")],
+                                edit_hold=edit_hold)
     pr = probes["utg"]
     _, rep = pr.out
     r.update(
@@ -2870,6 +3125,11 @@ def main(argv=None) -> int:
                         "proovread_tpu_torch/csrc/lcs.cu",
                         "proovread_tpu/obs/accuracy.py:203 (numpy "
                         "lcs_lengths, no Pallas kernel)"),
+        # a port-only kernel: the reference's traceback is numpy
+        "edit_alignments": (accuracy.edit_alignments,
+                            "proovread_tpu_torch/csrc/edit.cu",
+                            "proovread_tpu/obs/accuracy.py:224 (numpy "
+                            "_banded_tb and its walk, no Pallas kernel)"),
         # a port-only kernel: the reference's vote scatters are XLA
         "scatter_add_ordered": (
             scatter.scatter_add_ordered,
@@ -2883,11 +3143,12 @@ def main(argv=None) -> int:
                   "assemble_rows": 4, "hcr_mask_rows": 4,
                   "pileup_accumulate_packed": 5, "bsw_expand": 6,
                   "pileup_accumulate": 6, "sw_batch": 7, "lcs_lengths": 7,
-                  "scatter_add_ordered": 11}
-    # the command-line runs (scored against their truth) also go through
-    # the main path's kernels
-    cli_path = ("sw_batch", "bsw_expand_v2", "pileup_accumulate_bits",
-                "assemble_rows", "hcr_mask_rows", "lcs_lengths")
+                  "edit_alignments": 7, "scatter_add_ordered": 11}
+    # the command-line runs go through the main path's kernels, and when
+    # scored against their truth through the scoreboard's
+    run_path = ("sw_batch", "bsw_expand_v2", "pileup_accumulate_bits",
+                "assemble_rows", "hcr_mask_rows")
+    cli_path = run_path + ("lcs_lengths", "edit_alignments")
     results, launches = {}, {}
 
     def drive(phase, fn, required=()):
@@ -2916,6 +3177,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"phase {phase}: no pass admitted")
         if len(res.untrimmed) == 0:
             raise AssertionError(f"phase {phase}: no corrected reads")
+
+    # every pair the scoreboard classifies on the card in phases 2, 7, 11
+    # and 12, held in the background against the host numpy and the plain
+    # version (phase 2: its traceback check's pairs)
+    hold = EditHold()
+    import atexit
+    atexit.register(hold.close)
 
     # -- phase 2 -------------------------------------------------------------
     if "2" not in skip:
@@ -2978,6 +3246,9 @@ def main(argv=None) -> int:
         results["lcs_lengths"] = check_lcs(rng, dev)
         report("lcs_lengths", results["lcs_lengths"])
         torch.cuda.empty_cache()
+        results["edit_alignments"] = check_edit(rng, dev, hold)
+        report("edit_alignments", results["edit_alignments"])
+        torch.cuda.empty_cache()
         # the ccs and utg windows: 512 bases at m = 512, CCS_ALIGN's band
         # of 40 (n = 640), ccs-1's chunk of 4096 candidates
         r = check_sw(rng, dev, R=4096, m=512, n=640, ap=CCS_ALIGN)
@@ -3009,10 +3280,11 @@ def main(argv=None) -> int:
         log(f"phase2 peak device memory {peak2[0]:.2f} GiB")
         torch.cuda.empty_cache()
 
+    # phase 2's traceback hold, and phase 3's CPU side, start once phase
+    # 2's kernel times are taken, and run under the card phases 3-13
+    hold.launch()
     cpu3 = None
     if "3" not in skip:
-        # phase 3's CPU side starts once phase 2's kernel times are taken,
-        # and runs under the card phases 3-13
         import atexit
         cpu3 = CpuSide(tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
         atexit.register(cpu3.close)
@@ -3148,16 +3420,17 @@ def main(argv=None) -> int:
     if "7" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
             (cli7, out7, _), _ = drive(7, lambda: cli_run(
-                tmp, "ecoli-sr", longs, srs, "sr-noccs", truths),
-            required=cli_path)
+                tmp, "ecoli-sr", longs, srs, "sr-noccs", truths,
+                edit_hold=hold), required=cli_path)
         log("phase7 " + json.dumps(cli7))
+        log(f"phase7 score-accuracy {cli7['score_accuracy_s']:.2f} s")
 
     # -- phase 9: kill and resume at E.coli class -----------------------------
     if "9" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
             cli9, _ = drive(9, lambda: cli_kill_resume(
                 tmp, "ecoli-resume", longs, srs, "compile@b3", 3, ref=out7),
-                required=cli_path[:-1])
+                required=run_path)
         log("phase9 " + json.dumps(cli9))
 
     # -- phase 10: the scan engine timed at E.coli class ----------------------
@@ -3193,14 +3466,17 @@ def main(argv=None) -> int:
     sub_path = cli_path + ("scatter_add_ordered",)
     if "11" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
-            cli11, _ = drive(11, lambda: phase11(tmp, srs),
+            cli11, _ = drive(11, lambda: phase11(tmp, srs, edit_hold=hold),
                              required=sub_path)
         log("phase11 " + json.dumps(cli11))
+        log(f"phase11 score-accuracy {cli11['score_accuracy_s']:.2f} s")
     if "12" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
-            cli12, _ = drive(12, lambda: phase12(tmp, longs, srs, truths),
+            cli12, _ = drive(12, lambda: phase12(tmp, longs, srs, truths,
+                                                 edit_hold=hold),
                              required=sub_path)
         log("phase12 " + json.dumps(cli12))
+        log(f"phase12 score-accuracy {cli12['score_accuracy_s']:.2f} s")
     if "13" not in skip:
         with tempfile.TemporaryDirectory() as tmp:
             cli13, _ = drive(13, lambda: phase13(tmp),
@@ -3210,6 +3486,7 @@ def main(argv=None) -> int:
     # -- phase 3: the CPU side against the card's -----------------------------
     if cpu3 is not None:
         cpu3.compare(card3)
+    hold.check()
 
     if skip:
         log(f"phases {sorted(skip)} skipped: no result printed")

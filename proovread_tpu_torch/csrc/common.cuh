@@ -9,11 +9,16 @@
 
 #define PT_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when a launch
-// needs it (the H100 allows up to 227 KB per block).
+// Opt a kernel into ``bytes`` of dynamic shared memory when that and its
+// static shared memory pass the default 48 KB a block (the H100 allows up
+// to 227 KB a block).
 template <typename K>
 static inline cudaError_t pt_reserve_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes == 0) return cudaSuccess;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  if (bytes + a.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);

@@ -5,14 +5,18 @@ Port of the scoring half of ``proovread_tpu/obs/accuracy.py``:
 - **Identity for every read.** ``identity = LCS / max(len_read,
   len_truth)``, the LCS from the bit-parallel CIPR/Hyyro recurrence in
   ``O(n * ceil(m/64))`` word operations a pair. :func:`lcs_lengths` runs
-  the CUDA kernel ``csrc/lcs.cu`` for CUDA tensors (one warp a pair) and
+  the CUDA kernel ``csrc/lcs.cu`` for CUDA tensors (a warp a pair, or a
+  wavefront of a block's warps for a long truth; :func:`lcs_plan`) and
   its plain PyTorch version, a torch copy of the reference's lockstep
   ``_lcs_group``, for CPU tensors. Both give the reference's integers.
 - **Residual error classes.** A banded unit-cost edit alignment with
-  traceback (host numpy, as in the reference) classifies the remaining
-  errors as sub/ins/del, and derives the *introduced* counts (per class
-  ``max(0, after - before)``), on a deterministic sample of reads
-  (``classify_cap``).
+  traceback classifies the remaining errors as sub/ins/del, and derives
+  the *introduced* counts (per class ``max(0, after - before)``), on a
+  deterministic sample of reads (``classify_cap``). Scored on the CPU it
+  is the reference's host numpy (:func:`edit_alignment`); on a card every
+  classified pair goes through the CUDA kernel ``csrc/edit.cu`` in one
+  call (:func:`edit_alignments`, plain version
+  :func:`edit_alignments_plain`), with the same integers.
 - **Chimera correctness.** With junction coordinates in the truth sidecar,
   each read's detected breakpoints (the QC record's ``chimera``
   intervals) are matched against the truth within ``chimera_tol`` bp.
@@ -62,11 +66,13 @@ CHIMERA_TOL = 100
 _W = 64
 _BIG = 1 << 20
 
-# words of V a lane of csrc/lcs.cu keeps in registers: a pair takes the
-# smallest class that holds ceil(ceil(len(truth) / 64) / 32) words; a pair
-# above SMEM_MAX_WPL runs from a global-memory scratch instead
-LCS_CLASSES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
-SMEM_MAX_WPL = 32
+# csrc/lcs.cu: a pair takes K = ceil(k / (32 W)) warps of a block (its
+# truth's k = ceil(len / 64) words), W = 1 word of V a lane when one warp
+# holds the truth so, else 2 (a step costs each warp about the same issue
+# slots at either W, so fewer warps are faster: PERF.md); a pair needing
+# more than WAVE_MAX_WARPS warps runs one warp a pair from a global-memory
+# scratch
+WAVE_MAX_WARPS = 32
 
 
 def _liblog():
@@ -99,25 +105,24 @@ def pack_pairs(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], device
     return tuple(out)
 
 
-def _check(text, text_off, pat, pat_off):
+def _check(text, text_off, pat, pat_off, what="lcs_lengths"):
     """Host copies of the offsets, after checking what the kernel
     dereferences."""
     req = kernels.require
     req(text.dtype == torch.int8 and pat.dtype == torch.int8
         and text.dim() == 1 and pat.dim() == 1,
-        "lcs_lengths: reads and truths must be flat int8")
+        f"{what}: reads and truths must be flat int8")
     req(text_off.dtype == torch.int64 and pat_off.dtype == torch.int64
         and text_off.dim() == 1 and text_off.shape == pat_off.shape
         and text_off.numel() >= 1,
-        "lcs_lengths: offsets must be int64 [P+1], the same P for both")
+        f"{what}: offsets must be int64 [P+1], the same P for both")
     req(len({t.device for t in (text, text_off, pat, pat_off)}) == 1,
-        "lcs_lengths: tensors on mixed devices")
+        f"{what}: tensors on mixed devices")
     to, po = text_off.cpu().numpy(), pat_off.cpu().numpy()
     for name, off, flat in (("read", to, text), ("truth", po, pat)):
         req(off[0] == 0 and off[-1] == flat.numel()
             and bool((np.diff(off) >= 0).all()),
-            f"lcs_lengths: {name} offsets must rise from 0 to "
-            f"{flat.numel()}")
+            f"{what}: {name} offsets must rise from 0 to {flat.numel()}")
     return to, po
 
 
@@ -138,35 +143,73 @@ def lcs_lengths(text: torch.Tensor, text_off: torch.Tensor,
 lcs_lengths.launches = 0
 
 
+def lcs_plan(n: np.ndarray, m: np.ndarray,
+             max_warps: Optional[int] = None) -> Dict[str, Any]:
+    """How ``csrc/lcs.cu`` runs pairs of read lengths ``n`` and truth
+    lengths ``m``: each pair with both sides non-empty takes K warps at W
+    words a lane (W = 1 for a truth of at most 32 words, else 2), and its
+    warps run ``ceil(n / 32) + K - 1`` tile steps. Pairs are packed whole,
+    most tile steps first, into blocks of ``warps_per_block`` warps (the
+    next power of two >= the largest K, at least 4), a block closed when
+    the next pair does not fit (``slots``: pair * 64 + (W - 1) * 32 + warp
+    of the pair, or -1; ``steps``: a block's tile steps, its first
+    pair's). A pair needing more than ``max_warps``
+    warps runs from the global scratch instead (``glob``: its pairs; ``gw``
+    words a lane; ``gofs`` its scratch offsets)."""
+    max_warps = WAVE_MAX_WARPS if max_warps is None else max_warps
+    n, m = np.asarray(n, np.int64), np.asarray(m, np.int64)
+    k = -(-m // _W)
+    W = np.where(k <= 32, 1, 2)
+    K = -(-k // (32 * W))
+    live = (n > 0) & (m > 0)
+    glob = np.flatnonzero(live & (K > max_warps))
+    wave = np.flatnonzero(live & (K <= max_warps))
+    steps = -(-n // 32) + K - 1
+    kmax = int(K[wave].max()) if len(wave) else 1
+    C = max(4, 1 << (kmax - 1).bit_length())
+    order = wave[np.argsort(-steps[wave], kind="stable")]
+    slots, block_steps, used = [], [], C
+    for p in order.tolist():
+        kp = int(K[p])
+        if used + kp > C:
+            slots.append(np.full(C, -1, np.int32))
+            block_steps.append(int(steps[p]))
+            used = 0
+        slots[-1][used:used + kp] = p * 64 + (W[p] - 1) * 32 + np.arange(kp)
+        used += kp
+    gw = -(-k[glob] // 32)
+    size = 6 * 32 * gw
+    return dict(
+        slots=(np.concatenate(slots) if slots else np.zeros(0, np.int32)),
+        steps=np.asarray(block_steps, np.int32), blocks=len(block_steps),
+        warps_per_block=C, glob=glob.astype(np.int32),
+        gw=gw.astype(np.int32),
+        gofs=(np.cumsum(size) - size).astype(np.int64),
+        scratch_words=int(size.sum()),
+        longest_pair_warps=int(K[order[0]]) if len(order) else 0,
+        words_a_lane=W, warps=K,
+        pairs_by_warps={int(x): int(c) for x, c in zip(
+            *np.unique(K[wave], return_counts=True))})
+
+
 def _lcs_cuda(text, text_off, pat, pat_off, to, po) -> torch.Tensor:
     dev = text.device
     P = len(to) - 1
-    n, m = np.diff(to), np.diff(po)
-    words = -(-m // _W)
-    wpl = -(-words // 32)                       # words of V a lane
-    glob = (wpl > SMEM_MAX_WPL) & (n > 0)
-    cls = np.asarray(LCS_CLASSES)
-    w = np.where(glob, wpl,
-                 cls[np.minimum(np.searchsorted(cls, wpl), len(cls) - 1)])
-    w = np.where((m == 0) | (n == 0), 0, w).astype(np.int32)
-    # a global pair's scratch: 4 mask rows, V and S, 32 lanes of w words
-    size = np.where(glob, 6 * 32 * w.astype(np.int64), 0)
-    gofs = np.where(glob, np.cumsum(size) - size, -1).astype(np.int64)
-    order = np.argsort(-(n * w.astype(np.int64)), kind="stable")
-    smem_w = int(w[~glob].max()) if (~glob).any() else 0
-    out = torch.empty(P, dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(int(size.sum()), 1), dtype=torch.int64,
+    plan = lcs_plan(np.diff(to), np.diff(po))
+    out = torch.zeros(P, dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(plan["scratch_words"], 1), dtype=torch.int64,
                           device=dev)
-    meta = [torch.as_tensor(a, device=dev) for a in
-            (order.astype(np.int32), w, gofs)]
+    meta = [torch.as_tensor(plan[key], device=dev)
+            for key in ("slots", "steps", "glob", "gw", "gofs")]
     text, text_off, pat, pat_off = (t.contiguous() for t in
                                     (text, text_off, pat, pat_off))
-    if P > 0:
+    if plan["blocks"] or len(plan["glob"]):
         rc = kernels.lib().pt_lcs_lengths(
             text.data_ptr(), text_off.data_ptr(), pat.data_ptr(),
             pat_off.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
-            meta[2].data_ptr(), scratch.data_ptr(), P, smem_w,
-            out.data_ptr(), kernels.stream_of(text))
+            plan["blocks"], plan["warps_per_block"], meta[2].data_ptr(),
+            meta[3].data_ptr(), meta[4].data_ptr(), scratch.data_ptr(),
+            len(plan["glob"]), out.data_ptr(), kernels.stream_of(text))
         kernels.check(rc, "lcs_lengths")
         lcs_lengths.launches += 1
     return out
@@ -393,6 +436,207 @@ def edit_alignment(a, b, band: Optional[int] = None) -> Dict[str, int]:
     return res
 
 
+def _edit_args(what, rd, rd_off, tr, tr_off, band):
+    """Host offsets and :func:`edit_alignment`'s first band of each pair
+    (the band asked for, at least 1; 64 where it is 0), after checking
+    the tensors."""
+    to, po = _check(rd, rd_off, tr, tr_off, what)
+    band = np.asarray(band.cpu() if isinstance(band, torch.Tensor)
+                      else band, np.int64).reshape(-1)
+    kernels.require(len(band) == len(to) - 1,
+                    f"{what}: one band a pair ({len(band)} for "
+                    f"{len(to) - 1} pairs)")
+    return to, po, np.where(band == 0, 64, np.maximum(band, 1))
+
+
+def edit_alignments(rd: torch.Tensor, rd_off: torch.Tensor,
+                    tr: torch.Tensor, tr_off: torch.Tensor,
+                    band) -> torch.Tensor:
+    """:func:`edit_alignment` of every pair (read ``rd[rd_off[p]:
+    rd_off[p+1]]``, truth ``tr[tr_off[p]:tr_off[p+1]]``, ``band[p]``):
+    int64 [P, 5] of (dist, matches, sub, ins, del). CPU tensors take the
+    plain version, CUDA tensors the kernel ``csrc/edit.cu`` (all pairs in
+    one launch; pairs whose distance exceeds their band while the band is
+    below the shorter length go again at twice the band)."""
+    if rd.device.type == "cpu":
+        return edit_alignments_plain(rd, rd_off, tr, tr_off, band)
+    if rd.device.type != "cuda":
+        raise ValueError(f"edit_alignments: unsupported device {rd.device}")
+    return _edit_cuda(rd, rd_off, tr, tr_off,
+                      *_edit_args("edit_alignments", rd, rd_off, tr, tr_off,
+                                  band))
+
+
+edit_alignments.launches = 0
+
+# a block of csrc/edit.cu keeps its two DP rows and a state byte a cell
+# in shared memory up to this many bytes (two blocks an SM); wider bands
+# use a global scratch. A block has a thread a cell of the widest band row
+# of the launch, at most EDIT_MAX_THREADS (a thread of a wider row takes
+# several contiguous cells)
+EDIT_SMEM_BYTES = 100 * 1024
+EDIT_MAX_THREADS = 1024
+
+
+def _edit_cuda(rd, rd_off, tr, tr_off, to, po, w) -> torch.Tensor:
+    dev = rd.device
+    P = len(to) - 1
+    la, lb = np.diff(to), np.diff(po)
+    short, d = np.minimum(la, lb), np.abs(la - lb)
+    out = torch.zeros((P, 5), dtype=torch.int64, device=dev)
+    rd, rd_off, tr, tr_off = (t.contiguous() for t in
+                              (rd, rd_off, tr, tr_off))
+    todo = np.arange(P)
+    while len(todo):
+        width = d[todo] + 2 * w[todo] + 1
+        live = short[todo] > 0
+        bits = np.where(live, 2 * short[todo] * -(-width // 32), 0)
+        dp = 2 * width + -(-width // 4)         # csrc/edit.cu dp_words
+        smem = live & (dp * 4 <= EDIT_SMEM_BYTES)
+        rows = np.where(live & ~smem, dp, 0)
+        meta = {}
+        for key, vals, fill in (("bits_off", np.cumsum(bits) - bits, 0),
+                                ("rows_off", np.where(
+                                    smem, -1, np.cumsum(rows) - rows), -1)):
+            full = np.full(P, fill, np.int64)
+            full[todo] = vals
+            meta[key] = torch.as_tensor(full, device=dev)
+        band = torch.as_tensor(w.astype(np.int32), device=dev)
+        lst = torch.as_tensor(todo.astype(np.int32), device=dev)
+        bits_t = torch.empty(max(int(bits.sum()), 1), dtype=torch.int32,
+                             device=dev)
+        rows_t = torch.empty(max(int(rows.sum()), 1), dtype=torch.int32,
+                             device=dev)
+        wmax = int(width[live].max()) if live.any() else 32
+        threads = int(min(EDIT_MAX_THREADS, -(-wmax // 32) * 32))
+        smem_width = int(width[smem].max()) if smem.any() else 0
+        rc = kernels.lib().pt_edit_alignments(
+            rd.data_ptr(), rd_off.data_ptr(), tr.data_ptr(),
+            tr_off.data_ptr(), lst.data_ptr(), len(todo), band.data_ptr(),
+            meta["bits_off"].data_ptr(), meta["rows_off"].data_ptr(),
+            bits_t.data_ptr(), rows_t.data_ptr(), threads, smem_width,
+            out.data_ptr(), kernels.stream_of(rd))
+        kernels.check(rc, f"edit_alignments ({len(todo)} pairs, {threads} "
+                          f"threads, rows of {smem_width} cells in shared "
+                          "memory)")
+        edit_alignments.launches += 1
+        dist = out[:, 0].cpu().numpy()[todo]
+        kernels.require(bool((dist >= 0).all()),
+                        "edit_alignments: a walk left its band (kernel "
+                        "fault)")
+        grow = (dist > w[todo]) & (w[todo] < short[todo])
+        todo = todo[grow]
+        w = w.copy()
+        w[todo] *= 2
+    return out
+
+
+def _banded_tb_plain(a: torch.Tensor, b: torch.Tensor, w: int
+                     ) -> Tuple[int, int, int, int, int]:
+    """:func:`_banded_tb` in PyTorch on the tensors' device (``len(b) >=
+    len(a)``): the same rows, masks and scan (``torch.cummin``), then the
+    same walk over the rows."""
+    dev = a.device
+    la, lb = len(a), len(b)
+    d = lb - la
+    width = d + 2 * w + 1
+    rows = torch.empty((la + 1, width), dtype=torch.int32, device=dev)
+    offs = torch.arange(width, dtype=torch.int32, device=dev)
+    j0 = offs - w
+    rows[0] = torch.where((j0 >= 0) & (j0 <= lb), j0, _BIG)
+    bp = torch.full((la + width + 1,), 4, dtype=torch.int8, device=dev)
+    bp[w + 1:w + 1 + lb] = b
+    up = torch.full((width,), _BIG, dtype=torch.int32, device=dev)
+    codes = a.tolist()
+    for i in range(1, la + 1):
+        prev, cur = rows[i - 1], rows[i]
+        ai = codes[i - 1]
+        if ai >= 4:
+            diag = prev + 1
+        else:
+            diag = prev + (bp[i:i + width] != ai).to(torch.int32)
+        if i <= w:
+            diag[:w + 1 - i] = _BIG             # j < 1: no diagonal
+        up[:-1] = prev[1:] + 1
+        c0 = torch.minimum(diag, up)
+        scan = torch.cummin(c0 - offs, 0).values + offs
+        torch.minimum(torch.minimum(c0, scan), torch.full_like(c0, _BIG),
+                      out=cur)
+        if i < w:
+            cur[:w - i] = _BIG                  # j < 0
+        hi = lb - i + w + 1                     # j > lb from here
+        if hi < width:
+            cur[max(hi, 0):] = _BIG
+    cells = rows.cpu().numpy()
+    tcodes = b.tolist()
+    dist = int(cells[la, d + w])
+
+    def cell(i: int, j: int) -> int:
+        idx = j - i + w
+        if idx < 0 or idx >= width:
+            return _BIG
+        return int(cells[i, idx])
+
+    i, j = la, lb
+    matches = sub = ins = dele = 0
+    while i > 0 or j > 0:
+        cur_v = cell(i, j)
+        is_match = i > 0 and j > 0 and codes[i - 1] == tcodes[j - 1] \
+            and codes[i - 1] < 4
+        if i > 0 and j > 0 and cell(i - 1, j - 1) + int(
+                not is_match) == cur_v:
+            if is_match:
+                matches += 1
+            else:
+                sub += 1
+            i -= 1
+            j -= 1
+        elif i > 0 and cell(i - 1, j) + 1 == cur_v:
+            ins += 1
+            i -= 1
+        else:
+            dele += 1
+            j -= 1
+    return dist, matches, sub, ins, dele
+
+
+def edit_alignments_plain(rd, rd_off, tr, tr_off, band) -> torch.Tensor:
+    """The plain version of :func:`edit_alignments`, on the tensors'
+    device: :func:`edit_alignment` pair by pair (the swap, the empty
+    sides, the band doubling) over :func:`_banded_tb_plain`."""
+    to, po, first = _edit_args("edit_alignments", rd, rd_off, tr, tr_off,
+                               band)
+    out = torch.zeros((len(to) - 1, 5), dtype=torch.int64)
+    for p in range(len(to) - 1):
+        a, b = rd[to[p]:to[p + 1]], tr[po[p]:po[p + 1]]
+        la, lb = len(a), len(b)
+        if la == 0 or lb == 0:
+            out[p] = torch.tensor([la + lb, 0, 0, la, lb])
+            continue
+        swap = la > lb
+        if swap:
+            a, b, la, lb = b, a, lb, la
+        w = int(first[p])
+        while True:
+            res = list(_banded_tb_plain(a, b, w))
+            if res[0] <= w or w >= la:
+                break
+            w *= 2
+        if swap:
+            res[3], res[4] = res[4], res[3]
+        out[p] = torch.tensor(res)
+    return out.to(rd.device)
+
+
+def _edit(pairs, bands, device) -> List[Dict[str, int]]:
+    """:func:`edit_alignments` of ``(read_codes, truth_codes)`` pairs at
+    their bands, run on ``device``, as :func:`edit_alignment`'s dicts."""
+    res = edit_alignments(*pack_pairs(pairs, device),
+                          np.asarray(bands, np.int64)).cpu().tolist()
+    return [dict(zip(("dist", "matches", "sub", "ins", "del"), r))
+            for r in res]
+
+
 # --------------------------------------------------------------------------
 # scoring
 # --------------------------------------------------------------------------
@@ -462,6 +706,8 @@ def score_read_sets(before: Dict[str, np.ndarray],
             cells = (min(la, lb) + 1) * (abs(la - lb) + 2 * w + 1)
             return w, cells
 
+        on_host = torch.device(device).type == "cpu"
+        todo = []
         for rid in cl_ids:
             wb, cb = _band_and_cells(before[rid], truth[rid],
                                      lcs_by_id[rid][0])
@@ -474,9 +720,21 @@ def score_read_sets(before: Dict[str, np.ndarray],
                     "is still scored", rid, max(cb, ca),
                     MAX_CLASSIFY_CELLS)
                 continue
-            per_read[rid]["classes"] = _classes(
-                edit_alignment(before[rid], truth[rid], band=wb),
-                edit_alignment(after[rid], truth[rid], band=wa))
+            if on_host:
+                per_read[rid]["classes"] = _classes(
+                    edit_alignment(before[rid], truth[rid], band=wb),
+                    edit_alignment(after[rid], truth[rid], band=wa))
+            else:
+                todo.append((rid, wb, wa))
+        if todo:
+            # the kernel: every classified pair, before and after, at once
+            res = _edit([(before[r], truth[r]) for r, _, _ in todo]
+                        + [(after[r], truth[r]) for r, _, _ in todo],
+                        [wb for _, wb, _ in todo]
+                        + [wa for _, _, wa in todo], device)
+            for x, (rid, _, _) in enumerate(todo):
+                per_read[rid]["classes"] = _classes(res[x],
+                                                    res[len(todo) + x])
         if truth_breakpoints is not None:
             det = detected_chimera or {}
             for rid in ids:

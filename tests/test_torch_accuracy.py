@@ -5,10 +5,13 @@ The same seeded inputs, made with numpy, go through
 ``proovread_tpu.obs.accuracy`` / ``proovread_tpu.io.simulate`` and the
 port on the CPU. Tolerance: the LCS lengths (the plain PyTorch version of
 the ``csrc/lcs.cu`` kernel) bitwise equal, including empty reads and
-truths, truths of exact multiples of 64 and of a kernel lane's 2048
-bases, reads longer than their truths and N on either side; edit
-alignments, per-read accuracy records and summaries, simulated records
-and truths equal; truth sidecars byte-identical."""
+truths, truths of exact multiples of 64 and of a kernel warp's 2048 and
+4096 bases, reads longer than their truths and N on either side; edit
+alignments (the host numpy and the plain PyTorch version of the
+``csrc/edit.cu`` kernel: swapped lengths, bands doubled, N on either side,
+empty sides, ties at the band's edge), per-read accuracy records and
+summaries, simulated records and truths equal; truth sidecars
+byte-identical."""
 
 import numpy as np
 import pytest
@@ -105,6 +108,133 @@ def test_lcs_checks_its_offsets():
         tacc.lcs_lengths(text.to(torch.int32), toff, pat, poff)
     with pytest.raises(ValueError, match="offsets"):
         tacc.lcs_lengths(text, toff[:-1], pat, poff)
+
+
+@pytest.mark.parametrize("max_warps", [32, 3, 2, 0])
+def test_lcs_plan_packs_every_pair_once(max_warps):
+    """The LCS kernel's packing: every pair with both sides non-empty runs
+    once, as K contiguous warps of one block (W = 1 word a lane when one
+    warp holds the truth so, else 2), or from the global scratch past
+    ``max_warps``; blocks come most tile steps first, each running its
+    longest pair's steps."""
+    rng = np.random.default_rng(max_warps)
+    n = rng.integers(0, 60_000, 400)
+    m = np.concatenate([rng.integers(0, 4_100, 200),
+                        rng.integers(4_100, 140_000, 200)])
+    n[:5] = 0
+    m[5:10] = 0
+    m[10:14] = [2048, 2049, 4096, 4097]
+    plan = tacc.lcs_plan(n, m, max_warps)
+    k = -(-m // 64)
+    W = np.where(k <= 32, 1, 2)
+    K = -(-k // (32 * W))
+    C = plan["warps_per_block"]
+    assert C >= 4 and C & (C - 1) == 0 and C <= 32
+    slots = plan["slots"].reshape(plan["blocks"], C)
+    seen = {}
+    for blk, row in enumerate(slots):
+        live = row[row >= 0]
+        assert (row[len(live):] == -1).all()
+        pairs = live // 64
+        for p in np.unique(pairs):
+            assert (live[pairs == p] % 32).tolist() == list(range(K[p]))
+            assert ((live[pairs == p] >> 5) & 1 == W[p] - 1).all()
+            assert p not in seen
+            seen[p] = blk
+        steps = -(-n[pairs] // 32) + K[pairs] - 1
+        assert plan["steps"][blk] == steps.max()
+    assert (np.diff(plan["steps"]) <= 0).all()
+    live = (n > 0) & (m > 0)
+    assert sorted(seen) == np.flatnonzero(live & (K <= max_warps)).tolist()
+    assert plan["glob"].tolist() == np.flatnonzero(
+        live & (K > max_warps)).tolist()
+    assert plan["gw"].tolist() == (-(-k[plan["glob"]] // 32)).tolist()
+    # 32 words: one warp at one word a lane; 33, 64 and 65 words: one,
+    # one and two warps at two words a lane
+    assert k[10] == 32 and k[11] == 33 and (K[10], W[10]) == (1, 1)
+    assert (K[11], K[12], K[13]) == (1, 1, 2) and (W[11:14] == 2).all()
+
+
+_KEYS = ("dist", "matches", "sub", "ins", "del")
+
+
+def _edit_case(case):
+    """(pairs, bands) of an edit-alignment case, made with numpy."""
+    rng = np.random.default_rng(len(case))
+    if case == "ties":
+        # homopolymers and repeats (many equal-cost paths), bands exactly
+        # at the distance (paths along the band's edge) and 0 (64)
+        pairs, bands = [], []
+        for rep in ([0] * 60, [0, 1] * 40, [2, 2, 3] * 30):
+            b = np.asarray(rep, np.int8)
+            for a in (b[7:], np.concatenate([b[:20], b[31:]]),
+                      np.concatenate([b, [0, 0, 1]])):
+                a = np.asarray(a, np.int8)
+                dist = jacc.edit_alignment(a, b, band=len(b))["dist"]
+                pairs += [(a, b), (b, a)]
+                bands += [max(dist, 1), 0]
+        return pairs, bands
+    pairs = _pairs(len(case), rng.integers(1, 400, 24),
+                   err={"errors": 0.15, "doubling": 0.3}.get(case, 0.08))
+    bands = list(rng.integers(8, 40, len(pairs)))
+    if case == "swapped":
+        for i in range(0, len(pairs), 2):
+            rd, tr = pairs[i]
+            pairs[i] = (np.concatenate([rd, rng.integers(0, 4, 50)])
+                        .astype(np.int8), tr)           # read past truth
+    if case == "doubling":
+        bands = list(rng.integers(1, 4, len(pairs)))    # far too small
+    if case == "n_sides":
+        for rd, tr in pairs:
+            rd[::6] = 4                                 # N in the read
+            tr[::9] = 4                                 # N in the truth
+    if case == "empty":
+        pairs[0] = (pairs[0][0][:0], pairs[0][1])
+        pairs[1] = (pairs[1][0], pairs[1][1][:0])
+        pairs[2] = (pairs[2][0][:0], pairs[2][1][:0])
+        pairs[3] = (pairs[3][1][:1].copy(), pairs[3][1][:1])
+    return pairs, bands
+
+
+@pytest.mark.parametrize("case", ["errors", "swapped", "doubling",
+                                  "n_sides", "empty", "ties"])
+def test_edit_alignments_plain_matches_jax(case):
+    """``edit_alignments_plain`` (the plain version of the traceback
+    kernel ``csrc/edit.cu``) against the JAX package's ``edit_alignment``,
+    pair by pair. Tolerance: bitwise (integers)."""
+    pairs, bands = _edit_case(case)
+    want = [[jacc.edit_alignment(a, b, band=int(w))[k] for k in _KEYS]
+            for (a, b), w in zip(pairs, bands)]
+    args = tacc.pack_pairs(pairs, "cpu")
+    launches = tacc.edit_alignments.launches
+    got = tacc.edit_alignments(*args, np.asarray(bands))
+    assert tacc.edit_alignments.launches == launches
+    assert got.dtype == torch.int64 and got.tolist() == want
+    assert torch.equal(got, tacc.edit_alignments_plain(
+        *args, torch.as_tensor(bands)))
+    if case == "doubling":
+        assert any(d > w for (d, *_), w in zip(want, bands))
+
+
+def test_edit_kernel_wrapper_needs_a_card():
+    """No plain fallback for a tensor that is not on the CPU: a tensor
+    elsewhere raises, and scoring on "cuda" without a card raises."""
+    pairs, bands = _edit_case("errors")
+    meta = [torch.empty_like(t, device="meta")
+            for t in tacc.pack_pairs(pairs[:2], "cpu")]
+    with pytest.raises(ValueError, match="device"):
+        tacc.edit_alignments(*meta, np.asarray(bands[:2]))
+    with pytest.raises(ValueError, match="one band a pair"):
+        tacc.edit_alignments(*tacc.pack_pairs(pairs[:2], "cpu"),
+                             np.asarray(bands[:3]))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernel runs")
+    seqs = {f"r{i}": rd for i, (rd, _) in enumerate(pairs)}
+    truth = {f"r{i}": tr for i, (_, tr) in enumerate(pairs)}
+    launches = tacc.edit_alignments.launches
+    with pytest.raises((RuntimeError, AssertionError)):
+        tacc.score_read_sets(seqs, seqs, truth, device="cuda")
+    assert tacc.edit_alignments.launches == launches
 
 
 @pytest.mark.parametrize("la,lb,band", [(300, 330, None), (500, 420, None),

@@ -4,8 +4,9 @@ versions.
 There is no CPU mode for a CUDA kernel, so the sources under
 ``proovread_tpu_torch/csrc/`` are compiled here by g++ against a small
 emulation of the CUDA runtime subset they use: one ``std::thread`` per CUDA
-thread, blocks one after another (2-D grids row by row), ``std::barrier``
-for ``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or``,
+thread, blocks one after another (2-D grids row by row), a barrier whose
+waiters yield their core a while before they sleep (``pt_barrier``) for
+``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or``,
 per-warp barriers for ``__syncwarp``, ``__ballot_sync`` and the
 ``__shfl_up_sync`` / ``__shfl_down_sync`` / ``__shfl_xor_sync`` /
 ``__shfl_sync`` exchanges (any 32- or 64-bit type), GCC builtins for
@@ -14,14 +15,20 @@ per-warp barriers for ``__syncwarp``, ``__ballot_sync`` and the
 ``atomicAdd`` (float, int, unsigned) and ``atomicOr``. The launch syntax
 and the ``__shared__`` qualifiers are rewritten mechanically before
 compiling.
-Each check runs in a subprocess with a timeout. Tolerance: bitwise (integer
+Each check runs in a process of its own with a timeout: forked from one
+server process that has imported numpy and torch once (``SERVER``), so a
+check does not pay for the imports. Tolerance: bitwise (integer
 outputs, bsw score, pileup sums). Skips, with the reason, where g++ with
 C++20 is missing."""
 
+import os
+import queue
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -33,7 +40,7 @@ CUDA_RUNTIME_EMU = r"""
 #pragma once
 #include <algorithm>
 #include <atomic>
-#include <barrier>
+#include <sched.h>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -57,10 +64,11 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <typename T>
 cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-struct cudaFuncAttributes { int numRegs; };
+struct cudaFuncAttributes { int numRegs; size_t sharedSizeBytes; };
 template <typename T>
 cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T*) {
   a->numRegs = 0;
+  a->sharedSizeBytes = 0;
   return 0;
 }
 template <typename T>
@@ -76,8 +84,35 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline std::unique_ptr<std::barrier<>> g_bar;
-inline std::vector<std::unique_ptr<std::barrier<>>> g_wbar;
+// a barrier of n threads: the last to arrive opens the next phase; the
+// others yield their core up to 64 times, then sleep on the phase. Beside
+// CPU-bound processes a woken thread waits for a core: the barrier-heavy
+// cases ran 2-3x slower with std::barrier's sleeping waiters, as slow
+// with 8 yields, slower still with 1024 (the yielding threads hold the
+// cores)
+struct pt_barrier {
+  explicit pt_barrier(int n) : n_(n) {}
+  void arrive_and_wait() {
+    unsigned ph = phase_.load(std::memory_order_acquire);
+    if (count_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+      count_.store(0, std::memory_order_relaxed);
+      phase_.store(ph + 1, std::memory_order_release);
+      phase_.notify_all();
+      return;
+    }
+    for (int i = 0; i < 64; ++i) {
+      if (phase_.load(std::memory_order_acquire) != ph) return;
+      sched_yield();
+    }
+    while (phase_.load(std::memory_order_acquire) == ph)
+      phase_.wait(ph, std::memory_order_acquire);
+  }
+  const int n_;
+  std::atomic<int> count_{0};
+  std::atomic<unsigned> phase_{0};
+};
+inline std::unique_ptr<pt_barrier> g_bar;
+inline std::vector<std::unique_ptr<pt_barrier>> g_wbar;
 // warp exchanges alternate between two halves: a lane writes a half again
 // only after the next exchange's barrier, which every lane reaches after
 // its read, so one warp barrier an exchange is enough
@@ -182,11 +217,11 @@ void pt_launch(dim3 grid, dim3 block, size_t, F body) {
   int nt = block.x * block.y;
   for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned b = 0; b < grid.x; ++b) {
-    g_bar = std::make_unique<std::barrier<>>(nt);
+    g_bar = std::make_unique<pt_barrier>(nt);
     g_wbar.clear();
     for (int w = 0; w < (nt + 31) / 32; ++w)
       g_wbar.push_back(
-          std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
+          std::make_unique<pt_barrier>(std::min(32, nt - 32 * w)));
     std::memset(g_smem, 0xAB, sizeof g_smem);  // shared memory is not zeroed
     std::vector<std::thread> th;
     for (int t = 0; t < nt; ++t)
@@ -222,8 +257,10 @@ if which.startswith("bsw"):
     from proovread_tpu_torch.align.params import BWA_SR, BWA_SR_FINISH
     from proovread_tpu_torch.pipeline.dcorrect import device_revcomp
     ap = BWA_SR if which == "bsw96" else BWA_SR_FINISH
-    # R odd: several candidates (warps) per block, the last block partial
-    S, m, B, Lp, R = 24, 112, 3, 800, 47
+    # R odd: several candidates (warps) per block, the last block partial;
+    # every query is some candidate's: qlen 0 (query 0), an N inside each
+    # query, inserted (s % 3 == 1) and deleted (s % 3 == 2) bases
+    S, m, B, Lp, R = 8, 112, 3, 800, 15
     W = bsw.band_lanes(ap)
     n = m + W
     genome = rng.integers(0, 4, (B, Lp)).astype(np.int8)
@@ -240,6 +277,7 @@ if which.startswith("bsw"):
         qf[s, :len(src)] = src
         qf[s, 5] = 4                 # an N inside the query
     sread = rng.integers(0, S, R).astype(np.int32)
+    sread[:S] = np.arange(S)
     diag = rng.integers(-2 * n, Lp + 2 * n, R).astype(np.int32)
     mp = bsw.build_map_pad(t(genome), t(rng.random((B, Lp)) < 0.1), n)
     _, w0p = bsw.window_starts(t(diag), W, Lp, n)
@@ -259,6 +297,7 @@ if which.startswith("bsw"):
     same([torch.where(ign, -1, v1.state), torch.where(ign, 0, v1.ins_len)],
          [got.state, got.ins_len])
     same(v1[3:9], got[3:9])
+    assert bool(ign.any()) and bool((got.state == -1).any())
 elif which == "pileup":
     from proovread_tpu_torch.ops import pileup_kernel as pk
     B, Lpile, R, n = 3, 900, 48, 176
@@ -537,16 +576,30 @@ elif which.startswith("sw"):
         if which == "sw640":
             assert int((want.n_ops >= m - 8).sum()) >= 4, want.n_ops
 elif which.startswith("lcs"):
-    # read/truth pairs at the edges of the words and of the lanes' blocks:
-    # empty read, empty truth, truths of exactly 64, 2048 (a lane's block)
-    # and 4096 bases, a read longer than its truth, N codes on either
-    # side, runs of N in a truth, reads of ~12% errors; "lcs_global" puts
-    # every pair past one
-    # word a lane in the global-memory scratch instead of a register class
+    # "lcs": read/truth pairs at the edges of the words and of the lanes'
+    # blocks, a warp a pair, packed four warps a block: empty read, empty
+    # truth, truths of exactly 64, 2048 (32 words: one warp at one word a
+    # lane) and 4096 bases (one at two), a read longer than its truth, N
+    # codes on either side, runs of N in a truth, reads of ~12% errors
+    # (for time, at most 500 bases of each truth but the 2,049-base one's:
+    # a chain of ~2,000 steps at two words a lane);
+    # "lcs_global" runs the same pairs, at most 500 bases of each truth
+    # but the 3,000-base one's (runs of N: a ~2,900-step chain at two
+    # words a lane), from the global-memory scratch instead; "lcs_wave":
+    # truths of 3 warps
+    # (8,193 to 12,000 bases) and
+    # of 2 (4,097) at two words a lane beside short pairs in one block,
+    # runs of N across the warps' edges (words that never match, all ones,
+    # that a carry from below must cross) and over a whole warp, read
+    # lengths that are no multiple of the 32-step tile
     from proovread_tpu_torch.obs import accuracy as acc
     if which == "lcs_global":
-        acc.SMEM_MAX_WPL = 1
-    tl = [0, 10, 64, 63, 65, 2048, 2049, 4096, 700, 130, 1, 3000, 2200, 90]
+        acc.WAVE_MAX_WARPS = 0
+    if which == "lcs_wave":
+        tl = [12_000, 9_000, 8_193, 4_097, 300, 64, 1]
+    else:
+        tl = [0, 10, 64, 63, 65, 2048, 2049, 4096, 700, 130, 1, 3000, 2200,
+              90]
     pairs = []
     for i, n_t in enumerate(tl):
         tr = rng.integers(0, 4, n_t).astype(np.int8)
@@ -554,27 +607,112 @@ elif which.startswith("lcs"):
         err = rng.random(len(rd)) < 0.12
         rd[err] = rng.integers(0, 5, int(err.sum()))
         rd = np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.04))
-        if i == 1:
-            rd = np.zeros(0, np.int8)               # empty read
-        if i == 8:
-            rd = np.concatenate([rd, rng.integers(0, 4, 900)]).astype(np.int8)
-        if i == 9:
-            tr[::7] = 4                             # N in the truth
-            rd[::5] = 4                             # N in the read
-        if i == 11:
-            # runs of N in the truth: words that never match, all ones,
-            # that a carry from below must cross (in a lane, and between
-            # lanes)
-            tr[320:384] = 4
-            tr[1000:1300] = 4
-            tr[2040:2120] = 4
+        if which == "lcs_wave":
+            # reads of 600-800 bases from across the warps' edges
+            if i == 0:
+                rd = rd[3700:4501]
+            if i == 1:
+                tr[4000:4200] = 4                   # across warps 0 and 1
+                tr[8100:8300] = 4                   # across warps 1 and 2
+                rd = np.concatenate([rd[3800:4200], rd[-400:]])
+            if i == 2:
+                tr[4096:8192] = 4                   # all of warp 1
+                rd = np.concatenate([rd[3500:3900], tr[8000:]])
+            if i == 3:
+                rd = rd[1700:2317]
+        else:
+            if i != (6 if which == "lcs" else 11) and len(rd) > 500:
+                rd = rd[len(rd) // 3:len(rd) // 3 + 500]
+            if i == 1:
+                rd = np.zeros(0, np.int8)           # empty read
+            if i == 8:
+                rd = np.concatenate([rd, rng.integers(0, 4, 900)]).astype(
+                    np.int8)
+            if i == 9:
+                tr[::7] = 4                         # N in the truth
+                rd[::5] = 4                         # N in the read
+            if i == 11:
+                # runs of N in the truth: a carry from below must cross
+                # them (in a lane, and between lanes)
+                tr[320:384] = 4
+                tr[1000:1300] = 4
+                tr[2040:2120] = 4
         pairs.append((rd, tr))
     args = acc.pack_pairs(pairs, "cpu")
     to, po = acc._check(*args)
+    plan = acc.lcs_plan(np.diff(to), np.diff(po))
     got = acc._lcs_cuda(*args, to, po)
     want = acc.lcs_lengths_plain(*args)
     same([got], [want])
-    assert int(want[0]) == 0 and int(want[1]) == 0 and int(want[2]) > 40
+    if which == "lcs_wave":
+        assert plan["longest_pair_warps"] == 3 and plan["blocks"] >= 4, plan
+        assert plan["pairs_by_warps"] == {1: 3, 2: 1, 3: 3}, plan
+        assert plan["words_a_lane"][:4].tolist() == [2, 2, 2, 2], plan
+        assert int(want[0]) > 500 and int(want[2]) > 300, want
+    else:
+        assert int(want[0]) == 0 and int(want[1]) == 0 and int(want[2]) > 40
+        assert (plan["blocks"] == 0) == (which == "lcs_global"), plan
+elif which.startswith("edit"):
+    # "edit": blocks of one warp: a read of ~300 bases against a shorter
+    # truth (the swap; 5 cells a thread) and of ~100 against a longer one,
+    # N on either side, a read past its truth, empty and identical sides,
+    # bands too small (doubled, relaunched) and wider than the shorter
+    # side; then blocks of two warps: 120 truth bases deleted, so that in
+    # row 40 the path runs left from cell 80 to 200 (rows of 281 cells, 5
+    # a thread) across the second warp's first cell (160), the band at the
+    # read's length (so a wrong distance is not redone at twice the band).
+    # "edit_global": the pair of ~300, the doubled band and the two-warp
+    # pair with every DP row in the global scratch instead of shared
+    # memory. Each pair also against the host numpy.
+    from proovread_tpu_torch.obs import accuracy as acc
+    if which == "edit_global":
+        acc.EDIT_SMEM_BYTES = 0
+
+    def mutated(tr, err=0.12):
+        rd = tr.copy()
+        sub = rng.random(len(rd)) < err
+        rd[sub] = rng.integers(0, 5, int(sub.sum()))
+        return np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.05))
+
+    tr = rng.integers(0, 4, 280).astype(np.int8)
+    long_rd = np.concatenate([mutated(tr), rng.integers(0, 4, 40)])
+    tr2 = rng.integers(0, 4, 60).astype(np.int8)
+    dbl = (np.insert(mutated(tr2), 20, rng.integers(0, 4, 12)), tr2)
+    one_warp = [((long_rd.astype(np.int8), tr), 40), (dbl, 2)]
+    if which == "edit":
+        tr3 = rng.integers(0, 4, 100).astype(np.int8)
+        tr3[::9] = 4                                # N in the truth
+        rd4 = mutated(tr2)
+        rd4[::6] = 4                                # N in the read
+        one_warp += [((mutated(tr3), tr3), 0),
+                     ((rd4, tr2), 3),
+                     ((np.concatenate([mutated(tr2), rng.integers(0, 4, 30)])
+                       .astype(np.int8), tr2), 12),  # read past its truth
+                     ((tr2[:0], tr2), 8),            # empty read
+                     ((tr2, tr2[:0]), 8),            # empty truth
+                     ((tr2.copy(), tr2), 100),       # identical
+                     ((tr2[:1].copy(), tr2[:1]), 1)]
+    tr = rng.integers(0, 4, 200).astype(np.int8)
+    # no truth base of the run's second half matches the read's base 40,
+    # so only the run (the scan across the warps) gives those cells, and
+    # the run fits no other row
+    tr[100:160] = (tr[39] + 1 + rng.integers(0, 3, 60)) % 4
+    tr[160] = (tr[40] + 1) % 4
+    two_warps = [((np.delete(tr, np.arange(40, 160)), tr), 80)]
+    n0 = acc.edit_alignments.launches
+    for threads, cases in ((32, one_warp), (64, two_warps)):
+        acc.EDIT_MAX_THREADS = threads
+        pairs = [c[0] for c in cases]
+        bands = np.asarray([c[1] for c in cases])
+        args = acc.pack_pairs(pairs, "cpu")
+        to, po, w = acc._edit_args("edit", *args, bands)
+        got = acc._edit_cuda(*args, to, po, w)
+        same([got], [acc.edit_alignments_plain(*args, bands)])
+        host = [acc.edit_alignment(r, t, band=int(b)) for (r, t), b in
+                zip(pairs, bands)]
+        assert got.tolist() == [[h[k] for k in ("dist", "matches", "sub",
+                                                "ins", "del")] for h in host]
+    assert acc.edit_alignments.launches - n0 >= 4   # a band doubled
 elif which.startswith("scatter"):
     # "scatter": fractional weights onto a few hot cells (segments up to
     # ~100 long, crossing the blocks' edges), a keep mask, indices past the
@@ -650,7 +788,7 @@ def emu_lib(tmp_path_factory):
     (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
     srcs = []
     for name in ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu",
-                 "scatter.cu"):
+                 "scatter.cu", "edit.cu"):
         out = d / (Path(name).stem + ".cpp")
         out.write_text(_emulation_source((CSRC / name).read_text()))
         srcs.append(str(out))
@@ -659,10 +797,63 @@ def emu_lib(tmp_path_factory):
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
          f"-I{d}", *srcs, "-o", str(so)],
         capture_output=True, text=True, timeout=300)
-    if res.returncode != 0 and "barrier" in res.stderr:
-        pytest.skip("g++ lacks C++20 <barrier>")
+    if res.returncode != 0 and "no member named 'wait'" in res.stderr:
+        pytest.skip("g++ lacks C++20 std::atomic::wait")
     assert res.returncode == 0, res.stderr[-3000:]
     return so
+
+
+# reads a check's name and its log's path a line; forks a process that
+# runs CHECKS for it with its output in the log; answers "PID <pid>" and
+# "RC <exit code>" (negative: the signal that ended it). The server itself
+# runs no torch operation, so each fork starts without torch's threads.
+SERVER = r"""
+import os, sys, traceback
+import numpy, torch
+from proovread_tpu_torch import kernels
+lib, checks = sys.argv[1], open(sys.argv[2]).read()
+code = compile(checks, "<checks>", "exec")
+for line in sys.stdin:
+    which, log = line.split()
+    pid = os.fork()
+    if pid == 0:
+        fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        sys.argv = ["checks", lib, which]
+        rc = 0
+        try:
+            exec(code, {"__name__": "__main__"})
+        except BaseException:
+            traceback.print_exc()
+            rc = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
+    print("PID", pid, flush=True)
+    print("RC", os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1]), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def emu_server(emu_lib, tmp_path_factory):
+    """The check server (``SERVER``), its answers a line in a queue, and
+    a directory for the checks' logs."""
+    d = tmp_path_factory.mktemp("cuda_emu_logs")
+    (d / "checks.py").write_text(CHECKS)
+    proc = subprocess.Popen([sys.executable, "-c", SERVER, str(emu_lib),
+                             str(d / "checks.py")], cwd=ROOT, text=True,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    yield proc, lines, d
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
 
 
 @pytest.mark.parametrize("which", ["bsw96", "bsw64", "pileup",
@@ -671,11 +862,20 @@ def emu_lib(tmp_path_factory):
                                    "pileup_dense", "pileup_dense_clustered",
                                    "assemble", "assemble_long", "hcr",
                                    "hcr_long", "sw", "sw640", "lcs",
-                                   "lcs_global", "scatter", "scatter_long",
+                                   "lcs_global", "lcs_wave", "edit",
+                                   "edit_global", "scatter", "scatter_long",
                                    "scatter_edges"])
-def test_kernel_source_matches_plain(emu_lib, which):
-    out = subprocess.run([sys.executable, "-c", CHECKS, str(emu_lib), which],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
-    assert out.returncode == 0 and f"EMU-OK {which}" in out.stdout, \
-        out.stderr[-3000:]
+def test_kernel_source_matches_plain(emu_server, which):
+    proc, lines, d = emu_server
+    log = d / f"{which}.log"
+    proc.stdin.write(f"{which} {log}\n")
+    proc.stdin.flush()
+    pid = int(lines.get(timeout=120).split()[1])
+    try:
+        rc = int(lines.get(timeout=300).split()[1])
+    except queue.Empty:
+        os.kill(pid, signal.SIGKILL)
+        lines.get(timeout=60)
+        pytest.fail(f"{which}: no result within 300 s")
+    out = log.read_text()
+    assert rc == 0 and f"EMU-OK {which}" in out, out[-3000:]

@@ -420,19 +420,19 @@ def test_packed_pileup_on_clustered_candidates_and_bad_metadata(cuda):
             c[0].clone(), c[1][keep], c[2][keep], c[3][keep]))
 
 
-@pytest.mark.parametrize("smem_max_wpl", [32, 1])
-def test_lcs_kernel_matches_plain(cuda, monkeypatch, smem_max_wpl):
+@pytest.mark.parametrize("max_warps", [32, 0])
+def test_lcs_kernel_matches_plain(cuda, monkeypatch, max_warps):
     """The accuracy scoreboard's LCS: empty reads and truths, truths of
-    exactly 64, 2048 (a lane's block) and 4096 bases, a read past its
-    truth, N codes and runs of them, ~12% errors; with ``smem_max_wpl`` 1
-    every pair past one word a lane runs from the global-memory
-    scratch."""
+    exactly 64, 2048 and 4096 bases, truths of several warps (9,000 and
+    20,000 bases) beside short pairs, a read past its truth, N codes and
+    runs of them across the warps' edges, ~12% errors; as the wavefront,
+    and with ``max_warps`` 0 every pair from the global-memory scratch."""
     from proovread_tpu_torch.obs import accuracy as acc
-    monkeypatch.setattr(acc, "SMEM_MAX_WPL", smem_max_wpl)
-    rng = np.random.default_rng(smem_max_wpl)
+    monkeypatch.setattr(acc, "WAVE_MAX_WARPS", max_warps)
+    rng = np.random.default_rng(max_warps + 1)
     pairs = []
-    for i, n_t in enumerate([0, 10, 64, 2048, 2049, 4096, 700, 130, 9000]
-                            + list(rng.integers(1, 6000, 40))):
+    for i, n_t in enumerate([0, 10, 64, 2048, 2049, 4096, 700, 130, 9000,
+                             20_000] + list(rng.integers(1, 6000, 40))):
         tr = rng.integers(0, 4, int(n_t)).astype(np.int8)
         rd = tr.copy()
         err = rng.random(len(rd)) < 0.12
@@ -447,7 +447,9 @@ def test_lcs_kernel_matches_plain(cuda, monkeypatch, smem_max_wpl):
             rd[::5] = 4
         if i == 8:
             tr[320:384] = 4                 # words that never match
-            tr[1000:1300] = 4
+            tr[4000:4200] = 4               # across warps 0 and 1
+        if i == 9:
+            tr[4096:8192] = 4               # all of warp 1
         pairs.append((rd, tr))
     args = acc.pack_pairs(pairs, cuda)
     launches = acc.lcs_lengths.launches
@@ -456,6 +458,44 @@ def test_lcs_kernel_matches_plain(cuda, monkeypatch, smem_max_wpl):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), acc.lcs_lengths_plain(
         *acc.pack_pairs(pairs, "cpu")))
+
+
+@pytest.mark.parametrize("smem_bytes", [100 * 1024, 0])
+def test_edit_kernel_matches_plain(cuda, monkeypatch, smem_bytes):
+    """The scoreboard's banded traceback: pairs of 50 to 3,000 bases at
+    ~15% and ~0.5% errors, reads longer and shorter than their truths, N
+    on either side, empty sides, bands too small (doubled), bands past a
+    block's 1024 threads; with ``smem_bytes`` 0 every pair's DP rows in
+    the global scratch. Bitwise against the plain version and the host
+    numpy."""
+    from proovread_tpu_torch.obs import accuracy as acc
+    monkeypatch.setattr(acc, "EDIT_SMEM_BYTES", smem_bytes)
+    rng = np.random.default_rng(11)
+    pairs, bands = [], []
+    for i, n_t in enumerate(rng.integers(50, 3000, 24)):
+        tr = rng.integers(0, 4, int(n_t)).astype(np.int8)
+        rd = tr.copy()
+        err = rng.random(len(rd)) < (0.15 if i % 2 else 0.005)
+        rd[err] = rng.integers(0, 5, int(err.sum()))
+        rd = np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.03))
+        if i % 5 == 1:
+            rd = np.concatenate([rd, rng.integers(0, 4, 80)]).astype(np.int8)
+        if i % 7 == 2:
+            tr[::11] = 4
+        pairs.append((rd, tr))
+        bands.append([3, 700, 40, 16][i % 4])
+    pairs += [(pairs[0][0][:0], pairs[0][1]), (pairs[1][0], pairs[1][1][:0])]
+    bands += [8, 8]
+    want = [[acc.edit_alignment(a, b, band=w)[k] for k in
+             ("dist", "matches", "sub", "ins", "del")]
+            for (a, b), w in zip(pairs, bands)]
+    launches = acc.edit_alignments.launches
+    got = acc.edit_alignments(*acc.pack_pairs(pairs, cuda), np.asarray(bands))
+    torch.cuda.synchronize()
+    assert acc.edit_alignments.launches >= launches + 2   # bands doubled
+    assert got.cpu().tolist() == want
+    assert torch.equal(got.cpu(), acc.edit_alignments_plain(
+        *acc.pack_pairs(pairs, "cpu"), np.asarray(bands)))
 
 
 @pytest.mark.parametrize("m,n,qmax", [(128, 256, 100), (256, 384, 250)],

@@ -29,9 +29,17 @@ on the same inputs in one process (CUDA events, the median of 7 after 2):
   chunks is about 0.24 s in ``chip_smoke.py`` phase 12), beside the SM
   clock that ``nvidia-smi`` reads at the end of each gap.
 
-Every unpatched copy's outputs must equal the plain versions' bit for bit.
-Prints one JSON object a line; the last line holds them all, and with
-``--out DIR`` also ``DIR/kernel_probe.json``. Needs a card.
+With ``lcs`` among ``--kernels`` it times the package's own LCS kernel
+(``csrc/lcs.cu``, the accuracy scoreboard's) on ``chip_smoke.py`` phase
+2's 646 pairs and on their longest pair alone (a 45,000-base truth),
+with the time a step of that pair's chain takes, the kernel's registers
+and spills (ptxas), its instruction mix (``cuobjdump -sass``) and its
+resident blocks an SM.
+
+Every unpatched copy's outputs, and the LCS, must equal the plain
+versions' bit for bit. Prints one JSON object a line; the last line
+holds them all, and with ``--out DIR`` also ``DIR/kernel_probe.json``.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -95,6 +103,48 @@ def sass_mix(so: Path, fn_filter: str) -> dict:
             for f, c in mix.items()}
 
 
+def probe_lcs(emit) -> None:
+    """The LCS row of the probe (see the module's docstring)."""
+    import ctypes
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from proovread_tpu_torch import kernels
+    from proovread_tpu_torch.obs import accuracy as acc
+    dev = torch.device("cuda")
+    pairs = cs.lcs_inputs(np.random.default_rng(0))
+    every = acc.pack_pairs(pairs, dev)
+    longest = acc.pack_pairs(pairs[:1], dev)
+    want = acc.lcs_lengths_plain(*acc.pack_pairs(pairs, "cpu"))
+    if not torch.equal(acc.lcs_lengths(*every).cpu(), want):
+        raise SystemExit("kernel_probe: lcs differs from the plain version")
+    n = np.asarray([len(rd) for rd, _ in pairs])
+    plan = acc.lcs_plan(n, np.asarray([len(tr) for _, tr in pairs]))
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = kernels.lib().pt_lcs_occupancy(plan["warps_per_block"],
+                                        ctypes.byref(regs),
+                                        ctypes.byref(blocks))
+    assert rc == 0, f"pt_lcs_occupancy: CUDA error {rc}"
+    row = dict(kernel="lcs", pairs=len(pairs), longest_truth=len(pairs[0][1]),
+               longest_read=int(n[0]), blocks=plan["blocks"],
+               warps_per_block=plan["warps_per_block"],
+               longest_pair_warps=int(plan["warps"][0]),
+               longest_pair_words_a_lane=int(plan["words_a_lane"][0]),
+               longest_chain_steps=int(n[0] + 32 * (plan["warps"][0] - 1)),
+               regs=regs.value, blocks_per_sm=blocks.value,
+               ptxas=kernels.ptxas_usage("lcs.cu"),
+               sass=sass_mix(kernels.build(), "lcs_wave"))
+    for name, args in (("646 pairs", every), ("longest pair", longest)):
+        tm = cs.launcher_times(lambda args=args: acc.lcs_lengths(*args),
+                               ("lcs_",))
+        row[name] = dict(ms=tm["ms"], kernel_ms=tm["kernel_ms"],
+                         device_ops=tm["device_ops"])
+    row["ns_a_step"] = (row["longest pair"]["kernel_ms"] * 1e6
+                        / row["longest_chain_steps"])
+    row["equal_to_plain"] = True
+    emit(row)
+
+
 def sm_clock_mhz() -> float:
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                           "--format=csv,noheader,nounits"],
@@ -109,7 +159,10 @@ def main() -> int:
     ap_.add_argument("--gaps", default="0.05,0.25,1.0",
                      help="idle seconds before the utg chunk's sw launches")
     ap_.add_argument("--out", default=None, help="directory for the JSON")
+    ap_.add_argument("--kernels", default="sw,scatter,lcs",
+                     help="comma list of the kernels to probe")
     args = ap_.parse_args()
+    probe = set(args.kernels.split(","))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -136,21 +189,28 @@ def main() -> int:
 
     emit(dict(card=cs.card_line(), max_sm_clock_mhz=cs.max_sm_clock_hz()
               / 1e6))
-    shapes = []
-    for label, R, m, n, qmax, ap in (
-            ("siamaera", 2048, 256, 384, None,
-             AlignParams(min_out_score=0.0, score_per_base=False)),
-            ("scan", 4096, 128, 256, 100, BWA_SR),
-            ("ccs chunk", 4096, 512, 640, None, CCS_ALIGN)):
-        q, r, ql = cs.sw_inputs(rng, R, m, n, qmax=qmax)
-        shapes.append((label, t(q), t(r), t(ql), ap))
-    utg_sw, utg_scatters = cs.utg_chunk_inputs(dev)
-    shapes.append(("utg chunk",) + tuple(utg_sw))
-    scatters = [("random",) + cs.scatter_inputs(rng, dev)[:4],
-                ("long segments",) + cs.scatter_inputs(
-                    rng, dev, M=4 << 20, hot_cells=2000)[:4]]
-    scatters += [(f"ccs {x[0]}",) + x[1:] for x in cs.ccs_chunk_scatters(dev)]
-    scatters += [(f"utg {x[0]}",) + x[1:] for x in utg_scatters]
+    if "lcs" in probe:
+        probe_lcs(emit)
+    shapes, scatters = [], []
+    if "sw" in probe:
+        for label, R, m, n, qmax, ap in (
+                ("siamaera", 2048, 256, 384, None,
+                 AlignParams(min_out_score=0.0, score_per_base=False)),
+                ("scan", 4096, 128, 256, 100, BWA_SR),
+                ("ccs chunk", 4096, 512, 640, None, CCS_ALIGN)):
+            q, r, ql = cs.sw_inputs(rng, R, m, n, qmax=qmax)
+            shapes.append((label, t(q), t(r), t(ql), ap))
+    if probe & {"sw", "scatter"}:
+        utg_sw, utg_scatters = cs.utg_chunk_inputs(dev)
+    if "sw" in probe:
+        shapes.append(("utg chunk",) + tuple(utg_sw))
+    if "scatter" in probe:
+        scatters = [("random",) + cs.scatter_inputs(rng, dev)[:4],
+                    ("long segments",) + cs.scatter_inputs(
+                        rng, dev, M=4 << 20, hot_cells=2000)[:4]]
+        scatters += [(f"ccs {x[0]}",) + x[1:]
+                     for x in cs.ccs_chunk_scatters(dev)]
+        scatters += [(f"utg {x[0]}",) + x[1:] for x in utg_scatters]
 
     def sw_call(handle, q, r, ql, ap, bufs):
         """One launch through the C entry into ``bufs`` (a scratch as
@@ -196,9 +256,11 @@ def main() -> int:
                   segments=cs.segment_lengths(idx, keep, n)))
     torch.cuda.synchronize()
 
+    variants = ("kernel", "walkless") if "sw" in probe else ("kernel",)
     with tempfile.TemporaryDirectory(prefix="kernel_probe_") as tmp:
-        for k, (label, csrc) in enumerate(srcs):
-            for variant in ("kernel", "walkless"):
+        for k, (label, csrc) in enumerate(srcs if shapes or scatters
+                                          else ()):
+            for variant in variants:
                 work = Path(tmp) / f"{label}-{variant}"
                 shutil.copytree(csrc, work)
                 if variant == "walkless":
