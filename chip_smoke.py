@@ -84,12 +84,21 @@ any failure exits non-zero:
    unitigs in ``sr+utg-noccs`` and ``utg-noccs``, and two haplotypes
    (``haplotype_workload``) with ``--haplo-coverage`` bare and 12 in
    ``sr-noccs``: all six files and ``qc.jsonl`` identical on card and
-   CPU. Every CPU half of phase 3 runs in a subprocess of 4 threads at low
-   priority (``CpuSide``) started after phase 2, under the work of phases
-   3-13 (so their walls are taken beside it and beside the traceback
-   holds, ``EditHold``; phase 2's times are not);
+   CPU; and, the same way, sr-noccs and mr-noccs with the short-read set
+   streamed (a config's ``sr-device-budget`` of 4 KiB; their five files
+   also equal to the resident runs'), sr-noccs with ``--debug`` (its
+   ``admitted.*.sam`` dumps and ``res.debug.tsv`` identical too),
+   ``-m legacy``, ``-m sam --sam`` and ``-m bam --bam`` (all long reads but
+   the last: a ``.bai`` region fetch) on config 4's mapping
+   (``mapping_sam``: pass 1's device pass on the card, exact records,
+   converted to BAM and indexed with the port's tools), and ``tools
+   sam2cns --variants --stabilize`` on that mapping (the table
+   identical). Every CPU half of phase 3 runs in a subprocess of 4
+   threads at low priority (``CpuSide``) started after phase 2, under the
+   work of phases 3-15 (so their walls are taken beside it and beside the
+   traceback holds, ``EditHold``; phase 2's times are not);
    phase 3 runs the card halves, and the two sides are compared, and
-   phase 3's comparison lines logged, after phase 13;
+   phase 3's comparison lines logged, after phase 15;
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
    genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
 5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
@@ -152,17 +161,38 @@ any failure exits non-zero:
    the passes, the reads with a finite own-haplotype estimate and their
    median, the identity of A's and B's reads against their own haplotype,
    and the share of A's reads (and of their SNP columns) that keep A's
-   bases, with flex and, in the same phase, without it (siamaera off).
+   bases, with flex and, in the same phase, without it (siamaera off);
+14. the streaming regime at full width: ``Pipeline.run`` on 1 Mb of CLR
+   reads of phase 4's genome with 80x of 100 bp short reads (1,000,000
+   reads, 340,000,000 bytes packed; the passes sample), once resident and
+   once streamed (``sr_device_budget`` 128 MiB): each run's wall, bases/s,
+   peak device memory and regime, the largest slab's bytes; the two runs'
+   records identical, and the streaming peak below the resident one by at
+   least half of the set's bytes less the largest slab's;
+15. SAM/BAM re-entry at full width: the first ~500 kb of phase 4's raw
+   reads (a cut for time: a re-entry run takes ~0.4 ms of wall an
+   alignment) mapped on the card against phase 4's short reads
+   (``mapping_sam``: each bucket through one ``correct_pass`` with
+   pass 1's parameters, the admitted alignments dumped with
+   ``dump_admitted_sam`` and written as exact records), converted to BAM
+   and ``.bai`` with ``tools samfilter`` / ``tools bamindex``, then
+   ``cli.main -m sam --sam`` and ``-m bam --bam`` on all those reads but
+   the last, scored: the mapping seconds, the re-entry walls and bases/s,
+   identity before and after; the two runs' five files identical and the
+   identity after above before; then ``tools sam2cns --variants`` on the
+   SAM (seconds, rows).
 
-Phases 9 and 10 run between 7 and 8, and 11-13 after 8: 9-12 reuse phase
-7's short reads. Phases 4-13 each reset every kernel's launch count just
-before and read them just after; each fails if a kernel of its path was
-not launched (phases 7 and 8: sw, bsw v2, the bit-plane pileup, assemble,
-HCR, the LCS and the traceback; phase 9 the same but the scoreboard's two;
-phase 10 sw; phases 11 and
-12 those of 7 and the scatter; phase 13 those of 7 but sw), and phase 5
+Phases 9 and 10 run between 7 and 8, and 11-15 after 8: 9-12 and 15 reuse
+phase 7's short reads. Phases 4-15 each reset every kernel's launch count
+just before and read them just after; each fails if a kernel of its path
+was not launched (phases 7 and 8: sw, bsw v2, the bit-plane pileup,
+assemble, HCR, the LCS and the traceback; phase 9 the same but the
+scoreboard's two; phase 10 sw; phases 11 and
+12 those of 7 and the scatter; phase 13 those of 7 but sw; phase 14 bsw
+v2, the bit-plane pileup, assemble and HCR; phase 15 bsw v2, the
+bit-plane pileup, the scatter and sw), and phase 5
 also if the bit-plane pileup was. No unfaulted phase may demote: phases
-3-5 and 7-13 fail on a ``resilience_demotions`` or ``device_faults``
+3-5, 7-13 and 14 fail on a ``resilience_demotions`` or ``device_faults``
 count or a ``demote-`` report (phase 6 drives ``DeviceCorrector`` below
 the ladder). Every scored phase holds that every output read was scored
 and that the mean identity after reaches 0.95 and passes the one before;
@@ -191,7 +221,7 @@ device time and launches of every port kernel in each. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
 lines (the full run takes no arguments).
 
-The functions of phases 3-6 and 11-13 take the device as an argument,
+The functions of phases 3-6 and 11-15 take the device as an argument,
 and those of phases 7-8 run ``cli.main``, so the same code runs on the
 CPU at a small size.
 """
@@ -1676,9 +1706,8 @@ def qual_chain(bucket, device, n_rest, finish, CH=8192):
             torch.cuda.synchronize()
 
     t0 = time.monotonic()
-    call, st = corr.correct_pass(codes, qual, lengths, None, srd.codes,
-                                 srd.rc, srd.qual, srd.lengths, BWA_SR,
-                                 cns_it)
+    call, st = corr.correct_pass(codes, qual, lengths, None, *srd.full(),
+                                 BWA_SR, cns_it)
     sync()
     stats.append(dict(pass_="1", candidates=st.n_candidates,
                       admitted=int(st.n_admitted),
@@ -1692,8 +1721,8 @@ def qual_chain(bucket, device, n_rest, finish, CH=8192):
                     for k in range(n_rest)])
     t0 = time.monotonic()
     fr = dc.fused_iterations(
-        codes, qual, lengths, mask, float(frac), srd.codes, srd.rc, srd.qual,
-        srd.lengths, None, pvs, m=srd.codes.shape[1],
+        codes, qual, lengths, mask, float(frac), *srd.full(), None, pvs,
+        m=srd.width,
         W=band_lanes(BWA_SR), CH=CH, n_chunks=n_chunks, ap=BWA_SR,
         cns=cns_it, n_rest=n_rest, Lp=Lp, seed_stride=8, seed_min_votes=2,
         shortcut_frac=2.0, min_gain=-1.0)
@@ -1709,8 +1738,8 @@ def qual_chain(bucket, device, n_rest, finish, CH=8192):
     if finish:
         t0 = time.monotonic()
         call, st, aln = corr.correct_pass(
-            fr.codes, fr.qual, fr.lengths, None, srd.codes, srd.rc,
-            srd.qual, srd.lengths, BWA_SR_FINISH, cns_fin, collect_aln=True)
+            fr.codes, fr.qual, fr.lengths, None, *srd.full(), BWA_SR_FINISH,
+            cns_fin, collect_aln=True)
         sync()
         stats.append(dict(pass_="finish", candidates=st.n_candidates,
                           admitted=int(st.n_admitted),
@@ -1742,8 +1771,7 @@ def column_votes(bucket, device, CH=8192):
                             for a in (lr.codes, lr.qual, lr.lengths))
     srd = _SrDevice(sr, dev)
     call, st = dc.DeviceCorrector(chunk=CH).correct_pass(
-        codes, qual, lengths, None, srd.codes, srd.rc, srd.qual, srd.lengths,
-        BWA_SR, cns_it)
+        codes, qual, lengths, None, *srd.full(), BWA_SR, cns_it)
     return (float(call.freq.max()), float(call.coverage.max()),
             int((call.freq > 256).sum()), st.n_candidates)
 
@@ -1788,7 +1816,8 @@ def input_args(tmp, label, longs, srs, utgs=None):
 
 def cli_outputs(out):
     """The five read and table files' bytes and parameter.log without its
-    argv (which names the device and the output directory)."""
+    argv (which names the device and the output directory) and, after
+    ``--debug``, its config's ``debug-dir`` (the output directory)."""
     files = {}
     for suf in CLI_OUTPUTS:
         with open(os.path.join(out, f"res.{suf}"), "rb") as fh:
@@ -1796,7 +1825,21 @@ def cli_outputs(out):
     with open(os.path.join(out, "res.parameter.log")) as fh:
         plog = json.load(fh)
     plog.pop("argv")
+    plog["config"].pop("debug-dir", None)
     return files, plog
+
+
+def extra_outputs(out) -> dict:
+    """The files of an output directory besides the five and
+    parameter.log: ``--debug``'s ``res.debug.tsv`` and ``admitted.*.sam``
+    dumps."""
+    std = {f"res.{suf}" for suf in CLI_OUTPUTS + ("parameter.log",)}
+    files = {}
+    for name in sorted(os.listdir(out)):
+        if name not in std:
+            with open(os.path.join(out, name), "rb") as fh:
+                files[name] = fh.read()
+    return files
 
 
 class CallTimer:
@@ -2622,10 +2665,19 @@ def cpu_side(tmp) -> None:
         runs = json.load(fh)
     for argv in runs:
         t0 = time.monotonic()
-        rc = cli.main(argv)
+        rc = run_argv(argv)
         done.append([rc, time.monotonic() - t0])
     with open(os.path.join(tmp, "cli_runs.done"), "w") as fh:
         json.dump(done, fh)
+
+
+def run_argv(argv) -> int:
+    """A command line of phase 3's: ``tools ...`` through the tools'
+    entry point, anything else through ``cli.main``."""
+    from proovread_tpu_torch import cli, tools
+    if argv and argv[0] == "tools":
+        return tools.main(argv[1:])
+    return cli.main(argv)
 
 
 class CpuSide:
@@ -2638,22 +2690,62 @@ class CpuSide:
     molecules) in ``sr``; config 4's long reads with unitigs (3-5 kb
     fragments) in ``sr+utg-noccs`` and, without short reads,
     ``utg-noccs``; two haplotypes (40 kb of long reads) with
-    ``--haplo-coverage`` bare and 12 in ``sr-noccs``. Phase 3 runs the
-    card halves (``run_cli`` for the command lines); ``compare``, at the
-    end of the script, holds the two sides identical: records, reports
-    and chimeras; every ``ConsensusCall`` field of the chain; all six
-    files, ``qc.jsonl`` and the metrics but for their timings."""
+    ``--haplo-coverage`` bare and 12 in ``sr-noccs``; sr-noccs and
+    mr-noccs streamed (a config's ``sr-device-budget`` of 4 KiB) and with
+    ``--debug``; ``-m legacy``; ``-m sam`` and ``-m bam`` (all long reads
+    but the last, so that the run fetches through the ``.bai``) on config
+    4's mapping (``mapping_sam`` on ``device``, converted with the port's
+    tools); and ``tools sam2cns --variants --stabilize`` on that mapping.
+    Phase 3 runs the card halves (``run_cli`` for the command lines);
+    ``compare``, at the end of the script, holds the two sides identical:
+    records, reports and chimeras; every ``ConsensusCall`` field of the
+    chain; all six files, ``qc.jsonl``, the metrics but for their timings
+    and ``--debug``'s files; the variant table; and the streamed runs'
+    five files equal to the resident runs'."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, device="cuda"):
+        from proovread_tpu_torch import tools
         longs, srs, _, truths = workload(10_000, 40_000, 4)
         _, srs_mr, _, _ = workload(10_000, 40_000, 4, sr_len=250)
         subs, sub_truths, _ = subread_workload(10_000, 16_000)
         utgs = unitig_workload(10_000, frag=(3_000, 5_000))
         hl, hs, ht, _, _, _ = haplotype_workload(10_000, 40_000)
         self.tmp, self.proc, self.cases, self.card = tmp, None, [], {}
+        stream = os.path.join(tmp, "stream.cfg")
+        with open(stream, "w") as fh:
+            json.dump({"sr-device-budget": 4096}, fh)
+        sam, bam = (os.path.join(tmp, f"config4-map.{x}")
+                    for x in ("sam", "bam"))
+        t0 = time.monotonic()
+        self.map_records, _, kept, _ = mapping_sam(sam, longs, srs, device)
+        if (tools.main(["samfilter", sam, bam])
+                or tools.main(["bamindex", bam])):
+            raise AssertionError("phase 3: samfilter or bamindex failed")
+        log(f"phase3 config 4 mapping: {self.map_records} records, "
+            f"{time.monotonic() - t0:.1f} s")
+        refs = write_inputs(tmp, "config4-refs", kept, [])[0]
+        self.tools = [("sam2cns --variants --stabilize", [
+            "tools", "sam2cns", "--variants", "--stabilize", "--device",
+            "{device}", sam, refs, "{out}"])]
+        self.streamed = {"sr-noccs streaming": "sr-noccs",
+                         "mr-noccs streaming": "mr-noccs"}
+        truth_of = {x.id: t for x, t in zip(longs, truths)}
         for label, (lr, sr, mode, tr, ut, extra) in (
                 ("sr-noccs", (longs, srs, "sr-noccs", truths, None, [])),
                 ("mr-noccs", (longs, srs_mr, "mr-noccs", truths, None, [])),
+                ("sr-noccs streaming", (longs, srs, "sr-noccs", truths,
+                                        None, ["-c", stream])),
+                ("mr-noccs streaming", (longs, srs_mr, "mr-noccs", truths,
+                                        None, ["-c", stream])),
+                ("sr-noccs --debug", (longs, srs, "sr-noccs", truths, None,
+                                      ["--debug"])),
+                ("legacy", (longs, srs, "legacy", truths, None,
+                            ["-m", "legacy"])),
+                ("sam", (kept, [], "sam", [truth_of[x.id] for x in kept],
+                         None, ["--sam", sam, "-m", "sam"])),
+                ("bam", (kept[:-1], [], "bam",
+                         [truth_of[x.id] for x in kept[:-1]], None,
+                         ["--bam", bam, "-m", "bam"])),
                 ("sr subreads", (subs, srs, "sr", sub_truths, None, [])),
                 ("sr+utg-noccs", (longs, srs, "sr+utg-noccs", truths, utgs,
                                   [])),
@@ -2676,9 +2768,15 @@ class CpuSide:
                 "--device", device, "-q", "--truth", tp, "--qc-out",
                 out + ".qc", "--metrics-out", out + ".m", *extra]
 
+    def _tool_argv(self, tool, device):
+        label, argv = tool
+        out = self._out(label.split()[0], device)
+        return [a.format(device=device, out=out) for a in argv]
+
     def start(self) -> None:
         with open(os.path.join(self.tmp, "cli_runs.json"), "w") as fh:
-            json.dump([self._argv(c, "cpu") for c in self.cases], fh)
+            json.dump([self._argv(c, "cpu") for c in self.cases]
+                      + [self._tool_argv(t, "cpu") for t in self.tools], fh)
         self.err = open(os.path.join(self.tmp, "cpu_side.err"), "w")
         here = os.path.dirname(os.path.abspath(__file__))
         self.proc = subprocess.Popen(
@@ -2695,6 +2793,13 @@ class CpuSide:
             self.card[case[0]] = time.monotonic() - t0
             if rc != 0:
                 raise AssertionError(f"cli {case[1]} on the card: exit {rc}")
+        for tool in self.tools:
+            t0 = time.monotonic()
+            rc = run_argv(self._tool_argv(tool, "cuda"))
+            self.card[tool[0]] = time.monotonic() - t0
+            if rc != 0:
+                raise AssertionError(f"tools {tool[0]} on the card: exit "
+                                     f"{rc}")
 
     def compare(self, card) -> None:
         """Wait for the CPU side, then hold it identical to the card's
@@ -2736,6 +2841,19 @@ class CpuSide:
             f"{cpu['scan'][1]:.1f} s, {counts}, identical")
         with open(os.path.join(self.tmp, "cli_runs.done")) as fh:
             done = json.load(fh)
+        for tool, (rc, cpu_s) in zip(self.tools, done[len(self.cases):]):
+            if rc != 0:
+                raise AssertionError(f"tools {tool[0]} on the CPU: exit {rc}")
+            got = {}
+            for d in ("cuda", "cpu"):
+                with open(self._tool_argv(tool, d)[-1], "rb") as fh:
+                    got[d] = fh.read()
+            if got["cuda"] != got["cpu"] or not got["cuda"]:
+                raise AssertionError(f"tools {tool[0]}: card and CPU differ")
+            log(f"phase3 tools {tool[0]} on config 4's mapping "
+                f"({self.map_records} records): card {self.card[tool[0]]:.1f}"
+                f" s, CPU {cpu_s:.1f} s, {got['cuda'].count(b'\n')} rows, "
+                "identical")
         for (label, name, _, _, mode, _), (rc, cpu_s) in zip(self.cases,
                                                               done):
             if rc != 0:
@@ -2749,6 +2867,22 @@ class CpuSide:
             if diff or plog != got["cpu"][1]:
                 raise AssertionError(f"cli {name}: card and CPU differ in "
                                      f"{diff or 'parameter.log'}")
+            extra = {d: extra_outputs(os.path.join(self._out(name, d),
+                                                   "res"))
+                     for d in ("cuda", "cpu")}
+            if extra["cuda"] != extra["cpu"]:
+                raise AssertionError(f"cli {name}: card and CPU differ in "
+                                     f"{sorted(extra['cuda'])}")
+            if "--debug" in label and not (
+                    "res.debug.tsv" in extra["cuda"]
+                    and any(k.startswith("admitted.") for k in extra["cuda"])):
+                raise AssertionError(f"cli {name}: no debug files")
+            if label in self.streamed:
+                res_files = cli_outputs(os.path.join(self._out(
+                    "config4-" + self.streamed[label], "cuda"), "res"))[0]
+                if files != res_files:
+                    raise AssertionError(f"cli {name}: streamed and resident "
+                                         "files differ")
             qc_b, m_b = ({d: open(self._out(name, d) + ext, "rb").read()
                           for d in ("cuda", "cpu")} for ext in (".qc", ".m"))
             if qc_b["cuda"] != qc_b["cpu"]:
@@ -2763,8 +2897,12 @@ class CpuSide:
             log(f"phase3 cli config 4 {label}: card {self.card[label]:.1f} s,"
                 f" CPU {cpu_s:.1f} s, {files['untrimmed.fq'].count(b'\n') // 4}"
                 f" untrimmed, {files['trimmed.fa'].count(b'>')} trimmed; all "
-                "six files and qc.jsonl identical, metrics but timings; "
-                f"identity {acc['identity_before']['mean']} -> "
+                "six files and qc.jsonl identical, metrics but timings"
+                + (f", {len(extra['cuda'])} debug files identical"
+                   if extra["cuda"] else "")
+                + (", the five files == the resident run's"
+                   if label in self.streamed else "")
+                + f"; identity {acc['identity_before']['mean']} -> "
                 f"{acc['identity_after']['mean']}")
             if label == "sr-noccs":
                 # the JAX package's recorded config-4 row (sr-noccs)
@@ -2970,6 +3108,296 @@ def phase13(tmp, genome=1_250_000, long_bases=5_000_000, device="cuda"):
     return r
 
 
+# --------------------------------------------------------------------------
+# phases 3, 14 and 15: the streaming regime and SAM/BAM re-entry
+# --------------------------------------------------------------------------
+
+def exact_alignments(aln, lr_ids, srs):
+    """SAM records of a device pass's admitted alignments (``aln``, the
+    ``AlnData`` of ``correct_pass(..., collect_aln=True)`` against the whole
+    short-read set ``srs``) that ``sam2cns`` can read back: the CIGAR from
+    the vote slabs' query rows (M a base column, D a gap column, I the
+    query bases between two base columns, S the bases outside the first and
+    last base column), SEQ and QUAL the read's, reverse-complemented on the
+    reverse strand. ``dump_admitted_sam`` writes the reference's debug
+    records instead: SEQ '*' and a CIGAR that drops the bases of a leading
+    insertion, whose query length then differs from the read's. Built with
+    numpy over all rows at once."""
+    from proovread_tpu_torch.io.sam import _COMPLEMENT, SamAlignment
+    from proovread_tpu_torch.ops.encode import GAP, encode_ascii
+    use = np.flatnonzero(aln.admitted & aln.vote_ok)
+    aln.prefetch(use)
+    st = np.stack([aln._rows[int(c)][0] for c in use])
+    qr = np.stack([aln._rows[int(c)][1] for c in use]).astype(np.int64)
+    n, W = st.shape
+    is_m = (st >= 0) & (st != GAP)
+    has = is_m.any(1)
+    first = np.argmax(is_m, 1)
+    last = W - 1 - np.argmax(is_m[:, ::-1], 1)
+    col = np.arange(W)[None, :]
+    inside = ((col >= first[:, None]) & (col <= last[:, None])
+              & has[:, None])
+    is_m &= inside
+    live = is_m | ((st == GAP) & inside)
+    rows, cols = np.nonzero(live)
+    op = np.where(is_m[rows, cols], 0, 1)           # 0 M, 1 D, 2 I
+    mrow, mcol = np.nonzero(is_m)
+    qpos = qr[mrow, mcol]
+    ins_m = np.zeros(len(mrow), np.int64)
+    ins_m[:-1] = np.where(mrow[1:] == mrow[:-1], qpos[1:] - qpos[:-1] - 1,
+                          0)
+    if (ins_m < 0).any():
+        raise AssertionError("exact_alignments: query rows not increasing")
+    # the slab's state of a base column is the query's base there
+    sread = aln.sread[use].astype(np.int64)
+    strand = aln.strand[use].astype(bool)
+    seqs = {}
+
+    def seq_of(i):
+        k = (int(sread[i]), bool(strand[i]))
+        if k not in seqs:
+            r = srs[k[0]]
+            q = "".join(chr(33 + int(x)) for x in r.qual)
+            seqs[k] = ((r.seq.translate(_COMPLEMENT)[::-1], q[::-1]) if k[1]
+                       else (r.seq, q))
+        return seqs[k]
+    wrong = 0
+    for i in range(0, n, max(1, n // 200)):        # ~200 rows checked
+        codes = encode_ascii(seq_of(i)[0])
+        sel = mrow == i
+        wrong += int((codes[qpos[sel]] != st[i, mcol[sel]]).sum())
+    if wrong:
+        raise AssertionError(f"exact_alignments: {wrong} base columns "
+                             "differ from the read's bases")
+    ins = np.zeros(len(rows), np.int64)
+    ins[op == 0] = ins_m
+    t_op = np.stack([op, np.full_like(op, 2)], 1).ravel()
+    t_len = np.stack([np.ones_like(op), ins], 1).ravel()
+    t_row = np.repeat(rows, 2)
+    keep = t_len > 0
+    t_op, t_len, t_row = t_op[keep], t_len[keep], t_row[keep]
+    start = np.ones(len(t_op), bool)
+    start[1:] = (t_op[1:] != t_op[:-1]) | (t_row[1:] != t_row[:-1])
+    idx = np.flatnonzero(start)
+    r_len, r_op, r_row = np.add.reduceat(t_len, idx), t_op[idx], t_row[idx]
+    parts = [f"{ln}{c}" for ln, c in zip(
+        r_len.tolist(), np.array(list("MDI"))[r_op].tolist())]
+    bound = np.searchsorted(r_row, np.arange(n + 1))
+    q_first = qr[np.arange(n), first]
+    q_last = qr[np.arange(n), last]
+    out = []
+    for i in np.flatnonzero(has):
+        seq, qual = seq_of(i)
+        head, tail = int(q_first[i]), len(seq) - 1 - int(q_last[i])
+        ci = use[i]
+        out.append(SamAlignment(
+            qname=srs[int(sread[i])].id, flag=16 if strand[i] else 0,
+            rname=lr_ids[int(aln.lread[ci])],
+            pos=int(aln.win_start[ci]) + int(first[i]), mapq=255,
+            cigar=(f"{head}S" if head else "")
+            + "".join(parts[bound[i]:bound[i + 1]])
+            + (f"{tail}S" if tail else ""),
+            seq=seq, qual=qual, tags={"AS": ("i", int(aln.score[ci]))}))
+    return out
+
+
+def mapping_sam(path, longs, srs, device, chunk=8192):
+    """An external mapping made with the port's own device pass: each
+    length bucket of ``longs`` (packed as the driver packs it) through one
+    ``DeviceCorrector.correct_pass(..., collect_aln=True)`` with pass 1's
+    parameters (``BWA_SR``, the iteration consensus parameters at the set's
+    coverage) against the whole short-read set, each bucket's admitted
+    alignments dumped with ``dump_admitted_sam`` and written as
+    ``exact_alignments`` records, coordinate-sorted under one header of
+    every long read. Returns (records, dumped records, the long reads the
+    header names, seconds)."""
+    import torch
+    from proovread_tpu_torch.align.params import BWA_SR
+    from proovread_tpu_torch.io import sam as samio
+    from proovread_tpu_torch.io.batch import pack_reads
+    from proovread_tpu_torch.io.records import SeqRecord
+    from proovread_tpu_torch.pipeline import dcorrect as dc
+    from proovread_tpu_torch.pipeline import driver as drv
+    t0 = time.monotonic()
+    cfg = drv.PipelineConfig()
+    min_sr_len = int(np.median([len(r) for r in srs]))
+    kept, _ = drv.Pipeline(cfg).read_long(longs, min_sr_len)
+    cns = drv.iteration_consensus_params(
+        cfg, sum(len(r) for r in srs) / sum(len(r) for r in kept))
+    dev = torch.device(device)
+    srd = drv._SrDevice(pack_reads(srs, pad_multiple=16), dev)
+    corr = dc.DeviceCorrector(chunk=chunk)
+    sr_ids = [r.id for r in srs]
+    sr_lens = np.array([len(r) for r in srs])
+    recs, n_dump = [], 0
+    for gi, (pad, brecs) in enumerate(drv._bucket_records(kept,
+                                                          cfg.batch_reads)):
+        rows = drv.batch_rows(len(brecs), cfg.batch_reads)
+        lr = pack_reads(list(brecs) + [SeqRecord(f"_pad{i}", "A" * 8)
+                                       for i in range(rows - len(brecs))],
+                        pad_len=drv.bucket_lp(pad, cfg.length_slack))
+        codes, qual, lengths = (torch.as_tensor(a, device=dev)
+                                for a in (lr.codes, lr.qual, lr.lengths))
+        _, _, aln = corr.correct_pass(codes, qual, lengths, None,
+                                      *srd.full(), BWA_SR, cns,
+                                      collect_aln=True)
+        dump = f"{path}.b{gi}"
+        n_dump += dc.dump_admitted_sam(
+            aln, dump, lr.ids[:len(brecs)], lr.lengths[:len(brecs)], sr_ids,
+            sr_lens, np.arange(len(srs)))
+        mine = exact_alignments(aln, lr.ids, srs)
+        got = [(a.qname, a.flag, a.rname, a.pos, a.opt("AS"))
+               for a in samio.SamReader(dump)]
+        if got != [(a.qname, a.flag, a.rname, a.pos, a.opt("AS"))
+                   for a in mine]:
+            raise AssertionError(f"mapping bucket {gi}: the dump's records "
+                                 "are not the exact ones'")
+        os.remove(dump)
+        recs.extend(mine)
+    order = {r.id: i for i, r in enumerate(kept)}
+    recs.sort(key=lambda a: (order[a.rname], a.pos))
+    hdr = samio.SamHeader(lines=["@HD\tVN:1.6\tSO:coordinate"])
+    for r in kept:
+        hdr.add_ref(r.id, len(r))
+    with samio.SamWriter(path, header=hdr) as w:
+        for a in recs:
+            w.write(a)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return len(recs), n_dump, kept, time.monotonic() - t0
+
+
+def phase14(genome=1_250_000, long_bases=1_000_000, sr_coverage=80.0,
+            budget=128 << 20, device="cuda"):
+    """The streaming regime at full width: ``Pipeline.run`` on 1 Mb of CLR
+    reads of phase 4's genome with 80x of 100 bp short reads, once with
+    the set resident (the default budget) and once streamed (``budget``).
+    Holds: the two runs' records equal, the regimes as asked, and the
+    streaming run's peak device memory below the resident run's by at
+    least half of the set's bytes less the largest slab's. Returns what
+    it logs."""
+    import torch
+    from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
+    t0 = time.monotonic()
+    longs, srs, n_it, _ = workload(genome, long_bases, 6,
+                                   sr_coverage=sr_coverage)
+    r = dict(long_reads=len(longs), long_bases=sum(len(x) for x in longs),
+             short_reads=len(srs), simulate_s=time.monotonic() - t0)
+    keys = {}
+    for label, b in (("resident", 2 << 30), ("streaming", budget)):
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        pipe = Pipeline(PipelineConfig(mode="sr", n_iterations=n_it,
+                                       device=device, sr_device_budget=b))
+        t0 = time.monotonic()
+        res = pipe.run(longs, srs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        no_demotion(f"phase 14 {label}", res.metrics, res.reports)
+        keys[label] = result_key(res)
+        r[label] = dict(
+            wall_s=wall, bases_per_s=r["long_bases"] / wall,
+            peak_device_bytes=(torch.cuda.max_memory_allocated()
+                               if device == "cuda" else 0),
+            passes=[(x.task, x.n_candidates, x.n_admitted)
+                    for x in res.reports], **pipe.sr_stats)
+        del pipe, res
+    res_r, res_s = r["resident"], r["streaming"]
+    if not (res_r["resident"] and not res_s["resident"]):
+        raise AssertionError("phase 14: the regimes are not the ones asked")
+    if keys["resident"][:4] != keys["streaming"][:4]:
+        raise AssertionError("phase 14: streaming and resident records "
+                             "differ")
+    r["reports_equal"] = keys["resident"][4] == keys["streaming"][4]
+    need = (res_s["set_bytes"] - res_s["max_slab_bytes"]) / 2
+    r["peak_saving_bytes"] = (res_r["peak_device_bytes"]
+                              - res_s["peak_device_bytes"])
+    r["peak_saving_needed_bytes"] = need
+    if device == "cuda" and r["peak_saving_bytes"] < need:
+        raise AssertionError(f"phase 14: streaming peak "
+                             f"{res_s['peak_device_bytes']} not below the "
+                             f"resident {res_r['peak_device_bytes']} by "
+                             f"{need:.0f} bytes")
+    return r
+
+
+def reentry_run(tmp, label, longs, truths, flag, path, device="cuda"):
+    """``cli.main`` in re-entry mode (``-m sam --sam`` / ``-m bam --bam``)
+    on ``longs``, scored against ``truths``. Returns (wall, the five
+    files, the QC aggregate's accuracy)."""
+    from proovread_tpu_torch import cli
+    lp = write_inputs(tmp, label, longs, [])[0]
+    tp = write_truth(tmp, label, longs, truths)
+    out = os.path.join(tmp, label, "res")
+    qc = os.path.join(tmp, f"{label}.qc")
+    t0 = time.monotonic()
+    rc = cli.main(["-l", lp, flag, path, "-m", flag[2:], "-p", out, "-q",
+                   "--truth", tp, "--qc-out", qc, *device_args(device)])
+    wall = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {label}: exit {rc}")
+    return wall, cli_outputs(out)[0], read_qc(qc)[0]["aggregate"][
+        "accuracy"]
+
+
+def phase15(tmp, longs, srs, truths, device="cuda"):
+    """SAM/BAM re-entry at full width: a mapping of ``longs`` (phase 4's
+    raw reads) against phase 4's short reads made on the card
+    (``mapping_sam``), converted to BAM and ``.bai`` with the port's
+    tools, then ``-m sam`` and ``-m bam`` on all reads but the last (so
+    the BAM run fetches its references through the ``.bai``), scored; and
+    ``tools sam2cns --variants`` on the same SAM. Holds: the two runs'
+    files equal, every read scored, identity after above before. Returns
+    what it logs."""
+    from proovread_tpu_torch import tools
+    sam = os.path.join(tmp, "map.sam")
+    n_rec, n_dump, kept, map_s = mapping_sam(sam, longs, srs, device)
+    bam = os.path.join(tmp, "map.bam")
+    t0 = time.monotonic()
+    if tools.main(["samfilter", sam, bam]) or tools.main(["bamindex", bam]):
+        raise AssertionError("phase 15: samfilter or bamindex failed")
+    convert_s = time.monotonic() - t0
+    truth_of = {x.id: t for x, t in zip(longs, truths)}
+    sub = kept[:-1]
+    sub_truths = [truth_of[x.id] for x in sub]
+    runs = {}
+    for flag, path in (("--sam", sam), ("--bam", bam)):
+        runs[flag] = reentry_run(tmp, f"reentry{flag[1:]}", sub, sub_truths,
+                                 flag, path, device)
+    if runs["--sam"][1] != runs["--bam"][1]:
+        raise AssertionError("phase 15: -m sam and -m bam outputs differ")
+    wall, files, acc = runs["--sam"]
+    n_out = files["untrimmed.fq"].count(b"\n") // 4
+    before = acc["identity_before"]["mean"]
+    after = acc["identity_after"]["mean"]
+    if acc["n_scored"] != n_out or not after > before:
+        raise AssertionError(f"phase 15: {acc['n_scored']} of {n_out} "
+                             f"scored, identity {before} -> {after}")
+    ref = os.path.join(tmp, "refs.fq")
+    write_inputs(tmp, "refs", kept, [])
+    shutil.copy(os.path.join(tmp, "refs.long.fq"), ref)
+    tsv = os.path.join(tmp, "vars.tsv")
+    t0 = time.monotonic()
+    if tools.main(["sam2cns", "--variants", "--device", device, sam, ref,
+                   tsv]):
+        raise AssertionError("phase 15: sam2cns --variants failed")
+    var_s = time.monotonic() - t0
+    with open(tsv) as fh:
+        var_rows = sum(1 for _ in fh)
+    bases = sum(len(x) for x in sub)
+    return dict(
+        long_reads=len(kept), mapped_reads=len(sub), records=n_rec,
+        dumped=n_dump, mapping_s=map_s, convert_s=convert_s,
+        sam_bytes=os.path.getsize(sam), bam_bytes=os.path.getsize(bam),
+        sam_wall_s=wall, bam_wall_s=runs["--bam"][0],
+        reentry_bases_per_s=bases / wall, identity_before=before,
+        identity_after=after, n_scored=acc["n_scored"],
+        variants_s=var_s, variant_rows=var_rows)
+
+
 def same_host(a, b) -> bool:
     return a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
@@ -3048,7 +3476,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-13 to leave out; such a "
+                     help="comma list of phases 2-15 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--profile", action="store_true",
                      help="rerun phases 4-6 under torch.profiler and print "
@@ -3414,7 +3842,7 @@ def main(argv=None) -> int:
 
     # -- phase 7: the command line at E.coli class ----------------------------
     cli7 = out7 = None
-    if (({"7", "8", "9", "10", "11", "12"} - skip) and "4" in skip
+    if (({"7", "8", "9", "10", "11", "12", "15"} - skip) and "4" in skip
             and "6" in skip):
         longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
     if "7" not in skip:
@@ -3482,6 +3910,28 @@ def main(argv=None) -> int:
             cli13, _ = drive(13, lambda: phase13(tmp),
                              required=cli_path[1:])
         log("phase13 " + json.dumps(cli13))
+
+    # -- phase 14: the streaming regime at full width ------------------------
+    if "14" not in skip:
+        t0 = time.monotonic()
+        r14, _ = drive(14, phase14, required=run_path[1:])
+        log("phase14 " + json.dumps(r14))
+        log(f"phase14 wall {time.monotonic() - t0:.2f} s")
+
+    # -- phase 15: SAM/BAM re-entry at full width ----------------------------
+    if "15" not in skip:
+        # the first ~500 kb of phase 4's raw reads (a re-entry run takes
+        # ~0.4 ms of wall an alignment)
+        n15 = int(np.searchsorted(np.cumsum([len(x) for x in longs]),
+                                  500_000)) + 1
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            r15, _ = drive(15, lambda: phase15(tmp, longs[:n15], srs,
+                                               truths[:n15]),
+                           required=("bsw_expand_v2", "pileup_accumulate_bits",
+                                     "scatter_add_ordered", "sw_batch"))
+        log("phase15 " + json.dumps(r15))
+        log(f"phase15 wall {time.monotonic() - t0:.2f} s")
 
     # -- phase 3: the CPU side against the card's -----------------------------
     if cpu3 is not None:

@@ -15,13 +15,17 @@ memory sampled at span boundaries and a leak report at exit),
 against a truth sidecar, scored on ``--device``), or their config keys
 ``trace-file``, ``metrics-out``, ``qc-out`` and ``truth-sidecar``; the
 artifacts are written even when the run fails. Every mode of the
-reference but the SAM/BAM re-entry runs: ``sr`` and ``mr`` (with the
-``ccs-1`` subread consensus on PacBio subread ids), ``-noccs``, ``*+utg``
-and ``utg`` with ``-u/--unitigs``, and flex mode with
-``--haplo-coverage``. Flags whose features are not ported yet return 2
-with a message naming the flag: ``serve``, ``--sam``, ``--bam``, the mesh
-flags, ``--compile-ledger``, ``--compile-cache``, ``--xprof`` and
-``--debug``.
+reference runs: ``sr`` and ``mr`` (with the ``ccs-1`` subread consensus on
+PacBio subread ids), ``-noccs``, ``*+utg`` and ``utg`` with
+``-u/--unitigs``, flex mode with ``--haplo-coverage``, the SAM/BAM
+re-entry ``-m sam --sam FILE`` / ``-m bam --bam FILE`` (consensus from an
+external mapping; the mode is picked by the flag alone too) and the
+legacy SHRiMP2 schedule ``-m legacy``. ``--debug`` logs at DEBUG level,
+writes each bucket's admitted finish alignments as
+``<pre>/admitted.<read id>.sam`` and a per-read ``<name>.debug.tsv`` (id,
+length, mean phred, phred-0 fraction). Flags whose features are not
+ported yet return 2 with a message naming the flag: ``serve``, the mesh
+flags, ``--compile-ledger``, ``--compile-cache`` and ``--xprof``.
 
 Resilience works as in the reference (``:276-297``, ``:620-645``): a
 per-bucket checkpoint journal at ``<pre>/.proovread_ckpt`` unless
@@ -51,12 +55,10 @@ PROG = "proovread-tpu-torch"
 
 # parsed-argument name -> flag, for the flags the port does not run yet
 _UNPORTED_FLAGS = (
-    ("sam", "--sam"), ("bam", "--bam"),
     ("mesh_shards", "--mesh-shards"),
     ("mesh_pass_timeout", "--mesh-pass-timeout"),
     ("compile_ledger", "--compile-ledger"),
     ("compile_cache", "--compile-cache"), ("xprof", "--xprof"),
-    ("debug", "--debug"),
 )
 # config keys that switch on the same features from a config file
 _UNPORTED_KEYS = ("compile-ledger", "compile-cache-dir")
@@ -76,11 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="unitig FASTA (enables utg tasks)")
     ap.add_argument("-p", "--pre", help="output directory/prefix")
     ap.add_argument("-m", "--mode", default="auto",
-                    help="correction mode (auto|sr|mr|*-noccs|*+utg|utg)")
-    ap.add_argument("--sam", help="external SAM mapping (not supported by "
-                                  "the port yet)")
-    ap.add_argument("--bam", help="external BAM mapping (not supported by "
-                                  "the port yet)")
+                    help="correction mode (auto|sr|mr|*-noccs|*+utg|utg|"
+                         "sam|bam|legacy)")
+    ap.add_argument("--sam", help="external SAM mapping (re-entry mode)")
+    ap.add_argument("--bam", help="external BAM mapping (re-entry mode)")
     ap.add_argument("-c", "--cfg", help="user config file (JSON + // comments)")
     ap.add_argument("--create-cfg", metavar="PATH",
                     help="write a commented config template and exit")
@@ -149,7 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="allow writing into a non-empty output dir")
     ap.add_argument("--keep-temporary-files", action="store_true")
     ap.add_argument("--debug", action="store_true",
-                    help="debug dumps (not supported by the port yet)")
+                    help="DEBUG logging, the finish pass's admitted "
+                         "alignments as <pre>/admitted.*.sam and a "
+                         "per-read <name>.debug.tsv")
     ap.add_argument("-q", "--quiet", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the passes and siamaera run (default: the "
@@ -190,7 +193,8 @@ def _setup_logging(args) -> None:
     """Configure logging without clobbering a host application's setup:
     ``logging.basicConfig`` only runs when the root logger has no handlers
     yet; ``--log-json`` scopes its handler to this package's logger."""
-    level = logging.ERROR if args.quiet else logging.INFO
+    level = (logging.DEBUG if args.debug
+             else logging.ERROR if args.quiet else logging.INFO)
     root = logging.getLogger()
     if args.log_json:
         if not any(isinstance(h.formatter, _JsonLogFormatter)
@@ -241,7 +245,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if not args.long_reads:
         return _error("-l/--long-reads is required")
-    if not (args.short_reads or args.unitigs):
+    if not (args.short_reads or args.unitigs or args.sam or args.bam):
         return _error("need -s, -u, --sam or --bam")
     if not args.pre:
         return _error("-p/--pre is required")
@@ -258,6 +262,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _error(str(e))
 
     outdir = args.pre
+    if args.debug:
+        # the finish pass's admitted-alignment SAM dumps land next to the
+        # outputs
+        cfg.data["debug-dir"] = outdir
     os.makedirs(outdir, exist_ok=True)
     # --resume must be able to re-enter the interrupted run's output dir
     if os.listdir(outdir) and not (args.overwrite or args.resume):
@@ -415,7 +423,8 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
             mode = args.mode
             if mode == "auto":
                 mode = mode_auto(min_sr_len, bool(utgs),
-                                 is_subread_set(longs))
+                                 is_subread_set(longs), sam=bool(args.sam),
+                                 bam=bool(args.bam))
             tasks = cfg.tasks(mode)
             log.info("mode %s: tasks %s", mode, " ".join(tasks))
 
@@ -437,7 +446,8 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
                 cfg, mode, tasks, longs, shorts, utgs,
                 coverage=args.coverage, lr_min_length=args.lr_min_length,
                 sampling=not args.no_sampling,
-                haplo_coverage=args.haplo_coverage, device=args.device)
+                haplo_coverage=args.haplo_coverage, device=args.device,
+                sam=args.sam, bam=args.bam)
 
         # -- reference output layout (bin/proovread:904-956) --------------
         with obs.span("write-outputs", cat="io"):
@@ -453,6 +463,19 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
             _w(f"{name}.untrimmed.fq", result.untrimmed)
             _w(f"{name}.trimmed.fq", result.trimmed)
             _w(f"{name}.trimmed.fa", result.trimmed, fq=False)
+            if args.debug:
+                # per-read consensus debug table (the role of bam2cns
+                # --debug's trace strings, bin/bam2cns:271-295)
+                with open(os.path.join(outdir, f"{name}.debug.tsv"),
+                          "w") as fh:
+                    fh.write("id\tlen\tmean_phred\tmasked_frac\n")
+                    for r in result.untrimmed:
+                        q = r.qual if r.qual is not None else np.zeros(0)
+                        fh.write(
+                            f"{r.id}\t{len(r)}\t"
+                            f"{float(q.mean()) if len(q) else 0:.1f}\t"
+                            f"{float((q == 0).mean()) if len(q) else 0:.3f}"
+                            "\n")
             with open(os.path.join(outdir, f"{name}.ignored.tsv"),
                       "w") as fh:
                 for rid, why in result.ignored:

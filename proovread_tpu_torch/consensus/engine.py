@@ -13,7 +13,9 @@ qual-weighted votes sum to the reference's bits on every device.
 ``ConsensusResult``, ``assemble_consensus``, ``chimera_runs``,
 ``chimera_score``, ``chimera_scan``, ``window_counts`` and ``emit_prefix``
 are also what the device finish path and the scan engine use (host numpy,
-``Sam/Seq.pm:774-888``). ``variant_table`` is not ported yet.
+``Sam/Seq.pm:774-888``). ``variant_table`` is the per-column variant call
+(``ops/variants.py``) over an unweighted pileup built the same way, so on
+the card it too runs the scatter kernel.
 """
 
 from __future__ import annotations
@@ -211,6 +213,38 @@ class ConsensusEngine:
                 res.chimera = self._chimera(alnsets[i], expanded[i], n, res)
             results.append(res)
         return results
+
+    # -- variant calling (Sam/Seq.pm:1666-1734) --------------------------
+    def variant_table(self, refs: ReadBatch, alnsets: Sequence[AlnSet],
+                      min_freq: float = 4.0, min_prob: float = 0.0,
+                      or_min: bool = False):
+        """Per-column variant call over the batch (``ops/variants.py``).
+
+        The state matrix is recomputed unweighted and without ref-qual
+        votes, as upstream ``call_variants`` does when it re-inits the
+        matrix with default options (Sam/Seq.pm:1676-1677), whatever this
+        engine's consensus weighting."""
+        from dataclasses import replace
+
+        from proovread_tpu_torch.ops.variants import (call_variants,
+                                                      majority_insertion,
+                                                      variant_freqs)
+        L = refs.codes.shape[1]
+        for aset in alnsets:
+            if aset.bin_bases is None:
+                aset.filter_by_scores()
+                aset.admit()
+        plain_engine = ConsensusEngine(
+            replace(self.params, qual_weighted=False, use_ref_qual=False),
+            self.cell_budget, device=self.device)
+        pile = plain_engine._build_pileup(plain_engine._expand_sets(alnsets),
+                                          L)
+        mlen, mbases = majority_insertion(pile)
+        vf, mlen, mbases = (t.cpu().numpy() for t in (
+            variant_freqs(pile), mlen, mbases))
+        return call_variants(vf, refs.lengths, min_freq=min_freq,
+                             min_prob=min_prob, or_min=or_min,
+                             ins_call=(mlen, mbases))
 
     # -- chimera (Sam/Seq.pm:774-888 + bam2cns:461-491) ------------------
     def _chimera(self, aset: AlnSet,

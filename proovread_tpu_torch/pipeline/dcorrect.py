@@ -276,17 +276,26 @@ class AlnData:
     _rows: dict = field(default_factory=dict)
 
     def prefetch(self, cis) -> None:
+        """Bring the slab rows of candidates ``cis`` to the host: the three
+        fields of every row, from every chunk, in one transfer."""
         cis = [int(c) for c in cis if int(c) not in self._rows]
         by_chunk: dict = {}
         for ci in cis:
             by_chunk.setdefault(ci // self.chunk_size, []).append(ci)
+        if not by_chunk:
+            return
+        parts, order = [], []
         for ch, group in sorted(by_chunk.items()):
             st_d, qr_d, il_d = self.chunks[ch]
             idx = torch.as_tensor(np.asarray(group, np.int64)
                                   - ch * self.chunk_size, device=st_d.device)
-            st, qr, il = (t[idx].cpu().numpy() for t in (st_d, qr_d, il_d))
-            for j, ci in enumerate(group):
-                self._rows[ci] = (st[j], qr[j], il[j])
+            parts.append(torch.stack(
+                [st_d[idx].to(torch.int16), qr_d[idx], il_d[idx]], 1))
+            order.extend(group)
+        rows = torch.cat(parts).cpu().numpy()          # [n, 3, W] int16
+        st = rows[:, 0].astype(np.int8)
+        for j, ci in enumerate(order):
+            self._rows[ci] = (st[j], rows[j, 1], rows[j, 2])
 
     def window_counts(self, cis: np.ndarray, taboo_abs: int,
                       mat_from: int, Wn: int) -> np.ndarray:
@@ -314,6 +323,69 @@ class AlnData:
         idx = (col - mat_from) * S1 + cls
         flat = np.bincount(idx[live], minlength=Wn * S1)
         return flat.reshape(Wn, S1).astype(np.float64)
+
+
+def dump_admitted_sam(aln: AlnData, path: str, lr_ids, lr_lens,
+                      sr_ids, sr_lens, sel: np.ndarray) -> int:
+    """Debug dump of exactly the finish pass's admitted alignments as SAM —
+    the role of bam2cns --debug's filtered BAM (bin/bam2cns:271-295).
+    CIGARs are rebuilt from the expanded state slabs (M/D per live column,
+    I per insertion run, soft clips from the aligned query interval); SEQ
+    is omitted ('*'). ``sel`` maps slab query rows back to short-read
+    indices. The slab rows come to the host in one transfer."""
+    from proovread_tpu_torch.io.sam import SamAlignment, SamHeader, SamWriter
+    from proovread_tpu_torch.ops.encode import GAP
+
+    use = np.flatnonzero(aln.admitted & aln.vote_ok)
+    aln.prefetch(use)
+    hdr = SamHeader()
+    for rid, ln in zip(lr_ids, lr_lens):
+        hdr.add_ref(rid, int(ln))
+    n = 0
+    with SamWriter(path, header=hdr) as w:
+        for ci in use:
+            ci = int(ci)
+            st, qr, il = aln._rows[ci]
+            a, b = int(aln.r_start[ci]), int(aln.r_end[ci])
+            ops = []
+            for col in range(a, b):
+                if st[col] < 0:
+                    continue
+                if st[col] == GAP:
+                    ops.append("D")
+                else:
+                    ops.append("M")
+                    ops.extend("I" * int(il[col]))
+            if not ops:
+                continue
+            cig_parts = []
+            k = 0
+            while k < len(ops):
+                j = k
+                while j < len(ops) and ops[j] == ops[k]:
+                    j += 1
+                cig_parts.append(f"{j - k}{ops[k]}")
+                k = j
+            row = int(aln.sread[ci]) if aln.sread is not None else -1
+            sid = (sr_ids[int(sel[row])]
+                   if 0 <= row < len(sel) else f"q{row}")
+            qs, qe = int(aln.q_start[ci]), int(aln.q_end[ci])
+            qlen = (int(sr_lens[int(sel[row])])
+                    if 0 <= row < len(sel) else qe)
+            head = f"{qs}S" if qs else ""
+            tail = f"{qlen - qe}S" if qlen - qe > 0 else ""
+            strand = int(aln.strand[ci]) if aln.strand is not None else 0
+            rec = SamAlignment(
+                qname=sid, flag=0x10 if strand else 0,
+                rname=lr_ids[int(aln.lread[ci])],
+                pos=int(aln.pos0[ci]), mapq=255,
+                cigar=head + "".join(cig_parts) + tail,
+                seq="*", qual="*")
+            if aln.score is not None:
+                rec.tags["AS"] = ("i", int(aln.score[ci]))
+            w.write(rec)
+            n += 1
+    return n
 
 
 def detect_chimera_device(results, ref_lens: np.ndarray, aln: AlnData

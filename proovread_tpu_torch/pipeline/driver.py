@@ -31,9 +31,13 @@ fires at the device engine's bucket entry, each pass and the fused span.
 
 Supported: ``mode="sr"`` and ``mode="mr"`` (the mr task schedule:
 ``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N, ``BWA_MR_FINISH`` for
-the finish), flex on or off, one device and the short-read set resident,
-at any coverage (past ``2*max_coverage+2 > 256`` votes per lane the passes take
-the f32 packed-word pileup kernel). Every other setting raises
+the finish), flex on or off, one device, at any coverage (past
+``2*max_coverage+2 > 256`` votes per lane the passes take the f32
+packed-word pileup kernel). The short-read set is resident on the device
+within ``sr_device_budget`` and streamed above it (``_SrDevice``: a host
+slice and one slab upload a pass, passes 2..N eager), with the same bits.
+``debug_dir`` writes each bucket's admitted finish alignments as SAM
+(``dcorrect.dump_admitted_sam``). Every other setting raises
 ``NotImplementedError`` naming it.
 
 Observability (``obs``): every run fills ``PipelineResult.metrics`` (the
@@ -72,6 +76,7 @@ from proovread_tpu_torch.pipeline.dcorrect import (DeviceCorrector,
                                                    device_assemble,
                                                    device_hcr_mask,
                                                    device_revcomp,
+                                                   dump_admitted_sam,
                                                    fused_iterations)
 from proovread_tpu_torch.pipeline.correct import FastCorrector
 from proovread_tpu_torch.pipeline.masking import MaskParams, mask_batch
@@ -324,7 +329,6 @@ def _unsupported(cfg: PipelineConfig) -> Optional[str]:
         (cfg.engine not in ("device", "scan"), f"engine={cfg.engine!r}"),
         (cfg.mode not in ("sr", "mr"), f"mode={cfg.mode!r}"),
         ((cfg.mesh_shards or 0) > 1, f"mesh_shards={cfg.mesh_shards}"),
-        (bool(cfg.debug_dir), "debug_dir"),
     )
     for bad, name in checks:
         if bad:
@@ -341,29 +345,91 @@ def _uniform_rest(cfg: PipelineConfig) -> bool:
 
 
 class _SrDevice:
-    """The resident short-read set (+ revcomp) with a zero-length pad row,
-    so per-pass sampling keeps padded shapes (pad rows seed nothing)."""
+    """The short-read set (+ revcomp) with a zero-length pad row, so
+    per-pass sampling keeps padded shapes (pad rows seed nothing).
 
-    def __init__(self, sr_all: ReadBatch, dev: torch.device):
+    ``resident=True`` keeps the whole set on the device and samples with
+    device row gathers. ``resident=False`` is the streaming regime for sets
+    over ``sr_device_budget``: the set stays in host memory and each pass
+    slices its sampled rows on the host and uploads that one slab, so the
+    device holds O(slab), whatever the set's size. Both take the same rows
+    (the pad row stays last), so the two regimes are bit-equal."""
+
+    def __init__(self, sr_all: ReadBatch, dev: torch.device,
+                 resident: bool = True):
         m = sr_all.codes.shape[1]
-        codes = np.concatenate([sr_all.codes, np.full((1, m), 4, np.int8)])
-        qual = np.concatenate([sr_all.qual, np.zeros((1, m), np.uint8)])
-        lengths = np.concatenate([sr_all.lengths, np.zeros(1, np.int32)])
+        self._codes_np = np.concatenate(
+            [sr_all.codes, np.full((1, m), 4, np.int8)])
+        self._qual_np = np.concatenate(
+            [sr_all.qual, np.zeros((1, m), np.uint8)])
+        self._lengths_np = np.concatenate(
+            [sr_all.lengths, np.zeros(1, np.int32)])
         self.pad_idx = len(sr_all.lengths)
-        self.codes = torch.as_tensor(codes, device=dev)
-        self.qual = torch.as_tensor(qual, device=dev)
-        self.lengths = torch.as_tensor(lengths, device=dev)
-        self.rc = device_revcomp(self.codes, self.lengths)
+        self.resident = resident
+        self.dev = dev
+        # the set's bytes as the budget counts them
+        self.set_bytes = 3 * sr_all.codes.nbytes + sr_all.lengths.nbytes
+        # streaming caches: the uploaded full set (a full-set take would
+        # upload the same bytes every pass) and the pad-row index tails
+        self._full_cache = None
+        self._pad_tails: Dict[int, np.ndarray] = {}
+        # the largest slab a streaming pass uploaded (bytes counted as
+        # the budget counts them)
+        self.max_slab_bytes = 0
+        if resident:
+            self._full_cache = self._upload(self._codes_np, self._qual_np,
+                                            self._lengths_np)
+
+    @property
+    def width(self) -> int:
+        return self._codes_np.shape[1]
+
+    def _upload(self, codes, qual, lengths):
+        if not self.resident:
+            self.max_slab_bytes = max(self.max_slab_bytes,
+                                      3 * codes.nbytes + lengths.nbytes)
+        c, q, ln = (torch.as_tensor(a, device=self.dev)
+                    for a in (codes, qual, lengths))
+        return c, device_revcomp(c, ln), q, ln
+
+    def _pad_tail(self, n_pad: int) -> np.ndarray:
+        t = self._pad_tails.get(n_pad)
+        if t is None:
+            t = self._pad_tails[n_pad] = np.full(n_pad, self.pad_idx,
+                                                 np.int64)
+        return t
+
+    def full(self):
+        """The whole set on the device (codes, revcomp, qual, lengths):
+        resident, or uploaded once and cached when streaming."""
+        if self._full_cache is None:
+            self._full_cache = self._upload(self._codes_np, self._qual_np,
+                                            self._lengths_np)
+        return self._full_cache
+
+    def stats(self) -> dict:
+        """The regime of a run: resident or streamed, the set's bytes,
+        whether the whole set went to the device, and the largest
+        streamed slab's bytes."""
+        return dict(resident=self.resident, set_bytes=self.set_bytes,
+                    full_set_on_device=self._full_cache is not None,
+                    max_slab_bytes=self.max_slab_bytes)
 
     def take(self, sel: np.ndarray, pad_multiple: int = 512):
+        """Rows ``sel`` padded with the pad row to a multiple of
+        ``pad_multiple``: a device gather when resident, a host slice and
+        one slab upload when streaming."""
         n = len(sel)
         if n == self.pad_idx:
-            return self.codes, self.rc, self.qual, self.lengths
+            return self.full()
         target = max(pad_multiple, -(-n // pad_multiple) * pad_multiple)
-        idx = np.concatenate([sel.astype(np.int64),
-                              np.full(target - n, self.pad_idx, np.int64)])
-        i = torch.as_tensor(idx, device=self.codes.device)
-        return self.codes[i], self.rc[i], self.qual[i], self.lengths[i]
+        idx = np.concatenate([sel.astype(np.int64, copy=False),
+                              self._pad_tail(target - n)])
+        if self.resident:
+            i = torch.as_tensor(idx, device=self.dev)
+            return tuple(t[i] for t in self._full_cache)
+        return self._upload(self._codes_np[idx], self._qual_np[idx],
+                            self._lengths_np[idx])
 
 
 class Pipeline:
@@ -372,6 +438,7 @@ class Pipeline:
         self._faults: Optional[FaultPlan] = None   # set per run
         self._dcs: Dict[int, DeviceCorrector] = {}  # by device chunk
         self._sr_scan = None      # (short-read list, its scan packing)
+        self.sr_stats: Optional[dict] = None   # _SrDevice.stats() of a run
 
     def read_long(self, records: Sequence[SeqRecord], min_sr_len: int
                   ) -> Tuple[List[SeqRecord], List[Tuple[str, str]]]:
@@ -420,6 +487,9 @@ class Pipeline:
         min_sr_len = int(np.median(sr_lens)) if len(sr_lens) else 100
 
         kept, ignored = self.read_long(long_records, min_sr_len)
+        if cfg.debug_dir:
+            self._sr_ids = [r.id for r in short_records]
+            self._sr_lens = np.asarray([len(r) for r in short_records])
         reports: List[TaskReport] = []
         if not kept:
             return PipelineResult([], [], ignored, [], reports)
@@ -504,14 +574,8 @@ class Pipeline:
         all_chim: List[Tuple[str, int, int, float]] = []
         if cfg.engine == "device":
             # 16-row query padding keeps the bsw DP short (one step per row)
-            sr_all = pack_reads(short_records, pad_multiple=16)
-            sr_bytes = 3 * sr_all.codes.nbytes + sr_all.lengths.nbytes
-            if sr_bytes > cfg.sr_device_budget:
-                raise NotImplementedError(
-                    f"short-read set of {sr_bytes} bytes over "
-                    f"sr_device_budget ({cfg.sr_device_budget}): the "
-                    "streaming regime is not ported yet")
-            sr_dev = _SrDevice(sr_all, dev)
+            sr_dev = self._make_sr_device(
+                pack_reads(short_records, pad_multiple=16), dev)
             groups = _bucket_records(kept, cfg.batch_reads)
             obs.metrics.gauge("n_buckets", unit="buckets").set(len(groups))
             for gi, (pad, batch_recs) in enumerate(groups):
@@ -527,6 +591,7 @@ class Pipeline:
                          len(batch_recs), Lp)
             # restore read_long's natural output order across buckets
             results.sort(key=lambda r: natural_key(r.record.id))
+            self.sr_stats = sr_dev.stats()
         else:
             sr_all = self._scan_sr_all(short_records)
             starts = list(range(0, len(kept), cfg.batch_reads))
@@ -547,6 +612,19 @@ class Pipeline:
         untrimmed = [r.record for r in results]
         trimmed = trim_records(results, cfg.trim)
         return PipelineResult(untrimmed, trimmed, ignored, all_chim, reports)
+
+    def _make_sr_device(self, sr_all: ReadBatch, dev) -> _SrDevice:
+        """The short-read set on the device: resident within
+        ``sr_device_budget``, streamed a slab a pass above it."""
+        cfg = self.config
+        sr_bytes = 3 * sr_all.codes.nbytes + sr_all.lengths.nbytes
+        resident = sr_bytes <= cfg.sr_device_budget
+        if not resident:
+            log.info(
+                "short-read set %.1f GB exceeds sr-device-budget "
+                "%.1f GB: streaming slab regime (per-pass upload)",
+                sr_bytes / 2**30, cfg.sr_device_budget / 2**30)
+        return _SrDevice(sr_all, dev, resident=resident)
 
     def _get_dc(self, chunk: int) -> DeviceCorrector:
         """DeviceCorrector per chunk size (the chunk-halved rung needs its
@@ -588,7 +666,8 @@ class Pipeline:
             # per-iteration schedule or in flex mode the top rung already
             # runs the eager loop; at device_chunk 128 the halved chunk
             # clamps back to it
-            if not _uniform_rest(cfg) or cfg.haplo_coverage is not None:
+            if (not _uniform_rest(cfg) or cfg.haplo_coverage is not None
+                    or not sr_dev.resident):
                 levels = [lv for lv in levels if lv.name != "fused"]
             levels = [lv for lv in levels
                       if (lv.host or lv.chunk_div == 1
@@ -697,17 +776,19 @@ class Pipeline:
         task = f"bwa-{cfg.mode[:2]}"
 
         def eager_pass(it, codes, qual, lengths, mask_cols, budget_of=None,
-                       **span_args):
-            """One iteration pass through ``correct_pass``, its report and
-            QC rows. In flex mode (``budget_of``, from the pass's estimate
-            to its admission budget) the pass runs twice on the
-            same sample: uncapped for the estimate, whose consensus is
-            dropped, then under the budget. Returns the new read state,
-            masked fraction and the pass's candidate count."""
+                       sel=None, **span_args):
+            """One iteration pass through ``correct_pass`` on the sample
+            ``sel`` (drawn here when None), its report and QC rows. In flex
+            mode (``budget_of``, from the pass's estimate to its admission
+            budget) the pass runs twice on the same sample: uncapped for
+            the estimate, whose consensus is dropped, then under the
+            budget. Returns the new read state, masked fraction and the
+            pass's candidate count."""
             with obs.span(f"{task}-{it}", cat="pass", bucket=gi,
                           **span_args):
                 inj(it)
-                qc, rcq, qq, qlen = sr_dev.take(select(cfg.sr_coverage))
+                qc, rcq, qq, qlen = sr_dev.take(
+                    select(cfg.sr_coverage) if sel is None else sel)
                 ap_i = _align_params_cfg(cfg, it)
                 budget = None
                 if budget_of is not None:
@@ -783,13 +864,27 @@ class Pipeline:
                 first_fused = cfg.n_iterations + 1
             masked_frac = new_frac
 
-        # -- passes 2..N eagerly: a per-iteration schedule (the fused loop
-        # bakes in one parameter set) and the ladder's demoted rungs
-        if ((not _uniform_rest(cfg) or not level.fused)
+        # -- passes 2..N eagerly: a streaming short-read set (the fused
+        # loop gathers from the resident set), a per-iteration schedule
+        # (the fused loop bakes in one parameter set) and the ladder's
+        # demoted rungs
+        if ((not sr_dev.resident or not _uniform_rest(cfg)
+             or not level.fused)
                 and first_fused <= cfg.n_iterations):
-            for it in range(first_fused, cfg.n_iterations + 1):
+            # a streamed set at the top of its walk stands in for the fused
+            # loop, so it draws the fused loop's samples, every pass's up
+            # front: the sampler's rotation after a shortcut, and with it
+            # the finish's sample, is then the resident run's
+            sels = None
+            if (not sr_dev.resident and _uniform_rest(cfg)
+                    and level.chunk_div == 1 and not level.host):
+                sels = [select(cfg.sr_coverage)
+                        for _ in range(first_fused, cfg.n_iterations + 1)]
+            for k, it in enumerate(range(first_fused,
+                                         cfg.n_iterations + 1)):
                 codes, qual, lengths, mask_cols, new_frac, _ = eager_pass(
-                    it, codes, qual, lengths, mask_cols, eager=True)
+                    it, codes, qual, lengths, mask_cols,
+                    sel=None if sels is None else sels[k], eager=True)
                 done = stop(new_frac, masked_frac)
                 masked_frac = new_frac
                 if done:
@@ -826,8 +921,7 @@ class Pipeline:
                           first=first_fused, last=cfg.n_iterations) as fsp:
                 out = fused_iterations(
                     codes, qual, lengths, mask_cols, masked_frac,
-                    sr_dev.codes, sr_dev.rc, sr_dev.qual, sr_dev.lengths,
-                    sels, pvs, m=sr_dev.codes.shape[1],
+                    *sr_dev.full(), sels, pvs, m=sr_dev.width,
                     W=band_lanes(ap_rest), CH=dc.chunk,
                     n_chunks=static_chunks, ap=ap_rest, cns=cns,
                     n_rest=n_fused, Lp=Lp, seed_stride=cfg.seed_stride,
@@ -858,7 +952,8 @@ class Pipeline:
             inj(cfg.n_iterations + 1)
             ap = _align_params_cfg(cfg, None)
             cns = finish_consensus_params(cfg, coverage)
-            qc, rcq, qq, qlen = sr_dev.take(select(cfg.finish_coverage))
+            fin_sel = select(cfg.finish_coverage)
+            qc, rcq, qq, qlen = sr_dev.take(fin_sel)
             if cfg.haplo_coverage is not None:
                 # the finish maps the unmasked reads, so its own estimate
                 # holds again: refresh the running-minimum budget first
@@ -911,6 +1006,8 @@ class Pipeline:
                 for o in out_res:
                     if o.chimera:
                         qc_rec.record_chimera(o.record.id, o.chimera)
+            if cfg.debug_dir:
+                self._dump_finish(aln, lr.ids[:B0], lens_h[:B0], fin_sel)
             frac_phred0 = (float(np.mean([o.masked_frac for o in out_res]))
                            if out_res else 0.0)
             fin_adm, fin_el = int(stats.n_admitted), int(stats.n_eligible)
@@ -920,6 +1017,17 @@ class Pipeline:
         chim = [(o.record.id, f, t, s) for o in out_res
                 for (f, t, s) in o.chimera]
         return out_res, chim
+
+    def _dump_finish(self, aln, lr_ids, lr_lens, sel) -> None:
+        """``debug_dir``: the finish pass's admitted alignments of a bucket
+        as ``admitted.<first read id>.sam``."""
+        import re
+        # PacBio ids hold '/': keep the dump name one path component
+        tag = re.sub(r"[^A-Za-z0-9._-]", "_", lr_ids[0])[:80]
+        path = os.path.join(self.config.debug_dir, f"admitted.{tag}.sam")
+        nrec = dump_admitted_sam(aln, path, lr_ids, lr_lens, self._sr_ids,
+                                 self._sr_lens, sel)
+        log.info("debug: %d admitted finish alignments -> %s", nrec, path)
 
     def _run_batch(self, batch_recs, sr_all, short_records, sampler,
                    coverage, min_sr_len, reports, dev):

@@ -6,10 +6,11 @@ optional ``ccs-1`` subread pre-consensus (``:871-895``,
 ``pipeline/ccs.py``), the optional ``utg`` unitig pass
 (``pipeline/utg.py``), the iterated ``bwa-{sr,mr}-N`` + finish passes
 (delegated to :class:`Pipeline`, flex mode with ``haplo_coverage``), the
-utg-only output, and the final trim + siamaera output stage
-(``:904-956``). The external-mapping re-entry modes (``read-sam`` /
-``read-bam``) and the legacy ``shrimp-*`` schedule raise
-``NotImplementedError`` naming the task. Siamaera runs under its
+external-mapping re-entry (``read-sam`` / ``read-bam``: consensus from a
+SAM/BAM mapping through ``pipeline/sam2cns.py``), the legacy ``shrimp-*``
+schedule (the 2014 SHRiMP2 passes as a per-iteration ``align_schedule``
+from the ``shrimp-opt`` key), the utg-only output, and the final trim +
+siamaera output stage (``:904-956``). Siamaera runs under its
 ``siamaera`` span, and the aggregate QC report is embedded again after it
 (``_embed_qc``), since its hits and the trim funnel land after
 ``Pipeline.run`` aggregated.
@@ -23,7 +24,8 @@ import time
 from typing import List, Optional, Sequence
 
 from proovread_tpu_torch import obs
-from proovread_tpu_torch.align.params import from_bwa_flags
+from proovread_tpu_torch.align.params import (from_bwa_flags,
+                                              from_shrimp_flags)
 from proovread_tpu_torch.config import Config
 from proovread_tpu_torch.io.records import SeqRecord
 from proovread_tpu_torch.pipeline.ccs import ccs_correct, is_subread_set
@@ -31,13 +33,10 @@ from proovread_tpu_torch.pipeline.driver import (Pipeline, PipelineConfig,
                                                  PipelineResult, TaskReport,
                                                  _declare_metrics)
 from proovread_tpu_torch.pipeline.masking import MaskParams
-from proovread_tpu_torch.pipeline.trim import TrimParams, trim_window
+from proovread_tpu_torch.pipeline.trim import (TrimParams, trim_records,
+                                               trim_window)
 
 log = logging.getLogger("proovread_tpu_torch")
-
-
-def _unported_task(task: str) -> bool:
-    return task in ("read-sam", "read-bam") or task.startswith("shrimp-")
 
 
 def _trim_params(cfg: Config) -> TrimParams:
@@ -162,14 +161,12 @@ def run_tasks(
     sampling: bool = True,
     haplo_coverage: Optional[float] = None,
     device: str = "cuda",
+    sam: Optional[str] = None,
+    bam: Optional[str] = None,
 ) -> PipelineResult:
-    """Run ``tasks`` of ``mode``; ``ccs-1``, ``utg``, the passes and
-    siamaera run on ``device``."""
-    for t in tasks:
-        if _unported_task(t):
-            raise NotImplementedError(
-                f"task {t!r} (mode {mode!r}) is not supported by the PyTorch "
-                "port yet")
+    """Run ``tasks`` of ``mode``; ``ccs-1``, ``utg``, the SAM/BAM
+    consensus, the passes and siamaera run on ``device``. ``sam`` /
+    ``bam`` name the external mapping of the re-entry modes."""
     reports: List[TaskReport] = []
 
     # -- read-long: input normalization for every mode
@@ -201,6 +198,12 @@ def run_tasks(
                      "(%.1fs)", st.primary, st.single, st.secondary,
                      time.monotonic() - t0)
 
+    # -- external-mapping re-entry (read-sam/read-bam) --------------------
+    if "read-sam" in tasks or "read-bam" in tasks:
+        return _read_mapping(cfg, mode, tasks, longs, ignored0, reports,
+                             sam if sam is not None else bam,
+                             haplo_coverage, device)
+
     # -- utg pass ---------------------------------------------------------
     utg_corrected = False
     if any(t == "utg" or t.endswith("-utg") for t in tasks):
@@ -214,6 +217,33 @@ def run_tasks(
         log.info("utg: masked %.1f%% (%.1fs)", utg_rep.masked_frac * 100,
                  time.monotonic() - t0)
         utg_corrected = True
+
+    # -- legacy mode: the 2014 SHRiMP2 schedule on the built-in mapper
+    # (proovread.cfg:140 task list; per-iteration params from "shrimp-opt")
+    if any(t.startswith("shrimp-") for t in tasks):
+        if not shorts:
+            raise ValueError(f"mode {mode!r} needs -s/--short-reads input")
+        so = cfg.data.get("shrimp-opt") or {}
+        pre = [t for t in tasks if t.startswith("shrimp-pre-")]
+        sched = {t.rsplit("-", 1)[1]: from_shrimp_flags(so.get(t, {}))
+                 for t in pre}
+        sched["finish"] = from_shrimp_flags(so.get("shrimp-finish", {}))
+        sched["first"] = sched.get("1", sched["finish"])
+        sched["rest"] = sched.get("2", sched["first"])
+        pc = _pipeline_config(cfg, "sr", tasks, coverage, lr_min_length,
+                              sampling, haplo=haplo_coverage, device=device)
+        pc.n_iterations = max(len(pre), 1)
+        pc.align_schedule = sched
+        result = Pipeline(pc).run(longs, shorts)
+        # task names in the legacy schedule's own vocabulary
+        for rep in result.reports:
+            rep.task = rep.task.replace("bwa-sr", "shrimp-pre") \
+                .replace("shrimp-pre-finish", "shrimp-finish")
+        result.reports = reports + result.reports
+        result.ignored = ignored0 + result.ignored
+        _apply_siamaera(cfg, result, device)
+        _embed_qc(result)
+        return result
 
     # -- iterated short-read correction ----------------------------------
     base = "mr" if mode.startswith("mr") else "sr"
@@ -251,3 +281,59 @@ def run_tasks(
         return result
 
     raise ValueError(f"mode {mode!r}: no runnable tasks in {tasks}")
+
+
+def _read_mapping(cfg: Config, mode: str, tasks: Sequence[str],
+                  longs: List[SeqRecord], ignored0, reports, src,
+                  haplo_coverage, device: str) -> PipelineResult:
+    """``read-sam`` / ``read-bam``: consensus-correct the long reads from
+    the external mapping ``src`` (``pipeline/sam2cns.py``), then the trim
+    and siamaera stage. The KPI catalog is declared and filled as in
+    ``Pipeline.run``."""
+    from proovread_tpu_torch.consensus.params import ConsensusParams
+    from proovread_tpu_torch.pipeline.sam2cns import Sam2CnsConfig, sam2cns
+    task = "read-sam" if "read-sam" in tasks else "read-bam"
+    if src is None:
+        raise ValueError(f"mode {mode!r} needs --sam/--bam input")
+    params = ConsensusParams(
+        indel_taboo_length=int(cfg.get("sr-indel-taboo-length")),
+        use_ref_qual=True,
+        bin_size=int(cfg.get("bin-size", task)),
+        max_coverage=int(cfg.get("max-coverage", task)),
+        rep_coverage=int(cfg.get("rep-coverage", task) or 0),
+    )
+    if haplo_coverage is not None and haplo_coverage <= 0:
+        # a bare --haplo-coverage asks for an estimate from the device
+        # passes, which re-entry does not run; a negative cutoff must
+        # never reach filter_by_coverage
+        log.warning("%s: --haplo-coverage without a value has no effect in "
+                    "sam/bam re-entry mode — give an explicit coverage "
+                    "cutoff", task)
+        haplo_coverage = None
+    s2c = Sam2CnsConfig(
+        params=params,
+        detect_chimera=bool(cfg.get("detect-chimera", task)),
+        max_ref_seqs=int(cfg.get("chunk-size")),
+        haplo_coverage=haplo_coverage,
+    )
+    with obs.metrics.scope() as reg:
+        _declare_metrics(reg)
+        t0 = time.monotonic()
+        with obs.span(task, cat="task"):
+            results = list(sam2cns(src, longs, s2c, device=device))
+        log.info("%s: %d reads corrected (%.1fs)", task, len(results),
+                 time.monotonic() - t0)
+        obs.metrics.counter("reads_processed", unit="reads").inc(
+            len(results))
+        obs.metrics.counter("bases_processed", unit="bases").inc(
+            sum(len(r.record) for r in results))
+        chim = [(r.record.id, f, t, s)
+                for r in results for (f, t, s) in r.chimera]
+        result = PipelineResult(
+            untrimmed=[r.record for r in results],
+            trimmed=trim_records(results, _trim_params(cfg)),
+            ignored=ignored0, chimera=chim, reports=reports)
+        _apply_siamaera(cfg, result, device)
+        _embed_qc(result)
+        result.metrics = reg.as_dict()
+    return result

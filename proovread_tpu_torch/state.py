@@ -47,7 +47,7 @@ def params_from_fields(cls, fields: dict):
 
 
 def batch_to_tensors(ids: Sequence[str], codes: np.ndarray, qual: np.ndarray,
-                     lengths: np.ndarray, device="cpu"):
+                     lengths: np.ndarray, device="cuda"):
     """(ReadBatch of the numpy arrays, (codes, qual, lengths) tensors on
     ``device``)."""
     batch = ReadBatch(ids=list(ids), codes=np.asarray(codes, np.int8),

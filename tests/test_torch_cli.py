@@ -199,11 +199,10 @@ def test_cli_trace_qc_and_metrics_pass_the_validators(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["serve"], ["--sam", "x.sam"], ["--bam", "x.bam"],
-    ["--mesh-shards", "2"],
+    ["serve"], ["--mesh-shards", "2"],
     ["--mesh-pass-timeout", "5"],
     ["--compile-ledger", "c.jsonl"], ["--compile-cache"],
-    ["--xprof", "xp"], ["--debug"]], ids=lambda f: f[0])
+    ["--xprof", "xp"]], ids=lambda f: f[0])
 def test_refused_flags_name_themselves(tmp_path, capsys, flag):
     out = str(tmp_path / "res")
     argv = flag if flag == ["serve"] else (

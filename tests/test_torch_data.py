@@ -65,7 +65,8 @@ def test_pack_reads_byte_equal(pad_multiple):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
     assert jb.ids == tb.ids and jb.codes.shape[1] % pad_multiple == 0
     assert _recs(jb.to_records()) == _recs(tb.to_records())
-    back, tensors = batch_to_tensors(jb.ids, jb.codes, jb.qual, jb.lengths)
+    back, tensors = batch_to_tensors(jb.ids, jb.codes, jb.qual, jb.lengths,
+                                     device="cpu")
     assert tensors[0].numpy().tobytes() == jb.codes.tobytes()
     assert back.record(0).seq == jb.record(0).seq
 

@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and no ``proovread_tpu`` imports, CUDA
 asked for without a card raises, unsupported settings raise
 ``NotImplementedError`` naming the setting, and the resilience settings
-(the journal, resume, a bucket timeout, fault injection, the scan engine)
-and flex mode (``haplo_coverage`` bare and explicit) run."""
+(the journal, resume, a bucket timeout, fault injection, the scan engine),
+flex mode (``haplo_coverage`` bare and explicit), the streaming regime and
+``debug_dir`` run."""
 
 import ast
 import os
@@ -59,7 +60,11 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.consensus.engine, "
             "proovread_tpu_torch.pipeline.ccs, "
             "proovread_tpu_torch.pipeline.utg, "
-            "proovread_tpu_torch.pipeline.tasks\n"
+            "proovread_tpu_torch.pipeline.tasks, "
+            "proovread_tpu_torch.io.sam, proovread_tpu_torch.ops.variants, "
+            "proovread_tpu_torch.pipeline.sam2cns, "
+            "proovread_tpu_torch.pipeline.dazz2sam, "
+            "proovread_tpu_torch.tools\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")
@@ -94,8 +99,6 @@ def test_cuda_without_card_raises():
     ("engine", dict(engine="host")),
     ("mode", dict(mode="utg")),
     ("mesh_shards", dict(mesh_shards=2)),
-    ("debug_dir", dict(debug_dir="dbg")),
-    ("sr_device_budget", dict(sr_device_budget=10)),
 ])
 def test_unsupported_settings_raise(setting, kw):
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
@@ -108,20 +111,26 @@ def test_unsupported_settings_raise(setting, kw):
     dict(engine="scan"), dict(checkpoint_dir="ckpt"),
     dict(checkpoint_dir="ckpt", resume=True), dict(bucket_timeout=600.0),
     dict(fault_spec="oom@b9"), dict(ladder=False, fault_spec=""),
-    dict(haplo_coverage=-1.0), dict(haplo_coverage=12.0)],
+    dict(haplo_coverage=-1.0), dict(haplo_coverage=12.0),
+    dict(sr_device_budget=10), dict(debug_dir="dbg")],
     ids=["scan", "checkpoint_dir", "resume", "bucket_timeout", "fault",
-         "no_ladder", "flex", "flex_cutoff"])
+         "no_ladder", "flex", "flex_cutoff", "streaming", "debug_dir"])
 def test_resilience_settings_run(tmp_path, kw):
-    """The resilience settings, the scan engine and flex mode run on the
+    """The resilience settings, the scan engine, flex mode, a short-read
+    set over its device budget (streamed) and ``debug_dir`` run on the
     CPU and correct the read, with no demotion."""
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
-    if "checkpoint_dir" in kw:
-        kw = {**kw, "checkpoint_dir": str(tmp_path / kw["checkpoint_dir"])}
+    for key in ("checkpoint_dir", "debug_dir"):
+        if key in kw:
+            kw = {**kw, key: str(tmp_path / kw[key])}
+            os.makedirs(kw[key], exist_ok=True)
     res = Pipeline(PipelineConfig(device="cpu", n_iterations=2,
                                   device_chunk=128, host_chunk_rows=512,
                                   **kw)).run(*_tiny())
     assert [r.id for r in res.untrimmed] == ["r0"]
     assert not any(r.task.startswith("demote") for r in res.reports)
+    if "debug_dir" in kw:
+        assert os.listdir(kw["debug_dir"]) == ["admitted.r0.sam"]
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):
