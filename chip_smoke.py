@@ -48,7 +48,9 @@ any failure exits non-zero:
    ``index_add_`` of the kept entries in index order on CPU copies, with
    their segment lengths (and the public call's sort alone timed
    beside). Launcher, plain
-   and library times (median of CUDA-event timings after a warm-up), the
+   and library times (median of CUDA-event timings after a warm-up; the
+   plain versions of bsw, sw, the LCS and the traceback, which take
+   seconds, once: the call that checks the kernel), the
    kernels' own device time and the device operations of one launcher
    call (torch.profiler), and each kernel's bound from its bytes and
    operations;
@@ -93,12 +95,20 @@ any failure exits non-zero:
    (``mapping_sam``: pass 1's device pass on the card, exact records,
    converted to BAM and indexed with the port's tools), and ``tools
    sam2cns --variants --stabilize`` on that mapping (the table
-   identical). Every CPU half of phase 3 runs in a subprocess of 4
-   threads at low priority (``CpuSide``) started after phase 2, under the
-   work of phases 3-15 (so their walls are taken beside it and beside the
-   traceback holds, ``EditHold``; phase 2's times are not);
-   phase 3 runs the card halves, and the two sides are compared, and
-   phase 3's comparison lines logged, after phase 15;
+   identical); and ``python -m proovread_tpu_torch serve`` as a subprocess
+   with config 4's short reads, its long reads submitted over the socket
+   as one job, every verb asked, drained clean, its
+   SLO valid: the card's job results byte for byte those of the same
+   server with ``--device cpu`` (``ServeTwin``; the CPU server runs from
+   the end of phase 1 on, at low priority, beside the card phases). Every
+   CPU half of phase 3 runs in two subprocesses of 4 threads each at low
+   priority (``CpuSide``) started after phase 1, beside phases 2-17 (so
+   every phase's times, phase 2's launcher times among them, are taken
+   beside it, those of phases 3-17 beside the traceback holds,
+   ``EditHold``, and those of phases 7-17 beside the lanes); phase 3
+   runs the card halves, and the
+   two sides are compared, and phase 3's comparison lines logged, after
+   the lanes have ended;
 4. the main path: ``Pipeline.run`` on the E.coli-class workload (1.25 Mb
    genome, 5 Mb of CLR reads, 30x short reads, 6 iterations);
 5. high coverage: ``Pipeline.run`` on a 250 kb genome, 1 Mb of CLR reads
@@ -180,17 +190,42 @@ any failure exits non-zero:
    the last, scored: the mapping seconds, the re-entry walls and bases/s,
    identity before and after; the two runs' five files identical and the
    identity after above before; then ``tools sam2cns --variants`` on the
-   SAM (seconds, rows).
+   SAM (seconds, rows);
+16. serving at full width (``phase16``): ``simulate_job_stream`` on phase
+   4's genome, eight jobs each of clr, ccs and unitig from two tenants
+   (reads of 2-15 kb, ~2 Mb), served through ``CorrectionServer`` over its
+   socket against phase 4's short reads (``serve/smoke.py:envelope``: the
+   reference smoke's five job faults, a drain after one bucket, a resume on
+   the same state dir), batches of 64 reads: wall, completed bases/s,
+   waves, p50 and p99 latency by length class, the device's busy share
+   (``torch.profiler``); every job terminal with its expected status, each
+   completed clr job's records those of one batch ``Pipeline.run`` of its
+   wave's reads, both SLOs valid, no CUDA tensor left;
+17. the fleet on one card (``phase17``): ``obs/load.run_smoke`` with the
+   ``slam`` scenario, two in-process replicas, ``replica_death@r1.j5``,
+   fleet accuracy scored on the card: wall, fleet bases/s, handoffs,
+   identity before and after by family, the device's busy share; a
+   handoff, no job lost or counted twice, a valid LOAD row.
 
-Phases 9 and 10 run between 7 and 8, and 11-15 after 8: 9-12 and 15 reuse
-phase 7's short reads. Phases 4-15 each reset every kernel's launch count
+Every trace, metrics, QC and truth-sidecar artifact the command-line runs
+write (phases 3, 7, 8, 11-13, both sides of phase 3's twins) passes the
+port's own validators (``obs/validate.py``) too.
+
+The main process runs phases 2-7, 11, 9, 14 and 17 in that order. From
+the end of phase 6 on, two lanes (``Lane``: a second ``chip_smoke.py``
+each, ``--skip`` every other phase and ``--lane-out``) run phases 13, 8
+and 16, and phases 12, 15 and 10, beside it, each lane on its own copy of
+phase 4's workload; their logs are printed after phase 17. Phases 9-12,
+15 and 16 use phase 7's short reads. Each phase logs its wall and when
+it ended in seconds of its process. Phases 4-17 each reset every kernel's launch count
 just before and read them just after; each fails if a kernel of its path
 was not launched (phases 7 and 8: sw, bsw v2, the bit-plane pileup,
 assemble, HCR, the LCS and the traceback; phase 9 the same but the
 scoreboard's two; phase 10 sw; phases 11 and
 12 those of 7 and the scatter; phase 13 those of 7 but sw; phase 14 bsw
 v2, the bit-plane pileup, assemble and HCR; phase 15 bsw v2, the
-bit-plane pileup, the scatter and sw), and phase 5
+bit-plane pileup, the scatter and sw; phase 16 those of 14, sw and the
+scatter; phase 17 those of 16, the LCS and the traceback), and phase 5
 also if the bit-plane pileup was. No unfaulted phase may demote: phases
 3-5, 7-13 and 14 fail on a ``resilience_demotions`` or ``device_faults``
 count or a ``demote-`` report (phase 6 drives ``DeviceCorrector`` below
@@ -201,8 +236,8 @@ Every pair the scoreboard classifies on the card in phases 7, 11 and 12,
 and phase 2's traceback pairs, are held in background subprocesses
 (``EditHold``; phase 2's started after phase 2's kernel times, the others
 after their phase) against the host numpy ``edit_alignment`` and (but
-phase 2's, whose plain run is its check's) ``edit_alignments_plain``; the
-script waits for them at the end.
+phase 2's, whose plain run is its check's) ``edit_alignments_plain``, one
+subprocess each; the script waits for them at the end.
 
 Phase 2 calls each kernel's public wrapper on CUDA tensors and holds it
 against the plain version on the same card inputs, and against the wrapper
@@ -219,9 +254,9 @@ beside it, it exits non-zero and prints no result.
 ``--profile`` reruns phases 4-6 under ``torch.profiler`` and prints the
 device time and launches of every port kernel in each. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
-lines (the full run takes no arguments).
+lines (the full run takes no arguments). ``--lane-out`` is the lanes'.
 
-The functions of phases 3-6 and 11-15 take the device as an argument,
+The functions of phases 3-6 and 11-17 take the device as an argument,
 and those of phases 7-8 run ``cli.main``, so the same code runs on the
 CPU at a small size.
 """
@@ -259,8 +294,19 @@ F32_LANES_PER_SM_CLOCK = 128
 NEED_FREE_GIB = 8.0
 
 
+# when this process started, for ``mark``
+T_START = time.monotonic()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(label: str, t0: float) -> None:
+    """Log how long ``label`` took since ``t0`` and when it ended, in
+    seconds of this process."""
+    now = time.monotonic()
+    log(f"{label} took {now - t0:.1f} s, ended at {now - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -343,6 +389,21 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def timed_once(fn):
+    """(``fn()``, its CUDA-event time in ms): one call, the plain
+    versions' time (each runs for seconds; their check's call is the
+    timed one)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def launcher_times(fn, names, reps: int = 5, entry=None) -> dict:
@@ -535,8 +596,7 @@ def check_bsw(rng, dev, ap, label, m=112, ql=100):
     m = args[0].shape[1]
     W = bsw.band_lanes(ap)
     got = bsw.bsw_expand_v2(*args, ap)
-    want = bsw.bsw_expand_v2_plain(*args, ap)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: bsw.bsw_expand_v2_plain(*args, ap))
     pairs = [(getattr(got, f).int() if f == "valid" else getattr(got, f),
               getattr(want, f).int() if f == "valid" else getattr(want, f))
              for f in want._fields]
@@ -548,8 +608,6 @@ def check_bsw(rng, dev, ap, label, m=112, ql=100):
                              f"{n_ins} insertion columns)")
     tm = launcher_times(lambda: bsw._bsw_cuda(*args, ap),
                         KERNEL_NAMES["bsw"])
-    plain_ms = time_ms(lambda: bsw.bsw_expand_v2_plain(*args, ap), reps=5,
-                       warmup=1)
     S = args[0].shape[0]
     n_bytes = (2 * S * m + args[2].numel() + 5 * R * 4
                + 5 * R * n * 4 + R * 4 + 5 * R * 4)
@@ -654,8 +712,8 @@ def check_bsw_v1(dev, ap, label, args, v2):
     word = map_pad[lread.long()[:, None], cols]
     win1 = word & 7
     got = bsw.bsw_expand(q1, win1, qlen, ap)
-    want = bsw.bsw_expand_plain(q1, win1, qlen, ap)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: bsw.bsw_expand_plain(q1, win1, qlen,
+                                                             ap))
     ints = lambda r: [getattr(r, f).int() if f == "valid"  # noqa: E731
                       else getattr(r, f) for f in r._fields]
     pairs = list(zip(ints(got), ints(want)))
@@ -667,8 +725,6 @@ def check_bsw_v1(dev, ap, label, args, v2):
                  list(zip(ints(gated), ints(v2))))
     tm = launcher_times(lambda: bsw._bsw_v1_cuda(q1, win1, qlen, ap),
                         KERNEL_NAMES["bsw"])
-    plain_ms = time_ms(lambda: bsw.bsw_expand_plain(q1, win1, qlen, ap),
-                       reps=5, warmup=1)
     n_bytes = R * m + R * n + 4 * R + 5 * R * n * 4 + R * 4 + 5 * R * 4
     # the same 16 f32 operations per banded DP cell as v2 (see check_bsw)
     b_ms, b_by = bound(n_bytes, dp_rows(qlen, m) * W * 16)
@@ -722,8 +778,7 @@ def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None,
     R, m = q.shape
     n = r.shape[1]
     got = sw.sw_batch(q, r, ql, ap)
-    want = sw.sw_batch_plain(q, r, ql, ap)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: sw.sw_batch_plain(q, r, ql, ap))
     pairs = list(zip(got, want))
     assert_equal("sw_batch", pairs)
     long_walks = int((want.n_ops >= int(ql.max()) - 8).sum())
@@ -731,8 +786,6 @@ def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None,
         raise AssertionError(f"sw: weak inputs ({long_walks} long walks)")
     tm = launcher_times(lambda: sw._sw_cuda(q, r, ql, ap), KERNEL_NAMES["sw"],
                         entry="pt_sw_batch" if m == 512 else None)
-    plain_ms = time_ms(lambda: sw.sw_batch_plain(q, r, ql, ap), reps=3,
-                       warmup=1)
     steps = m + n
     n_bytes = R * m + R * n + 4 * R + 7 * 4 * R + R * steps + 2 * 2 * R * steps
     # the 16 f32 operations of a DP cell counted as for bsw (check_bsw),
@@ -2029,6 +2082,7 @@ def cli_trace(tmp, label, longs, srs, truths):
                    "--truth", tp])
     if rc != 0:
         raise AssertionError(f"cli {label} --trace: exit {rc}")
+    valid = validate_artifacts(label, trace=trace, qc=qc, truth=tp)
     with open(trace) as fh:
         events = [json.loads(ln) for ln in fh][1:]
     root = next(e for e in events if e["args"]["depth"] == 0)
@@ -2047,7 +2101,7 @@ def cli_trace(tmp, label, longs, srs, truths):
         raise AssertionError(f"cli {label} --trace: bad span tree (names "
                              f"{sorted(names)}, {len(bad)} records outside "
                              "it)")
-    return dict(spans=len(events), buckets=len(buckets),
+    return dict(spans=len(events), buckets=len(buckets), valid=valid,
                 root_s=root["dur"] / 1e6,
                 covered=kids / max(root["dur"], 1e-9),
                 peak_live_bytes=max(e["args"]["peak_live_bytes"]
@@ -2058,47 +2112,45 @@ EDIT_SIDE = """
 import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-sys.exit(chip_smoke.edit_side(sys.argv[2]))
+sys.exit(chip_smoke.edit_side(sys.argv[2], sys.argv[3]))
 """
 
 
-def edit_side(path) -> int:
+def edit_side(path, part) -> int:
     """The background half of ``EditHold``: the pairs of ``path`` (an
-    ``.npz``) through the host numpy ``edit_alignment`` and, where the
-    file asks, through ``edit_alignments_plain`` (CPU tensors), each held
-    equal to the kernel's result; writes ``path.json``; 0 if all
+    ``.npz``) through the host numpy ``edit_alignment`` (``part``
+    "host") or ``edit_alignments_plain`` on CPU tensors ("plain"), held
+    equal to the kernel's result; writes ``path.<part>.json``; 0 if they
     agree."""
     import torch
     from proovread_tpu_torch.obs import accuracy as acc
     torch.set_num_threads(1)
     z = np.load(path)
-    rd, ro, tr, to, band, got, want_plain = (
-        z[k] for k in ("rd", "ro", "tr", "to", "band", "got", "plain"))
+    rd, ro, tr, to, band, got = (
+        z[k] for k in ("rd", "ro", "tr", "to", "band", "got"))
     pairs = [(rd[ro[i]:ro[i + 1]], tr[to[i]:to[i + 1]])
              for i in range(len(ro) - 1)]
     t0 = time.monotonic()
-    host = [[acc.edit_alignment(a, b, band=int(w))[k] for k in
-             ("dist", "matches", "sub", "ins", "del")]
-            for (a, b), w in zip(pairs, band)]
-    out = dict(pairs=len(pairs), equal_host=host == got.tolist(),
-               host_s=time.monotonic() - t0)
-    if want_plain:
-        t0 = time.monotonic()
-        plain = acc.edit_alignments_plain(*acc.pack_pairs(pairs, "cpu"),
-                                          band).tolist()
-        out.update(equal_plain=plain == got.tolist(),
-                   plain_s=time.monotonic() - t0)
-    with open(path + ".json", "w") as fh:
+    if part == "host":
+        res = [[acc.edit_alignment(a, b, band=int(w))[k] for k in
+                ("dist", "matches", "sub", "ins", "del")]
+               for (a, b), w in zip(pairs, band)]
+    else:
+        res = acc.edit_alignments_plain(*acc.pack_pairs(pairs, "cpu"),
+                                        band).tolist()
+    out = {"pairs": len(pairs), f"equal_{part}": res == got.tolist(),
+           f"{part}_s": time.monotonic() - t0}
+    with open(f"{path}.{part}.json", "w") as fh:
         json.dump(out, fh)
-    return 0 if out["equal_host"] and out.get("equal_plain", True) else 1
+    return 0 if out[f"equal_{part}"] else 1
 
 
 class EditHold:
     """Every pair a command-line run's scoreboard classified on the card
-    (``accuracy._edit``: the kernel's call), held after the run, in a
-    niced subprocess of one thread each (``edit_side``), against the host
-    numpy ``edit_alignment`` and ``edit_alignments_plain``; phase 2's
-    pairs (``start``) wait for ``launch`` after phase 2's kernel times.
+    (``accuracy._edit``: the kernel's call), held after the run against
+    the host numpy ``edit_alignment`` and ``edit_alignments_plain``, each
+    in a niced subprocess of one thread (``edit_side``); phase 2's pairs
+    (``start``) wait for ``launch`` after phase 2's kernel times.
     ``check`` at the end of the script waits for them and fails on any
     difference."""
 
@@ -2137,18 +2189,19 @@ class EditHold:
                                             np.int64),
                  got=np.asarray([[r[k] for k in ("dist", "matches", "sub",
                                                  "ins", "del")]
-                                 for c in calls for r in c[2]], np.int64),
-                 plain=plain)
-        self.queued.append((label, path))
+                                 for c in calls for r in c[2]], np.int64))
+        self.queued += [(label, path, "host")] + (
+            [(label, path, "plain")] if plain else [])
 
     def launch(self) -> None:
-        """Start a subprocess for every kept run."""
+        """Start a subprocess for every kept run and part."""
         here = os.path.dirname(os.path.abspath(__file__))
-        for label, path in self.queued:
-            err = open(path + ".err", "w")
-            self.procs[label] = (subprocess.Popen(
+        for label, path, part in self.queued:
+            err = open(f"{path}.{part}.err", "w")
+            self.procs[label, part] = (subprocess.Popen(
                 ["nice", "-n", "10", sys.executable, "-c", EDIT_SIDE, here,
-                 path], cwd=here, env=dict(os.environ, OMP_NUM_THREADS="1"),
+                 path, part], cwd=here,
+                env=dict(os.environ, OMP_NUM_THREADS="1"),
                 stdout=subprocess.DEVNULL, stderr=err), path, err)
         self.queued = []
 
@@ -2157,15 +2210,16 @@ class EditHold:
         self.launch()
         out = {}
         t0 = time.monotonic()
-        for label, (proc, path, err) in self.procs.items():
+        for (label, part), (proc, path, err) in self.procs.items():
             rc = proc.wait(timeout=900)
             err.close()
-            if not os.path.exists(path + ".json"):
+            res = f"{path}.{part}.json"
+            if not os.path.exists(res):
                 with open(err.name) as fh:
-                    raise AssertionError(f"{label}: the edit hold failed: "
-                                         + fh.read()[-3000:])
-            with open(path + ".json") as fh:
-                out[label] = json.load(fh)
+                    raise AssertionError(f"{label}: the edit hold ({part}) "
+                                         "failed: " + fh.read()[-3000:])
+            with open(res) as fh:
+                out.setdefault(label, {}).update(json.load(fh))
             if rc != 0:
                 raise AssertionError(f"{label}: the traceback kernel "
                                      f"differs: {out[label]}")
@@ -2332,6 +2386,7 @@ def cli_run(tmp, label, longs, srs, want_mode, truths, utgs=None, extra=(),
         wall = time.monotonic() - t0
     if rc != 0:
         raise AssertionError(f"cli {label}: exit {rc}")
+    validate_artifacts(label, metrics=mpath, qc=qc, truth=tp)
     files, plog = cli_outputs(out)
     if plog["mode"] != want_mode:
         raise AssertionError(f"cli {label}: mode {plog['mode']}, "
@@ -2635,18 +2690,17 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 chip_smoke.cpu_side(sys.argv[2])
 """
+# the subprocesses phase 3's CPU side spreads its runs over
+CPU_SIDE_WORKERS = 2
 
 COVERAGE_400 = dict(coverage=400.0, sr_coverage=400.0, finish_coverage=400.0)
 
 
-def cpu_side(tmp) -> None:
-    """Phase 3's CPU halves, in the subprocess ``CpuSide`` starts: config
-    4's ``Pipeline.run`` (default and coverage 400), the qual-weighted
-    chain and the scan engine, pickled to ``cpu_side.pkl``, then each
-    command line of ``cli_runs.json`` (``--device cpu``), its exit code and
-    wall to ``cli_runs.done``."""
+def cpu_pipelines(tmp) -> None:
+    """Config 4's ``Pipeline.run`` on the CPU (default and coverage 400),
+    the qual-weighted chain and the scan engine, pickled to
+    ``cpu_side.pkl``."""
     import pickle
-    from proovread_tpu_torch import cli
     longs, srs, n_it, _ = workload(10_000, 40_000, 4)
     out = {}
     for label, kw in (("", {}), (" coverage 400", COVERAGE_400)):
@@ -2660,15 +2714,30 @@ def cpu_side(tmp) -> None:
     out["scan"] = (result_key(res), t)
     with open(os.path.join(tmp, "cpu_side.pkl"), "wb") as fh:
         pickle.dump(out, fh)
-    done = []
+
+
+def cpu_side(tmp) -> None:
+    """Phase 3's CPU halves, in each of the subprocesses ``CpuSide``
+    starts: until none is left, claim the next job of ``cli_runs.json``'s
+    ``order`` (a file created exclusively, so each job runs once) and run
+    it: "pipelines" (``cpu_pipelines``), or the index of a command line
+    of its ``runs`` (``--device cpu``), whose exit code and wall go to
+    ``cli_run.<index>.done``."""
     with open(os.path.join(tmp, "cli_runs.json")) as fh:
-        runs = json.load(fh)
-    for argv in runs:
+        spec = json.load(fh)
+    for job in spec["order"]:
+        try:
+            os.close(os.open(os.path.join(tmp, f"claim.{job}"),
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        except FileExistsError:
+            continue
+        if job == "pipelines":
+            cpu_pipelines(tmp)
+            continue
         t0 = time.monotonic()
-        rc = run_argv(argv)
-        done.append([rc, time.monotonic() - t0])
-    with open(os.path.join(tmp, "cli_runs.done"), "w") as fh:
-        json.dump(done, fh)
+        rc = run_argv(spec["runs"][job])
+        with open(os.path.join(tmp, f"cli_run.{job}.done"), "w") as fh:
+            json.dump([rc, time.monotonic() - t0], fh)
 
 
 def run_argv(argv) -> int:
@@ -2681,9 +2750,9 @@ def run_argv(argv) -> int:
 
 
 class CpuSide:
-    """Phase 3's CPU halves, run from the end of phase 2 on in a
-    subprocess of 4 threads at low priority (``cpu_side``), under the
-    work of the card phases 3-13:
+    """Phase 3's CPU halves, run from the end of phase 1 on in
+    ``CPU_SIDE_WORKERS`` subprocesses of 4 threads each at low priority
+    (``cpu_side``), beside the card's phases:
     config 4's pipeline runs, qual-weighted chain and scan engine, and the
     command line, scored, in sr-noccs and mr-noccs and in the modes of
     ``ccs-1``, ``-u`` and ``--haplo-coverage``: PacBio subreads (16 kb of
@@ -2710,7 +2779,7 @@ class CpuSide:
         subs, sub_truths, _ = subread_workload(10_000, 16_000)
         utgs = unitig_workload(10_000, frag=(3_000, 5_000))
         hl, hs, ht, _, _, _ = haplotype_workload(10_000, 40_000)
-        self.tmp, self.proc, self.cases, self.card = tmp, None, [], {}
+        self.tmp, self.procs, self.cases, self.card = tmp, [], [], {}
         stream = os.path.join(tmp, "stream.cfg")
         with open(stream, "w") as fh:
             json.dump({"sr-device-budget": 4096}, fh)
@@ -2774,15 +2843,21 @@ class CpuSide:
         return [a.format(device=device, out=out) for a in argv]
 
     def start(self) -> None:
+        runs = ([self._argv(c, "cpu") for c in self.cases]
+                + [self._tool_argv(t, "cpu") for t in self.tools])
+        # the pipelines (~135 s on the card's host), then the command
+        # lines from the end of the list, where the two flex runs (~75 s
+        # each) are, to the short ones
+        order = ["pipelines"] + list(range(len(runs)))[::-1]
         with open(os.path.join(self.tmp, "cli_runs.json"), "w") as fh:
-            json.dump([self._argv(c, "cpu") for c in self.cases]
-                      + [self._tool_argv(t, "cpu") for t in self.tools], fh)
+            json.dump({"runs": runs, "order": order}, fh)
         self.err = open(os.path.join(self.tmp, "cpu_side.err"), "w")
         here = os.path.dirname(os.path.abspath(__file__))
-        self.proc = subprocess.Popen(
+        self.procs = [subprocess.Popen(
             ["nice", "-n", "10", sys.executable, "-c", CPU_SIDE, here,
              self.tmp], cwd=here, env=dict(os.environ, OMP_NUM_THREADS="4"),
             stdout=subprocess.DEVNULL, stderr=self.err)
+            for _ in range(CPU_SIDE_WORKERS)]
 
     def run_cli(self) -> None:
         """The command lines' card halves."""
@@ -2808,7 +2883,7 @@ class CpuSide:
         import pickle
         from proovread_tpu_torch.obs.metrics import without_timings
         t0 = time.monotonic()
-        if self.proc.wait(timeout=1200) != 0:
+        if any(p.wait(timeout=1200) != 0 for p in self.procs):
             self.err.flush()
             with open(self.err.name) as fh:
                 raise AssertionError("phase 3's CPU side failed: "
@@ -2839,8 +2914,10 @@ class CpuSide:
             raise AssertionError("config 4 scan engine: card and CPU differ")
         log(f"phase3 config 4 scan engine: card {t_gpu:.2f} s, CPU "
             f"{cpu['scan'][1]:.1f} s, {counts}, identical")
-        with open(os.path.join(self.tmp, "cli_runs.done")) as fh:
-            done = json.load(fh)
+        done = []
+        for i in range(len(self.cases) + len(self.tools)):
+            with open(os.path.join(self.tmp, f"cli_run.{i}.done")) as fh:
+                done.append(json.load(fh))
         for tool, (rc, cpu_s) in zip(self.tools, done[len(self.cases):]):
             if rc != 0:
                 raise AssertionError(f"tools {tool[0]} on the CPU: exit {rc}")
@@ -2854,8 +2931,8 @@ class CpuSide:
                 f"({self.map_records} records): card {self.card[tool[0]]:.1f}"
                 f" s, CPU {cpu_s:.1f} s, {got['cuda'].count(b'\n')} rows, "
                 "identical")
-        for (label, name, _, _, mode, _), (rc, cpu_s) in zip(self.cases,
-                                                              done):
+        for (label, name, _, case_truth, mode, _), (rc, cpu_s) in zip(
+                self.cases, done):
             if rc != 0:
                 raise AssertionError(f"cli {name} on the CPU: exit {rc}")
             got = {d: cli_outputs(os.path.join(self._out(name, d), "res"))
@@ -2883,6 +2960,11 @@ class CpuSide:
                 if files != res_files:
                     raise AssertionError(f"cli {name}: streamed and resident "
                                          "files differ")
+            for d in ("cuda", "cpu"):
+                validate_artifacts(f"{name} {d}",
+                                   metrics=self._out(name, d) + ".m",
+                                   qc=self._out(name, d) + ".qc",
+                                   truth=case_truth)
             qc_b, m_b = ({d: open(self._out(name, d) + ext, "rb").read()
                           for d in ("cuda", "cpu")} for ext in (".qc", ".m"))
             if qc_b["cuda"] != qc_b["cpu"]:
@@ -2914,9 +2996,10 @@ class CpuSide:
     def close(self) -> None:
         """Stop the CPU side if it still runs, and remove the files."""
         import shutil
-        if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
@@ -3398,6 +3481,317 @@ def phase15(tmp, longs, srs, truths, device="cuda"):
         variants_s=var_s, variant_rows=var_rows)
 
 
+# --------------------------------------------------------------------------
+# phases 3 (serve twin), 16 and 17: serving and the fleet
+# --------------------------------------------------------------------------
+
+def validate_artifacts(label, trace=None, metrics=None, qc=None, truth=None,
+                       min_coverage=0.95):
+    """The port's own validators (``obs/validate.py``) on a run's
+    artifacts; a ``ValidationError`` ends the phase. Returns their
+    summaries (the QC aggregate left out)."""
+    from proovread_tpu_torch.obs import validate as v
+    out = {}
+    if trace is not None:
+        out["trace"] = v.validate_trace(trace, min_coverage=min_coverage)
+    if metrics is not None:
+        out["metrics"] = v.validate_metrics(
+            metrics, require=("reads_processed", "resilience_demotions"))
+    if qc is not None:
+        out["qc"] = {k: x for k, x in v.validate_qc(qc).items()
+                     if k != "aggregate"}
+    if truth is not None:
+        out["truth"] = v.validate_truth_sidecar(truth, min_reads=1)
+    return out
+
+
+def device_busy(fn):
+    """(fn's result, its wall s, device busy s): ``torch.profiler``'s CUDA
+    activity over ``fn`` (every kernel and copy of every thread); the wall
+    leaves out the profiler's own start and stop."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():          # a rehearsal on the CPU
+        t0 = time.monotonic()
+        out = fn()
+        return out, time.monotonic() - t0, 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    evs = prof.key_averages()
+    attr = ("self_device_time_total" if evs and hasattr(
+        evs[0], "self_device_time_total") else "self_cuda_time_total")
+    busy = sum(getattr(e, attr) for e in evs
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return out, wall, busy
+
+
+SERVE_LOG = "serve.log"
+
+
+class ServeTwin:
+    """Phase 3's serve twin: ``python -m proovread_tpu_torch serve`` as a
+    subprocess on ``device`` with config 4's short reads, its long reads
+    submitted over the socket as one job (one wave), every verb asked; then a
+    drain, a clean exit and an SLO artifact the port's ``validate_slo``
+    accepts with ``require_drained``. ``run`` drives it on this thread;
+    ``start`` on a background one (the CPU twin, at low priority beside
+    the card phases), ``join`` waits for it. ``results``: job id -> the
+    ``result`` payload."""
+
+    def __init__(self, tmp, device, longs, srs, n_iterations):
+        self.tmp, self.device = os.path.join(tmp, device), device
+        os.makedirs(self.tmp, exist_ok=True)
+        self.sock = os.path.join(self.tmp, "serve.sock")
+        self.slo = os.path.join(self.tmp, "slo.json")
+        sp = write_inputs(self.tmp, "twin", [], srs)[1]
+        self.argv = [sys.executable, "-m", "proovread_tpu_torch", "serve",
+                     "-s", sp, "--socket", self.sock, "--state-dir",
+                     os.path.join(self.tmp, "state"), "--slo-out", self.slo,
+                     "--qc", "--n-iterations", str(n_iterations),
+                     "--device", device]
+        self.jobs = [("config4", "t0", longs)]
+        self.results, self.error, self.thread = {}, None, None
+        self.wall = self.slo_stats = None
+
+    def run(self) -> None:
+        from proovread_tpu_torch.obs.validate import validate_slo
+        from proovread_tpu_torch.serve.protocol import ServeClient
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        cmd = list(self.argv)
+        if self.device == "cpu":
+            env["OMP_NUM_THREADS"] = "1"
+            cmd = ["nice", "-n", "19"] + cmd
+        t0 = time.monotonic()
+        with open(os.path.join(self.tmp, SERVE_LOG), "w") as err:
+            proc = subprocess.Popen(cmd, cwd=here, env=env,
+                                    stdout=subprocess.DEVNULL, stderr=err)
+            try:
+                while not os.path.exists(self.sock):
+                    if proc.poll() is not None:
+                        raise AssertionError(f"serve on {self.device} "
+                                             f"exited {proc.returncode}")
+                    if time.monotonic() - t0 > 300:
+                        raise AssertionError("serve never listened")
+                    time.sleep(0.1)
+                with ServeClient(self.sock, timeout=600) as c:
+                    if not c.ping()["ok"]:
+                        raise AssertionError("serve: ping failed")
+                    for jid, tenant, recs in self.jobs:
+                        r = c.submit(jid, tenant, recs)
+                        if r["status"] != "accepted":
+                            raise AssertionError(f"serve: {jid} {r}")
+                        st = c.wait(jid, timeout=1200, poll_s=0.1)
+                        if st["status"] != "completed":
+                            raise AssertionError(f"serve: {jid} {st}")
+                        self.results[jid] = c.result(jid)
+                    if c.cancel(self.jobs[0][0]).get("note") != \
+                            "already terminal":
+                        raise AssertionError("serve: cancel op broken")
+                    if (c.stats()["slo"]["jobs"]["completed"]
+                            != len(self.jobs)):
+                        raise AssertionError("serve: stats op broken")
+                    c.drain()
+                if proc.wait(timeout=600) != 0:
+                    raise AssertionError(f"serve on {self.device} drained "
+                                         f"with exit {proc.returncode}")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        self.wall = time.monotonic() - t0
+        self.slo_stats = validate_slo(self.slo, require_drained=True)
+
+    def _run_caught(self) -> None:
+        try:
+            self.run()
+        except Exception as e:                          # noqa: BLE001
+            self.error = e
+
+    def start(self) -> None:
+        import threading
+        self.thread = threading.Thread(target=self._run_caught, daemon=True)
+        self.thread.start()
+
+    def join(self) -> None:
+        self.thread.join(timeout=1200)
+        if self.thread.is_alive() or self.error is not None:
+            with open(os.path.join(self.tmp, SERVE_LOG)) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"serve twin on {self.device}: "
+                                 f"{self.error or 'no end'}\n{tail}")
+
+
+def hold_serve_twin(card, cpu) -> dict:
+    """The card twin's job results byte for byte the CPU twin's."""
+    for jid, _, _ in card.jobs:
+        a, b = card.results[jid], cpu.results[jid]
+        if json.dumps(a, sort_keys=True) != json.dumps(b, sort_keys=True):
+            diff = [k for k in a if a[k] != b.get(k)]
+            raise AssertionError(f"serve twin {jid}: card and CPU differ "
+                                 f"in {diff}")
+    return dict(jobs=len(card.jobs),
+                reads=sum(len(r["untrimmed"]) for r in card.results.values()),
+                card_s=card.wall, cpu_s=cpu.wall,
+                slo_jobs=card.slo_stats["jobs"])
+
+
+# phase 16's traffic: eight jobs each of clr, ccs and unitig, so ordered
+# that job 3 (the drill's deadline fault) is the first unitig job, the
+# head of its wave when the queue reaches it: it expires in the queue and
+# its reads never enter a bucket beside another job's
+PHASE16_MODES = ("clr", "ccs", "clr", "unitig", "ccs", "unitig") * 4
+
+
+def phase16(tmp, srs, genome_size=1_250_000, device="cuda", n_jobs=24,
+            reads_per_job=(9, 11), mean_len=5000, min_len=2000,
+            batch_reads=64, n_iterations=6):
+    """Serving at full width: ``simulate_job_stream`` on phase 4's genome
+    (eight jobs each of clr, ccs and unitig from two tenants, reads of
+    2-15 kb, ~2 Mb of long-read bases) through ``CorrectionServer`` over
+    its socket (``serve/smoke.py:envelope``: the reference smoke's five job
+    faults, a drain after one bucket, a resume on the same state dir, both
+    SLOs valid) against ``srs`` (phase 4's short reads), each tenant's
+    quota raised to every job it sends. Holds: every job
+    terminal with the drill's expected status; each completed clr job's
+    untrimmed and trimmed records (as the wire returns them) those of one
+    batch ``Pipeline.run`` of the reads of the wave that completed it; no
+    CUDA tensor left once the servers are gone. Returns what it logs."""
+    from dataclasses import replace
+    from proovread_tpu_torch.io.simulate import (random_genome,
+                                                 simulate_job_stream)
+    from proovread_tpu_torch.obs.memory import LeakCheck
+    from proovread_tpu_torch.pipeline import driver as drv
+    from proovread_tpu_torch.pipeline.trim import pieces_of
+    from proovread_tpu_torch.serve import batcher, smoke
+    from proovread_tpu_torch.serve.admission import TenantQuota
+    from proovread_tpu_torch.serve.protocol import encode_records
+    genome = random_genome(genome_size, seed=0)
+    _, jobs = simulate_job_stream(
+        seed=16, n_jobs=n_jobs, genome=genome,
+        modes=PHASE16_MODES[:n_jobs], reads_per_job=reads_per_job,
+        mean_len=mean_len, min_len=min_len)
+    bases = {j.job_id: j.n_bases for j in jobs}
+    lens = [len(r) for j in jobs for r in j.records]
+    r = dict(jobs=len(jobs), reads=len(lens), bases=sum(bases.values()),
+             read_len_min=min(lens), read_len_max=max(lens),
+             modes={m: sum(j.mode == m for j in jobs)
+                    for m in ("clr", "ccs", "unitig")})
+    cfg = drv.PipelineConfig(n_iterations=n_iterations,
+                             batch_reads=batch_reads, device=device)
+    # every wave attempt's jobs (a retried or resumed wave runs only those
+    # not yet terminal, so a job's journaled wave index alone does not give
+    # the reads beside it) and the attempt that completed each job
+    attempts, done_in = [], {}
+    orig_run_wave = batcher.WaveRunner.run_wave
+
+    def run_wave(self, wave_idx, wave_jobs, finalize):
+        k = len(attempts)
+        attempts.append(list(wave_jobs))
+        try:
+            return orig_run_wave(self, wave_idx, wave_jobs, finalize)
+        finally:
+            for j in wave_jobs:
+                if j.status == "completed":
+                    done_in.setdefault(j.job_id, k)
+
+    leak = LeakCheck()
+    batcher.WaveRunner.run_wave = run_wave
+    try:
+        out, wall, busy = device_busy(lambda: smoke.envelope(
+            srs, jobs, cfg, tmp, max_wave_jobs=8, timeout=900,
+            quota=TenantQuota(max_jobs=n_jobs, max_bases=8_000_000)))
+    finally:
+        batcher.WaveRunner.run_wave = orig_run_wave
+    gc.collect()
+    lrep = leak.report()
+    if lrep["leaked_bytes"] > 1 << 20:
+        raise AssertionError(f"phase 16: CUDA tensors left after the "
+                             f"servers: {lrep}")
+    done_bases = sum(bases[j] for j, s in out["status"].items()
+                     if s == "completed")
+    r.update(wall_s=wall, phase1_s=out["wall1_s"], phase2_s=out["wall2_s"],
+             completed_bases=done_bases, bases_per_s=done_bases / wall,
+             device_busy_s=busy, device_busy_share=busy / wall,
+             waves=out["waves"], status=out["status"],
+             rejected=out["rejected"], slo1_jobs=out["slo1"]["jobs"],
+             slo2_jobs=out["slo2"]["jobs"],
+             latency={c: (x["count"], x["p50_s"], x["p99_s"])
+                      for c, x in out["slo2"]["latency"].items()},
+             compile=out["slo2"]["compile"], leak=lrep)
+    # the batch runs: one for each wave attempt that completed clr jobs, of
+    # the reads that attempt ran (a ccs job's collapsed reads)
+    by_run = {}
+    for j in jobs:
+        if j.mode == "clr" and out["status"].get(j.job_id) == "completed":
+            by_run.setdefault(done_in.get(j.job_id), []).append(j)
+    if None in by_run or not by_run:
+        raise AssertionError("phase 16: a clr job completed outside a wave, "
+                             "or none completed")
+    held = 0
+    for idx, js in sorted(by_run.items()):
+        wave_jobs = attempts[idx]
+        union = [x for w in wave_jobs for x in
+                 (w.ccs_records if w.mode == "ccs" else w.records)]
+        res = drv.Pipeline(replace(
+            cfg, mode=batcher.BASE_MODE[wave_jobs[0].mode],
+            fault_spec="")).run(union, srs)
+        for j in js:
+            ids = {x.id for x in j.records}
+            got = out["results"][j.job_id]
+            if (got["untrimmed"] != encode_records(pieces_of(res.untrimmed,
+                                                             ids))
+                    or got["trimmed"] != encode_records(
+                        pieces_of(res.trimmed, ids))):
+                raise AssertionError(f"phase 16: job {j.job_id} differs "
+                                     f"from the batch run of wave attempt "
+                                     f"{idx}")
+            held += 1
+    r.update(batch_runs=len(by_run), clr_jobs_held=held,
+             wave_runs=len(attempts))
+    return r
+
+
+def phase17(device="cuda", kill="replica_death@r1.j5"):
+    """The fleet on one card: ``obs/load.run_smoke`` with the ``slam``
+    scenario (two in-process replicas, poison jobs, every family; replica
+    1 killed at dispatch ordinal 5, its journal handed off), fleet
+    accuracy scored on ``device``. Holds: the smoke's checks, a handoff,
+    no job lost or counted twice (the LOAD row passed the port's
+    ``validate_load`` in ``build_row``: its three accounting identities;
+    every routed job completed), the row's backend ``device``. Returns
+    what it logs."""
+    from proovread_tpu_torch.obs import load
+    from proovread_tpu_torch.obs.validate import validate_load
+    (ok, rows), wall, busy = device_busy(lambda: load.run_smoke(
+        n_replicas=2, pipeline_config=load.smoke_config(device), kill=kill,
+        overload=False))
+    if not ok or len(rows) != 1:
+        raise AssertionError("phase 17: the fleet smoke failed (its lines "
+                             "above name the check)")
+    row = rows[0]
+    validate_load(row, where="phase 17 LOAD row")
+    jb = row["jobs"]
+    if (row["backend"] != device or jb["handoffs"] < 1
+            or jb["orphaned"] or jb["failed"] or jb["expired"]
+            or jb["completed"] != jb["routed"]):
+        raise AssertionError(f"phase 17: jobs {jb}, backend "
+                             f"{row['backend']}")
+    return dict(wall_s=wall, row_wall_s=row["wall_s"],
+                bases_per_s_fleet=row["bases_per_sec_fleet"],
+                device_busy_s=busy, device_busy_share=busy / wall,
+                jobs=jb, handoff=row["handoff"],
+                rejections=row["rejections"],
+                latency={c: (x["count"], x["p50_s"], x["p99_s"])
+                         for c, x in row["latency"].items()},
+                accuracy=row["accuracy"], heartbeat=row["heartbeat"],
+                compile=row["compile"])
+
+
 def same_host(a, b) -> bool:
     return a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
@@ -3416,6 +3810,57 @@ def result_key(res):
 PORT_KERNEL = re.compile(
     r"\b((?:bsw|sw|pileup|assemble|hcr|lcs|scatter)_\w*kernel)\b"
     r"(?:<(?:\(anonymous namespace\)::)?(\w+)>)?")
+
+
+# the phases that run in lanes (``Lane``) beside the main process's
+# phases 7, 11, 9, 14 and 17 (each in the order of ``main``'s code: 13, 8,
+# 16 and 12, 15, 10): each group depends on nothing the main process
+# makes, and the three took about as long in one chip run
+LANES = (("8", "13", "16"), ("10", "12", "15"))
+ALL_PHASES = tuple(str(p) for p in range(2, 18))
+
+
+class Lane:
+    """Phases run by a second ``chip_smoke.py`` process (``--skip``
+    every other phase, ``--lane-out`` its results), started after phase
+    6 so that the kernels' times and the main path's run without it. The
+    card is busy a few percent of a command-line run's wall, whose host
+    work this spreads over the host's cores. Its standard output goes to
+    a file that ``join`` prints; its errors to this process's."""
+
+    def __init__(self, phases, skip):
+        self.phases = [p for p in phases if p not in skip]
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_lane_")
+        self.out = os.path.join(self.tmp, "lane.json")
+        self.log = open(os.path.join(self.tmp, "lane.log"), "w")
+        here = os.path.dirname(os.path.abspath(__file__))
+        others = [p for p in ALL_PHASES if p not in self.phases]
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--skip",
+             ",".join(others), "--lane-out", self.out], cwd=here,
+            stdout=self.log, stderr=None)
+
+    def join(self) -> dict:
+        """Wait for the lane, print its log; raise if it failed; its
+        results by phase."""
+        rc = self.proc.wait(timeout=1100)
+        self.log.close()
+        log(f"lane {','.join(self.phases)}: exit {rc} in "
+            f"{time.monotonic() - self.t0:.1f} s; its log:")
+        with open(self.log.name) as fh:
+            for line in fh:
+                log(line.rstrip("\n"))
+        if rc != 0:
+            raise AssertionError(f"lane {self.phases} failed: exit {rc}")
+        with open(self.out) as fh:
+            return json.load(fh)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def profile_phase(phase, fn, wall_unprofiled) -> None:
@@ -3476,8 +3921,12 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-15 to leave out; such a "
+                     help="comma list of phases 2-17 to leave out; such a "
                           "run prints no result lines")
+    ap_.add_argument("--lane-out", default=None,
+                     help="run as a lane of a full run: no lanes of its "
+                          "own, and this run's results by phase written "
+                          "as JSON to this path")
     ap_.add_argument("--profile", action="store_true",
                      help="rerun phases 4-6 under torch.profiler and print "
                           "the device time per pipeline stage and per "
@@ -3585,8 +4034,10 @@ def main(argv=None) -> int:
         and fail if one of them, or of ``required``, did not launch."""
         for f, _, _ in wrappers.values():
             f.launches = 0
+        t0 = time.monotonic()
         out = fn()
         counts = {name: f.launches for name, (f, _, _) in wrappers.items()}
+        mark(f"phase{phase}", t0)
         launches.update({k: v for k, v in counts.items()
                          if path_phase[k] == phase})
         log(f"phase{phase} launches " + json.dumps(counts))
@@ -3613,7 +4064,25 @@ def main(argv=None) -> int:
     import atexit
     atexit.register(hold.close)
 
+    # phase 3's CPU side and its CPU serve twin run from here on, beside
+    # the card's phases (at low priority)
+    cpu3 = twin3 = None
+    if "3" not in skip:
+        cpu3 = CpuSide(tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
+        atexit.register(cpu3.close)
+        cpu3.start()
+        twin_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+        atexit.register(shutil.rmtree, twin_tmp, True)
+        l4, s4, n4, _ = workload(10_000, 40_000, 4)
+        twin3 = {d: ServeTwin(twin_tmp, d, l4, s4, n4)
+                 for d in ("cuda", "cpu")}
+        twin3["cpu"].start()
+        # (the CPU side's mapping ran on the card)
+        for f, _, _ in wrappers.values():
+            f.launches = 0
+
     # -- phase 2 -------------------------------------------------------------
+    t2 = time.monotonic()
     if "2" not in skip:
         rng = np.random.default_rng(0)
         torch.cuda.reset_peak_memory_stats()
@@ -3707,20 +4176,18 @@ def main(argv=None) -> int:
         report("scatter_add_ordered", r)
         log(f"phase2 peak device memory {peak2[0]:.2f} GiB")
         torch.cuda.empty_cache()
+        mark("phase2", t2)
 
-    # phase 2's traceback hold, and phase 3's CPU side, start once phase
-    # 2's kernel times are taken, and run under the card phases 3-13
+    # phase 2's traceback hold starts once phase 2's kernel times are
+    # taken
     hold.launch()
-    cpu3 = None
-    if "3" not in skip:
-        import atexit
-        cpu3 = CpuSide(tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
-        atexit.register(cpu3.close)
-        cpu3.start()
+    skip_here = skip
+    lane_results = {}
 
     # -- phase 3: the card halves (the CPU side is compared at the end) ------
     card3 = {}
-    if "3" not in skip:
+    if "3" not in skip_here:
+        t3 = time.monotonic()
         longs, srs, n_it, truths = workload(10_000, 40_000, 4)
         for label, kw in (("", {}), (" coverage 400", COVERAGE_400)):
             packed0 = pileup_kernel.pileup_accumulate_packed.launches
@@ -3753,6 +4220,11 @@ def main(argv=None) -> int:
         no_demotion("config 4 scan engine", res.metrics, res.reports)
         card3["scan"] = (result_key(res), t, f"{len(res.untrimmed)} reads, "
                          f"passes {[r.task for r in res.reports]}")
+        # the serve command line on the card (its CPU twin runs beside)
+        twin3["cuda"].run()
+        log(f"phase3 serve on the card: {twin3['cuda'].wall:.1f} s, "
+            f"{len(twin3['cuda'].jobs)} jobs, SLO "
+            + json.dumps(twin3["cuda"].slo_stats))
         # the ladder and --resume need two buckets: config 4's genome with
         # twice its long-read bases (11 reads) at batch_reads 8
         l3, s3, _, _ = workload(10_000, 80_000, 4)
@@ -3765,9 +4237,10 @@ def main(argv=None) -> int:
             log("phase3 cli kill at b1 and --resume: " + json.dumps(
                 cli_kill_resume(tmp, "config4-resume", l3, s3,
                                 "compile@b1", 1, cfg=cfg8, qc=True)))
+        mark("phase3 card halves", t3)
 
     # -- phase 4: the main path ----------------------------------------------
-    if "4" not in skip:
+    if "4" not in skip_here:
         longs, srs, n_it, truths = workload(1_250_000, 5_000_000, 6)
         bases = sum(len(r) for r in longs)
         log(f"phase4 workload: {len(longs)} long reads ({bases} bases), "
@@ -3781,11 +4254,11 @@ def main(argv=None) -> int:
         report_passes(4, res)
         no_demotion("phase 4", res.metrics, res.reports)
 
-    if args.profile and "4" not in skip:
+    if args.profile and "4" not in skip_here:
         profile_phase(4, lambda: run_pipeline(longs, srs, n_it, "cuda"), wall)
 
     # -- phase 5: high coverage ----------------------------------------------
-    if "5" not in skip:
+    if "5" not in skip_here:
         l5, s5, n5, _ = workload(250_000, 1_000_000, 6, sr_coverage=200.0)
         bases5 = sum(len(r) for r in l5)
         log(f"phase5 workload: {len(l5)} long reads ({bases5} bases), "
@@ -3815,8 +4288,8 @@ def main(argv=None) -> int:
         del l5, s5, res5
 
     # -- phase 6: qual-weighted votes ----------------------------------------
-    if "6" not in skip:
-        if "4" in skip:
+    if "6" not in skip_here:
+        if "4" in skip_here:
             longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
         bucket = first_bucket(longs, srs, full=True)
         lr6 = bucket[0]
@@ -3840,12 +4313,23 @@ def main(argv=None) -> int:
             profile_phase(6, lambda: qual_chain(bucket, "cuda", n_rest=2,
                                                 finish=False), wall6)
 
+    # -- the lanes, from here on beside the main process's phases 7, 11, 9,
+    # 14 and 17 ------------------------------------------------------------
+    lanes = []
+    if args.lane_out is None:
+        for group in LANES:
+            if set(group) - skip:
+                lanes.append(Lane(group, skip))
+                atexit.register(lanes[-1].close)
+    # the phases skipped here: the caller's and the lanes'
+    skip_here = skip | {p for lane in lanes for p in lane.phases}
+
     # -- phase 7: the command line at E.coli class ----------------------------
     cli7 = out7 = None
-    if (({"7", "8", "9", "10", "11", "12", "15"} - skip) and "4" in skip
-            and "6" in skip):
+    if (({"7", "8", "9", "10", "11", "12", "15", "16"} - skip_here)
+            and "4" in skip_here and "6" in skip_here):
         longs, srs, _, truths = workload(1_250_000, 5_000_000, 6)
-    if "7" not in skip:
+    if "7" not in skip_here:
         with tempfile.TemporaryDirectory() as tmp:
             (cli7, out7, _), _ = drive(7, lambda: cli_run(
                 tmp, "ecoli-sr", longs, srs, "sr-noccs", truths,
@@ -3853,25 +4337,40 @@ def main(argv=None) -> int:
         log("phase7 " + json.dumps(cli7))
         log(f"phase7 score-accuracy {cli7['score_accuracy_s']:.2f} s")
 
+    # -- phase 11: subreads at E.coli class (its traceback hold starts
+    # early) ------------------------------------------------------------------
+    sub_path = cli_path + ("scatter_add_ordered",)
+    if "11" not in skip_here:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli11, _ = drive(11, lambda: phase11(tmp, srs, edit_hold=hold),
+                             required=sub_path)
+        log("phase11 " + json.dumps(cli11))
+        log(f"phase11 score-accuracy {cli11['score_accuracy_s']:.2f} s")
+
     # -- phase 9: kill and resume at E.coli class -----------------------------
-    if "9" not in skip:
+    if "9" not in skip_here:
         with tempfile.TemporaryDirectory() as tmp:
             cli9, _ = drive(9, lambda: cli_kill_resume(
                 tmp, "ecoli-resume", longs, srs, "compile@b3", 3, ref=out7),
                 required=run_path)
         log("phase9 " + json.dumps(cli9))
 
-    # -- phase 10: the scan engine timed at E.coli class ----------------------
-    if "10" not in skip:
-        (res10, scan10), _ = drive(10, lambda: scan_timed(longs, srs[::3], 6,
-                                                          20),
-                                   required=("sw_batch",))
-        report_passes(10, res10)
-        log("phase10 " + json.dumps(scan10))
-        del res10
+    # -- phases 12-13: unitigs, flex at E.coli class -------------------------
+    if "12" not in skip_here:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli12, _ = drive(12, lambda: phase12(tmp, longs, srs, truths,
+                                                 edit_hold=hold),
+                             required=sub_path)
+        log("phase12 " + json.dumps(cli12))
+        log(f"phase12 score-accuracy {cli12['score_accuracy_s']:.2f} s")
+    if "13" not in skip_here:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli13, _ = drive(13, lambda: phase13(tmp),
+                             required=cli_path[1:])
+        log("phase13 " + json.dumps(cli13))
 
     # -- phase 8: mr at E.coli class -----------------------------------------
-    if "8" not in skip:
+    if "8" not in skip_here:
         _, srs8, _, _ = workload(1_250_000, 5_000_000, 6, sr_len=250)
         # half phase 7's long reads (the first 2.5 Mb), to keep the run short
         half = len(longs) // 2
@@ -3883,43 +4382,11 @@ def main(argv=None) -> int:
                 truths[:half], classify_cap=CLASSIFY_MR),
                 required=cli_path)
         log("phase8 " + json.dumps(cli8))
-        if cli7 is not None:
-            log(f"phase8 bsw device time a launch at m=256: "
-                f"{cli8['bsw_ms_per_launch']:.4f} ms, "
-                f"{cli8['bsw_ms_per_launch'] / cli7['bsw_ms_per_launch']:.2f}"
-                f"x phase 7's at m=112 ({cli7['bsw_ms_per_launch']:.4f} ms)")
+        lane_results["8"] = cli8
         del srs8
 
-    # -- phases 11-13: subreads, unitigs, flex at E.coli class ---------------
-    sub_path = cli_path + ("scatter_add_ordered",)
-    if "11" not in skip:
-        with tempfile.TemporaryDirectory() as tmp:
-            cli11, _ = drive(11, lambda: phase11(tmp, srs, edit_hold=hold),
-                             required=sub_path)
-        log("phase11 " + json.dumps(cli11))
-        log(f"phase11 score-accuracy {cli11['score_accuracy_s']:.2f} s")
-    if "12" not in skip:
-        with tempfile.TemporaryDirectory() as tmp:
-            cli12, _ = drive(12, lambda: phase12(tmp, longs, srs, truths,
-                                                 edit_hold=hold),
-                             required=sub_path)
-        log("phase12 " + json.dumps(cli12))
-        log(f"phase12 score-accuracy {cli12['score_accuracy_s']:.2f} s")
-    if "13" not in skip:
-        with tempfile.TemporaryDirectory() as tmp:
-            cli13, _ = drive(13, lambda: phase13(tmp),
-                             required=cli_path[1:])
-        log("phase13 " + json.dumps(cli13))
-
-    # -- phase 14: the streaming regime at full width ------------------------
-    if "14" not in skip:
-        t0 = time.monotonic()
-        r14, _ = drive(14, phase14, required=run_path[1:])
-        log("phase14 " + json.dumps(r14))
-        log(f"phase14 wall {time.monotonic() - t0:.2f} s")
-
     # -- phase 15: SAM/BAM re-entry at full width ----------------------------
-    if "15" not in skip:
+    if "15" not in skip_here:
         # the first ~500 kb of phase 4's raw reads (a re-entry run takes
         # ~0.4 ms of wall an alignment)
         n15 = int(np.searchsorted(np.cumsum([len(x) for x in longs]),
@@ -3933,11 +4400,69 @@ def main(argv=None) -> int:
         log("phase15 " + json.dumps(r15))
         log(f"phase15 wall {time.monotonic() - t0:.2f} s")
 
+    # -- phase 10: the scan engine timed at E.coli class ----------------------
+    if "10" not in skip_here:
+        (res10, scan10), _ = drive(10, lambda: scan_timed(longs, srs[::3], 6,
+                                                          20),
+                                   required=("sw_batch",))
+        report_passes(10, res10)
+        log("phase10 " + json.dumps(scan10))
+        del res10
+
+    # -- phase 14: the streaming regime at full width ------------------------
+    if "14" not in skip_here:
+        t0 = time.monotonic()
+        r14, _ = drive(14, phase14, required=run_path[1:])
+        log("phase14 " + json.dumps(r14))
+        log(f"phase14 wall {time.monotonic() - t0:.2f} s")
+
+    # -- phase 16: serving at full width -------------------------------------
+    serve_path = run_path + ("scatter_add_ordered",)
+    if "16" not in skip_here:
+        with tempfile.TemporaryDirectory() as tmp:
+            r16, _ = drive(16, lambda: phase16(tmp, srs),
+                           required=serve_path)
+        log("phase16 " + json.dumps(r16))
+        log(f"phase16 wall {r16['wall_s']:.2f} s, {r16['bases_per_s']:.0f} "
+            f"completed bases/s, {r16['waves']} waves, device busy "
+            f"{r16['device_busy_share']:.3f} of the wall; latency by class "
+            "(count, p50 s, p99 s) " + json.dumps(r16["latency"]))
+
+    # -- phase 17: the fleet on one card --------------------------------------
+    if "17" not in skip_here:
+        r17, _ = drive(17, phase17,
+                       required=serve_path + ("lcs_lengths",
+                                              "edit_alignments"))
+        log("phase17 " + json.dumps(r17))
+        log(f"phase17 (a drill: its rate is fixed per-wave cost) wall "
+            f"{r17['wall_s']:.2f} s, {r17['bases_per_s_fleet']} fleet "
+            f"bases/s, handoffs "
+            f"{r17['jobs']['handoffs']}, device busy "
+            f"{r17['device_busy_share']:.3f} of the wall; identity "
+            + json.dumps({f: (a["identity_before"], a["identity_after"])
+                          for f, a in r17["accuracy"].items()}))
+
+    # -- the lanes' phases ---------------------------------------------------
+    for lane in lanes:
+        lane_results.update(lane.join())
+    cli8 = lane_results.get("8")
+    if cli7 is not None and cli8 is not None:
+        log(f"phase8 bsw device time a launch at m=256: "
+            f"{cli8['bsw_ms_per_launch']:.4f} ms, "
+            f"{cli8['bsw_ms_per_launch'] / cli7['bsw_ms_per_launch']:.2f}"
+            f"x phase 7's at m=112 ({cli7['bsw_ms_per_launch']:.4f} ms)")
+
     # -- phase 3: the CPU side against the card's -----------------------------
     if cpu3 is not None:
         cpu3.compare(card3)
+        twin3["cpu"].join()
+        log("phase3 serve twin, card == CPU: " + json.dumps(
+            hold_serve_twin(twin3["cuda"], twin3["cpu"])))
     hold.check()
 
+    if args.lane_out is not None:
+        with open(args.lane_out, "w") as fh:
+            json.dump(lane_results, fh)
     if skip:
         log(f"phases {sorted(skip)} skipped: no result printed")
         return 0

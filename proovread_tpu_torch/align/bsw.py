@@ -167,7 +167,7 @@ def _bsw_cuda(q, rc, map_pad, qlen, sread, strand, lread, w0p,
             *[o.data_ptr() for o in outs], score.data_ptr(), pos.data_ptr(),
             kernels.stream_of(q))
         kernels.check(rc_, "bsw_expand_v2")
-        bsw_expand_v2.launches += 1
+        kernels.count_launch(bsw_expand_v2)
     return _result(outs, score, pos)
 
 
@@ -243,7 +243,7 @@ def _bsw_v1_cuda(q, win, qlen, params: AlignParams) -> BswResult:
             *[o.data_ptr() for o in outs], score.data_ptr(), pos.data_ptr(),
             kernels.stream_of(q))
         kernels.check(rc_, "bsw_expand")
-        bsw_expand.launches += 1
+        kernels.count_launch(bsw_expand)
     return _result(outs, score, pos)
 
 

@@ -132,7 +132,7 @@ def _sw_cuda(q, r, qlen, params: AlignParams) -> SWResult:
             float(p.clip), dirs.data_ptr(), f32.data_ptr(), i32.data_ptr(),
             ops_rev.data_ptr(), steps.data_ptr(), kernels.stream_of(q))
         kernels.check(rc_, "sw_batch")
-        sw_batch.launches += 1
+        kernels.count_launch(sw_batch)
     return SWResult(score=f32[0], sel_score=f32[1], q_start=i32[0],
                     q_end=i32[1], r_start=i32[2], r_end=i32[3],
                     ops_rev=ops_rev, n_ops=i32[4], step_i=steps[0],

@@ -23,9 +23,11 @@ external mapping; the mode is picked by the flag alone too) and the
 legacy SHRiMP2 schedule ``-m legacy``. ``--debug`` logs at DEBUG level,
 writes each bucket's admitted finish alignments as
 ``<pre>/admitted.<read id>.sam`` and a per-read ``<name>.debug.tsv`` (id,
-length, mean phred, phred-0 fraction). Flags whose features are not
-ported yet return 2 with a message naming the flag: ``serve``, the mesh
-flags, ``--compile-ledger``, ``--compile-cache`` and ``--xprof``.
+length, mean phred, phred-0 fraction). ``serve`` as the first argument
+starts the correction server instead (``serve/cli.py``; the batch path
+imports nothing of ``serve``). Flags whose features are not ported yet
+return 2 with a message naming the flag: the mesh flags,
+``--compile-ledger``, ``--compile-cache`` and ``--xprof``.
 
 Resilience works as in the reference (``:276-297``, ``:620-645``): a
 per-bucket checkpoint journal at ``<pre>/.proovread_ckpt`` unless
@@ -224,7 +226,9 @@ def _error(msg: str) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
-        return _error("serve is not supported by the PyTorch port yet")
+        # imported only here: the batch path imports nothing of serve
+        from proovread_tpu_torch.serve.cli import serve_main
+        return serve_main(argv[1:])
     args = build_parser().parse_args(argv)
     for attr, flag in _UNPORTED_FLAGS:
         v = getattr(args, attr)

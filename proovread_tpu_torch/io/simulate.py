@@ -1,6 +1,6 @@
 """Vectorized read simulators for benchmarks and scaled tests (numpy; a
-copy of ``proovread_tpu/io/simulate.py`` but for ``simulate_job_stream``,
-which only serving uses).
+copy of ``proovread_tpu/io/simulate.py``, ``simulate_job_stream`` of the
+serving layer included).
 
 Scaled workloads are simulated from a random genome with the error profiles
 the reference's docs describe: CLR subreads at ~85% identity dominated by
@@ -10,7 +10,8 @@ the same records as the JAX package's simulators.
 
 from __future__ import annotations
 
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -204,6 +205,110 @@ def simulate_short_reads(
     q = np.full(read_len, qual, np.uint8)
     return [SeqRecord(f"{id_prefix}{i}", decode_codes(reads[i]), qual=q)
             for i in range(n)]
+
+
+# --------------------------------------------------------------------------
+# mixed-traffic job stream (correction as a service, ``serve/``)
+# --------------------------------------------------------------------------
+
+@dataclass
+class SimJob:
+    """One simulated correction job for the serving layer: a tenant
+    submits a small batch of long-read records of one traffic class
+    (proovread task modes, PAPER.md):
+
+    ``clr``     raw CLR subreads, ~85% identity, insertion-dominated
+    ``ccs``     multi-subread ZMWs (PacBio subread ids) — the server's
+                ccs pre-consensus path collapses them before correction
+    ``unitig``  assembler unitigs: long, near-clean (mr-mode correction)
+    """
+
+    job_id: str
+    tenant: str
+    mode: str                        # clr | ccs | unitig
+    arrival_s: float                 # offset from stream start
+    records: List[SeqRecord] = field(default_factory=list)
+    deadline_s: Optional[float] = None
+
+    @property
+    def n_bases(self) -> int:
+        return sum(len(r) for r in self.records)
+
+
+def simulate_job_stream(
+    seed: int = 0,
+    n_jobs: int = 9,
+    genome: Optional[np.ndarray] = None,
+    genome_size: int = 3000,
+    modes: Sequence[str] = ("clr", "ccs", "unitig"),
+    tenants: Sequence[str] = ("t-alice", "t-bob"),
+    reads_per_job: Tuple[int, int] = (2, 4),
+    mean_len: int = 700,
+    min_len: int = 400,
+    mean_gap_s: float = 0.02,
+) -> Tuple[np.ndarray, List[SimJob]]:
+    """Deterministic interleaved CLR + CCS + unitig job stream over ONE
+    genome (so every job's reads correct against the same short-read set,
+    the serving model). Returns ``(genome_codes, jobs)`` with jobs in
+    arrival order; modes and tenants round-robin so traffic interleaves,
+    arrival gaps are exponential with mean ``mean_gap_s``. Everything is
+    keyed off ``seed`` — the fault drills and ``serve/smoke.py`` replay
+    the exact same stream.
+
+    Read ids are namespaced by job (``<job>/...``; CCS subread ids keep
+    the PacBio grammar with a per-job movie name) so any subset of jobs
+    can share one continuous-batching wave without id collisions."""
+    rng = np.random.default_rng(seed)
+    if genome is None:
+        genome = random_genome(genome_size, seed=seed + 1)
+    G = len(genome)
+    jobs: List[SimJob] = []
+    t = 0.0
+    for j in range(n_jobs):
+        mode = modes[j % len(modes)]
+        tenant = tenants[j % len(tenants)]
+        n_reads = int(rng.integers(reads_per_job[0],
+                                   reads_per_job[1] + 1))
+        job_id = f"job-{seed}-{j:03d}"
+        records: List[SeqRecord] = []
+        for i in range(n_reads):
+            ln = int(np.clip(rng.lognormal(np.log(mean_len), 0.3),
+                             min_len, G - 1))
+            a = int(rng.integers(0, G - ln))
+            src = genome[a:a + ln]
+            if mode == "ccs":
+                # one ZMW with 2-3 subreads over the same molecule,
+                # independent CLR-profile errors; ids follow the PacBio
+                # subread grammar (pipeline/ccs.py ZMW_RE)
+                hole = 100 + j * 16 + i
+                n_sub = int(rng.integers(2, 4))
+                pos = 0
+                for s in range(n_sub):
+                    mut = _apply_errors(src, rng, sub=0.02, ins=0.08,
+                                        dele=0.05)
+                    records.append(SeqRecord(
+                        f"m{seed}_{j:03d}/{hole}/{pos}_{pos + len(mut)}",
+                        decode_codes(mut),
+                        qual=np.full(len(mut), 10, np.uint8)))
+                    pos += len(mut) + 32
+            elif mode == "unitig":
+                mut = _apply_errors(src, rng, sub=0.003, ins=0.001,
+                                    dele=0.001)
+                records.append(SeqRecord(
+                    f"{job_id}/utg{i}", decode_codes(mut),
+                    qual=np.full(len(mut), 28, np.uint8)))
+            else:                                   # clr
+                mut = _apply_errors(src, rng, sub=0.02, ins=0.08,
+                                    dele=0.05)
+                if rng.random() < 0.5:
+                    mut = revcomp_codes(mut)
+                records.append(SeqRecord(
+                    f"{job_id}/lr{i}", decode_codes(mut),
+                    qual=np.full(len(mut), 10, np.uint8)))
+        jobs.append(SimJob(job_id=job_id, tenant=tenant, mode=mode,
+                           arrival_s=round(t, 6), records=records))
+        t += float(rng.exponential(mean_gap_s))
+    return genome, jobs
 
 
 def simulate_independent_segments(

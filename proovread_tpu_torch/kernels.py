@@ -13,6 +13,8 @@ fresh checkout builds it at first use and later calls reuse it. It lands in
 instead, and ``PROOVREAD_TORCH_BUILD_DIR`` overrides both.
 
 Nothing here runs at import time: the CPU tests import every module.
+``lib()`` builds and loads under a lock, so threads that call kernels at
+once (a server's worker, a fleet's replicas) build the library once.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -67,7 +70,15 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
+# guards every wrapper's ``launches`` count: a fleet's replica threads
+# launch at once, and ``+= 1`` on a function attribute is no atomic step
+_count_lock = threading.Lock()
 build_seconds = None
+# the nvcc runs of this process: sources compiled, and their seconds (a
+# library found already built adds nothing)
+nvcc_compiles = 0
+nvcc_seconds = 0.0
 # source name -> what nvcc printed while compiling it (ptxas's report)
 build_log: dict = {}
 
@@ -125,7 +136,7 @@ def build(src_dir: Path | None = None,
     source, saved beside the library for later loads. ``src_dir`` and
     ``out_dir`` (default: the package's sources, ``build_dir()``) let a
     tool build another copy of the sources."""
-    global build_seconds
+    global build_seconds, nvcc_compiles, nvcc_seconds
     src_dir = Path(src_dir or SRC_DIR)
     out_dir = Path(out_dir or build_dir())
     so = out_dir / f"libproovread_kernels_{_digest(src_dir)}.so"
@@ -168,6 +179,8 @@ def build(src_dir: Path | None = None,
         obj.unlink(missing_ok=True)
     build_log.update(logs)
     build_seconds = time.monotonic() - t0
+    nvcc_compiles += len(SOURCES)
+    nvcc_seconds += build_seconds
     return so
 
 
@@ -228,11 +241,23 @@ def load(path: Path) -> ctypes.CDLL:
 
 
 def lib():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, once however many
+    threads ask at the same time)."""
     global _lib
     if _lib is None:
-        _lib = load(build())
+        with _lib_lock:
+            if _lib is None:
+                _lib = load(build())
     return _lib
+
+
+def census() -> dict:
+    """What this process built and loaded: the CUDA sources in the loaded
+    library (0 before the first launch, and on the CPU), the sources
+    ``nvcc`` compiled and its seconds."""
+    return {"n_programs": len(SOURCES) if _lib is not None else 0,
+            "nvcc_compiles": nvcc_compiles,
+            "nvcc_seconds": round(nvcc_seconds, 6)}
 
 
 def check(rc: int, what: str) -> None:
@@ -240,6 +265,13 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = lib().pt_error_string(rc).decode(errors="replace")
         raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``: a wrapper calls it once its kernel
+    launched, and nowhere else."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def require(cond: bool, msg: str) -> None:

@@ -12,6 +12,9 @@
   its aggregate report.
 - ``obs.accuracy``: the accuracy scoreboard, identity against the
   simulators' truth sidecars (``--truth``), its LCS a CUDA kernel.
+- ``obs.validate``: the artifact validators (the reference's schemas and
+  verdicts); ``obs.smoke``: a traced, scored run with every artifact
+  checked; ``obs.load``: the fleet's LOAD rows and load smoke.
 
 All are off by default (shared no-op singletons) and are switched on by
 the CLI flags, their config keys, or programmatically with

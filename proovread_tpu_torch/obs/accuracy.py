@@ -211,7 +211,7 @@ def _lcs_cuda(text, text_off, pat, pat_off, to, po) -> torch.Tensor:
             meta[3].data_ptr(), meta[4].data_ptr(), scratch.data_ptr(),
             len(plan["glob"]), out.data_ptr(), kernels.stream_of(text))
         kernels.check(rc, "lcs_lengths")
-        lcs_lengths.launches += 1
+        kernels.count_launch(lcs_lengths)
     return out
 
 
@@ -519,7 +519,7 @@ def _edit_cuda(rd, rd_off, tr, tr_off, to, po, w) -> torch.Tensor:
         kernels.check(rc, f"edit_alignments ({len(todo)} pairs, {threads} "
                           f"threads, rows of {smem_width} cells in shared "
                           "memory)")
-        edit_alignments.launches += 1
+        kernels.count_launch(edit_alignments)
         dist = out[:, 0].cpu().numpy()[todo]
         kernels.require(bool((dist >= 0).all()),
                         "edit_alignments: a walk left its band (kernel "

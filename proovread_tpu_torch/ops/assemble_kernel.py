@@ -123,7 +123,7 @@ def assemble_fields_cuda(call, lengths, Lp: int):
             counts.data_ptr(), codes.data_ptr(), qual.data_ptr(),
             nlen.data_ptr(), kernels.stream_of(codes))
         kernels.check(rc, "assemble_rows")
-        assemble_rows.launches += 1
+        kernels.count_launch(assemble_rows)
     return codes, qual, nlen
 
 
@@ -215,7 +215,7 @@ def hcr_mask_cuda(qual, lengths, pvi):
             qual.data_ptr(), lengths.data_ptr(), B, L, *pvi,
             mask.data_ptr(), counts.data_ptr(), kernels.stream_of(qual))
         kernels.check(rc, "hcr_mask_rows")
-        hcr_mask_rows.launches += 1
+        kernels.count_launch(hcr_mask_rows)
     return mask, counts
 
 

@@ -100,7 +100,7 @@ def _cols_cuda(fn, entry, pileup, cols, read_of, w0, n):
         read_of.data_ptr(), w0.data_ptr(), R, n, bad.data_ptr(),
         kernels.stream_of(pileup))
     kernels.check(rc, fn.__name__)
-    fn.launches += 1
+    kernels.count_launch(fn)
     _raise_flags(fn.__name__, int(bad.item()), B, Lpile, n)
     return pileup
 
@@ -266,7 +266,7 @@ def _dense_cuda(pileup, votes, read_of, w0):
         pileup.data_ptr(), Lpile, n_tiles, votes.data_ptr(), w0.data_ptr(),
         keys.data_ptr(), order.data_ptr(), R * K, K, n, stream)
     kernels.check(rc, "pileup_accumulate")
-    pileup_accumulate.launches += 1
+    kernels.count_launch(pileup_accumulate)
     return pileup
 
 

@@ -89,7 +89,7 @@ def _scatter_cuda(target, idx, w, keep) -> torch.Tensor:
         target.data_ptr(), keys.data_ptr(), order.data_ptr(), w.data_ptr(),
         M, n, kernels.stream_of(target))
     kernels.check(rc, "scatter_add_ordered")
-    scatter_add_ordered.launches += 1
+    kernels.count_launch(scatter_add_ordered)
     return target
 
 

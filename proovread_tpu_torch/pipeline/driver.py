@@ -40,6 +40,16 @@ slice and one slab upload a pass, passes 2..N eager), with the same bits.
 (``dcorrect.dump_admitted_sam``). Every other setting raises
 ``NotImplementedError`` naming it.
 
+Serving (``serve/``) drives two hooks, both ``None`` on the batch path:
+``_bucket_gate(gi, n_groups, records) -> records`` runs before each
+bucket's key and ``Lp`` are derived, may drop reads (a cancelled job's, a
+breached deadline's), return ``[]`` to skip the bucket or raise to stop the
+run at a bucket boundary (a drain); ``_bucket_done(gi, results, chimeras,
+replayed)`` runs after each bucket, so a job whose reads are all corrected
+completes while later buckets compute. ``prepare_short_reads`` packs (and,
+for the device engine, puts on the device) one short-read set once for
+many runs over the same list object.
+
 Observability (``obs``): every run fills ``PipelineResult.metrics`` (the
 reference's KPI catalog, declared whole so a dump always has its schema),
 and fills ``PipelineResult.qc`` while a QC recorder is installed, from
@@ -438,7 +448,24 @@ class Pipeline:
         self._faults: Optional[FaultPlan] = None   # set per run
         self._dcs: Dict[int, DeviceCorrector] = {}  # by device chunk
         self._sr_scan = None      # (short-read list, its scan packing)
+        self._sr_prep = None      # (short-read list, its _SrDevice)
         self.sr_stats: Optional[dict] = None   # _SrDevice.stats() of a run
+        # serving hooks (module docstring); None on the batch path
+        self._bucket_gate = None
+        self._bucket_done = None
+
+    def prepare_short_reads(self, short_records: Sequence[SeqRecord]
+                            ) -> None:
+        """Pack, and for the device engine put on the device, the
+        short-read set once for repeated ``run`` calls over the same list
+        object (a server keeps one set on the card across waves). Cached
+        by list identity; ``run`` packs per call for another list."""
+        if self.config.engine == "device":
+            dev = resolve(self.config.device)
+            self._sr_prep = (short_records, self._make_sr_device(
+                pack_reads(short_records, pad_multiple=16), dev))
+        else:
+            self._scan_sr_all(short_records)
 
     def read_long(self, records: Sequence[SeqRecord], min_sr_len: int
                   ) -> Tuple[List[SeqRecord], List[Tuple[str, str]]]:
@@ -544,7 +571,7 @@ class Pipeline:
 
         def run_bucket(gi, batch_recs, n_groups, compute, **span_args):
             """One bucket: replayed from the journal, or computed and
-            journaled. Returns (results, chimeras)."""
+            journaled. Returns (results, chimeras, replayed)."""
             key = bucket_key(batch_recs)
             tb0 = time.monotonic()
             with obs.span("bucket", cat="bucket", bucket=gi,
@@ -554,7 +581,7 @@ class Pipeline:
                 hit = replay(key, gi, n_groups, bsp.span_id)
                 if hit is not None:
                     bsp.set(replayed=True)
-                    return hit
+                    return (*hit, True)
                 if qc_rec is not None:
                     qc_rec.start_bucket(gi, batch_recs, span_id=bsp.span_id)
                 n_rep0 = len(reports)
@@ -568,25 +595,41 @@ class Pipeline:
                             if qc_rec is not None else None))
             # computed buckets only: a replay re-runs no admission
             _bucket_metrics(tb0, batch_recs)
-            return res_batch, chim
+            return res_batch, chim, False
 
+        gate, done_cb = self._bucket_gate, self._bucket_done
         results: List[ConsensusResult] = []
         all_chim: List[Tuple[str, int, int, float]] = []
         if cfg.engine == "device":
-            # 16-row query padding keeps the bsw DP short (one step per row)
-            sr_dev = self._make_sr_device(
-                pack_reads(short_records, pad_multiple=16), dev)
+            prep = self._sr_prep
+            if (prep is not None and prep[0] is short_records
+                    and prep[1].dev == dev):
+                sr_dev = prep[1]        # prepare_short_reads' set
+            else:
+                # 16-row query padding keeps the bsw DP short (one step
+                # per row)
+                sr_dev = self._make_sr_device(
+                    pack_reads(short_records, pad_multiple=16), dev)
             groups = _bucket_records(kept, cfg.batch_reads)
             obs.metrics.gauge("n_buckets", unit="buckets").set(len(groups))
             for gi, (pad, batch_recs) in enumerate(groups):
+                if gate is not None:
+                    # drop the gate's reads before the bucket's key and Lp
+                    # derive from its content; it may raise to drain
+                    batch_recs = gate(gi, len(groups), batch_recs)
+                    if not batch_recs:
+                        continue
+                    pad = max(len(r) for r in batch_recs)
                 Lp = bucket_lp(pad, cfg.length_slack)
-                res_batch, chim = run_bucket(
+                res_batch, chim, replayed = run_bucket(
                     gi, batch_recs, len(groups),
                     lambda: self._run_bucket_resilient(
                         gi, batch_recs, sr_dev, short_records, sampler,
                         coverage, min_sr_len, reports, Lp, dev), Lp=Lp)
                 results.extend(res_batch)
                 all_chim.extend(chim)
+                if done_cb is not None:
+                    done_cb(gi, res_batch, chim, replayed)
                 log.info("bucket %d done (%d reads, Lp %d)", gi,
                          len(batch_recs), Lp)
             # restore read_long's natural output order across buckets
@@ -598,13 +641,19 @@ class Pipeline:
             obs.metrics.gauge("n_buckets", unit="buckets").set(len(starts))
             for bi, start in enumerate(starts):
                 batch_recs = kept[start:start + cfg.batch_reads]
-                res_batch, chim = run_bucket(
+                if gate is not None:
+                    batch_recs = gate(bi, len(starts), batch_recs)
+                    if not batch_recs:
+                        continue
+                res_batch, chim, replayed = run_bucket(
                     bi, batch_recs, len(starts),
                     lambda: self._run_batch(
                         batch_recs, sr_all, short_records, sampler,
                         coverage, min_sr_len, reports, dev))
                 results.extend(res_batch)
                 all_chim.extend(chim)
+                if done_cb is not None:
+                    done_cb(bi, res_batch, chim, replayed)
         if journal is not None and cfg.resume:
             log.info("resume: %d journal hit(s); journal now holds %d "
                      "completed bucket(s)", journal.hits,

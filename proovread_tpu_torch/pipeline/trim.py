@@ -65,6 +65,18 @@ def split_chimera(rec: SeqRecord,
     return out
 
 
+def pieces_of(records: Sequence[SeqRecord], ids) -> List[SeqRecord]:
+    """The records, in order, that are reads of ``ids`` or pieces
+    ``split_chimera`` cut from them (``<id>.N``): a batch run's output cut
+    back to one job's reads."""
+    out = []
+    for r in records:
+        stem, _, sfx = r.id.rpartition(".")
+        if r.id in ids or (sfx.isdigit() and stem in ids):
+            out.append(r)
+    return out
+
+
 def trim_window(rec: SeqRecord, p: TrimParams) -> Optional[SeqRecord]:
     """Sliding-window quality trim from both ends; None if nothing survives."""
     if rec.qual is None or len(rec) == 0:

@@ -11,9 +11,10 @@ on the CPU: a :class:`FaultPlan` parsed from the ``PROOVREAD_FAULT`` env var
 at an exact bucket/pass site inside ``pipeline/driver.py``, so the
 degradation ladder and the checkpoint/resume journal
 (``pipeline/resilience.py``) are testable on the CPU. The port's driver
-calls the device sites (``check``, ``check_span``); the job, mesh and fleet
-sites belong to serving and the multi-device mesh, which the port does
-not run yet.
+calls the device sites (``check``, ``check_span``), the server
+(``serve/``) the job sites and the fleet dispatcher the fleet sites; the
+mesh sites belong to the multi-device mesh, which the port does not run
+yet.
 
 Spec grammar (semicolon- or comma-separated rules)::
 

@@ -741,3 +741,100 @@ def test_ccs_and_flex_same_on_card_and_cpu(cuda):
     assert [(r.id, r.seq, r.qual.tobytes()) for r in flex["cuda"].untrimmed] \
         == [(r.id, r.seq, r.qual.tobytes()) for r in flex["cpu"].untrimmed]
     assert flex["cuda"].reports == flex["cpu"].reports
+
+
+def _serve_dataset(seed, n_jobs=2):
+    from proovread_tpu_torch.io.simulate import (simulate_job_stream,
+                                                 simulate_short_reads)
+    genome, jobs = simulate_job_stream(
+        seed=seed, n_jobs=n_jobs, genome_size=4000, modes=("clr",),
+        mean_len=900, min_len=500, reads_per_job=(3, 4))
+    return jobs, simulate_short_reads(genome, 25.0, seed=seed + 1)
+
+
+def _serve_cfg(device):
+    from proovread_tpu_torch.pipeline.driver import PipelineConfig
+    from proovread_tpu_torch.pipeline.trim import TrimParams
+    return PipelineConfig(n_iterations=2, sampling=False, batch_reads=8,
+                          device_chunk=128, trim=TrimParams(min_length=150),
+                          device=device)
+
+
+def _serve_wave(tmp, jobs, shorts, cfg, name):
+    """Every job through one server's wave: job id -> (untrimmed,
+    trimmed) records as the wire returns them."""
+    from proovread_tpu_torch.serve.protocol import encode_record
+    from proovread_tpu_torch.serve.server import CorrectionServer, ServeConfig
+    srv = CorrectionServer(shorts, ServeConfig(
+        state_dir=str(tmp / name), max_wave_jobs=8, replica_id=name), cfg)
+    for j in jobs:
+        assert srv.handle({
+            "op": "submit", "job_id": j.job_id, "tenant": j.tenant,
+            "mode": j.mode, "reads": [encode_record(r) for r in j.records],
+        })["status"] == "accepted"
+    while srv.pump():
+        pass
+    out = {}
+    for j in jobs:
+        res = srv.handle({"op": "result", "job_id": j.job_id})
+        assert res["ok"], res
+        out[j.job_id] = (res["untrimmed"], res["trimmed"])
+    return out
+
+
+def _batch(jobs, shorts, cfg):
+    """One batch run of the jobs' reads, cut back to each job as wire
+    records (the server's payload)."""
+    from proovread_tpu_torch.pipeline.driver import Pipeline
+    from proovread_tpu_torch.pipeline.trim import pieces_of
+    from proovread_tpu_torch.serve.protocol import encode_records
+    res = Pipeline(cfg).run([r for j in jobs for r in j.records], shorts)
+    out = {}
+    for j in jobs:
+        ids = {r.id for r in j.records}
+        out[j.job_id] = (encode_records(pieces_of(res.untrimmed, ids)),
+                         encode_records(pieces_of(res.trimmed, ids)))
+    return out
+
+
+def test_serve_wave_on_card_equals_batch(cuda, tmp_path):
+    """A two-job wave of the server on the card gives each job the
+    records of one batch ``Pipeline.run`` of both jobs' reads on the
+    card, and those of the same wave on the CPU."""
+    from proovread_tpu_torch.align import bsw
+    jobs, shorts = _serve_dataset(61)
+    launches = bsw.bsw_expand_v2.launches
+    got = _serve_wave(tmp_path, jobs, shorts, _serve_cfg("cuda"), "card")
+    assert bsw.bsw_expand_v2.launches > launches
+    assert got == _batch(jobs, shorts, _serve_cfg("cuda"))
+    assert got == _serve_wave(tmp_path, jobs, shorts, _serve_cfg("cpu"),
+                              "cpu")
+
+
+def test_two_replica_threads_on_one_card(cuda, tmp_path):
+    """Two servers' waves run at the same time on two threads of one
+    process (a fleet's replicas on one card): the kernel library is
+    built once and each thread launches on its own current stream; both
+    results equal their batch runs."""
+    import threading
+    sets = [_serve_dataset(71), _serve_dataset(73)]
+    want = [_batch(jobs, shorts, _serve_cfg("cuda")) for jobs, shorts in sets]
+    got, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def replica(i):
+        try:
+            start.wait(timeout=30)
+            got[i] = _serve_wave(tmp_path, *sets[i], _serve_cfg("cuda"),
+                                 f"r{i}")
+        except Exception as e:                          # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=replica, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert got == want

@@ -1,5 +1,6 @@
-"""The port stands alone: no ``jax`` and no ``proovread_tpu`` imports, CUDA
-asked for without a card raises, unsupported settings raise
+"""The port stands alone: no ``jax`` and no ``proovread_tpu`` imports (the
+serving layer and the validators included), CUDA asked for without a card
+raises, threads that ask for the kernel library at once build it once, unsupported settings raise
 ``NotImplementedError`` naming the setting, and the resilience settings
 (the journal, resume, a bucket timeout, fault injection, the scan engine),
 flex mode (``haplo_coverage`` bare and explicit), the streaming regime and
@@ -64,7 +65,17 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.io.sam, proovread_tpu_torch.ops.variants, "
             "proovread_tpu_torch.pipeline.sam2cns, "
             "proovread_tpu_torch.pipeline.dazz2sam, "
-            "proovread_tpu_torch.tools\n"
+            "proovread_tpu_torch.tools, proovread_tpu_torch.obs.validate, "
+            "proovread_tpu_torch.obs.smoke, proovread_tpu_torch.obs.load, "
+            "proovread_tpu_torch.serve, proovread_tpu_torch.serve.protocol, "
+            "proovread_tpu_torch.serve.jobs, "
+            "proovread_tpu_torch.serve.admission, "
+            "proovread_tpu_torch.serve.batcher, "
+            "proovread_tpu_torch.serve.server, "
+            "proovread_tpu_torch.serve.cli, "
+            "proovread_tpu_torch.serve.fleet, "
+            "proovread_tpu_torch.serve.loadgen, "
+            "proovread_tpu_torch.serve.smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")
@@ -153,3 +164,83 @@ def test_kernel_wrappers_raise_on_other_devices():
     ln = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         hcr_mask_rows(q, ln, [20, 41, 80, 130, 60, 0.7])
+
+
+def test_kernel_library_builds_once_across_threads(monkeypatch):
+    """Threads that call ``kernels.lib()`` at once (a server's worker, a
+    fleet's replicas) build and load the library once; the build is
+    stubbed (no nvcc here) and slow enough that the threads overlap."""
+    import threading
+    import time
+
+    from proovread_tpu_torch import kernels
+    calls = []
+
+    def build():
+        calls.append(threading.get_ident())
+        time.sleep(0.2)
+        return "lib.so"
+
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "build", build)
+    monkeypatch.setattr(kernels, "load", lambda path: ("loaded", path))
+    start = threading.Barrier(8)
+    got = []
+
+    def worker():
+        start.wait(timeout=10)
+        got.append(kernels.lib())
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1
+    assert got == [("loaded", "lib.so")] * 8
+
+
+def test_kernel_census_counts_this_process(monkeypatch):
+    """The census the SLO artifact reports: no program before the library
+    is loaded, the sources of the loaded library after."""
+    from proovread_tpu_torch import kernels
+    monkeypatch.setattr(kernels, "_lib", None)
+    assert kernels.census()["n_programs"] == 0
+    monkeypatch.setattr(kernels, "_lib", object())
+    monkeypatch.setattr(kernels, "nvcc_compiles", 7)
+    monkeypatch.setattr(kernels, "nvcc_seconds", 3.25)
+    assert kernels.census() == {"n_programs": len(kernels.SOURCES),
+                                "nvcc_compiles": 7, "nvcc_seconds": 3.25}
+
+
+def test_launch_counts_exact_across_threads():
+    """Replica threads that launch at once lose no count: each
+    ``kernels.count_launch`` adds one under the counts' lock."""
+    import sys
+    import threading
+
+    from proovread_tpu_torch import kernels
+
+    def fn():
+        pass
+    fn.launches = 0
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)            # switch threads as often as can be
+    try:
+        start = threading.Barrier(8)
+
+        def worker():
+            start.wait(timeout=10)
+            for _ in range(5000):
+                kernels.count_launch(fn)
+
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert fn.launches == 8 * 5000
