@@ -205,19 +205,33 @@ any failure exits non-zero:
    ``slam`` scenario, two in-process replicas, ``replica_death@r1.j5``,
    fleet accuracy scored on the card: wall, fleet bases/s, handoffs,
    identity before and after by family, the device's busy share; a
-   handoff, no job lost or counted twice, a valid LOAD row.
+   handoff, no job lost or counted twice, a valid LOAD row;
+18. more than one GPU (``phase18``): the shard-exact workload family
+   (``simulate_independent_segments``, seed 18: 640 reads of 8,000 bases,
+   each read's own segment, 30x of 100 bp short reads, 1,536,000 of them;
+   simulated in the background from the start of the process that runs
+   the phase, ``MeshWorkload``) through ``Pipeline.run`` (6 iterations,
+   the default config), scored, once on one device and once at
+   ``mesh_shards=2`` with two ranks (``parallel/launch.py``; on one card
+   both ranks share it) and a shard's candidate cap of 32 chunks: the
+   corrected and trimmed records and the QC aggregate, identity scores
+   included, byte for byte; both walls, identity before and after, each
+   rank's launches of bsw v2, the bit-plane pileup, assemble and HCR (each
+   above 0); then the mesh fault drill (``parallel/smoke.drill``: four
+   ranks on the card, the five phases of ``python -m
+   proovread_tpu_torch.parallel.smoke``).
 
 Every trace, metrics, QC and truth-sidecar artifact the command-line runs
 write (phases 3, 7, 8, 11-13, both sides of phase 3's twins) passes the
 port's own validators (``obs/validate.py``) too.
 
-The main process runs phases 2-7, 11, 9, 14 and 17 in that order. From
-the end of phase 6 on, two lanes (``Lane``: a second ``chip_smoke.py``
-each, ``--skip`` every other phase and ``--lane-out``) run phases 13, 8
-and 16, and phases 12, 15 and 10, beside it, each lane on its own copy of
-phase 4's workload; their logs are printed after phase 17. Phases 9-12,
-15 and 16 use phase 7's short reads. Each phase logs its wall and when
-it ended in seconds of its process. Phases 4-17 each reset every kernel's launch count
+The main process runs phases 2-7, 11, 9, 10, 14 and 17 in that order.
+From the end of phase 6 on, two lanes (``Lane``: a second
+``chip_smoke.py`` each, ``--skip`` every other phase and ``--lane-out``)
+run phases 13, 8 and 16, and phases 12, 15 and 18, beside it, each lane on
+its own copy of phase 4's workload; their logs are printed after phase 17.
+Phases 9-12, 15 and 16 use phase 7's short reads. Each phase logs its wall
+and when it ended in seconds of its process. Phases 4-18 each reset every kernel's launch count
 just before and read them just after; each fails if a kernel of its path
 was not launched (phases 7 and 8: sw, bsw v2, the bit-plane pileup,
 assemble, HCR, the LCS and the traceback; phase 9 the same but the
@@ -225,7 +239,8 @@ scoreboard's two; phase 10 sw; phases 11 and
 12 those of 7 and the scatter; phase 13 those of 7 but sw; phase 14 bsw
 v2, the bit-plane pileup, assemble and HCR; phase 15 bsw v2, the
 bit-plane pileup, the scatter and sw; phase 16 those of 14, sw and the
-scatter; phase 17 those of 16, the LCS and the traceback), and phase 5
+scatter; phase 17 those of 16, the LCS and the traceback; phase 18 those
+of 14, and in each rank of its mesh run), and phase 5
 also if the bit-plane pileup was. No unfaulted phase may demote: phases
 3-5, 7-13 and 14 fail on a ``resilience_demotions`` or ``device_faults``
 count or a ``demote-`` report (phase 6 drives ``DeviceCorrector`` below
@@ -256,7 +271,7 @@ device time and launches of every port kernel in each. ``--skip`` drops
 phases for development runs; a run that skips a phase prints no result
 lines (the full run takes no arguments). ``--lane-out`` is the lanes'.
 
-The functions of phases 3-6 and 11-17 take the device as an argument,
+The functions of phases 3-6 and 11-18 take the device as an argument,
 and those of phases 7-8 run ``cli.main``, so the same code runs on the
 CPU at a small size.
 """
@@ -3792,6 +3807,187 @@ def phase17(device="cuda", kill="replica_death@r1.j5"):
                 compile=row["compile"])
 
 
+# phase 18's workload: the shard-exact family at E.coli-class depth, 640
+# reads of 8,000 bases (5.12 Mb), each with 2,400 100 bp short reads (30x)
+MESH18 = dict(seed=18, n_long=640, read_len=8000, sr_per=2400)
+# a shard's candidate cap in phase 18, in chunks of 8192: the default of 2
+# (the reference's) overflows at this depth (a pass probes ~100,000
+# candidates a shard) and every bucket would retreat to one device
+MESH18_CHUNKS = 32
+
+
+def write_mesh_workload(path: str, n_long: int = MESH18["n_long"]) -> None:
+    """Simulate phase 18's workload (``simulate_independent_segments``,
+    ~30 s of host Python) and save it compactly to ``path`` (npz: the
+    reads' ASCII and lengths, the truths), so that each process that runs
+    it rebuilds the records in seconds instead of simulating again."""
+    from proovread_tpu_torch.io.simulate import simulate_independent_segments
+    longs, srs, truths = simulate_independent_segments(
+        **dict(MESH18, n_long=n_long), with_truth=True)
+    ascii_ = lambda rs: np.frombuffer(  # noqa: E731
+        "".join(r.seq for r in rs).encode(), np.uint8)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, long_ascii=ascii_(longs),
+             long_len=np.array([len(r) for r in longs], np.int64),
+             truth=np.concatenate(truths),
+             truth_len=np.array([len(t) for t in truths], np.int64),
+             sr_ascii=ascii_(srs).reshape(len(srs), -1))
+    os.replace(tmp, path)
+
+
+def read_mesh_workload(path: str):
+    """(longs, srs, truth map) of ``write_mesh_workload``'s file: the
+    records ``simulate_independent_segments`` returns, rebuilt."""
+    from proovread_tpu_torch.io.records import SeqRecord
+    d = np.load(path)
+    ends = np.cumsum(d["long_len"])
+    text = d["long_ascii"].tobytes().decode()
+    longs = [SeqRecord(f"r{i}", text[e - n:e])
+             for i, (n, e) in enumerate(zip(d["long_len"], ends))]
+    tends = np.cumsum(d["truth_len"])
+    truth = {r.id: d["truth"][e - n:e]
+             for r, n, e in zip(longs, d["truth_len"], tends)}
+    sr = d["sr_ascii"]
+    w = sr.shape[1]
+    text = sr.tobytes().decode()
+    srs = [SeqRecord(f"s{j}", text[j * w:(j + 1) * w],
+                     qual=np.full(w, 30, np.uint8))
+           for j in range(sr.shape[0])]
+    return longs, srs, truth
+
+
+class MeshWorkload:
+    """``write_mesh_workload`` in a process of its own, started early so
+    that the file is there when phase 18 starts."""
+
+    def __init__(self, n_long: int = MESH18["n_long"]):
+        import multiprocessing as mp
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        self.path = os.path.join(self.tmp, "mesh18.npz")
+        self.proc = mp.get_context("spawn").Process(
+            target=write_mesh_workload, args=(self.path, n_long))
+        self.proc.start()
+
+    def wait(self) -> str:
+        self.proc.join(timeout=900)
+        if self.proc.exitcode != 0:
+            raise AssertionError(f"phase 18's workload: exit "
+                                 f"{self.proc.exitcode}")
+        return self.path
+
+    def close(self) -> None:
+        if self.proc.exitcode is None:
+            self.proc.kill()
+            self.proc.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def first_diffs(a, b, path="", out=None, limit=8):
+    """Up to ``limit`` (path, a's value, b's value) where two nested
+    structures of dicts, lists and leaves differ."""
+    out = [] if out is None else out
+    if len(out) >= limit:
+        return out
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=str):
+            if a.get(k) != b.get(k):
+                first_diffs(a.get(k), b.get(k), f"{path}/{k}", out, limit)
+    elif (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+          and len(a) == len(b)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                first_diffs(x, y, f"{path}[{i}]", out, limit)
+    elif a != b:
+        out.append((path, a, b))
+    return out
+
+
+def mesh_rank18(path, config, kernels):
+    """Rank function of phase 18's mesh run: the workload rebuilt from its
+    file on every rank, then ``parallel/smoke.pipeline_on_ranks``."""
+    from proovread_tpu_torch.parallel import smoke
+    longs, srs, truth = read_mesh_workload(path)
+    return smoke.pipeline_on_ranks(longs, srs, truth, config, kernels)
+
+
+def phase18(path, device="cuda", n_ranks=2, chunks=MESH18_CHUNKS,
+            drill=True, **cfg):
+    """More than one GPU: phase 18's workload (``path``) through
+    ``Pipeline.run`` once on one device and once at ``mesh_shards=2``
+    with 2 ranks (``parallel/launch.py``; on one card the two share it),
+    both scored against the truth. Holds: the corrected and trimmed
+    records and the QC aggregate, identity scores included, byte for byte;
+    bsw v2, the bit-plane pileup, assemble and HCR launched in every rank;
+    no demotion. Then (``drill``) the mesh fault drill with 4 ranks
+    (``parallel/smoke.drill``). Returns what it logs."""
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.obs.accuracy import IDENTITY_FLOOR
+    from proovread_tpu_torch.ops import assemble_kernel, pileup_kernel
+    from proovread_tpu_torch.parallel import smoke
+    from proovread_tpu_torch.parallel.launch import launch
+    from proovread_tpu_torch.pipeline.driver import PipelineConfig
+    path_kernels = (bsw.bsw_expand_v2, pileup_kernel.pileup_accumulate_bits,
+                    assemble_kernel.assemble_rows,
+                    assemble_kernel.hcr_mask_rows)
+    t0 = time.monotonic()
+    longs, srs, truth = read_mesh_workload(path)
+    bases = sum(len(r) for r in longs)
+    log(f"phase18 workload: {len(longs)} long reads ({bases} bases), "
+        f"{len(srs)} short reads, rebuilt in {time.monotonic() - t0:.1f} s")
+    config = PipelineConfig(device=device, **cfg)
+    t0 = time.monotonic()
+    agg, recs, res = smoke.run(longs, srs, truth, config=config)
+    wall1 = time.monotonic() - t0
+    no_demotion("phase 18 one device", res.metrics, res.reports)
+    passes1 = [(r.task, r.masked_frac, r.n_candidates) for r in res.reports]
+    one = (smoke.records_of(res.untrimmed), smoke.records_of(res.trimmed))
+    del longs, srs, truth, res
+    gc.collect()
+    mesh_cfg = PipelineConfig(device=device, mesh_shards=n_ranks,
+                              mesh_chunks_per_shard=chunks, **cfg)
+    t0 = time.monotonic()
+    mesh = launch(n_ranks, mesh_rank18, path, mesh_cfg, path_kernels,
+                  device=device, timeout=900)
+    wall_launch = time.monotonic() - t0
+    if (mesh["agg"] != agg or mesh["recs"] != recs
+            or (mesh["untrimmed"], mesh["trimmed"]) != one):
+        raise AssertionError(
+            "phase 18: the mesh run differs from one device's: "
+            f"{json.dumps(first_diffs(one, (mesh['untrimmed'], mesh['trimmed'])), default=str)[:1500]}; "
+            f"aggregate {json.dumps(first_diffs(json.loads(agg), json.loads(mesh['agg'])), default=str)[:1500]}; "
+            f"QC records {json.dumps(first_diffs(recs, mesh['recs']), default=str)[:3000]}; "
+            f"one device's passes {passes1}; the mesh's {mesh['passes']}")
+    if mesh["notes"]:
+        raise AssertionError(f"phase 18: the mesh run demoted: "
+                             f"{mesh['notes']}")
+    passes = sum(s["value"] for s in mesh["metrics"]["counters"]
+                 ["mesh_passes"]["series"])
+    # (kernels launch on the card only: on the CPU every count stays 0)
+    idle = [(r, k) for r, counts in enumerate(mesh["launches"])
+            for k, v in counts.items() if v == 0 and device == "cuda"]
+    if not passes or idle:
+        raise AssertionError(f"phase 18: mesh passes {passes}; kernels "
+                             f"that did not launch (rank, kernel): {idle}")
+    acc = json.loads(agg)["accuracy"]
+    out = dict(reads=len(one[0]), bases=bases, wall_one_s=wall1,
+               wall_mesh_s=mesh["wall"], wall_mesh_launch_s=wall_launch,
+               bases_per_s_one=bases / wall1,
+               bases_per_s_mesh=bases / mesh["wall"],
+               identity_before=acc["identity_before"]["mean"],
+               identity_after=acc["identity_after"]["mean"],
+               n_scored=acc["n_scored"], mesh_passes=passes,
+               launches_by_rank=mesh["launches"])
+    if out["n_scored"] != out["reads"] or not (
+            out["identity_after"] >= IDENTITY_FLOOR
+            and out["identity_after"] > out["identity_before"]):
+        raise AssertionError(f"phase 18: scoring {acc}")
+    if drill:
+        t0 = time.monotonic()
+        out["drill"] = smoke.drill(device)
+        out["drill_s"] = time.monotonic() - t0
+    return out
+
+
 def same_host(a, b) -> bool:
     return a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
@@ -3813,11 +4009,11 @@ PORT_KERNEL = re.compile(
 
 
 # the phases that run in lanes (``Lane``) beside the main process's
-# phases 7, 11, 9, 14 and 17 (each in the order of ``main``'s code: 13, 8,
-# 16 and 12, 15, 10): each group depends on nothing the main process
-# makes, and the three took about as long in one chip run
-LANES = (("8", "13", "16"), ("10", "12", "15"))
-ALL_PHASES = tuple(str(p) for p in range(2, 18))
+# phases 7, 11, 9, 10, 14 and 17 (each in the order of ``main``'s code:
+# 13, 8, 16 and 12, 15, 18): each group depends on nothing the main
+# process makes
+LANES = (("8", "13", "16"), ("12", "15", "18"))
+ALL_PHASES = tuple(str(p) for p in range(2, 19))
 
 
 class Lane:
@@ -3921,7 +4117,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-17 to leave out; such a "
+                     help="comma list of phases 2-18 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--lane-out", default=None,
                      help="run as a lane of a full run: no lanes of its "
@@ -4063,6 +4259,14 @@ def main(argv=None) -> int:
     hold = EditHold()
     import atexit
     atexit.register(hold.close)
+
+    # phase 18's workload, simulated from here on in the process that runs
+    # phase 18 (a lane's, in a full run)
+    mesh18 = None
+    if "18" not in skip and (args.lane_out is not None
+                             or not any("18" in g for g in LANES)):
+        mesh18 = MeshWorkload()
+        atexit.register(mesh18.close)
 
     # phase 3's CPU side and its CPU serve twin run from here on, beside
     # the card's phases (at low priority)
@@ -4441,6 +4645,22 @@ def main(argv=None) -> int:
             f"{r17['device_busy_share']:.3f} of the wall; identity "
             + json.dumps({f: (a["identity_before"], a["identity_after"])
                           for f, a in r17["accuracy"].items()}))
+
+    # -- phase 18: more than one GPU -------------------------------------------
+    if "18" not in skip_here:
+        r18, _ = drive(18, lambda: phase18(mesh18.wait()),
+                       required=run_path[1:])
+        log("phase18 " + json.dumps({k: v for k, v in r18.items()
+                                     if k != "drill"}))
+        for line in r18["drill"]:
+            log(f"phase18 drill: {line}")
+        log(f"phase18 walls: one device {r18['wall_one_s']:.2f} s "
+            f"({r18['bases_per_s_one']:.0f} bases/s), mesh 2 on "
+            f"{torch.cuda.device_count()} card(s) {r18['wall_mesh_s']:.2f} s"
+            f" ({r18['bases_per_s_mesh']:.0f} bases/s; "
+            f"{r18['wall_mesh_launch_s']:.2f} s with the ranks' start), "
+            f"drill {r18['drill_s']:.1f} s; identity "
+            f"{r18['identity_before']:.6f} -> {r18['identity_after']:.6f}")
 
     # -- the lanes' phases ---------------------------------------------------
     for lane in lanes:

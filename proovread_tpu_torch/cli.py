@@ -26,8 +26,19 @@ writes each bucket's admitted finish alignments as
 length, mean phred, phred-0 fraction). ``serve`` as the first argument
 starts the correction server instead (``serve/cli.py``; the batch path
 imports nothing of ``serve``). Flags whose features are not ported yet
-return 2 with a message naming the flag: the mesh flags,
-``--compile-ledger``, ``--compile-cache`` and ``--xprof``.
+return 2 with a message naming the flag: ``--compile-ledger``,
+``--compile-cache`` and ``--xprof``.
+
+``--mesh-shards N`` (or the config key ``mesh-shards``) shards each
+bucket's iteration passes over N ranks (``parallel/dmesh.py``). Without a
+process group the command starts the N ranks itself
+(``parallel/launch.py``: spawned processes on gloo, ``cuda:{rank %
+device_count}`` each, so ranks may share a card) and returns rank 0's exit
+code; under ``torchrun`` (``WORLD_SIZE`` > 1) it joins the group that is
+there. Every rank runs the same command; only rank 0 writes the outputs,
+``parameter.log``, the journal, ``--trace``, ``--metrics-out`` and
+``--qc-out``, and scores ``--truth``. ``--mesh-pass-timeout`` bounds a
+sharded pass's wait on the other ranks.
 
 Resilience works as in the reference (``:276-297``, ``:620-645``): a
 per-bucket checkpoint journal at ``<pre>/.proovread_ckpt`` unless
@@ -57,8 +68,6 @@ PROG = "proovread-tpu-torch"
 
 # parsed-argument name -> flag, for the flags the port does not run yet
 _UNPORTED_FLAGS = (
-    ("mesh_shards", "--mesh-shards"),
-    ("mesh_pass_timeout", "--mesh-pass-timeout"),
     ("compile_ledger", "--compile-ledger"),
     ("compile_cache", "--compile-cache"), ("xprof", "--xprof"),
 )
@@ -119,9 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fail fast on device faults instead of retrying "
                          "buckets down the degradation ladder")
     ap.add_argument("--mesh-shards", type=int, metavar="N",
-                    help="multi-device mesh (not supported by the port yet)")
+                    help="shard every bucket's iteration passes over N "
+                         "ranks (data-parallel mesh; started here on gloo "
+                         "unless run under torchrun). A chip-level fault "
+                         "drops the failed shard and rebalances its reads "
+                         "onto the survivors, then single-device, then "
+                         "the host rungs")
     ap.add_argument("--mesh-pass-timeout", type=float, metavar="SECONDS",
-                    help="mesh pass budget (not supported by the port yet)")
+                    help="soft wall-clock budget per sharded iteration "
+                         "pass; a breach counts as a 'straggler' mesh "
+                         "fault")
     ap.add_argument("--trace", metavar="FILE",
                     help="write the span trace (Chrome trace-event JSONL, "
                          "Perfetto-loadable) and log a span summary")
@@ -223,6 +239,18 @@ def _error(msg: str) -> int:
     return 2
 
 
+def _launch_ranks(n: int, argv: List[str], device: str) -> int:
+    """Run this command on ``n`` ranks started here (``parallel/launch.py``)
+    and return rank 0's exit code; 1 naming the rank if one failed."""
+    from proovread_tpu_torch.parallel.launch import RankFailed, launch
+    try:
+        return launch(n, main, argv, device=device)
+    except RankFailed as e:
+        print(f"error: mesh run: rank {e.rank} failed "
+              f"(exit code {e.exitcode})", file=sys.stderr)
+        return 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
@@ -234,7 +262,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         v = getattr(args, attr)
         if not (v is None or v is False or v == []):
             return _error(f"{flag} is not supported by the PyTorch port yet")
+    from proovread_tpu_torch.parallel.launch import init_from_env
+    joined = init_from_env(args.device)
+    try:
+        return _main(args, argv)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, argv: List[str]) -> int:
+    from proovread_tpu_torch.parallel.dmesh import world
+    rank, n_ranks = world()
     _setup_logging(args)
+    if rank:
+        # one log of the run: the other ranks say only what goes wrong
+        log.setLevel(max(log.getEffectiveLevel(), logging.WARNING))
 
     from proovread_tpu_torch.config import Config, mode_auto
 
@@ -264,17 +308,30 @@ def main(argv: Optional[List[str]] = None) -> int:
         resolve(args.device)
     except RuntimeError as e:
         return _error(str(e))
+    if args.mesh_shards is not None:
+        cfg.data["mesh-shards"] = args.mesh_shards
+    if args.mesh_pass_timeout is not None:
+        cfg.data["mesh-pass-timeout"] = args.mesh_pass_timeout
+    n_mesh = int(cfg.get("mesh-shards") or 0)
+    if n_mesh >= 2 and n_ranks == 1:
+        return _launch_ranks(n_mesh, argv, args.device)
 
     outdir = args.pre
     if args.debug:
         # the finish pass's admitted-alignment SAM dumps land next to the
         # outputs
         cfg.data["debug-dir"] = outdir
-    os.makedirs(outdir, exist_ok=True)
-    # --resume must be able to re-enter the interrupted run's output dir
-    if os.listdir(outdir) and not (args.overwrite or args.resume):
+    # --resume must be able to re-enter the interrupted run's output dir;
+    # every rank looks before rank 0 writes anything (the barrier)
+    if (os.path.isdir(outdir) and os.listdir(outdir)
+            and not (args.overwrite or args.resume)):
         return _error(f"output dir {outdir!r} not empty (use --overwrite, "
                       "or --resume to continue a crashed run)")
+    if n_ranks > 1:
+        import torch.distributed as dist
+        dist.barrier()
+    if rank == 0:
+        os.makedirs(outdir, exist_ok=True)
     # the journal is on by default: it is what makes --resume possible
     if args.resume and args.no_checkpoint:
         return _error("--resume needs the checkpoint journal; drop "
@@ -298,6 +355,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     metrics_path = args.metrics_out or cfg.get("metrics-out")
     qc_path = args.qc_out or cfg.get("qc-out")
     truth_path = args.truth or cfg.get("truth-sidecar")
+    if rank:
+        # rank 0 writes the run's account; the others run the same tasks
+        # and write nothing, with a QC recorder where rank 0 has one (the
+        # passes exchange its rows)
+        if qc_path or truth_path:
+            with obs.qc.scope():
+                return _run(args, argv, cfg, outdir, name, mode_auto,
+                            ckpt_dir=ckpt_dir, writer=False)
+        return _run(args, argv, cfg, outdir, name, mode_auto,
+                    ckpt_dir=ckpt_dir, writer=False)
     tracer = obs.install_tracer() if trace_path else None
     registry = obs.metrics.install() if metrics_path else None
     mem_sampler = obs.memory.install() if trace_path else None
@@ -386,9 +453,11 @@ def _report_pending_leaks() -> None:
 
 def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
          truth_path: Optional[str] = None,
-         ckpt_dir: Optional[str] = None) -> int:
+         ckpt_dir: Optional[str] = None, writer: bool = True) -> int:
     """Input read → task run → output write (→ accuracy scoring), all
-    inside the root ``run`` span; then the journal ``ckpt_dir`` goes."""
+    inside the root ``run`` span; then the journal ``ckpt_dir`` goes.
+    ``writer=False`` (a mesh rank but rank 0) runs the tasks and writes
+    nothing."""
     from proovread_tpu_torch import obs
     with obs.span("run", cat="run"):
         with obs.span("read-inputs", cat="io"):
@@ -433,16 +502,17 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
             log.info("mode %s: tasks %s", mode, " ".join(tasks))
 
             # parameter.log (bin/proovread:401-416)
-            with open(os.path.join(outdir, f"{name}.parameter.log"),
-                      "w") as fh:
-                fh.write(json.dumps({
-                    "argv": sys.argv if argv is None else [PROG] + argv,
-                    "mode": mode, "tasks": tasks,
-                    "n_long_reads": len(longs),
-                    "n_short_reads": len(shorts),
-                    "n_unitigs": len(utgs), "median_sr_len": min_sr_len,
-                    "config": cfg.data,
-                }, indent=2))
+            if writer:
+                with open(os.path.join(outdir, f"{name}.parameter.log"),
+                          "w") as fh:
+                    fh.write(json.dumps({
+                        "argv": sys.argv if argv is None else [PROG] + argv,
+                        "mode": mode, "tasks": tasks,
+                        "n_long_reads": len(longs),
+                        "n_short_reads": len(shorts),
+                        "n_unitigs": len(utgs), "median_sr_len": min_sr_len,
+                        "config": cfg.data,
+                    }, indent=2))
 
         from proovread_tpu_torch.pipeline.tasks import run_tasks
         with obs.span("tasks", cat="mode", mode=mode):
@@ -452,6 +522,8 @@ def _run(args, argv, cfg, outdir: str, name: str, mode_auto,
                 sampling=not args.no_sampling,
                 haplo_coverage=args.haplo_coverage, device=args.device,
                 sam=args.sam, bam=args.bam)
+        if not writer:
+            return 0
 
         # -- reference output layout (bin/proovread:904-956) --------------
         with obs.span("write-outputs", cat="io"):

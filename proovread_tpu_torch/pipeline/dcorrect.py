@@ -84,16 +84,32 @@ def device_reverse_rows(x: torch.Tensor, lengths: torch.Tensor
     return torch.where(j < ln, out, x)
 
 
+def admit_prefix(sspans, sbins, lr_sorted):
+    """The admission's span sums over the candidates in admission order
+    (``sspans``, kept candidates first, grouped by (read, bin) ``sbins``;
+    ``lr_sorted`` their reads): each one's inclusive f32 prefix sum and
+    the sum before its bin. The reference's f32 sums in its order
+    (``ops/scan.py``): past 2^24 summed bases they round, so a sum depends
+    on every candidate before it, of every read of the batch."""
+    cum = cumsum_f32_xla(sspans)
+    first = torch.searchsorted(sbins, sbins, side="left")
+    before = torch.where(first > 0, cum[torch.clamp(first - 1, min=0)], 0.0)
+    return cum, before
+
+
 def device_admit(lread, pos0, span, score, passed, ref_lens,
                  params: ConsensusParams,
-                 budget_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 budget_r: Optional[torch.Tensor] = None,
+                 prefix=admit_prefix) -> torch.Tensor:
     """Binned admission (consensus/alnset.py:admit_mask semantics): per
     (read, bin), candidates ranked by ncscore, admitted while the bin's
     span budget before them is <= bin_max_bases. The span sums are the
-    reference's f32 prefix sums in its order (``ops/scan.py``), so past
-    2^24 summed bases they round as the reference's do. ``budget_r`` (f32
-    [B]) caps the budget per read: flex mode's filter_by_coverage
-    (Sam/Seq.pm:1059-1084) expressed in the admission budget."""
+    reference's f32 prefix sums in its order (``admit_prefix``), so past
+    2^24 summed bases they round as the reference's do; a mesh's shard
+    passes ``prefix`` to sum its candidates where the whole batch's would
+    (``parallel/dmesh.py``). ``budget_r`` (f32 [B]) caps the budget per
+    read: flex mode's filter_by_coverage (Sam/Seq.pm:1059-1084) expressed
+    in the admission budget."""
     R = lread.shape[0]
     dev = lread.device
     if R == 0:
@@ -126,11 +142,8 @@ def device_admit(lread, pos0, span, score, passed, ref_lens,
     order = torch.argsort(-ncscore, stable=True)
     order = order[torch.argsort(primary[order], stable=True)]
     sbins = primary[order]
-    # the reference's f32 sums, in its order: past 2^24 bases they round
     sspans = torch.where(keep, spanf, 0.0)[order]
-    cum = cumsum_f32_xla(sspans)
-    first = torch.searchsorted(sbins, sbins, side="left")
-    before = torch.where(first > 0, cum[torch.clamp(first - 1, min=0)], 0.0)
+    cum, before = prefix(sspans, sbins, lr[order])
     cum_before = (cum - sspans) - before
     if budget_r is None:
         budget = float(params.bin_max_bases)
@@ -453,19 +466,21 @@ def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
                 sread, strand, lread, diag, n_cand: int,
                 m: int, W: int, CH: int, n_chunks: int,
                 ap: AlignParams, cns: ConsensusParams, collect: bool,
-                budget_r=None, haplo: bool = False):
+                budget_r=None, haplo: bool = False, prefix=admit_prefix):
     """One full correction pass over ``n_chunks`` chunks of CH candidate
     rows: the reference's unrolled pass for qual-weighted votes, else its
     scanned pass. Chunks that start at or past ``n_cand`` are dead: their
     rows carry the reference's dead-chunk values and are neither aligned
     nor voted. ``budget_r`` caps the admission budget per read; ``haplo``
     also returns the flex estimate (``estimate_haplo_coverage``) from the
-    pileup before the ref votes (the last of six outputs, else None)."""
+    pileup before the ref votes (the last of six outputs, else None);
+    ``prefix`` is the admission's span sums (``device_admit``)."""
     impl = _fused_pass_unrolled if cns.qual_weighted else _fused_pass_scanned
     return impl(map_codes, ignore_cols, codes, qual, lengths, q_codes,
                 rc_codes, q_qual, q_lengths, sread, strand, lread, diag,
                 n_cand, m=m, W=W, CH=CH, n_chunks=n_chunks, ap=ap, cns=cns,
-                collect=collect, budget_r=budget_r, haplo=haplo)
+                collect=collect, budget_r=budget_r, haplo=haplo,
+                prefix=prefix)
 
 
 class _PassRows:
@@ -530,7 +545,8 @@ def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
                         sread, strand, lread, diag, n_cand: int,
                         m: int, W: int, CH: int, n_chunks: int,
                         ap: AlignParams, cns: ConsensusParams,
-                        collect: bool, budget_r=None, haplo: bool = False):
+                        collect: bool, budget_r=None, haplo: bool = False,
+                        prefix=admit_prefix):
     """Unweighted votes (the reference's ``_fused_pass_scanned``): bsw v2
     per chunk, admission over the pass, then packed vote words into the
     bit-plane or the packed-word pileup kernel."""
@@ -571,7 +587,8 @@ def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
 
     with record_function("vote"):
         admitted = device_admit(lread, rows.pos0, rows.span, rows.score,
-                                rows.passed, lengths, cns, budget_r)
+                                rows.passed, lengths, cns, budget_r,
+                                prefix)
         pileup = torch.zeros((B, Lpile, PACK_LANES), dtype=torch.float32,
                              device=dev)
         use_bits = bits_pileup(cns)
@@ -621,7 +638,8 @@ def _fused_pass_unrolled(map_codes, ignore_cols, codes, qual, lengths,
                          sread, strand, lread, diag, n_cand: int,
                          m: int, W: int, CH: int, n_chunks: int,
                          ap: AlignParams, cns: ConsensusParams,
-                         collect: bool, budget_r=None, haplo: bool = False):
+                         collect: bool, budget_r=None, haplo: bool = False,
+                         prefix=admit_prefix):
     """Qual-weighted votes (the reference's ``_fused_pass_unrolled``): per
     chunk gather + bsw v1 (chunk 0 always, later chunks while they hold a
     candidate), admission over the pass, then per live chunk a dense
@@ -657,7 +675,8 @@ def _fused_pass_unrolled(map_codes, ignore_cols, codes, qual, lengths,
 
     with record_function("vote"):
         admitted = device_admit(lread, rows.pos0, rows.span, rows.score,
-                                rows.passed, lengths, cns, budget_r)
+                                rows.passed, lengths, cns, budget_r,
+                                prefix)
         pileup = torch.zeros((B, Lpile, PACK_LANES), dtype=torch.float32,
                              device=dev)
         for c, (st, qr, il, qs, qe, q, qq, ign) in enumerate(chunks):

@@ -31,7 +31,7 @@ fires at the device engine's bucket entry, each pass and the fused span.
 
 Supported: ``mode="sr"`` and ``mode="mr"`` (the mr task schedule:
 ``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N, ``BWA_MR_FINISH`` for
-the finish), flex on or off, one device, at any coverage (past
+the finish), flex on or off, one device or a mesh, at any coverage (past
 ``2*max_coverage+2 > 256`` votes per lane the passes take the f32
 packed-word pileup kernel). The short-read set is resident on the device
 within ``sr_device_budget`` and streamed above it (``_SrDevice``: a host
@@ -39,6 +39,14 @@ slice and one slab upload a pass, passes 2..N eager), with the same bits.
 ``debug_dir`` writes each bucket's admitted finish alignments as SAM
 (``dcorrect.dump_admitted_sam``). Every other setting raises
 ``NotImplementedError`` naming it.
+
+A mesh (``mesh_shards`` >= 2, ``parallel/dmesh.py``) runs where this
+process is a rank of a ``torch.distributed`` group (``parallel/launch.py``
+or ``torchrun``): every rank runs the same ``run`` on the same inputs, and
+each bucket's passes 1..N run sharded over the ranks under the ladder's
+mesh rungs, the finish on every rank over the gathered bucket. Only rank 0
+writes (the journal, ``debug_dir``); without a group the mesh clamps to
+one device with a warning.
 
 Serving (``serve/``) drives two hooks, both ``None`` on the batch path:
 ``_bucket_gate(gi, n_groups, records) -> records`` runs before each
@@ -80,6 +88,11 @@ from proovread_tpu_torch.io.batch import ReadBatch, pack_reads
 from proovread_tpu_torch.io.records import SeqRecord
 from proovread_tpu_torch.ops.assemble_kernel import mask_params_vec
 from proovread_tpu_torch.ops.encode import decode_codes
+from proovread_tpu_torch.parallel.dmesh import (build_sharded_step,
+                                                clear_step_cache,
+                                                make_dp_mesh, world)
+from proovread_tpu_torch.parallel.plan import (balance_placement,
+                                               moved_reads, shard_of_rows)
 from proovread_tpu_torch.pipeline.dcorrect import (DeviceCorrector,
                                                    _bucket_chunks,
                                                    detect_chimera_device,
@@ -94,11 +107,14 @@ from proovread_tpu_torch.pipeline.resilience import (LADDER,
                                                      CheckpointJournal,
                                                      bucket_key,
                                                      classify_fault,
+                                                     classify_mesh_fault,
+                                                     mesh_level,
                                                      run_fingerprint,
                                                      soft_deadline)
 from proovread_tpu_torch.pipeline.sampling import CoverageSampler
 from proovread_tpu_torch.pipeline.trim import TrimParams, trim_records
-from proovread_tpu_torch.testing.faults import FaultPlan
+from proovread_tpu_torch.testing.faults import (FaultPlan, MeshCapExceeded,
+                                                ShardStraggler)
 
 log = logging.getLogger("proovread_tpu_torch")
 
@@ -208,8 +224,8 @@ def _bucket_metrics(tb0: float, batch_recs) -> None:
 
 def _declare_metrics(reg) -> None:
     """Declare the reference's whole KPI catalog, so zero-valued series
-    still appear in the dump. The mesh, compile and retrace entries stay
-    0: the port has no mesh yet, and compiles nothing mid-run."""
+    still appear in the dump. The compile and retrace entries stay 0:
+    the port compiles nothing mid-run."""
     from proovread_tpu_torch.obs.qc import FUNNEL_KEYS
     c = reg.counter
     c("candidates_total", "candidates", "seed candidates probed by SW")
@@ -338,7 +354,6 @@ def _unsupported(cfg: PipelineConfig) -> Optional[str]:
     checks = (
         (cfg.engine not in ("device", "scan"), f"engine={cfg.engine!r}"),
         (cfg.mode not in ("sr", "mr"), f"mode={cfg.mode!r}"),
-        ((cfg.mesh_shards or 0) > 1, f"mesh_shards={cfg.mesh_shards}"),
     )
     for bad, name in checks:
         if bad:
@@ -453,6 +468,14 @@ class Pipeline:
         # serving hooks (module docstring); None on the batch path
         self._bucket_gate = None
         self._bucket_done = None
+        # this process's rank and world size (set per run), the mesh rungs'
+        # gloo group (made at the first mesh attempt, dropped after a
+        # failed one) and the groups dropped so (kept referenced: a group
+        # with a collective still pending in gloo's threads must not be
+        # destroyed mid-run)
+        self._rank, self._world = 0, 1
+        self._mesh_group = None
+        self._retired_groups: list = []
 
     def prepare_short_reads(self, short_records: Sequence[SeqRecord]
                             ) -> None:
@@ -510,6 +533,10 @@ class Pipeline:
              short_records: Sequence[SeqRecord]) -> PipelineResult:
         cfg = self.config
         dev = resolve(cfg.device)
+        self._rank, self._world = world()
+        # per-bucket mesh placement of the previous attempt (rebalance
+        # accounting), scoped to one run
+        self._mesh_prev_shard: Dict[int, np.ndarray] = {}
         sr_lens = np.array([len(r) for r in short_records])
         min_sr_len = int(np.median(sr_lens)) if len(sr_lens) else 100
 
@@ -536,11 +563,9 @@ class Pipeline:
                         len(self._faults.rules))
         journal = None
         if cfg.checkpoint_dir:
-            journal = CheckpointJournal(
-                cfg.checkpoint_dir,
+            journal = self._open_journal(
                 run_fingerprint(cfg, [r.id for r in kept],
-                                len(short_records)),
-                resume=cfg.resume)
+                                len(short_records)))
             if cfg.resume:
                 log.info("resume: checkpoint journal at %s holds %d "
                          "completed bucket(s)", cfg.checkpoint_dir,
@@ -662,6 +687,22 @@ class Pipeline:
         trimmed = trim_records(results, cfg.trim)
         return PipelineResult(untrimmed, trimmed, ignored, all_chim, reports)
 
+    def _open_journal(self, fingerprint: str) -> CheckpointJournal:
+        """The checkpoint journal. In a group of ranks only rank 0 writes
+        it; the others open it read-only once rank 0 has (a barrier), so
+        they replay the same buckets and keep in step."""
+        cfg = self.config
+
+        def open_(writer):
+            return CheckpointJournal(cfg.checkpoint_dir, fingerprint,
+                                     resume=cfg.resume, writer=writer)
+        if self._world == 1:
+            return open_(True)
+        import torch.distributed as dist
+        journal = open_(True) if self._rank == 0 else None
+        dist.barrier()
+        return journal if journal is not None else open_(False)
+
     def _make_sr_device(self, sr_all: ReadBatch, dev) -> _SrDevice:
         """The short-read set on the device: resident within
         ``sr_device_budget``, streamed a slab a pass above it."""
@@ -698,6 +739,33 @@ class Pipeline:
                              pack_reads(short_records, pad_multiple=128))
         return self._sr_scan[1]
 
+    def _mesh_shards_effective(self) -> int:
+        """Configured mesh width, clamped to the ranks of this process's
+        group (1 without one). Flex mode stays single-device: its per-pass
+        haplo budget refresh cannot ride the sharded step."""
+        cfg = self.config
+        n = int(cfg.mesh_shards or 0)
+        if n < 2:
+            return 0
+        if cfg.haplo_coverage is not None:
+            log.warning("mesh: flex mode (haplo-coverage) runs "
+                        "single-device; ignoring mesh_shards=%d", n)
+            return 0
+        if self._world < n:
+            log.warning("mesh: only %d device(s) visible; clamping "
+                        "mesh_shards %d -> %d", self._world, n, self._world)
+            n = self._world
+        return n if n >= 2 else 0
+
+    def _retire_mesh_group(self) -> None:
+        """After a failed mesh attempt (on every rank: its faults fire on
+        every rank, and a real one makes the others' collectives time
+        out) no later attempt reuses its group; the next makes a new one."""
+        if self._mesh_group is not None:
+            self._retired_groups.append(self._mesh_group)
+            self._mesh_group = None
+            clear_step_cache()
+
     def _run_bucket_resilient(self, gi, batch_recs, sr_dev, short_records,
                               sampler, coverage, min_sr_len, reports, Lp,
                               dev):
@@ -707,7 +775,15 @@ class Pipeline:
         stream and the counters. Other exceptions propagate. Each attempt
         restarts the bucket from its records with the sampler rotation,
         the KPI counters and the QC records rewound, so a retried bucket
-        equals a fresh run at that rung."""
+        equals a fresh run at that rung.
+
+        With a mesh (``cfg.mesh_shards``), the mesh rung tops the walk:
+        ``mesh-dpN`` -> on an attributable ``device_lost`` or
+        ``straggler``, the same rung re-entered at ``mesh-dp(N-1)`` with
+        the failed shard excluded and its reads rebalanced onto the
+        survivors, while at least 2 shards survive; every other mesh fault
+        (``shard_oom``, ``collective_timeout``, a cap overflow, a straggler
+        no shard can be blamed for) retreats to the single-device rungs."""
         cfg = self.config
         levels = list(LADDER) if cfg.ladder else [LADDER[0]]
         if cfg.ladder:
@@ -721,10 +797,21 @@ class Pipeline:
             levels = [lv for lv in levels
                       if (lv.host or lv.chunk_div == 1
                           or self._level_chunk(lv) != cfg.device_chunk)]
+        mesh_n = self._mesh_shards_effective()
+        if mesh_n >= 2:
+            # the mesh rung tops the walk; with the ladder off it IS the
+            # walk (fail fast on the first mesh fault, like every rung)
+            levels = ([mesh_level(mesh_n)] + levels if cfg.ladder
+                      else [mesh_level(mesh_n)])
+        # ORIGINAL shard ordinals the mesh ladder has excluded for this
+        # bucket; the shrunken rung's ranks are derived from it
+        mesh_failed: List[int] = []
         reg = obs.metrics.current()
         qc_rec = obs.qc.current()
         qc_ids = [r.id for r in batch_recs] if qc_rec is not None else []
-        for li, level in enumerate(levels):
+        li = 0
+        while li < len(levels):
+            level = levels[li]
             n_rep0 = len(reports)
             sampler_fc0 = sampler.first_chunk
             m_snap = reg.snapshot() if reg is not None else None
@@ -743,10 +830,26 @@ class Pipeline:
                     return self._run_batch_device(
                         batch_recs, sr_dev, len(short_records), sampler,
                         coverage, min_sr_len, reports, Lp, dev, gi=gi,
-                        level=level)
+                        level=level, mesh_failed=mesh_failed,
+                        mesh_n0=mesh_n)
             except Exception as e:                      # noqa: BLE001
-                kind = classify_fault(e)
-                if kind is None or not cfg.ladder or li == len(levels) - 1:
+                if level.mesh >= 2:
+                    self._retire_mesh_group()
+                mesh_kind = classify_mesh_fault(e)
+                kind = mesh_kind[0] if mesh_kind else classify_fault(e)
+                # an attributable chip loss or straggler with >= 2
+                # survivors re-enters the mesh rung shrunken by the failed
+                # shard; this consumes no rung, and it ends: each shrink
+                # excludes one original shard for good
+                shard = mesh_kind[1] if mesh_kind else None
+                shrink = (cfg.ladder and level.mesh >= 2
+                          and mesh_kind is not None
+                          and mesh_kind[0] in ("device_lost", "straggler")
+                          and shard is not None and 0 <= shard < mesh_n
+                          and shard not in mesh_failed
+                          and level.mesh - 1 >= 2)
+                if kind is None or not cfg.ladder or (
+                        li == len(levels) - 1 and not shrink):
                     raise
                 head = (str(e).splitlines() or [""])[0][:160]
             # the failed attempt is over and its exception dropped: its
@@ -763,12 +866,27 @@ class Pipeline:
                 reg.restore(m_snap)
             if qc_rec is not None:
                 qc_rec.restore(qc_ids, qc_snap)
-            nxt = levels[li + 1]
+            if shrink:
+                mesh_failed.append(shard)
+                nxt = levels[li] = mesh_level(level.mesh - 1)
+            else:
+                li += 1
+                nxt = levels[li]
             obs.metrics.counter("device_faults", unit="faults").inc(
                 1, kind=kind)
             obs.metrics.counter("resilience_demotions",
                                 unit="demotions").inc(1, to_rung=nxt.name)
-            at = f"rung '{level.name}'"
+            if mesh_n >= 2 and (mesh_kind is not None or level.mesh >= 2):
+                # shard-attributed mesh accounting (obs/validate.py
+                # MESH_COUNTERS): which shard, which fault, where the
+                # bucket landed
+                obs.metrics.counter("mesh_faults", unit="faults").inc(
+                    1, kind=kind,
+                    shard=(str(shard) if shard is not None else "?"))
+                obs.metrics.counter("mesh_demotions", unit="demotions").inc(
+                    1, to_rung=nxt.name)
+            at = (f"shard {shard} of rung '{level.name}'"
+                  if shard is not None else f"rung '{level.name}'")
             note = (f"{kind} fault at {at}: demoted "
                     f"bucket {gi} to '{nxt.name}' — {head}")
             reports.append(TaskReport(f"demote-b{gi}", 0.0, 0, 0, note=note))
@@ -778,10 +896,12 @@ class Pipeline:
 
     def _run_batch_device(self, batch_recs, sr_dev, n_short, sampler,
                           coverage, min_sr_len, reports, Lp, dev, gi=0,
-                          level=None):
+                          level=None, mesh_failed=(), mesh_n0=0):
         """The device engine on one bucket at a ladder rung (``level``,
         default the top 'fused' one): pass 1 eager, passes 2..N fused or
-        eager (all eager in flex mode), the finish pass."""
+        eager (all eager in flex mode), the finish pass. At a mesh rung
+        (``level.mesh >= 2``) passes 1..N run sharded over the ``mesh_n0``
+        original shards but the ``mesh_failed`` ones (``_mesh_passes``)."""
         from proovread_tpu_torch.pipeline.dcorrect import (
             qc_finish_support, qc_pass_row_stats, qc_row_mask_counts)
         cfg = self.config
@@ -791,7 +911,11 @@ class Pipeline:
         if faults is not None and faults.active:
             faults.check(gi)                    # bucket-entry site
         B0 = len(batch_recs)
-        rows = batch_rows(B0, cfg.batch_reads)
+        rows = max(batch_rows(B0, cfg.batch_reads), B0)
+        if level.mesh >= 2:
+            # every shard carries rows/mesh reads; the 8-base pad
+            # sentinels seed nothing, so they are near-zero placement load
+            rows = -(-rows // level.mesh) * level.mesh
         pad_recs = [SeqRecord(f"_pad{i}", "A" * 8) for i in range(rows - B0)]
         lr = pack_reads(list(batch_recs) + pad_recs, pad_len=Lp)
         dc = self._get_dc(self._level_chunk(level))
@@ -870,7 +994,12 @@ class Pipeline:
                     or new_frac - prev_frac < cfg.mask_min_gain_frac)
 
         flex_budget = None
-        if cfg.haplo_coverage is not None:
+        if level.mesh >= 2:
+            codes, qual, lengths, masked_frac = self._mesh_passes(
+                gi, lr, B0, codes, qual, lengths, dc, cns, sr_dev, select,
+                inj, mask_p, reports, mesh_failed, mesh_n0)
+            first_fused = cfg.n_iterations + 1       # no fused passes
+        elif cfg.haplo_coverage is not None:
             # -- flex mode (proovread-flex): every pass eager, each pass's
             # estimate tightening its own admission budget, as a running
             # minimum over the passes (once masking hides the variant
@@ -1055,7 +1184,7 @@ class Pipeline:
                 for o in out_res:
                     if o.chimera:
                         qc_rec.record_chimera(o.record.id, o.chimera)
-            if cfg.debug_dir:
+            if cfg.debug_dir and self._rank == 0:
                 self._dump_finish(aln, lr.ids[:B0], lens_h[:B0], fin_sel)
             frac_phred0 = (float(np.mean([o.masked_frac for o in out_res]))
                            if out_res else 0.0)
@@ -1066,6 +1195,132 @@ class Pipeline:
         chim = [(o.record.id, f, t, s) for o in out_res
                 for (f, t, s) in o.chimera]
         return out_res, chim
+
+    def _mesh_passes(self, gi, lr, B0, codes, qual, lengths, dc, cns, sr_dev,
+                     select, inj, mask_p, reports, mesh_failed, mesh_n0):
+        """Passes 1..N of one bucket through the sharded step
+        (``parallel/dmesh.py``) over the alive shards: the reads placed
+        candidate-balanced (``balance_placement``), this rank's shard
+        corrected on its device, each pass's sums all-reduced. The fused
+        loop never runs here: each pass is its own step, and its QC rows
+        come back with its sums. Returns the whole bucket's state, gathered
+        from the shards back into natural row order on every rank (the
+        finish pass stays single-device), and the last masked fraction."""
+        cfg = self.config
+        faults = self._faults
+        dev = codes.device
+        qc_rec = obs.qc.current()
+        alive = [s for s in range(mesh_n0) if s not in mesh_failed]
+        if self._mesh_group is None:
+            self._mesh_group = make_dp_mesh(ranks=alive).group
+        mesh = make_dp_mesh(ranks=alive, group=self._mesh_group)
+        # the state lives in placement order for the whole loop and is
+        # un-permuted once at the end: per-read results are exact under
+        # any placement, so it may change between attempts (that change IS
+        # the rebalance)
+        order = balance_placement(lr.lengths, len(alive))
+        qc_sel = np.flatnonzero(order < B0)
+        qc_row_ids = [lr.ids[int(order[j])] for j in qc_sel]
+        # rows the single-device run would also carry (its base pads
+        # included): only these enter the masked-fraction sums
+        row_valid = order < max(batch_rows(B0, cfg.batch_reads), B0)
+        cur_shard = shard_of_rows(order, len(alive))
+        moved = moved_reads(self._mesh_prev_shard.get(gi), cur_shard, B0)
+        self._mesh_prev_shard[gi] = cur_shard
+        m = obs.metrics
+        m.gauge("mesh_shards_configured", unit="shards").set(mesh_n0)
+        m.gauge("mesh_shards_active", unit="shards").set(len(alive))
+        m.gauge("mesh_rebalanced_reads", unit="reads").set(moved)
+        log.info("mesh: bucket %d over %d shard(s)%s — %d read(s) "
+                 "rebalanced", gi, len(alive),
+                 f" (lost: {sorted(mesh_failed)})" if mesh_failed else "",
+                 moved)
+        S = len(order) // len(alive)
+        k = mesh.shard
+        mask_cols = None
+        if k is None:
+            codes = qual = lengths = None
+        else:
+            mine = torch.as_tensor(order[k * S:(k + 1) * S], device=dev)
+            codes, qual, lengths = codes[mine], qual[mine], lengths[mine]
+            mask_cols = torch.zeros(codes.shape, dtype=torch.bool,
+                                    device=dev)
+        masked_frac = -cfg.mask_min_gain_frac
+        task = f"bwa-{cfg.mode[:2]}"
+        # the samples of passes 2..N, drawn up front after pass 1 as the
+        # single-device run's fused loop draws them (and with a uniform
+        # schedule its other top rungs): the sampler's rotation after a
+        # shortcut, and with it the finish's sample and the next buckets',
+        # is then one device's
+        sels = None
+        for it in range(1, cfg.n_iterations + 1):
+            if it == 2 and _uniform_rest(cfg):
+                sels = [select(cfg.sr_coverage)
+                        for _ in range(2, cfg.n_iterations + 1)]
+            step = build_sharded_step(
+                mesh, _align_params_cfg(cfg, it), cns,
+                chunks_per_shard=cfg.mesh_chunks_per_shard, chunk=dc.chunk,
+                seed_stride=cfg.seed_stride, collect_qc=qc_rec is not None)
+            with obs.span(f"{task}-{it}", cat="pass", bucket=gi,
+                          mesh=len(alive)):
+                inj(it)
+                if faults is not None and faults.active:
+                    for s in alive:     # dropped shards never refire
+                        faults.check_mesh(s, it)
+                qcq, rcq, qq, qlen = sr_dev.take(
+                    select(cfg.sr_coverage) if sels is None else sels[it - 2])
+                pvec = mask_params_vec(mask_p(it))
+                # the all-reduce parks every rank until the slowest shard
+                # is done: the pass deadline turns a straggler into a
+                # classified mesh fault instead of an unbounded wait
+                with soft_deadline(cfg.mesh_pass_timeout,
+                                   what=f"bucket {gi} pass {it} (mesh)",
+                                   exc=ShardStraggler):
+                    state, sums, stats = step(codes, qual, lengths,
+                                              mask_cols, row_valid, order,
+                                              qcq, rcq, qq, qlen, pvec)
+                if state is not None:
+                    codes, qual, lengths, mask_cols = state
+                masked_i, total_i, n_adm, n_elig, n_cand, n_drop = (
+                    int(v) for v in sums)
+                if n_drop > 0:
+                    # truncated output would depend on the mesh's shape:
+                    # retreat to the single-device rung (dynamic chunks)
+                    raise MeshCapExceeded(
+                        f"sharded pass {it} would drop {n_drop} "
+                        f"candidate(s) at the per-shard cap "
+                        f"({cfg.mesh_chunks_per_shard} x {dc.chunk} rows) "
+                        "— raise mesh_chunks_per_shard or device_chunk")
+                if qc_rec is not None:
+                    mrow, nlen, ed, up = stats
+                    qc_rec.record_pass(qc_row_ids, mrow[qc_sel],
+                                       nlen[qc_sel])
+                    qc_rec.record_edits(qc_row_ids, ed[qc_sel], up[qc_sel])
+                # the fraction divides the summed integers on the host, in
+                # f32 like every rung: the shortcut is mesh-shape-invariant
+                new_frac = float(np.float32(masked_i)
+                                 / np.float32(max(total_i, 1)))
+                gain = new_frac - masked_frac
+                masked_frac = new_frac
+                _record_report(reports, TaskReport(
+                    f"{task}-{it}", masked_frac, n_cand, n_adm,
+                    n_dropped_cov=max(0, n_elig - n_adm)))
+                m.counter("mesh_passes", unit="passes").inc()
+                log.info("%s-%d: masked %.1f%% (mesh:%d)", task, it,
+                         masked_frac * 100, len(alive))
+            if (masked_frac > cfg.mask_shortcut_frac
+                    or gain < cfg.mask_min_gain_frac):
+                m.counter("mask_shortcut_hits", unit="events").inc()
+                break
+        Lp = lr.codes.shape[1]
+        like = [((S, Lp), torch.int8), ((S, Lp), torch.uint8),
+                ((S,), torch.int32)]
+        full = mesh.gather_shards(
+            None if k is None else [t.cpu() for t in (codes, qual, lengths)],
+            like)
+        inv = torch.as_tensor(np.argsort(order))
+        codes, qual, lengths = (t[inv].to(dev) for t in full)
+        return codes, qual, lengths, masked_frac
 
     def _dump_finish(self, aln, lr_ids, lr_lens, sel) -> None:
         """``debug_dir``: the finish pass's admitted alignments of a bucket

@@ -39,8 +39,12 @@ or killed run restarted with ``--resume`` replays completed buckets from the
 journal; the sampler rotation restores, so later buckets draw the same
 short-read subsets and the output is byte-identical to an uninterrupted run.
 
-The mesh rungs (``mesh_level``, ``classify_mesh_fault``) come with the
-multi-device mesh.
+**Mesh rungs** (:func:`mesh_level`, :func:`classify_mesh_fault`): with
+``mesh_shards`` set, a bucket first runs its iteration passes sharded over
+the ranks of a ``torch.distributed`` group (``parallel/dmesh.py``), one
+rung ``mesh-dpN`` above this ladder. An attributable chip loss or straggler
+re-enters that rung with the shard excluded, while at least 2 shards
+survive; every other mesh fault retreats to the single-device rungs.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from proovread_tpu_torch.kernels import KernelBuildError, KernelLaunchError
 from proovread_tpu_torch.obs import metrics as obs_metrics
 from proovread_tpu_torch.testing.faults import (BucketTimeout, InjectedFault,
                                                 InjectedMeshFault,
+                                                ShardStraggler,
                                                 WallClockExceeded)
 
 log = logging.getLogger("proovread_tpu_torch")
@@ -83,8 +88,13 @@ _KERNEL_MARKS = ("Mosaic", "Pallas", "mosaic")
 _TIMEOUT_MARKS = ("DEADLINE_EXCEEDED",)
 _DEVICE_LOST_MARKS = ("device lost", "Device lost", "device is gone",
                       "failed to query device")
+# the reference's marks, then gloo's own timeout: the waiting rank's
+# "[.../gloo/transport/tcp/unbound_buffer.cc:78] Timed out waiting 2000ms
+# for recv operation to complete" (or "send"), and its peer's "Application
+# timeout caused pair closure"
 _COLLECTIVE_MARKS = ("collective", "all-reduce", "AllReduce", "NCCL",
-                     "cross-replica")
+                     "cross-replica", "Timed out waiting",
+                     "timeout caused pair closure")
 # a CUDA error reported by torch (``CUDA error: an illegal memory access
 # was encountered ... Compile with TORCH_USE_CUDA_DSA``): it may be sticky
 # and poison the context, so it is never absorbed, whatever marks it holds
@@ -143,6 +153,27 @@ def classify_fault(exc: BaseException) -> Optional[str]:
                         (_COMPILE_MARKS, "compile")):
         if any(s in msg for s in marks):
             return kind
+    return None
+
+
+def classify_mesh_fault(exc: BaseException):
+    """``(kind, shard)`` for faults the MESH ladder handles specially, or
+    ``None`` for everything else. ``kind`` is one of
+    ``testing.faults.MESH_KINDS`` (or ``cap_overflow``); ``shard`` is the
+    implicated ORIGINAL shard ordinal, or ``None`` when the fault cannot
+    name one (a real straggler deadline, a gloo timeout): an
+    unattributable mesh fault retreats to single-device instead of
+    guessing which rank to drop."""
+    if isinstance(exc, InjectedMeshFault):
+        return exc.kind, exc.shard
+    if isinstance(exc, ShardStraggler):
+        return "straggler", exc.shard
+    if isinstance(exc, RuntimeError):
+        msg = str(exc)
+        if any(s in msg for s in _DEVICE_LOST_MARKS):
+            return "device_lost", None
+        if any(s in msg for s in _COLLECTIVE_MARKS):
+            return "collective_timeout", None
     return None
 
 
@@ -308,6 +339,17 @@ class LadderLevel:
     # changes no output, so the port runs the same kernels at this rung
     windowed: bool = False
     host: bool = False         # the engine="scan" path
+    # >= 2: run the iteration passes through the sharded step over this
+    # many alive shards (parallel/dmesh.py). The mesh rungs sit ABOVE
+    # this per-bucket ladder: full mesh -> shrunken mesh (the failed shard
+    # dropped, its reads rebalanced; the driver re-enters the rung with
+    # mesh-1 while >= 2 shards survive) -> the single-device rungs below
+    mesh: int = 0
+
+
+def mesh_level(n_shards: int) -> LadderLevel:
+    """The mesh rung over ``n_shards`` alive shards."""
+    return LadderLevel(f"mesh-dp{n_shards}", mesh=n_shards)
 
 
 LADDER: Tuple[LadderLevel, ...] = (
@@ -407,15 +449,25 @@ class CheckpointJournal:
     and the chimera breakpoints (the trim split). The auxiliary
     ``ConsensusResult`` fields (freqs/coverage/cigar/emit_counts) are
     consumed *during* the bucket and are not persisted; replayed buckets
-    carry empty ones."""
+    carry empty ones.
+
+    ``writer=False`` opens the journal of another process read-only (the
+    ranks of a mesh run other than rank 0): it loads the entries a resume
+    replays and writes, clears and creates nothing."""
 
     META = "meta.json"
 
-    def __init__(self, path: str, fingerprint: str, resume: bool):
+    def __init__(self, path: str, fingerprint: str, resume: bool,
+                 writer: bool = True):
         self.path = path
         self.fingerprint = fingerprint
+        self.writer = writer
         self.hits = 0
         self.entries = {}
+        if not writer:
+            if resume and self._meta_matches():
+                self._load()
+            return
         os.makedirs(path, exist_ok=True)
         meta_path = os.path.join(path, self.META)
         stale = False
@@ -439,6 +491,13 @@ class CheckpointJournal:
         os.replace(meta_path + ".tmp", meta_path)
         if resume and not stale:
             self._load()
+
+    def _meta_matches(self) -> bool:
+        try:
+            with open(os.path.join(self.path, self.META)) as fh:
+                return json.load(fh).get("fingerprint") == self.fingerprint
+        except (OSError, json.JSONDecodeError):
+            return False
 
     def _clear(self) -> None:
         for name in os.listdir(self.path):
@@ -469,6 +528,8 @@ class CheckpointJournal:
         (QC off) writes no ``qc`` key; a later QC-on resume then treats
         the entry as a miss (``get(require_qc=True)``) rather than
         replaying a bucket whose provenance was never recorded."""
+        if not self.writer:
+            return
         entry = {
             "key": key, "bucket": bucket,
             "sampler_first_chunk": int(sampler_first_chunk),

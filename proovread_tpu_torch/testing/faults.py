@@ -12,9 +12,9 @@ at an exact bucket/pass site inside ``pipeline/driver.py``, so the
 degradation ladder and the checkpoint/resume journal
 (``pipeline/resilience.py``) are testable on the CPU. The port's driver
 calls the device sites (``check``, ``check_span``), the server
-(``serve/``) the job sites and the fleet dispatcher the fleet sites; the
-mesh sites belong to the multi-device mesh, which the port does not run
-yet.
+(``serve/``) the job sites, the fleet dispatcher the fleet sites and the
+driver's mesh loop the mesh sites (``check_mesh``, each rank for every
+alive shard, so every rank raises the same fault at the same pass).
 
 Spec grammar (semicolon- or comma-separated rules)::
 

@@ -24,7 +24,7 @@ Port-only runs hold the journal: the default command writes what
 The two runs are subprocesses at the lowest CPU priority: the
 reference's side runs its kernels in interpret mode for a minute or more
 and shares the machine with the suite's other workers. Also: every flag
-the port does not run returns 2 naming itself."""
+the port does not run returns 2 naming itself, and the mesh flags run."""
 
 import json
 import os
@@ -200,8 +200,7 @@ def test_cli_trace_qc_and_metrics_pass_the_validators(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["serve", "-s", "s.fq", "--socket", "s.sock", "--state-dir", "st",
-     "--compile-cache"], ["--mesh-shards", "2"],
-    ["--mesh-pass-timeout", "5"],
+     "--compile-cache"],
     ["--compile-ledger", "c.jsonl"], ["--compile-cache"],
     ["--xprof", "xp"]], ids=lambda f: f[0])
 def test_refused_flags_name_themselves(tmp_path, capsys, flag):
@@ -214,6 +213,31 @@ def test_refused_flags_name_themselves(tmp_path, capsys, flag):
     assert tmain(argv) == 2
     assert flag[0] in capsys.readouterr().err
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh-shards", "2"],
+    ["--mesh-shards", "2", "--mesh-pass-timeout", "300"]],
+    ids=["--mesh-shards", "--mesh-pass-timeout"])
+def test_mesh_flags_run(tmp_path, capsys, flags):
+    """The mesh flags run (they were refused before the mesh was ported):
+    the command starts two ranks on the CPU, rank 0 writes the outputs,
+    and a pass budget bounds each sharded pass's wait.
+    ``tests/test_torch_dmesh.py`` holds the files equal to the
+    single-device command's."""
+    lp, sp = _inputs(tmp_path, 100, 10)
+    cfg = tmp_path / "c.cfg"
+    cfg.write_text(json.dumps({"batch-reads": 8, "device-chunk": 128}))
+    out = str(tmp_path / "res")
+    assert tmain(["-l", lp, "-s", sp, "-p", out, "--device", "cpu", "-q",
+                  "-c", str(cfg), *flags]) == 0
+    assert "error" not in capsys.readouterr().err
+    assert sorted(os.listdir(out)) == sorted(
+        f"res.{f}" for f in OUTPUTS + ("parameter.log",))
+    logged = json.loads((tmp_path / "res" / "res.parameter.log").read_text())
+    assert logged["config"]["mesh-shards"] == 2
+    assert logged["config"]["mesh-pass-timeout"] == (
+        300.0 if "--mesh-pass-timeout" in flags else None)
 
 
 @pytest.mark.parametrize("key", ["compile-ledger", "compile-cache-dir"])

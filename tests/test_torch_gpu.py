@@ -838,3 +838,24 @@ def test_two_replica_threads_on_one_card(cuda, tmp_path):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert got == want
+
+
+def test_mesh2_on_one_card_equals_single_device(cuda):
+    """Two ranks on the card (``parallel/launch.py``) at mesh 2 equal the
+    single-device run on the mesh drill's workload: records and the QC
+    aggregate (identity scores included) byte for byte, no demotion, and
+    bsw v2 launched in both ranks."""
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.parallel import smoke
+    from proovread_tpu_torch.parallel.launch import launch
+    longs, srs, truth = smoke.workload()
+    agg, _, res = smoke.run(longs, srs, truth,
+                            config=smoke.pcfg(device="cuda"))
+    mesh = launch(2, smoke.pipeline_on_ranks, longs, srs, truth,
+                  smoke.pcfg(device="cuda", mesh_shards=2),
+                  (bsw.bsw_expand_v2,), device="cuda", timeout=600)
+    assert mesh["agg"] == agg
+    assert mesh["untrimmed"] == smoke.records_of(res.untrimmed)
+    assert mesh["trimmed"] == smoke.records_of(res.trimmed)
+    assert not mesh["notes"]
+    assert all(c["bsw_expand_v2"] > 0 for c in mesh["launches"])

@@ -1,7 +1,9 @@
 """The port stands alone: no ``jax`` and no ``proovread_tpu`` imports (the
-serving layer and the validators included), CUDA asked for without a card
-raises, threads that ask for the kernel library at once build it once, unsupported settings raise
-``NotImplementedError`` naming the setting, and the resilience settings
+serving layer, the validators and the mesh included), CUDA asked for
+without a card raises, threads that ask for the kernel library at once
+build it once, unsupported settings raise ``NotImplementedError`` naming
+the setting, a mesh without a process group clamps to one device, and the
+resilience settings
 (the journal, resume, a bucket timeout, fault injection, the scan engine),
 flex mode (``haplo_coverage`` bare and explicit), the streaming regime and
 ``debug_dir`` run."""
@@ -75,7 +77,12 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.serve.cli, "
             "proovread_tpu_torch.serve.fleet, "
             "proovread_tpu_torch.serve.loadgen, "
-            "proovread_tpu_torch.serve.smoke\n"
+            "proovread_tpu_torch.serve.smoke, "
+            "proovread_tpu_torch.parallel, "
+            "proovread_tpu_torch.parallel.plan, "
+            "proovread_tpu_torch.parallel.dmesh, "
+            "proovread_tpu_torch.parallel.launch, "
+            "proovread_tpu_torch.parallel.smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")
@@ -109,13 +116,32 @@ def test_cuda_without_card_raises():
 @pytest.mark.parametrize("setting,kw", [
     ("engine", dict(engine="host")),
     ("mode", dict(mode="utg")),
-    ("mesh_shards", dict(mesh_shards=2)),
 ])
 def test_unsupported_settings_raise(setting, kw):
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
     cfg = PipelineConfig(device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=setting):
         Pipeline(cfg).run(*_tiny())
+
+
+def test_mesh_without_group_clamps_to_one_device(caplog):
+    """``mesh_shards=2`` in a process of no ``torch.distributed`` group
+    clamps to one device with the reference's warning (its clamp to the
+    devices it sees), and the run equals the single-device run."""
+    import logging
+    from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
+    kw = dict(device="cpu", n_iterations=2, device_chunk=128,
+              host_chunk_rows=512)
+    with caplog.at_level(logging.WARNING, logger="proovread_tpu_torch"):
+        res = Pipeline(PipelineConfig(mesh_shards=2, **kw)).run(*_tiny())
+    assert "clamping mesh_shards 2 -> 1" in caplog.text
+    one = Pipeline(PipelineConfig(**kw)).run(*_tiny())
+
+    def key(r):
+        return [(x.id, x.seq, bytes(x.qual)) for x in r.untrimmed], [
+            (x.task, x.masked_frac, x.n_candidates) for x in r.reports]
+    assert key(res) == key(one)
+    assert not res.metrics["counters"]["mesh_passes"]["series"]
 
 
 @pytest.mark.parametrize("kw", [
