@@ -219,17 +219,40 @@ any failure exits non-zero:
    rank's launches of bsw v2, the bit-plane pileup, assemble and HCR (each
    above 0); then the mesh fault drill (``parallel/smoke.drill``: four
    ranks on the card, the five phases of ``python -m
-   proovread_tpu_torch.parallel.smoke``).
+   proovread_tpu_torch.parallel.smoke``);
+19. the kernel build's own account (``phase19``): a kernel-build artifact
+   built (``analysis/factory.py --artifact``, ``nvcc`` afresh), its
+   manifest valid under the port's validator and verified, a copy with
+   its library truncated and one with its version edited both refused; a
+   cold and an artifact boot measured in subprocesses (``obs/boot.py
+   run``: the cold one builds, the artifact one compiles nothing, no
+   violation, hit rate 1.0; walls, torch import and CUDA-context seconds
+   logged); phase 4's workload, uncut, through ``Pipeline.run`` in a fresh
+   process under the profiler, a span tracer and a compile ledger with an
+   empty library cache (``profiled_run``, started first and run beside the
+   rest), so the build lands inside the run: its records byte-equal to
+   phase 4's, its ledger valid and reconciling with the trace, one build
+   window that ran ``nvcc``, each kernel entry's ``kernel_flops_total``
+   the cost models' sum over the calls that launched and its launches
+   ``count_launch``'s, the roofline printed with a share of the card's
+   peak for rows 1-4; config 4 through the command line plain and with
+   ``--trace --xprof --compile-ledger --compile-cache`` (a verified copy
+   of the artifact): the five files equal, the library a cache hit, the
+   profiler's trace naming the port's kernels and the span ranges; and
+   ``serve --boot-from-artifact`` answering config 4's reads as one job,
+   its ``boot.json`` a valid row with a cache hit and no violation.
 
 Every trace, metrics, QC and truth-sidecar artifact the command-line runs
 write (phases 3, 7, 8, 11-13, both sides of phase 3's twins) passes the
 port's own validators (``obs/validate.py``) too.
 
 The main process runs phases 2-7, 11, 9, 10, 14 and 17 in that order.
-From the end of phase 6 on, two lanes (``Lane``: a second
+From the end of phase 6 on, three lanes (``Lane``: a second
 ``chip_smoke.py`` each, ``--skip`` every other phase and ``--lane-out``)
-run phases 13, 8 and 16, and phases 12, 15 and 18, beside it, each lane on
-its own copy of phase 4's workload; their logs are printed after phase 17.
+run phases 13, 8 and 16, phases 12, 15 and 18, and phase 19 beside it,
+the first two each on its own copy of phase 4's workload (phase 19's
+subprocesses build, boot and profile on their own); their logs are
+printed after phase 17.
 Phases 9-12, 15 and 16 use phase 7's short reads. Each phase logs its wall
 and when it ended in seconds of its process. Phases 4-18 each reset every kernel's launch count
 just before and read them just after; each fails if a kernel of its path
@@ -511,6 +534,13 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float | None = None):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound_of(counts, ops_per_s: float | None = None):
+    """``bound`` of (operations, bytes) as ``obs/profile.py``'s count
+    functions give them."""
+    n_ops, n_bytes = counts
+    return bound(n_bytes, n_ops, ops_per_s)
+
+
 def dp_rows(qlen, m: int) -> float:
     """Banded DP rows a bsw launch needs: each candidate's query length,
     at most m (the kernel stops at the query's end)."""
@@ -623,17 +653,17 @@ def check_bsw(rng, dev, ap, label, m=112, ql=100):
                              f"{n_ins} insertion columns)")
     tm = launcher_times(lambda: bsw._bsw_cuda(*args, ap),
                         KERNEL_NAMES["bsw"])
-    S = args[0].shape[0]
-    n_bytes = (2 * S * m + args[2].numel() + 5 * R * 4
-               + 5 * R * n * 4 + R * 4 + 5 * R * 4)
-    # f32 operations each banded DP cell needs, whatever the design: the
-    # substitution score (compare, select, add to the diagonal), the
-    # insertion and deletion gaps (two subtracts, a max and the direction
-    # compare each), H (three maxima) and its two source compares. None of
-    # them is an FMA, so they run at the unfused rate (f32_ops_per_s). Only
-    # rows up to each query's length are needed.
-    ops_per_cell = 16
-    b_ms, b_by = bound(n_bytes, dp_rows(args[3], m) * W * ops_per_cell)
+    # the count of obs/profile.py's model (bsw_v2_counts): 16 f32
+    # operations each banded DP cell needs, whatever the design (the
+    # substitution score: compare, select, add to the diagonal; the
+    # insertion and deletion gaps: two subtracts, a max and the direction
+    # compare each; H: three maxima and its two source compares), none an
+    # FMA, so at the unfused rate (f32_ops_per_s); only rows up to each
+    # query's length
+    from proovread_tpu_torch.obs.profile import bsw_v2_counts
+    n_ops, n_bytes = bsw_v2_counts(args[0].shape[0], m, R, W,
+                                   args[2].numel(), dp_rows(args[3], m))
+    b_ms, b_by = bound(n_bytes, n_ops)
     return dict(max_abs_err=max_abs_err(
         [(a.float(), b.float()) for a, b in pairs]), **tm,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -651,10 +681,12 @@ def pileup_zeros(B, Lpile, dev):
 def touched_bound(in_bytes: float, want):
     """Bound of an unweighted pileup accumulated into zeros: its inputs read
     once, each cell that gains a vote read and written once; one f32 add
-    per vote."""
-    import torch
+    per vote (``obs/profile.py:pileup_counts``, with the votes and cells
+    these inputs give)."""
+    from proovread_tpu_torch.obs.profile import pileup_counts
     cells = count_where(want, lambda c: c != 0)
-    return bound(in_bytes + 8.0 * cells, float(want.sum())), cells
+    return bound_of(pileup_counts(in_bytes, float(want.sum()),
+                                   cells)), cells
 
 
 def check_pileup(rng, dev, bsw_res, bsw_args, B=256, Lp=24576,
@@ -740,9 +772,9 @@ def check_bsw_v1(dev, ap, label, args, v2):
                  list(zip(ints(gated), ints(v2))))
     tm = launcher_times(lambda: bsw._bsw_v1_cuda(q1, win1, qlen, ap),
                         KERNEL_NAMES["bsw"])
-    n_bytes = R * m + R * n + 4 * R + 5 * R * n * 4 + R * 4 + 5 * R * 4
     # the same 16 f32 operations per banded DP cell as v2 (see check_bsw)
-    b_ms, b_by = bound(n_bytes, dp_rows(qlen, m) * W * 16)
+    from proovread_tpu_torch.obs.profile import bsw_v1_counts
+    b_ms, b_by = bound_of(bsw_v1_counts(R, m, W, dp_rows(qlen, m)))
     return dict(max_abs_err=max_abs_err(
         [(a.float(), b.float()) for a, b in pairs]), **tm,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -801,12 +833,11 @@ def check_sw(rng, dev, R=2048, m=256, n=384, qmax=None, ap=None,
         raise AssertionError(f"sw: weak inputs ({long_walks} long walks)")
     tm = launcher_times(lambda: sw._sw_cuda(q, r, ql, ap), KERNEL_NAMES["sw"],
                         entry="pt_sw_batch" if m == 512 else None)
-    steps = m + n
-    n_bytes = R * m + R * n + 4 * R + 7 * 4 * R + R * steps + 2 * 2 * R * steps
     # the 16 f32 operations of a DP cell counted as for bsw (check_bsw),
     # over the rows each query needs (the kernel stops at max(qlen, 1))
+    from proovread_tpu_torch.obs.profile import sw_counts
     rows = float(ql.clamp(1, m).sum())
-    b_ms, b_by = bound(n_bytes, rows * n * 16)
+    b_ms, b_by = bound_of(sw_counts(R, m, n, rows))
     return dict(max_abs_err=max_abs_err(
         [(a.float(), b.float()) for a, b in pairs]), **tm,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -947,12 +978,16 @@ def check_pileup_dense(rng, dev, v1_res, v1_slabs, read_of):
 
 def dense_bound(votes, rows):
     """The ordered pileup's bound: the slabs and metadata read once, each
-    touched cell read and written once; one f32 add per slab element."""
+    touched cell read and written once; one f32 add per slab element
+    (``obs/profile.py:pileup_counts``, with the cells these inputs
+    touch)."""
     import torch
+
+    from proovread_tpu_torch.obs.profile import pileup_counts
     R = votes.shape[0]
     cells = int(torch.unique(rows).numel()) * 64
-    return bound(4.0 * votes.numel() + 8 * R + 8.0 * cells,
-                 float(votes.numel()))
+    return bound_of(pileup_counts(4.0 * votes.numel() + 8 * R,
+                                  float(votes.numel()), cells))
 
 
 def check_pileup_dense_clustered(rng, dev, votes, B=8, Lp=12288):
@@ -1077,9 +1112,9 @@ def check_assemble_at(rng, dev, B, L):
              < lengths.clamp(0, L)[:, None].long())
     emit = valid & call.emitted
     n_ins = int(call.ins_len.clamp(0, 6)[emit].sum())
-    n_bytes = (4 * B + int(valid.sum()) + 9.0 * int(emit.sum()) + n_ins
-               + 2.0 * B * Lp + 4 * B)
-    b_ms, b_by = bound(n_bytes, 0.0)
+    from proovread_tpu_torch.obs.profile import assemble_counts
+    b_ms, b_by = bound_of(assemble_counts(
+        B, Lp, int(valid.sum()), int(emit.sum()), n_ins))
     return dict(max_abs_err=max_abs_err(list(zip(got, want))), **tm,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, shape=f"B={B} L={L} Lp={Lp}")
@@ -1128,7 +1163,8 @@ def check_hcr_at(rng, dev, B, L):
                         KERNEL_NAMES["hcr"])
     plain_ms = time_ms(lambda: ak.hcr_mask_plain(q, ln, pvi), reps=5,
                        warmup=1)
-    b_ms, b_by = bound(2.0 * B * L + 8 * B, 0.0)
+    from proovread_tpu_torch.obs.profile import hcr_counts
+    b_ms, b_by = bound_of(hcr_counts(B, L))
     return dict(max_abs_err=max(errs), **tm, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=f"B={B} L={L}")
@@ -1188,11 +1224,13 @@ def check_lcs(rng, dev):
     # a half), V + u with its carry (IADD3, IADD3.X), V' = s | (V & ~M)
     # (one three-input LOP3 a half). This is a throughput figure: the
     # floor in fact is the longest pair's dependent chain of steps
-    n_bytes = sum(len(r) + len(t) for r, t in pairs) + 8 * 3 * len(pairs)
+    from proovread_tpu_torch.obs.profile import lcs_counts
     steps = [int(((r >= 0) & (r < 4)).sum()) for r, _ in pairs]
     word_steps = sum(st * -(-len(t) // 64)
                      for st, (_, t) in zip(steps, pairs))
-    b_ms, b_by = bound(n_bytes, 6.0 * word_steps, PEAK_INT32_OPS_PER_S)
+    n_ops, n_bytes = lcs_counts(sum(len(r) + len(t) for r, t in pairs),
+                                len(pairs), word_steps)
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_INT32_OPS_PER_S)
     layout = lcs_layout(pairs)
     return dict(max_abs_err=max_abs_err([(got.float(), want.float())]),
                 **tm, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1278,13 +1316,6 @@ def edit_inputs(rng, dev, n_each=32):
     return pairs, edit_bands(pairs, lcs)[0]
 
 
-# the banded unit-cost recurrence's own INT32 operations a cell: the
-# match compare, the diagonal add, the up add, their minimum, the left
-# add, the minimum with it, the clamp to _BIG, and the two decisions
-# (the diagonal gives the cell, the up gives it)
-EDIT_OPS_A_CELL = 9
-
-
 def check_edit(rng, dev, hold):
     """The scoreboard's banded traceback kernel against its plain version
     (CPU tensors) on ``edit_inputs`` (bitwise); the plain version runs
@@ -1308,17 +1339,21 @@ def check_edit(rng, dev, hold):
     tm = launcher_times(lambda: acc.edit_alignments(*args, bands),
                         KERNEL_NAMES["edit"])
     # each input byte once, the bands and the five outputs a pair; the
-    # recurrence counts EDIT_OPS_A_CELL INT32 operations a cell (the
-    # kernel's scan and band masks are its design's, not the function's);
-    # the walk's steps are not counted. A throughput figure: the floor is
-    # the longest pair's chain of rows, each a scan across its band
+    # recurrence counts obs/profile.py's EDIT_OPS_A_CELL INT32 operations
+    # a cell (the match compare, the diagonal add, the up add, their
+    # minimum, the left add, the minimum with it, the clamp to _BIG and
+    # the two decisions; the kernel's scan and band masks are its
+    # design's, not the function's); the walk's steps are not counted. A
+    # throughput figure: the floor is the longest pair's chain of rows,
+    # each a scan across its band
+    from proovread_tpu_torch.obs.profile import edit_counts
     la = np.asarray([min(len(a), len(b)) for a, b in pairs])
     width = np.asarray([abs(len(a) - len(b)) for a, b in pairs]) \
         + 2 * np.asarray(bands) + 1
     cells = int((la * width).sum())
-    n_bytes = sum(len(a) + len(b) for a, b in pairs) + 48 * len(pairs)
-    b_ms, b_by = bound(n_bytes, EDIT_OPS_A_CELL * cells,
-                       PEAK_INT32_OPS_PER_S)
+    n_ops, n_bytes = edit_counts(sum(len(a) + len(b) for a, b in pairs),
+                                 len(pairs), cells)
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_INT32_OPS_PER_S)
     return dict(max_abs_err=max_abs_err([(got.cpu().float(),
                                           want.float())]),
                 **tm, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1337,11 +1372,11 @@ def scatter_bound(idx, keep, n_cells):
     permutation is its design's, not the function's). Returns (bound ms,
     by, kept, touched)."""
     import torch
+    from proovread_tpu_torch.obs.profile import scatter_counts
     live = keep & (idx >= 0) & (idx < n_cells)
     kept = int(live.sum())
     touched = int(torch.unique(idx[live]).numel())
-    n_bytes = idx.numel() + kept * (8 + 4) + touched * 8
-    b_ms, b_by = bound(n_bytes, 0)
+    b_ms, b_by = bound_of(scatter_counts(idx.numel(), kept, touched))
     return b_ms, b_by, kept, touched
 
 
@@ -3988,6 +4023,292 @@ def phase18(path, device="cuda", n_ranks=2, chunks=MESH18_CHUNKS,
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: the kernel build's own account
+# --------------------------------------------------------------------------
+
+# the roofline rows phase 19 must show with a share of the card's peak:
+# PERF.md rows 1-4, the main path's kernels
+ROOFLINE_ROWS = ("bsw_expand_v2", "pileup_accumulate_bits", "assemble_rows",
+                 "hcr_mask_rows")
+
+PROFILED_RUN = """
+import sys
+sys.path.insert(0, {here!r})
+import chip_smoke
+chip_smoke.profiled_run({out!r}, {cache!r}, {shape!r}, {device!r})
+"""
+
+
+def kernel_entries() -> dict:
+    """Each kernel entry's public wrapper (the counts live on it), by
+    name."""
+    from proovread_tpu_torch import kernels
+    from proovread_tpu_torch.align import bsw, sw
+    from proovread_tpu_torch.obs import accuracy
+    from proovread_tpu_torch.ops import assemble_kernel, pileup_kernel
+    from proovread_tpu_torch.ops import scatter
+    mods = (bsw, sw, accuracy, assemble_kernel, pileup_kernel, scatter)
+    return {name: next(getattr(m, name) for m in mods if hasattr(m, name))
+            for name in kernels.ENTRY_SOURCES}
+
+
+def result_digest(res) -> str:
+    """A digest of ``result_key(res)``: what two runs' results are held
+    equal on."""
+    import hashlib
+    return hashlib.sha256(repr(result_key(res)).encode()).hexdigest()
+
+
+def profiled_run(out, cache, shape, device="cuda"):
+    """Phase 19's profiled run, in a fresh process (the kernel library
+    not loaded yet): phase 4's workload (``shape``: genome, long-read
+    bases, iterations) through ``Pipeline.run`` under the profiler, a span
+    tracer and a compile ledger, the kernel build directory the empty
+    ``cache``, so the build lands inside the run. Writes into ``out`` the
+    trace, the ledger and ``profiled.json``: the result's digest, the
+    wall, the profiler's records, the ``kernel_flops_total`` series, each
+    kernel's launches, the roofline and the ``nvcc`` compiles."""
+    from proovread_tpu_torch import kernels, obs
+    from proovread_tpu_torch.obs import compilecache, profile
+    longs, srs, n_it, _ = workload(shape[0], shape[1], shape[2])
+    fns = kernel_entries()
+    for f in fns.values():
+        f.launches = 0
+    compilecache.enable_persistent_cache(cache)
+    with obs.tracing() as tr, profile.profiling() as prof, \
+            compilecache.scope(compilecache.Ledger(backend=device)):
+        res, wall = run_pipeline(longs, srs, n_it, device)
+        led = compilecache.current()
+    tr.write_chrome(os.path.join(out, "trace.jsonl"))
+    led.write_jsonl(os.path.join(out, "ledger.jsonl"))
+    series = {s["labels"]["fn"]: s["value"] for s in
+              res.metrics["counters"]["kernel_flops_total"]["series"]}
+    records = {n: dict(r.as_dict(), launch_flops=r.launch_flops,
+                       rate=r.rate) for n, r in prof.records.items()}
+    with open(os.path.join(out, "profiled.json"), "w") as fh:
+        json.dump(dict(digest=result_digest(res), wall=wall,
+                       records=records, flops_series=series,
+                       launches={n: f.launches for n, f in fns.items()},
+                       roofline=profile.roofline_lines(prof),
+                       nvcc_compiles=kernels.nvcc_compiles,
+                       compile_census=res.compile_census), fh)
+
+
+def hold_profiled(prof_dir) -> dict:
+    """Phase 19's profiled run held: its ledger valid and reconciling with
+    its trace, the build inside the run (one build window, ``nvcc`` ran);
+    per kernel entry, ``kernel_flops_total`` equal to the cost models'
+    sum over the calls that launched, and the profiler's launches equal
+    to ``kernels.count_launch``'s; rows 1-4 launched, with a share of the
+    card's peak in the roofline."""
+    from proovread_tpu_torch.obs.validate import (reconcile_compile_ledger,
+                                                  validate_compile_ledger)
+    with open(os.path.join(prof_dir, "profiled.json")) as fh:
+        p = json.load(fh)
+    ledger = os.path.join(prof_dir, "ledger.jsonl")
+    lstats = validate_compile_ledger(ledger)
+    rstats = reconcile_compile_ledger(ledger,
+                                      os.path.join(prof_dir, "trace.jsonl"))
+    census = lstats["census"]
+    if census["backend_compiles"] != 1 or census["persistent_misses"] != 1 \
+            or p["nvcc_compiles"] < 1 or rstats["trace_ms"] <= 0:
+        raise AssertionError(f"phase 19: the build did not land inside the "
+                             f"profiled run: {census} {rstats}")
+    for name, rec in p["records"].items():
+        if rec["rate"] is None:
+            continue
+        if not (p["flops_series"].get(name, 0.0) == rec["flops"]
+                == rec["launch_flops"]) or \
+                rec["launches"] != p["launches"][name]:
+            raise AssertionError(f"phase 19: {name}: kernel_flops_total "
+                                 f"{p['flops_series'].get(name)}, record "
+                                 f"{rec}, launches {p['launches'][name]}")
+    for name in ROOFLINE_ROWS:
+        line = next((ln for ln in p["roofline"] if ln.startswith(name)), "")
+        if not p["launches"][name] or " f32 " not in f" {line} " \
+                and " bytes " not in f" {line} ":
+            raise AssertionError(f"phase 19: no share of the peak for "
+                                 f"{name}: {line!r}")
+    for line in p["roofline"]:
+        log(f"phase19 roofline {line}")
+    return dict(digest=p["digest"], wall_s=p["wall"], ledger=rstats,
+                census={k: census[k] for k in (
+                    "n_programs", "calls", "backend_compiles",
+                    "backend_compile_s", "persistent_hit_rate")},
+                launches={k: p["launches"][k] for k in ROOFLINE_ROWS},
+                records={k: p["records"][k] for k in ROOFLINE_ROWS})
+
+
+def damaged_copies(tmp, art) -> dict:
+    """Two copies of the artifact, one cache file truncated and one with
+    its manifest's version edited: each must be refused; the messages."""
+    from proovread_tpu_torch.obs import boot
+    from proovread_tpu_torch.obs.validate import ValidationError
+    out = {}
+    for damage in ("torn", "stale"):
+        bad = os.path.join(tmp, f"art_{damage}")
+        shutil.copytree(art, bad)
+        manifest_path = os.path.join(bad, "manifest.json")
+        with open(manifest_path) as fh:
+            m = json.load(fh)
+        if damage == "torn":
+            lib = os.path.join(bad, "cache", m["programs"][0]["cache_key"])
+            with open(lib, "r+b") as fh:
+                fh.truncate(os.path.getsize(lib) // 2)
+        else:
+            m["version"] = "0" * len(m["version"])
+            with open(manifest_path, "w") as fh:
+                json.dump(m, fh)
+        try:
+            boot.verify_artifact(bad)
+        except ValidationError as e:
+            out[damage] = str(e)[-160:]
+        else:
+            raise AssertionError(f"phase 19: a {damage} artifact verified")
+    return out
+
+
+def xprof_run(tmp, art) -> dict:
+    """Config 4 through the command line on the card, in fresh processes:
+    once plain, once with ``--trace --xprof --compile-ledger
+    --compile-cache`` (a verified copy of the artifact): the five files
+    equal; the ledger valid, reconciling with the trace, its one build
+    window a cache hit; the profiler's trace naming the port's CUDA
+    kernels and the span ranges."""
+    from proovread_tpu_torch.obs import boot
+    from proovread_tpu_torch.obs.validate import (reconcile_compile_ledger,
+                                                  validate_compile_ledger)
+    here = os.path.dirname(os.path.abspath(__file__))
+    longs, srs, _, _ = workload(10_000, 40_000, 4)
+    argv = input_args(tmp, "xprof", longs, srs)
+    copy = os.path.join(tmp, "xprof_cache")
+    boot.fetch_artifact(art, copy)
+    f = {k: os.path.join(tmp, v) for k, v in (
+        ("trace", "x.trace.jsonl"), ("xprof", "xprof"),
+        ("ledger", "x.ledger.jsonl"))}
+    outs, walls = {}, {}
+    for label, extra in (("plain", []), ("flags", [
+            "--trace", f["trace"], "--xprof", f["xprof"],
+            "--compile-ledger", f["ledger"], "--compile-cache", copy])):
+        out = os.path.join(tmp, f"xprof_{label}", "res")
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-m", "proovread_tpu_torch",
+                               *argv, "-p", out, "-q", *extra], cwd=here,
+                              capture_output=True, text=True, timeout=600)
+        walls[label] = time.monotonic() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 19 cli {label}: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        outs[label] = cli_outputs(out)[0]
+    if outs["plain"] != outs["flags"]:
+        raise AssertionError("phase 19: --trace --xprof --compile-ledger "
+                             "--compile-cache changed the outputs")
+    census = validate_compile_ledger(f["ledger"])["census"]
+    rstats = reconcile_compile_ledger(f["ledger"], f["trace"])
+    if census["persistent_hits"] != 1 or census["persistent_misses"]:
+        raise AssertionError(f"phase 19 cli: the library did not load from "
+                             f"the artifact's copy: {census}")
+    (trace_file,) = os.listdir(f["xprof"])
+    with open(os.path.join(f["xprof"], trace_file)) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    kernels_seen = sorted({m.group(1) for n in names
+                           for m in [PORT_KERNEL.search(n)] if m})
+    spans = sorted(n for n in names if n.split(":")[0] in
+                   ("run", "bucket", "pass", "mode", "task", "kernel"))
+    if not kernels_seen or "bucket:bucket" not in spans:
+        raise AssertionError(f"phase 19: the --xprof trace names kernels "
+                             f"{kernels_seen} and spans {spans[:20]}")
+    return dict(walls_s=walls, kernels=kernels_seen, spans=len(spans),
+                ledger=rstats, census_hit_rate=census["persistent_hit_rate"])
+
+
+def serve_from_artifact(tmp, art) -> dict:
+    """``python -m proovread_tpu_torch serve --boot-from-artifact`` on the
+    card with config 4's short reads, its long reads as one job
+    (``ServeTwin``): it boots, answers, drains clean; its ``boot.json`` a
+    valid artifact-mode BOOT row whose one build window (the library's
+    load) is a cache hit, no violation."""
+    from proovread_tpu_torch.obs.validate import validate_boot_row
+    longs, srs, n_it, _ = workload(10_000, 40_000, 4)
+    twin = ServeTwin(tmp, "cuda", longs, srs, n_it)
+    twin.argv += ["--boot-from-artifact", art]
+    twin.run()
+    with open(os.path.join(twin.tmp, "state", "boot.json")) as fh:
+        row = json.loads(fh.readline())
+    validate_boot_row(row)
+    if row["violations"] or row["persistent_misses"] \
+            or row["hit_rate"] != 1.0:
+        raise AssertionError(f"phase 19 serve: boot row {row}")
+    return dict(wall_s=twin.wall, boot=row, jobs=len(twin.results),
+                slo=twin.slo_stats)
+
+
+def phase19(tmp, shape=(1_250_000, 5_000_000, 6)) -> dict:
+    """The kernel build's own account on the card: a kernel-build artifact
+    built, valid and verified (damaged copies refused); a cold and an
+    artifact boot measured (``obs/boot.py run``: subprocesses); phase 4's
+    workload profiled in a fresh process from the start (``profiled_run``,
+    beside the rest), the build inside it; ``--xprof`` on config 4; a
+    server booted from the artifact. Fails on any check."""
+    from proovread_tpu_torch.analysis import factory
+    from proovread_tpu_torch.obs import boot
+    from proovread_tpu_torch.obs.validate import validate_manifest
+    here = os.path.dirname(os.path.abspath(__file__))
+    prof_dir = os.path.join(tmp, "profiled")
+    os.makedirs(prof_dir)
+    prof_log = open(os.path.join(tmp, "profiled.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", PROFILED_RUN.format(
+            here=here, out=prof_dir, cache=os.path.join(tmp, "cold_cache"),
+            shape=tuple(shape), device="cuda")],
+        cwd=here, stdout=prof_log, stderr=subprocess.STDOUT)
+    out = {}
+    try:
+        art = os.path.join(tmp, "art")
+        t0 = time.monotonic()
+        manifest = factory.build_artifact(art, fresh=True)
+        out["artifact"] = dict(
+            build_s=round(time.monotonic() - t0, 3),
+            version=manifest["version"], files=manifest["files"],
+            nvcc_ms={p["entry"]: p["compile_ms"]
+                     for p in manifest["programs"]},
+            toolchain=manifest["jax_version"])
+        validate_manifest(manifest)
+        boot.verify_artifact(art)
+        out["refused"] = damaged_copies(tmp, art)
+        rows = boot.run(art, ("cold", "artifact"))
+        (cold, crep), (warm, wrep) = rows
+        if cold["n_backend_compiles"] < 1 or crep["nvcc_compiles"] < 1:
+            raise AssertionError(f"phase 19: the cold boot built nothing: "
+                                 f"{cold}")
+        if wrep["nvcc_compiles"] or warm["violations"] \
+                or warm["hit_rate"] != 1.0:
+            raise AssertionError(f"phase 19: the artifact boot: {warm}, "
+                                 f"{wrep['nvcc_compiles']} nvcc compiles")
+        out["boot"] = {row["mode"]: dict(
+            wall_s=row["boot_wall_s"], import_s=rep["import_s"],
+            context_s=rep["context_s"], build_window_s=row["compile_s"],
+            nvcc_compiles=rep["nvcc_compiles"], hit_rate=row["hit_rate"],
+            violations=len(row["violations"])) for row, rep in rows}
+        out["xprof"] = xprof_run(tmp, art)
+        out["serve"] = serve_from_artifact(tmp, art)
+    finally:
+        try:
+            rc = proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            prof_log.close()
+    if rc != 0:
+        with open(prof_log.name) as fh:
+            raise AssertionError(f"phase 19 profiled run: exit {rc}\n"
+                                 f"{fh.read()[-3000:]}")
+    out["profiled"] = hold_profiled(prof_dir)
+    return out
+
+
 def same_host(a, b) -> bool:
     return a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
@@ -4012,8 +4333,8 @@ PORT_KERNEL = re.compile(
 # phases 7, 11, 9, 10, 14 and 17 (each in the order of ``main``'s code:
 # 13, 8, 16 and 12, 15, 18): each group depends on nothing the main
 # process makes
-LANES = (("8", "13", "16"), ("12", "15", "18"))
-ALL_PHASES = tuple(str(p) for p in range(2, 19))
+LANES = (("8", "13", "16"), ("12", "15", "18"), ("19",))
+ALL_PHASES = tuple(str(p) for p in range(2, 20))
 
 
 class Lane:
@@ -4117,7 +4438,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-18 to leave out; such a "
+                     help="comma list of phases 2-19 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--lane-out", default=None,
                      help="run as a lane of a full run: no lanes of its "
@@ -4457,6 +4778,7 @@ def main(argv=None) -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         report_passes(4, res)
         no_demotion("phase 4", res.metrics, res.reports)
+        digest4 = result_digest(res)
 
     if args.profile and "4" not in skip_here:
         profile_phase(4, lambda: run_pipeline(longs, srs, n_it, "cuda"), wall)
@@ -4662,9 +4984,25 @@ def main(argv=None) -> int:
             f"drill {r18['drill_s']:.1f} s; identity "
             f"{r18['identity_before']:.6f} -> {r18['identity_after']:.6f}")
 
+    # -- phase 19: the kernel build's own account -----------------------------
+    if "19" not in skip_here:
+        t19 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            r19 = phase19(tmp)
+        mark("phase19", t19)
+        log("phase19 " + json.dumps(r19))
+        lane_results["19"] = r19
+
     # -- the lanes' phases ---------------------------------------------------
     for lane in lanes:
         lane_results.update(lane.join())
+    if "19" in lane_results and "4" not in skip:
+        # the profiled run (under the profiler, a ledger and a tracer, the
+        # build inside it) corrected phase 4's reads byte for byte
+        if lane_results["19"]["profiled"]["digest"] != digest4:
+            raise AssertionError("phase 19: the profiled run's records "
+                                 "differ from phase 4's")
+        log("phase19 profiled run == phase 4, byte for byte")
     cli8 = lane_results.get("8")
     if cli7 is not None and cli8 is not None:
         log(f"phase8 bsw device time a launch at m=256: "

@@ -33,6 +33,7 @@ import torch
 
 from proovread_tpu_torch import kernels
 from proovread_tpu_torch.align.params import AlignParams
+from proovread_tpu_torch.obs.profile import attributed
 from proovread_tpu_torch.ops.encode import GAP, N
 
 NEG = -1e9                      # exact in f32 (ulp 64)
@@ -119,6 +120,7 @@ def _check_args(q, rc, map_pad, qlen, sread, strand, lread, w0p, W):
     return S, m, R, n
 
 
+@attributed("bsw_expand_v2")
 def bsw_expand_v2(q, rc, map_pad, qlen, sread, strand, lread, w0p,
                   params: AlignParams) -> BswResult:
     """Align + expand a candidate batch.
@@ -161,9 +163,7 @@ def _bsw_cuda(q, rc, map_pad, qlen, sread, strand, lread, w0p,
             q.data_ptr(), rc.data_ptr(), S, m, map_pad.data_ptr(),
             map_pad.shape[1], qlen.data_ptr(), sread.data_ptr(),
             strand.data_ptr(), lread.data_ptr(), w0p.data_ptr(), R, W,
-            float(p.match), float(p.mismatch), float(p.n_penalty),
-            float(p.o_del), float(p.e_del), float(p.o_ins), float(p.e_ins),
-            float(p.clip),
+            *_scores(p),
             *[o.data_ptr() for o in outs], score.data_ptr(), pos.data_ptr(),
             kernels.stream_of(q))
         kernels.check(rc_, "bsw_expand_v2")
@@ -206,6 +206,7 @@ def _check_v1(q, win, qlen, W):
     return R, m, n
 
 
+@attributed("bsw_expand")
 def bsw_expand(q, win, qlen, params: AlignParams) -> BswResult:
     """Align + expand a candidate batch from pre-gathered slabs (v1).
 
@@ -237,9 +238,7 @@ def _bsw_v1_cuda(q, win, qlen, params: AlignParams) -> BswResult:
     if R > 0:
         rc_ = kernels.lib().pt_bsw_expand_v1(
             q.data_ptr(), win.data_ptr(), m, qlen.data_ptr(), R, W,
-            float(p.match), float(p.mismatch), float(p.n_penalty),
-            float(p.o_del), float(p.e_del), float(p.o_ins), float(p.e_ins),
-            float(p.clip),
+            *_scores(p),
             *[o.data_ptr() for o in outs], score.data_ptr(), pos.data_ptr(),
             kernels.stream_of(q))
         kernels.check(rc_, "bsw_expand")
@@ -252,6 +251,13 @@ def bsw_expand_plain(q, win, qlen, params: AlignParams) -> BswResult:
     W = band_lanes(params)
     _check_v1(q, win, qlen, W)
     return _plain_core(q.to(torch.int32), win.to(torch.int32), qlen, params)
+
+
+def _scores(p: AlignParams) -> list:
+    """The eight scoring parameters the C entries take, as floats."""
+    return [float(p.match), float(p.mismatch), float(p.n_penalty),
+            float(p.o_del), float(p.e_del), float(p.o_ins), float(p.e_ins),
+            float(p.clip)]
 
 
 def _outputs(R: int, n: int, dev):

@@ -27,6 +27,7 @@ import torch
 
 from proovread_tpu_torch import kernels
 from proovread_tpu_torch.align.params import AlignParams
+from proovread_tpu_torch.obs.profile import attributed
 
 NEG = -1e9                      # exact in f32 (ulp 64)
 
@@ -91,6 +92,7 @@ def _check_args(q, r, qlen):
     return R, m, n
 
 
+@attributed("sw_batch")
 def sw_batch(q, r, qlen, params: AlignParams) -> SWResult:
     """Align a batch of queries to ref windows.
 

@@ -25,9 +25,19 @@ writes each bucket's admitted finish alignments as
 ``<pre>/admitted.<read id>.sam`` and a per-read ``<name>.debug.tsv`` (id,
 length, mean phred, phred-0 fraction). ``serve`` as the first argument
 starts the correction server instead (``serve/cli.py``; the batch path
-imports nothing of ``serve``). Flags whose features are not ported yet
-return 2 with a message naming the flag: ``--compile-ledger``,
-``--compile-cache`` and ``--xprof``.
+imports nothing of ``serve``).
+
+The kernel build's own account (``:314-392``): ``--compile-ledger FILE``
+(or the key ``compile-ledger``) writes the compile ledger
+(``obs/compilecache.py``: the kernel library's build window and each
+kernel entry's first call); ``--compile-cache [DIR]`` (key
+``compile-cache-dir``) builds the library into, and loads it from, DIR
+(default: the usual build directory), marking the build a hit or a miss;
+``--xprof DIR`` wraps the run in ``torch.profiler`` (CPU activity, and
+CUDA on the card) with the span tree's ranges in it, and writes its
+Chrome trace into DIR. ``--trace`` and ``--xprof`` switch on the cost
+attribution (``obs/profile.py``) and log its roofline. None of them
+changes an output file.
 
 ``--mesh-shards N`` (or the config key ``mesh-shards``) shards each
 bucket's iteration passes over N ranks (``parallel/dmesh.py``). Without a
@@ -65,14 +75,6 @@ import numpy as np
 log = logging.getLogger("proovread_tpu_torch")
 
 PROG = "proovread-tpu-torch"
-
-# parsed-argument name -> flag, for the flags the port does not run yet
-_UNPORTED_FLAGS = (
-    ("compile_ledger", "--compile-ledger"),
-    ("compile_cache", "--compile-cache"), ("xprof", "--xprof"),
-)
-# config keys that switch on the same features from a config file
-_UNPORTED_KEYS = ("compile-ledger", "compile-cache-dir")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,12 +156,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "classes land in the QC records, the aggregate "
                          "and the accuracy_* gauges")
     ap.add_argument("--compile-ledger", metavar="FILE",
-                    help="XLA compile ledger (no counterpart in the port)")
+                    help="write the compile ledger (JSONL: the kernel "
+                         "library's build window and each kernel entry's "
+                         "first call, with the census) and log the census")
     ap.add_argument("--compile-cache", metavar="DIR", nargs="?",
                     const="auto",
-                    help="XLA compile cache (no counterpart in the port)")
+                    help="build the kernel library into and load it from "
+                         "DIR (default: the usual build directory); the "
+                         "ledger marks the build a hit or a miss")
     ap.add_argument("--xprof", metavar="DIR",
-                    help="XLA profiler trace (no counterpart in the port)")
+                    help="wrap the run in torch.profiler (CPU, and CUDA on "
+                         "the card) with the span tree's ranges, and write "
+                         "its Chrome trace into DIR")
     ap.add_argument("--log-json", action="store_true",
                     help="one structured JSON log record per line "
                          "(ts/level/logger/msg) instead of the human "
@@ -258,15 +266,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         from proovread_tpu_torch.serve.cli import serve_main
         return serve_main(argv[1:])
     args = build_parser().parse_args(argv)
-    for attr, flag in _UNPORTED_FLAGS:
-        v = getattr(args, attr)
-        if not (v is None or v is False or v == []):
-            return _error(f"{flag} is not supported by the PyTorch port yet")
     from proovread_tpu_torch.parallel.launch import init_from_env
     joined = init_from_env(args.device)
+    from proovread_tpu_torch.obs import compilecache
+    cache_state = compilecache.cache_state()
     try:
         return _main(args, argv)
     finally:
+        # --compile-cache points this process's kernel build directory
+        # elsewhere for the run only (main() may run in a host process)
+        compilecache.restore_cache(cache_state)
         if joined:
             import torch.distributed as dist
             dist.destroy_process_group()
@@ -299,10 +308,6 @@ def _main(args, argv: List[str]) -> int:
         return _error("-p/--pre is required")
 
     cfg = Config.load(args.cfg)
-    for key in _UNPORTED_KEYS:
-        if cfg.get(key):
-            return _error(f"config key {key!r} is not supported by the "
-                          "PyTorch port yet")
     try:
         from proovread_tpu_torch.device import resolve
         resolve(args.device)
@@ -348,13 +353,21 @@ def _main(args, argv: List[str]) -> int:
         cfg.data["resilience-ladder"] = 0
     name = os.path.basename(outdir.rstrip("/")) or "proovread"
 
-    # observability: flags override config keys. Tracing brings the
-    # memory sampler and the leak report with it.
+    # observability: flags override config keys. Tracing (--trace or
+    # --xprof) brings the profiler, the memory sampler and the leak
+    # report with it.
     from proovread_tpu_torch import obs
     trace_path = args.trace or cfg.get("trace-file")
     metrics_path = args.metrics_out or cfg.get("metrics-out")
     qc_path = args.qc_out or cfg.get("qc-out")
     truth_path = args.truth or cfg.get("truth-sidecar")
+    ledger_path = args.compile_ledger or cfg.get("compile-ledger")
+    cache_dir = args.compile_cache or cfg.get("compile-cache-dir")
+    if cache_dir:
+        # every rank builds or loads the library
+        cache_dir = obs.compilecache.enable_persistent_cache(cache_dir)
+        log.info("compile cache: kernel library built into / loaded "
+                 "from %s", cache_dir)
     if rank:
         # rank 0 writes the run's account; the others run the same tasks
         # and write nothing, with a QC recorder where rank 0 has one (the
@@ -365,13 +378,36 @@ def _main(args, argv: List[str]) -> int:
                             ckpt_dir=ckpt_dir, writer=False)
         return _run(args, argv, cfg, outdir, name, mode_auto,
                     ckpt_dir=ckpt_dir, writer=False)
-    tracer = obs.install_tracer() if trace_path else None
+    tracing_on = bool(trace_path or args.xprof)
+    tracer = obs.install_tracer() if tracing_on else None
     registry = obs.metrics.install() if metrics_path else None
-    mem_sampler = obs.memory.install() if trace_path else None
-    leak_check = obs.memory.LeakCheck() if trace_path else None
+    profiler = obs.profile.install() if tracing_on else None
+    mem_sampler = obs.memory.install() if tracing_on else None
+    leak_check = obs.memory.LeakCheck() if tracing_on else None
     # --truth scores into the per-read QC records, so it brings the
     # recorder with it even without a --qc-out artifact
     qc_recorder = obs.qc.install() if (qc_path or truth_path) else None
+    ledger = (obs.compilecache.install(obs.compilecache.Ledger(
+        backend=args.device)) if ledger_path else None)
+    xprof = None
+    if args.xprof:
+        # a profiler that fails to start unwinds every install above: a
+        # host calling main() again must not stay traced
+        try:
+            xprof = _start_xprof(args.xprof, args.device)
+        except Exception:
+            obs.trace.set_annotations(False)
+            for on, off in ((mem_sampler, obs.memory.uninstall),
+                            (profiler, obs.profile.uninstall),
+                            (tracer, obs.uninstall_tracer),
+                            (registry, obs.metrics.uninstall),
+                            (qc_recorder, obs.qc.uninstall),
+                            (ledger, obs.compilecache.uninstall)):
+                if on is not None:
+                    off()
+            raise
+        log.info("xprof: torch.profiler trace -> %s (ranges follow the "
+                 "span tree)", args.xprof)
 
     t_start = time.monotonic()
     try:
@@ -380,18 +416,28 @@ def _main(args, argv: List[str]) -> int:
     finally:
         # written even on a crashed run: the partial span tree, the QC
         # records that completed and the counters say where it died
+        if xprof is not None:
+            obs.trace.set_annotations(False)
+            _stop_xprof(xprof, args.xprof, name)
         if mem_sampler is not None:
             obs.memory.uninstall()
         if tracer is not None:
             obs.uninstall_tracer()
             try:
-                tracer.write_chrome(trace_path)
-                log.info("trace: %d span(s) -> %s (load in "
-                         "ui.perfetto.dev)", len(tracer.events), trace_path)
+                if trace_path:
+                    tracer.write_chrome(trace_path)
+                    log.info("trace: %d span(s) -> %s (load in "
+                             "ui.perfetto.dev)", len(tracer.events),
+                             trace_path)
                 for ln in tracer.summary_lines():
                     log.info("%s", ln)
             except OSError as e:
                 log.warning("trace write failed: %s", e)
+        if profiler is not None:
+            obs.profile.uninstall()
+            if profiler.records:
+                for ln in obs.profile.roofline_lines(profiler):
+                    log.info("%s", ln)
             _queue_leak_report(leak_check)
         if qc_recorder is not None:
             obs.qc.uninstall()
@@ -406,6 +452,20 @@ def _main(args, argv: List[str]) -> int:
                     log.info("%s", ln)
             except OSError as e:
                 log.warning("qc write failed: %s", e)
+        if ledger is not None:
+            obs.compilecache.uninstall()
+            try:
+                # written even on a crashed run: the rows say which build
+                # and which entries' first calls happened
+                census = ledger.census()
+                ledger.write_jsonl(ledger_path, census=census)
+                log.info("compile ledger: %d row(s) / %d program(s) -> %s",
+                         len(ledger.rows), census["n_programs"],
+                         ledger_path)
+                for ln in ledger.report_lines(census=census):
+                    log.info("%s", ln)
+            except OSError as e:
+                log.warning("compile ledger write failed: %s", e)
         if registry is not None:
             obs.metrics.uninstall()
             try:
@@ -423,6 +483,35 @@ def _main(args, argv: List[str]) -> int:
         return rc
     log.info("total wall: %.1fs", time.monotonic() - t_start)
     return 0
+
+
+def _start_xprof(out_dir: str, device: str):
+    """A started ``torch.profiler.profile`` over the CPU (and CUDA on the
+    card), with the spans' ``record_function`` ranges switched on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from proovread_tpu_torch.obs import trace as obs_trace
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    obs_trace.set_annotations(True)
+    prof.__enter__()
+    return prof
+
+
+def _stop_xprof(prof, out_dir: str, name: str) -> None:
+    """Stop the profiler and write its Chrome trace as
+    ``DIR/<name>.pt.trace.json`` (TensorBoard's profiler plugin reads
+    ``*.pt.trace.json``)."""
+    try:
+        prof.__exit__(None, None, None)
+        path = os.path.join(out_dir, f"{name}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        log.info("xprof: trace -> %s", path)
+    except (OSError, RuntimeError) as e:
+        log.warning("xprof trace write failed: %s", e)
 
 
 _pending_leak_check = None

@@ -194,14 +194,13 @@ DEFAULTS: Dict[str, Any] = {
     # per-read correction-QC provenance JSONL + aggregate report
     # (obs/qc.py); the CLI --qc-out flag overrides. null = QC off
     "qc-out": None,
-    # compile-ledger JSONL (obs/compilecache.py): one row per XLA
-    # compilation event + the program-zoo census; the CLI
-    # --compile-ledger flag overrides. null = ledger off
+    # compile-ledger JSONL (obs/compilecache.py): the kernel library's
+    # build window and each kernel entry's first call, with the census;
+    # the CLI --compile-ledger flag overrides. null = ledger off
     "compile-ledger": None,
-    # persistent XLA compile-cache directory: a path, or "auto" for the
-    # per-backend default (<repo>/.jax_cache_cpu on CPU, .jax_cache
-    # otherwise — the cache `make prewarm` populates); the CLI
-    # --compile-cache flag overrides. null = jax's own default (off)
+    # kernel-library cache directory: a path, or "auto" for the usual
+    # build directory (kernels.build_dir); the CLI --compile-cache flag
+    # overrides. null = the usual build directory, hits not marked
     "compile-cache-dir": None,
 }
 

@@ -10,7 +10,15 @@ linked into one shared library with a plain C interface that is loaded with
 fresh checkout builds it at first use and later calls reuse it. It lands in
 ``build/kernels/`` of the source checkout; an installed package builds into
 ``$XDG_CACHE_HOME`` (else ``~/.cache``) under ``proovread_tpu_torch/kernels``
-instead, and ``PROOVREAD_TORCH_BUILD_DIR`` overrides both.
+instead; ``PROOVREAD_TORCH_BUILD_DIR`` overrides both, and
+``set_build_dir`` (``--compile-cache``, an artifact's verified copy)
+overrides that. A library found there is loaded without ``nvcc``.
+
+``lib()``'s first call is the build window: the ``nvcc`` runs and the link
+when the library was missing, or only its load when it was found. Its
+seconds go to the listener set with ``set_build_listener``
+(``obs/trace.py`` hands them to the span tracer, the compile ledger and
+the profiler), so a run's account shows where the build landed.
 
 Nothing here runs at import time: the CPU tests import every module.
 ``lib()`` builds and loads under a lock, so threads that call kernels at
@@ -28,12 +36,23 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bsw.cu", "pileup.cu", "assemble.cu", "sw.cu", "lcs.cu",
            "scatter.cu", "edit.cu")
 HEADERS = ("common.cuh",)
+# each kernel entry (the public wrapper's name) -> the source it runs
+ENTRY_SOURCES = {
+    "bsw_expand_v2": "bsw.cu", "bsw_expand": "bsw.cu",
+    "pileup_accumulate_bits": "pileup.cu",
+    "pileup_accumulate_packed": "pileup.cu",
+    "pileup_accumulate": "pileup.cu",
+    "assemble_rows": "assemble.cu", "hcr_mask_rows": "assemble.cu",
+    "sw_batch": "sw.cu", "lcs_lengths": "lcs.cu",
+    "scatter_add_ordered": "scatter.cu", "edit_alignments": "edit.cu",
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -81,6 +100,19 @@ nvcc_compiles = 0
 nvcc_seconds = 0.0
 # source name -> what nvcc printed while compiling it (ptxas's report)
 build_log: dict = {}
+# source name -> the wall seconds of its last nvcc run in this process,
+# and the bytes of the object it made
+nvcc_source_seconds: dict = {}
+object_bytes: dict = {}
+# the library lib() loaded, once it has; lib()'s build windows (one a
+# process: the nvcc runs and the link, or the load) and their seconds
+loaded_path = None
+build_windows = 0
+build_window_seconds = 0.0
+# the directory set_build_dir chose (None: build_dir's own choice)
+_build_dir_override = None
+# called as listener(seconds, compiled) after lib()'s build window
+_build_listener = None
 
 
 class KernelBuildError(RuntimeError):
@@ -108,8 +140,31 @@ def _nvcc() -> str:
     return found
 
 
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on (None: back to
+    ``build_dir``'s own choice). A library this process already loaded
+    stays loaded."""
+    global _build_dir_override
+    _build_dir_override = None if path is None else Path(path)
+
+
+def set_build_listener(fn) -> None:
+    """``fn(seconds, compiled)`` is called after ``lib()``'s build window
+    (``compiled``: ``nvcc`` ran); None removes it."""
+    global _build_listener
+    _build_listener = fn
+
+
 def build_dir() -> Path:
-    """Where the library is built: the override, else the source checkout's
+    """Where the library is built: ``set_build_dir``'s directory, else
+    ``default_build_dir()``."""
+    if _build_dir_override is not None:
+        return _build_dir_override
+    return default_build_dir()
+
+
+def default_build_dir() -> Path:
+    """The environment's override, else the source checkout's
     ``build/kernels``, else a per-user cache."""
     env = os.environ.get("PROOVREAD_TORCH_BUILD_DIR")
     if env:
@@ -121,12 +176,35 @@ def build_dir() -> Path:
     return Path(cache) / "proovread_tpu_torch" / "kernels"
 
 
-def _digest(src_dir: Path) -> str:
+def _digest(src_dir: Path, names=SOURCES) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in names + HEADERS:
         h.update(name.encode())
         h.update((src_dir / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def digest(src_dir: Path | None = None) -> str:
+    """The library's version: a hash of every source, header and flag."""
+    return _digest(Path(src_dir or SRC_DIR))
+
+
+def source_digest(name: str, src_dir: Path | None = None) -> str:
+    """The hash of one source (with the headers and flags)."""
+    return _digest(Path(src_dir or SRC_DIR), (name,))
+
+
+def library_name(version: str) -> str:
+    """The library's file name for a ``digest``."""
+    return f"libproovread_kernels_{version}.so"
+
+
+def _nvcc_one(cmd):
+    """Run one nvcc; (its output, return code, wall seconds)."""
+    t0 = time.monotonic()
+    p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return p.stdout.decode(errors="replace"), p.returncode, \
+        time.monotonic() - t0
 
 
 def build(src_dir: Path | None = None,
@@ -139,7 +217,7 @@ def build(src_dir: Path | None = None,
     global build_seconds, nvcc_compiles, nvcc_seconds
     src_dir = Path(src_dir or SRC_DIR)
     out_dir = Path(out_dir or build_dir())
-    so = out_dir / f"libproovread_kernels_{_digest(src_dir)}.so"
+    so = out_dir / library_name(_digest(src_dir))
     log_path = so.with_suffix(".log.json")
     if so.exists():
         if log_path.exists():
@@ -148,18 +226,18 @@ def build(src_dir: Path | None = None,
     t0 = time.monotonic()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs, procs = [], []
-    for name in SOURCES:
-        obj = out_dir / f"{Path(name).stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src_dir / name), "-o", str(obj)]
-        procs.append((name, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        objs.append(obj)
+    objs = [out_dir / f"{Path(name).stem}.{os.getpid()}.o"
+            for name in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src_dir / name), "-o", str(obj)]
+            for name, obj in zip(SOURCES, objs)]
+    # one thread waits on each nvcc, so each source's own seconds are known
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        runs = list(pool.map(_nvcc_one, cmds))
     errors, logs = [], {}
-    for name, p in procs:
-        out, _ = p.communicate()
-        logs[name] = out.decode(errors="replace")
-        if p.returncode != 0:
+    for name, (out, code, secs) in zip(SOURCES, runs):
+        logs[name] = out
+        nvcc_source_seconds[name] = secs
+        if code != 0:
             errors.append(f"--- {name} ---\n{logs[name]}")
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
@@ -175,7 +253,8 @@ def build(src_dir: Path | None = None,
     log_tmp.write_text(json.dumps(logs))
     os.replace(log_tmp, log_path)
     os.replace(tmp, so)
-    for obj in objs:
+    for name, obj in zip(SOURCES, objs):
+        object_bytes[name] = obj.stat().st_size
         obj.unlink(missing_ok=True)
     build_log.update(logs)
     build_seconds = time.monotonic() - t0
@@ -242,12 +321,22 @@ def load(path: Path) -> ctypes.CDLL:
 
 def lib():
     """The loaded kernel library (built on first call, once however many
-    threads ask at the same time)."""
-    global _lib
+    threads ask at the same time). The build window goes to the build
+    listener."""
+    global _lib, loaded_path, build_windows, build_window_seconds
     if _lib is None:
         with _lib_lock:
             if _lib is None:
-                _lib = load(build())
+                t0 = time.monotonic()
+                n0 = nvcc_compiles
+                path = build()
+                handle = load(path)
+                seconds = time.monotonic() - t0
+                loaded_path, _lib = path, handle
+                build_windows += 1
+                build_window_seconds += seconds
+                if _build_listener is not None:
+                    _build_listener(seconds, nvcc_compiles > n0)
     return _lib
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from proovread_tpu_torch import kernels
+from proovread_tpu_torch.obs.profile import attributed
 
 # truth-sidecar schema version (writer: io/simulate.py:write_truth_sidecar)
 TRUTH_SCHEMA_VERSION = 1
@@ -126,6 +127,7 @@ def _check(text, text_off, pat, pat_off, what="lcs_lengths"):
     return to, po
 
 
+@attributed("lcs_lengths")
 def lcs_lengths(text: torch.Tensor, text_off: torch.Tensor,
                 pat: torch.Tensor, pat_off: torch.Tensor) -> torch.Tensor:
     """LCS length (int64 [P]) of each pair (read ``text[text_off[p]:
@@ -449,6 +451,7 @@ def _edit_args(what, rd, rd_off, tr, tr_off, band):
     return to, po, np.where(band == 0, 64, np.maximum(band, 1))
 
 
+@attributed("edit_alignments")
 def edit_alignments(rd: torch.Tensor, rd_off: torch.Tensor,
                     tr: torch.Tensor, tr_off: torch.Tensor,
                     band) -> torch.Tensor:

@@ -1,11 +1,16 @@
 """End-to-end observability smoke (port of ``proovread_tpu/obs/smoke.py``).
 
 Runs a small full command-line correction (``python -m
-proovread_tpu_torch``) with ``--trace``, ``--metrics-out``, ``--qc-out`` and
-``--truth``, and validates every artifact with the port's own validators
-(``obs/validate.py``): the trace must parse against the Chrome
-trace-event schema with its root span >= 95% covered by children and
-every bucket span carrying the compile/execute split; the metrics JSON
+proovread_tpu_torch``) with ``--trace``, ``--metrics-out``, ``--qc-out``,
+``--truth`` and ``--compile-ledger``, and validates every artifact with the
+port's own validators (``obs/validate.py``): the trace must parse against
+the Chrome trace-event schema with its root span >= 95% covered by
+children and every bucket span carrying the compile/execute split and the
+profiler's cost attribution (``flops``, ``bytes_accessed``,
+``peak_bytes``: the kernel entries' cost models, ``obs/profile.py``) with
+a nonzero total; the compile ledger must validate strictly, have seen
+the kernel entries' calls, and reconcile with the trace's compile split;
+the metrics JSON
 must parse against the registry schema and contain the KPI counter
 catalog; the per-read QC JSONL must validate strictly against
 ``QC_RECORD_FIELDS`` with one finished record per corrected read, each
@@ -16,12 +21,8 @@ wrapped in a CUDA tensor leak check (``obs.memory.LeakCheck``).
 ``--qc-only`` runs the same workload with only ``--qc-out`` and
 ``--truth`` and validates just the QC artifact.
 
-Two parts of the reference's smoke are left out: its compile-ledger
-reconciliation (``--compile-ledger``, which the port does not run yet),
-and its demand that bucket spans carry the profiler's cost attribution
-(``flops``, ``bytes_accessed``: XLA's ``cost_analysis``, which has no
-counterpart in eager PyTorch). The workload is always the synthetic one
-(a 3 kb genome, ~5 kb of CLR reads, 30x short reads).
+The workload is always the synthetic one (a 3 kb genome, ~5 kb of CLR
+reads, 30x short reads).
 
     python -m proovread_tpu_torch.obs.smoke [--qc-only] [--device cpu]
 """
@@ -144,6 +145,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from proovread_tpu_torch.cli import main as cli_main
     from proovread_tpu_torch.obs.memory import LeakCheck
     from proovread_tpu_torch.obs.validate import (ValidationError,
+                                                  reconcile_compile_ledger,
+                                                  validate_compile_ledger,
                                                   validate_metrics,
                                                   validate_trace)
 
@@ -157,15 +160,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         trace = os.path.join(tmp, "run.trace.jsonl")
         mets = os.path.join(tmp, "run.metrics.json")
         qcp = os.path.join(tmp, "run.qc.jsonl")
+        ledp = os.path.join(tmp, "run.ledger.jsonl")
         cli_args = ["-l", lp, "-s", sp, "-p", out, "-m", "sr-noccs",
                     "-c", cfgp, "--qc-out", qcp, "--truth", tp,
                     "--device", args.device]
         if args.qc_only:
             _log("running CLI with --qc-out + --truth (qc-smoke)")
         else:
-            _log("running CLI with --trace/--metrics-out/--qc-out "
-                 "(+ leak check)")
-            cli_args += ["--trace", trace, "--metrics-out", mets]
+            _log("running CLI with --trace/--metrics-out/--qc-out/"
+                 "--compile-ledger (+ leak check)")
+            cli_args += ["--trace", trace, "--metrics-out", mets,
+                         "--compile-ledger", ledp]
         leak = LeakCheck()
         rc = cli_main(cli_args)
         if rc != 0:
@@ -178,13 +183,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             _log("PASS")
             return 0
         try:
-            tstats = validate_trace(trace, min_coverage=0.95)
+            tstats = validate_trace(trace, min_coverage=0.95,
+                                    require_attribution=True)
             mstats = validate_metrics(mets, require=REQUIRED_COUNTERS)
+            # the ledger's rows and the trace's compile split are fed by
+            # the same build window: they must agree
+            lstats = validate_compile_ledger(ledp)
+            rstats = reconcile_compile_ledger(ledp, trace)
         except ValidationError as e:
             _log(f"FAILED: {e}")
             return 1
         if tstats["n_buckets"] < 1:
             _log("FAILED: no bucket spans in trace")
+            return 1
+        if tstats["bucket_flops"] <= 0 or tstats["bucket_bytes"] <= 0:
+            _log("FAILED: bucket spans carry no cost attribution "
+                 f"({json.dumps(tstats)}): the profiler did not run")
+            return 1
+        if lstats["census"]["calls"] < 1:
+            _log("FAILED: compile ledger saw no kernel-entry calls "
+                 f"({json.dumps(lstats['census'])})")
             return 1
         if not _validate_qc_artifact(qcp, trace=trace):
             return 1
@@ -193,6 +211,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1
         _log(f"trace OK: {json.dumps(tstats)}")
         _log(f"metrics OK: {json.dumps(mstats)}")
+        _log("compile-ledger OK: "
+             + json.dumps({k: v for k, v in lstats.items()
+                           if k != 'census'})
+             + f" reconciles {json.dumps(rstats)}")
         _log(f"leak check OK: {json.dumps(lrep)}")
         _log("PASS")
     return 0

@@ -20,13 +20,24 @@ shared no-op and ``fence`` does nothing: an untraced run adds no
 synchronization.
 
 **Compile vs execute.** The reference attributes XLA backend compiles to
-the open spans through a ``jax.monitoring`` listener. PyTorch runs eagerly
-and the kernels are built once, before the first launch
-(``proovread_tpu_torch.kernels``), so the port takes the reference's own
-branch for a process without that listener: every split span carries
-``compile_ms`` 0 and ``execute_ms`` equal to its duration. Nothing
-retraces either, so the reference's ``count_retrace`` hook has no
-counterpart and the ``jax_retraces`` counter stays declared at 0.
+the open spans through a ``jax.monitoring`` listener. What the port
+compiles is one CUDA library, once a process (``kernels.lib()``): its
+build window (the ``nvcc`` runs and the link, or the load of a library
+found built) comes to :func:`_on_build` through the kernels' build
+listener and is charged to every open span, so each bucket, attempt,
+pass and kernel span carries ``compile_ms`` (0 where no build landed) and
+``execute_ms`` = duration - compile. The same window feeds the compile
+ledger (``obs/compilecache.py``) and the profiler (``obs/profile.py``),
+so the ledger's rows reconcile with the span tree. Nothing retraces, so
+the reference's ``count_retrace`` hook has no counterpart and the
+``jax_retraces`` counter stays declared at 0.
+
+**Cost attribution.** While a profiler is installed (``obs/profile.py``)
+every split span carries ``flops``, ``bytes_accessed`` and ``peak_bytes``:
+the cost models of the kernel entries launched inside it. With
+:func:`set_annotations` on (``--xprof``) every span also opens a
+``torch.profiler.record_function`` range named ``cat:name``, so the
+profiler's trace lines up with the span tree.
 """
 
 from __future__ import annotations
@@ -43,14 +54,62 @@ _SPLIT_CATS = frozenset(("bucket", "attempt", "pass", "kernel"))
 # coarse on purpose, so the sampler never becomes the hot path
 _MEM_CATS = frozenset(("bucket", "attempt", "pass", "task"))
 
-# obs.memory's sampler, called at _MEM_CATS span exits (set through
-# set_memory_sampler so this module never imports obs.memory)
+# cross-module switches set by obs.profile / obs.memory / obs.compilecache
+# (set through the setters so this module never imports them):
+# _profile_active: cost attribution on -> _SPLIT_CATS spans always carry
+#   the flops/bytes/peak keys (zeros included)
+# _annotate: each span opens a torch.profiler.record_function range
+# _mem_sampler: obs.memory's sampler, called at _MEM_CATS span exits
+# _profile_compile_cb / _ledger_compile_cb: the profiler's and the
+#   ledger's build-window listeners
+_profile_active = False
+_annotate = False
 _mem_sampler = None
+_profile_compile_cb = None
+_ledger_compile_cb = None
 
 
 def set_memory_sampler(sampler) -> None:
     global _mem_sampler
     _mem_sampler = sampler
+
+
+def set_profile_active(on: bool) -> None:
+    global _profile_active
+    _profile_active = bool(on)
+
+
+def set_profile_compile_listener(cb) -> None:
+    global _profile_compile_cb
+    _profile_compile_cb = cb
+
+
+def set_ledger_compile_listener(cb) -> None:
+    global _ledger_compile_cb
+    _ledger_compile_cb = cb
+
+
+def set_annotations(on: bool) -> None:
+    global _annotate
+    _annotate = bool(on)
+
+
+def _on_build(seconds: float, compiled: bool) -> None:
+    """The kernels' build listener: one ``lib()`` build window, to the
+    active tracer's open spans, the profiler and the ledger."""
+    t = _tracer
+    if t is not None:
+        t._on_compile(seconds)
+    if _profile_compile_cb is not None:
+        _profile_compile_cb(seconds)
+    if _ledger_compile_cb is not None:
+        _ledger_compile_cb(seconds, compiled)
+
+
+def install_build_hook() -> None:
+    """Make :func:`_on_build` the kernels' build listener (idempotent)."""
+    from proovread_tpu_torch import kernels
+    kernels.set_build_listener(_on_build)
 
 
 class _NoopSpan:
@@ -91,6 +150,7 @@ def install(tracer: Optional["Tracer"] = None) -> "Tracer":
     """Make ``tracer`` (or a fresh one) the active tracer."""
     global _tracer
     _tracer = tracer if tracer is not None else Tracer()
+    install_build_hook()
     return _tracer
 
 
@@ -151,8 +211,9 @@ class Span:
     """One live span. Created via :func:`span` / :meth:`Tracer.span`;
     records a Chrome ``X`` (complete) event at exit."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "depth", "dur_s",
-                 "_start", "_fence_obj", "mem_peak", "span_id")
+    __slots__ = ("_tracer", "name", "cat", "args", "depth", "compile_s",
+                 "dur_s", "_start", "_fence_obj", "flops", "bytes_acc",
+                 "peak_bytes", "mem_peak", "_ann", "span_id")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any]):
@@ -160,9 +221,16 @@ class Span:
         self.name = name
         self.cat = cat
         self.args = args
+        self.compile_s = 0.0
         self.dur_s = 0.0
         self._fence_obj = None
+        # cost attribution (obs/profile.py), summed over the kernel
+        # entries launched while this span is open
+        self.flops = 0.0
+        self.bytes_acc = 0.0
+        self.peak_bytes = 0.0       # the largest one call's peak inside
         self.mem_peak = 0.0         # max sampled live bytes inside span
+        self._ann = None
 
     def set(self, **args):
         self.args.update(args)
@@ -183,6 +251,11 @@ class Span:
         self.span_id = t._next_span_id
         t._next_span_id += 1
         t._stack.append(self)
+        if _annotate:
+            # --xprof: name the profiler's range after this span
+            from torch.profiler import record_function
+            self._ann = record_function(f"{self.cat}:{self.name}")
+            self._ann.__enter__()
         self._start = t._clock()
         return self
 
@@ -190,6 +263,9 @@ class Span:
         t = self._tracer
         if self._fence_obj is not None and exc_type is None:
             _fence(self._fence_obj)
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
+            self._ann = None
         end = t._clock()
         if t._stack and t._stack[-1] is self:
             t._stack.pop()
@@ -204,9 +280,20 @@ class Span:
         args = dict(self.args)
         args["depth"] = self.depth
         args["span_id"] = self.span_id
-        if self.cat in _SPLIT_CATS:
-            args["compile_ms"] = 0.0
-            args["execute_ms"] = round(self.dur_s * 1e3, 3)
+        if self.compile_s > 0 or self.cat in _SPLIT_CATS:
+            # a build window can start before a span that is open at its
+            # end: never report compile > duration
+            comp = min(self.compile_s, self.dur_s)
+            args["compile_ms"] = round(comp * 1e3, 3)
+            args["execute_ms"] = round(
+                max(self.dur_s - comp, 0.0) * 1e3, 3)
+        if self.flops or self.bytes_acc or self.peak_bytes or (
+                _profile_active and self.cat in _SPLIT_CATS):
+            # cost attribution: on every split span while profiling, so
+            # readers tell "no device work" (zeros) from "off" (absent)
+            args["flops"] = self.flops
+            args["bytes_accessed"] = self.bytes_acc
+            args["peak_bytes"] = self.peak_bytes
         if self.mem_peak or (_mem_sampler is not None
                              and self.cat in _MEM_CATS):
             # while the sampler is installed, sampled categories always
@@ -233,9 +320,28 @@ class Tracer:
         self.events: List[Dict[str, Any]] = []
         self._stack: List[Span] = []
         self._next_span_id = 1
+        self.n_compiles = 0         # kernel-library build windows
+        self.compile_s = 0.0        # their seconds
 
     def span(self, name: str, cat: str = "span", **args) -> Span:
         return Span(self, name, cat, args)
+
+    def _on_compile(self, duration: float) -> None:
+        """Charge one build window to every open span (a bucket's split
+        includes its children's)."""
+        self.n_compiles += 1
+        self.compile_s += duration
+        for sp in self._stack:
+            sp.compile_s += duration
+
+    def _on_cost(self, flops: float, bytes_acc: float,
+                 peak_bytes: float) -> None:
+        """Attribute one profiled kernel call to every open span; the peak
+        is a max, not a sum."""
+        for sp in self._stack:
+            sp.flops += flops
+            sp.bytes_acc += bytes_acc
+            sp.peak_bytes = max(sp.peak_bytes, peak_bytes)
 
     # -- serialization ----------------------------------------------------
     def write_chrome(self, path: str) -> None:

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from proovread_tpu_torch import kernels
+from proovread_tpu_torch.obs.profile import attributed
 from proovread_tpu_torch.ops.votes import INS_CAP as INS_K
 
 
@@ -54,6 +55,7 @@ def pack_columns(call, lengths: torch.Tensor) -> torch.Tensor:
     return word
 
 
+@attributed("assemble_rows")
 def assemble_rows(call, lengths: torch.Tensor, Lp: int):
     """(new codes i8 [B, Lp], new qual u8 [B, Lp], new lengths i32 [B]);
     output longer than Lp is truncated."""
@@ -179,6 +181,7 @@ def _int_params(pv) -> list:
     return ints
 
 
+@attributed("hcr_mask_rows")
 def hcr_mask_rows(qual: torch.Tensor, lengths: torch.Tensor, pv):
     """(mask bool [B, L], masked fraction f32 0-dim tensor)."""
     pvi = _int_params(pv)

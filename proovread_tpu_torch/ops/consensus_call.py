@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from proovread_tpu_torch.consensus.params import MAX_PHRED, PROOVREAD_CONSTANT
+from proovread_tpu_torch.obs.profile import attributed
 from proovread_tpu_torch.ops.encode import GAP
 from proovread_tpu_torch.ops.pileup import Pileup, lane_sum
 
@@ -35,6 +36,7 @@ def freqs_to_phreds(freq: torch.Tensor) -> torch.Tensor:
     return torch.clamp(p, max=MAX_PHRED).to(torch.int32)
 
 
+@attributed("call_consensus")
 def call_consensus(pile: Pileup, ref_codes: torch.Tensor,
                    max_ins_length: int = 0) -> ConsensusCall:
     counts, ins_mbase = pile.counts, pile.ins_mbase

@@ -23,6 +23,7 @@ import torch
 from proovread_tpu_torch.align.sw import OP_D, OP_I, OP_M, OP_NONE
 from proovread_tpu_torch.ops.encode import GAP
 from proovread_tpu_torch.ops.pileup import Pileup
+from proovread_tpu_torch.obs.profile import attributed
 from proovread_tpu_torch.ops.scatter import scatter_add_ordered
 
 
@@ -40,6 +41,7 @@ def phred2freq(p: torch.Tensor) -> torch.Tensor:
             * _P2F_UNIT.to(pf.device))
 
 
+@attributed("add_ref_votes")
 def add_ref_votes(pile: Pileup, ref_codes: torch.Tensor,
                   ref_qual: torch.Tensor, length_mask: torch.Tensor
                   ) -> Pileup:
@@ -53,6 +55,7 @@ def add_ref_votes(pile: Pileup, ref_codes: torch.Tensor,
     return pile._replace(counts=pile.counts + onehot)
 
 
+@attributed("fused_accumulate")
 def fused_accumulate(
     pile: Pileup,
     ops_rev: torch.Tensor,    # i8  [R, T] traceback ops (end->start)

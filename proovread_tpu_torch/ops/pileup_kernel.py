@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from proovread_tpu_torch import kernels
+from proovread_tpu_torch.obs.profile import attributed
 from proovread_tpu_torch.ops.votes import INS_CAP, PACK_LANES
 
 
@@ -51,6 +52,7 @@ def _check(pileup, bits0, bits1, read_of, w0):
     return B, Lpile, R, n
 
 
+@attributed("pileup_accumulate_bits")
 def pileup_accumulate_bits(pileup, bits0, bits1, read_of, w0):
     """Add each candidate's votes into ``pileup`` (in place) and return it.
 
@@ -149,6 +151,7 @@ def _check_packed(pileup, words, read_of, w0):
     return B, Lpile, R, n
 
 
+@attributed("pileup_accumulate_packed")
 def pileup_accumulate_packed(pileup, words, read_of, w0):
     """Add each candidate's packed vote words into ``pileup`` (in place)
     and return it.
@@ -219,6 +222,7 @@ def _check_dense(pileup, votes, read_of, w0):
     return B, Lpile, R, n
 
 
+@attributed("pileup_accumulate")
 def pileup_accumulate(pileup, votes, read_of, w0):
     """Add each candidate's vote slab into its read's pileup rows (in
     place) and return it. Every cell is folded over the candidates in index

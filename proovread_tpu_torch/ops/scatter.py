@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from proovread_tpu_torch import kernels
+from proovread_tpu_torch.obs.profile import attributed
 
 
 def _sorted_segments(target: torch.Tensor, idx: torch.Tensor,
@@ -56,6 +57,7 @@ def _check(target, idx, w, keep) -> None:
         "scatter_add_ordered: target or entries past 2^31")
 
 
+@attributed("scatter_add_ordered")
 def scatter_add_ordered(target: torch.Tensor, idx: torch.Tensor,
                         w: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """``target[idx[k]] += w[k]`` where ``keep[k]`` and ``idx[k]`` is in

@@ -11,11 +11,15 @@ a meaningful assert):
 1. **baseline**: a single-device run, QC on and scored against the
    workload's ground truth: the ``--qc-out`` aggregate, identity before
    and after included, that every later phase must reproduce byte for
-   byte;
+   byte; then the same run traced and under a compile ledger (1b): the
+   ledger strictly valid and reconciling with the span tree's compile
+   split, the result carrying a census;
 2. **headline**: ``device_lost@d1.p2``, shard 1 dies at iteration 2 of the
    4-way mesh; the run must complete at the shrunken rung ``mesh-dp3``,
    with the demotion attributed to shard 1 in ``mesh_faults`` and the
-   aggregate identical to the baseline;
+   aggregate identical to the baseline; under a compile ledger, whose
+   census must count calls on every rank (nothing is compiled per mesh
+   shape, so there are no ``dmesh:`` entries to look for);
 3. **one fault per other mesh kind**: ``straggler`` (shrinks, like a chip
    loss), ``shard_oom`` and ``collective_timeout`` (retreat to the
    single-device rungs), each identical, each attributed;
@@ -26,9 +30,7 @@ a meaningful assert):
 5. **leak check**: no CUDA tensor left alive by the runs.
 
 The kill runs in a launch of its own (its ranks die); phases 1-3, the
-resume and the leak check run in turn in one launch of 4 ranks. The
-reference's compile-ledger reconciliation has no counterpart: the port
-keeps no compile ledger.
+resume and the leak check run in turn in one launch of 4 ranks.
 
 :func:`run` and :func:`pipeline_on_ranks` are the pieces ``chip_smoke.py``
 reuses for its full-size mesh phase.
@@ -201,14 +203,41 @@ def _drill(longs, srs, truth, ckpt: str, device: str) -> list:
         lines.append(f"baseline: {len(recs0)} QC records, identity "
                      f"{idb:.4f} -> {ida:.4f}")
 
+    # -- 1b: the baseline again, traced and under a compile ledger ------
+    from proovread_tpu_torch import obs
+    from proovread_tpu_torch.obs import compilecache
+    from proovread_tpu_torch.obs.validate import (reconcile_compile_ledger,
+                                                  validate_compile_ledger)
+    with obs.tracing() as tr0, compilecache.scope(
+            compilecache.Ledger(backend=device)) as led0:
+        _, _, res0b = run(longs, srs, truth, device=device)
+    with tempfile.TemporaryDirectory(prefix="proovread_dmesh_led_") as lt:
+        tracep, ledp = os.path.join(lt, "t.jsonl"), os.path.join(lt, "l.jsonl")
+        tr0.write_chrome(tracep)
+        led0.write_jsonl(ledp)
+        lstats = validate_compile_ledger(ledp)
+        rstats = reconcile_compile_ledger(ledp, tracep)
+    _check(res0b.compile_census is not None
+           and res0b.compile_census["calls"] >= 1,
+           "the traced rerun's PipelineResult carries no compile census")
+    lines.append("compile-ledger OK: " + json.dumps(
+        {k: v for k, v in lstats.items() if k != "census"})
+        + f" reconciles {json.dumps(rstats)}")
+
     def same(tag, agg, recs):
         if rank0:
             _check(agg == agg0 and recs == recs0,
                    f"{tag}: output differs from the baseline")
 
     # -- 2: headline: a chip lost mid-iteration -------------------------
-    agg1, recs1, res1 = run(longs, srs, truth, mesh_shards=N_RANKS,
-                            fault_spec=HEADLINE_FAULT, device=device)
+    with compilecache.scope(compilecache.Ledger(backend=device)) as led1:
+        agg1, recs1, res1 = run(longs, srs, truth, mesh_shards=N_RANKS,
+                                fault_spec=HEADLINE_FAULT, device=device)
+    calls = [None] * dist.get_world_size()
+    dist.all_gather_object(calls, led1.census()["calls"])
+    _check(all(c >= 1 for c in calls),
+           f"a rank's compile census counts no call: {calls}")
+    lines.append(f"mesh run's compile census: calls by rank {calls}")
     _check(any("mesh-dp3" in n and "shard 1" in n for n in _demotions(res1)),
            f"{HEADLINE_FAULT} did not demote to mesh-dp3 "
            f"({_demotions(res1)})")

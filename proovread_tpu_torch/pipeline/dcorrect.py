@@ -146,11 +146,12 @@ def device_admit(lread, pos0, span, score, passed, ref_lens,
     cum, before = prefix(sspans, sbins, lr[order])
     cum_before = (cum - sspans) - before
     if budget_r is None:
-        budget = float(params.bin_max_bases)
+        budget = float(params.bin_max_bases)  # static-ok: host param
     else:
         budget = torch.minimum(
             budget_r[torch.clamp(lr, min=0)],
-            torch.tensor(float(params.bin_max_bases), dtype=f32,
+            torch.tensor(float(params.bin_max_bases),  # static-ok: param
+                         dtype=f32,
                          device=dev))[order]
     admit = keep[order] & (cum_before <= budget)
     out = torch.zeros(R, dtype=torch.bool, device=dev)
@@ -461,6 +462,7 @@ def detect_chimera_device(results, ref_lens: np.ndarray, aln: AlnData
                                            L_i, cns)
 
 
+@obs.profile.attributed("fused_pass")
 def _fused_pass(map_codes, ignore_cols, codes, qual, lengths,
                 q_codes, rc_codes, q_qual, q_lengths,
                 sread, strand, lread, diag, n_cand: int,
@@ -605,6 +607,7 @@ def _fused_pass_scanned(map_codes, ignore_cols, codes, qual, lengths,
                        strand, admitted, cns, collect, slabs, haplo)
 
 
+@obs.profile.attributed("gather_and_align")
 def _gather_and_align(map_codes, ignore_cols, q_codes, rc_codes, q_qual,
                       q_lengths, sread, strand, lread, diag,
                       m: int, W: int, ap: AlignParams):
@@ -823,6 +826,7 @@ class FusedResult:
     qc_uplift: Optional[torch.Tensor] = None
 
 
+@obs.profile.attributed("fused_iterations")
 def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
                      sr_codes, sr_rc, sr_qual, sr_lengths,
                      sels: Optional[np.ndarray], mask_pvs: np.ndarray,
@@ -887,7 +891,7 @@ def fused_iterations(codes, qual, lengths, mask_cols, frac_prev: float,
         gain = np.float32(frac32 - frac_prev32)
         done = bool((frac32 > np.float32(shortcut_frac))
                     | (gain < np.float32(min_gain)))
-        fracs.append(float(frac32))
+        fracs.append(float(frac32))  # static-ok: a host numpy scalar
         ncands.append(n_cand)
         nadms.append(int(n_adm))
         neligs.append(int(n_elig))

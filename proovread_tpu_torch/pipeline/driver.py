@@ -190,6 +190,10 @@ class PipelineResult:
     # the aggregate QC report (obs/qc.py); filled while a QC recorder is
     # installed (CLI --qc-out / --truth)
     qc: Optional[Dict[str, Any]] = None
+    # the compile ledger's census (obs/compilecache.py: entries called,
+    # kernel-library build windows, hit rates); filled while a ledger is
+    # installed (CLI --compile-ledger, serving)
+    compile_census: Optional[Dict[str, Any]] = None
 
 
 def _record_report(reports: List[TaskReport], rep: TaskReport) -> None:
@@ -224,8 +228,9 @@ def _bucket_metrics(tb0: float, batch_recs) -> None:
 
 def _declare_metrics(reg) -> None:
     """Declare the reference's whole KPI catalog, so zero-valued series
-    still appear in the dump. The compile and retrace entries stay 0:
-    the port compiles nothing mid-run."""
+    still appear in the dump. The compile gauges are the compile
+    ledger's census where one is installed; ``jax_retraces`` stays 0
+    (nothing retraces)."""
     from proovread_tpu_torch.obs.qc import FUNNEL_KEYS
     c = reg.counter
     c("candidates_total", "candidates", "seed candidates probed by SW")
@@ -526,6 +531,11 @@ class Pipeline:
             if qc_rec is not None:
                 result.qc = qc_rec.aggregate()
                 qc_rec.to_metrics(result.qc)
+            led = obs.compilecache.current()
+            if led is not None:
+                # the census and its compile_* / cache_* gauges
+                result.compile_census = led.census()
+                led.to_metrics(result.compile_census)
             result.metrics = reg.as_dict()
             return result
 
@@ -599,6 +609,8 @@ class Pipeline:
             journaled. Returns (results, chimeras, replayed)."""
             key = bucket_key(batch_recs)
             tb0 = time.monotonic()
+            # the compile ledger labels this bucket's rows
+            obs.compilecache.set_bucket(gi)
             with obs.span("bucket", cat="bucket", bucket=gi,
                           reads=len(batch_recs),
                           bases=sum(len(r) for r in batch_recs),
@@ -606,6 +618,7 @@ class Pipeline:
                 hit = replay(key, gi, n_groups, bsp.span_id)
                 if hit is not None:
                     bsp.set(replayed=True)
+                    obs.compilecache.set_bucket(None)
                     return (*hit, True)
                 if qc_rec is not None:
                     qc_rec.start_bucket(gi, batch_recs, span_id=bsp.span_id)
@@ -618,6 +631,7 @@ class Pipeline:
                         qc_records=(qc_rec.bucket_payload(
                             [r.id for r in batch_recs])
                             if qc_rec is not None else None))
+            obs.compilecache.set_bucket(None)
             # computed buckets only: a replay re-runs no admission
             _bucket_metrics(tb0, batch_recs)
             return res_batch, chim, False

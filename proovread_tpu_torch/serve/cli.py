@@ -6,9 +6,12 @@ Boots a :class:`~proovread_tpu_torch.serve.server.CorrectionServer`
 against a short-read library, listens on a local socket, and runs until
 drained (SIGTERM/SIGINT, or a client's ``drain`` op). One flag is the
 port's own, as in the batch CLI: ``--device {cuda,cpu}`` (default
-``cuda``); asking for the card without one is an error. ``--compile-cache``
-and ``--boot-from-artifact`` (the reference's XLA compile cache and
-factory-artifact warm boot) are not ported: each exits 2 naming itself.
+``cuda``); asking for the card without one is an error.
+``--compile-cache [DIR]`` builds the kernel library into and loads it
+from DIR (``obs/compilecache.py``); ``--boot-from-artifact DIR`` warm-boots
+from a kernel-build artifact (``analysis/factory.py``; verified first:
+one refused exits 2 naming the flag and writes nothing; supersedes
+``--compile-cache``), writing a BOOT row to ``<state-dir>/boot.json``.
 
 This module is imported ONLY when the first CLI argument is ``serve`` —
 the batch path stays serve-free (``tests/test_torch_serve.py`` holds it).
@@ -23,11 +26,6 @@ import sys
 from typing import List, Optional
 
 log = logging.getLogger("proovread_tpu_torch")
-
-# parsed-argument name -> flag, for the reference's flags the port does
-# not run yet
-_UNPORTED_FLAGS = (("compile_cache", "--compile-cache"),
-                   ("boot_from_artifact", "--boot-from-artifact"))
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -62,11 +60,15 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     help="correction engine (default: device)")
     ap.add_argument("--compile-cache", metavar="DIR", nargs="?",
                     const="auto",
-                    help="the reference's persistent XLA compile cache "
-                         "(not supported by the PyTorch port)")
+                    help="build the kernel library into and load it from "
+                         "DIR (default: the usual build directory)")
     ap.add_argument("--boot-from-artifact", metavar="DIR",
-                    help="the reference's warm boot from a factory "
-                         "artifact (not supported by the PyTorch port)")
+                    help="warm-boot from a kernel-build artifact "
+                         "(python -m proovread_tpu_torch.analysis.factory "
+                         "--artifact DIR): verify it, copy its cache under "
+                         "--state-dir, load the library from the copy and "
+                         "write a boot row to <state-dir>/boot.json. "
+                         "Supersedes --compile-cache.")
     ap.add_argument("--max-tenant-jobs", type=int, default=8,
                     help="per-tenant held-job quota (queued + running)")
     ap.add_argument("--max-tenant-bases", type=int, default=4_000_000,
@@ -99,10 +101,15 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 def serve_main(argv: Optional[List[str]] = None) -> int:
     args = build_serve_parser().parse_args(argv)
-    for attr, flag in _UNPORTED_FLAGS:
-        if getattr(args, attr) is not None:
-            print(f"error: serve {flag} is not supported by the PyTorch "
-                  "port yet", file=sys.stderr)
+    if args.boot_from_artifact:
+        # refused before anything is written
+        from proovread_tpu_torch.obs.boot import verify_artifact
+        from proovread_tpu_torch.obs.validate import ValidationError
+        try:
+            verify_artifact(args.boot_from_artifact)
+        except (ValidationError, FileNotFoundError) as e:
+            print(f"error: serve --boot-from-artifact: {e}",
+                  file=sys.stderr)
             return 2
     level = (logging.DEBUG if args.debug
              else logging.ERROR if args.quiet else logging.INFO)
@@ -128,6 +135,11 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         print("error: empty short-read library", file=sys.stderr)
         return 2
     log.info("serve: %d short reads loaded", len(shorts))
+    if args.compile_cache and not args.boot_from_artifact:
+        from proovread_tpu_torch.obs.compilecache import \
+            enable_persistent_cache
+        log.info("serve: kernel library cache at %s",
+                 enable_persistent_cache(args.compile_cache))
 
     pcfg = PipelineConfig(
         engine=args.engine,
@@ -150,6 +162,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         slo_path=args.slo_out,
         qc=args.qc,
         resume=args.resume,
+        artifact_dir=args.boot_from_artifact,
     )
     os.makedirs(args.state_dir, exist_ok=True)
     server = CorrectionServer(shorts, scfg, pcfg)

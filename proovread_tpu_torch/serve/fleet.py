@@ -6,9 +6,13 @@ and routes jobs to them over the SAME wire protocol every other client
 uses (``serve/protocol.py``), never through an in-process shortcut. The
 replicas share the process's one card: their worker threads launch the
 kernels on their own current streams, and the kernel library is built
-once (``kernels.lib``'s lock). The reference's warm boot of every replica
-from a factory artifact (``FleetConfig.artifact_dir``) is not ported: a
-fleet given one refuses to start, naming it.
+once (``kernels.lib``'s lock). With ``FleetConfig.artifact_dir`` the
+fleet warm-boots from a kernel-build artifact (``analysis/factory.py``):
+verified before any state is written, fetched and verified once into
+``<state_dir>/artifact_cache``, the kernel build directory pointed at
+the copy, and one BOOT row a replica in ``r<i>/boot.json``
+(``obs/boot.py:artifact_boot``; on the card the first replica's row holds
+the library's load, a cache hit).
 
 Design decisions worth naming:
 
@@ -95,8 +99,8 @@ class FleetConfig:
     # forwarded verbatim to every replica (job/device sites)
     replica_fault_spec: Optional[str] = None
     qc: bool = False
-    # the reference's warm boot from a factory artifact; not ported: a
-    # fleet given one refuses to start (module docstring)
+    # the kernel-build artifact every replica warm-boots from (module
+    # docstring)
     artifact_dir: Optional[str] = None
 
 
@@ -130,9 +134,9 @@ class FleetDispatcher:
                  pipeline_config: Optional[PipelineConfig] = None,
                  scoreboard: Any = None):
         if config.artifact_dir:
-            raise NotImplementedError(
-                "FleetConfig.artifact_dir (warm boot from a factory "
-                "artifact) is not supported by the PyTorch port yet")
+            # refused before any state is written
+            from proovread_tpu_torch.obs.boot import verify_artifact
+            verify_artifact(config.artifact_dir)
         self.cfg = config
         self.short_records = list(short_records)
         self.pipeline_config = pipeline_config
@@ -164,6 +168,17 @@ class FleetDispatcher:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
+        manifest = None
+        if self.cfg.artifact_dir:
+            # the artifact is fetched and verified once for the fleet; the
+            # kernel build directory points at the copy
+            from proovread_tpu_torch.obs import boot as obs_boot
+            from proovread_tpu_torch.obs import compilecache
+            copy = os.path.join(self.cfg.state_dir, "artifact_cache")
+            manifest = obs_boot.fetch_artifact(self.cfg.artifact_dir, copy)
+            compilecache.enable_persistent_cache(copy)
+            log.info("fleet: warm-boot artifact %s verified -> %s",
+                     manifest["version"], copy)
         for i in range(self.cfg.n_replicas):
             rep = Replica(
                 i, os.path.join(self.cfg.state_dir, f"r{i}"),
@@ -177,6 +192,16 @@ class FleetDispatcher:
                 qc=self.cfg.qc, replica_id=rep.replica_id)
             rep.server = CorrectionServer(self.short_records, scfg,
                                           self.pipeline_config)
+            if manifest is not None:
+                # one boot row a replica; the first loads the library
+                _, row = obs_boot.artifact_boot(
+                    rep.state_dir, artifact_dir=self.cfg.artifact_dir,
+                    device=rep.server.pipeline_template.device,
+                    replica=rep.replica_id, manifest=manifest)
+                log.info("fleet: %s booted from artifact in %.3f s (%d "
+                         "build window(s), %d violation(s))",
+                         rep.replica_id, row["boot_wall_s"],
+                         row["n_backend_compiles"], len(row["violations"]))
             rep.server.start(worker=True)
             rep.alive = True
             self.replicas.append(rep)

@@ -30,15 +30,24 @@ The waves run on the pipeline's ``device`` (``PipelineConfig.device``,
 the card unless the caller asks for the CPU); a server asked for the card
 on a machine without one raises at construction. The SLO artifact keeps
 the reference's schema (``SLO_SCHEMA_VERSION`` 2, every key), so both
-packages' ``validate_slo`` accept it. Its ``compile`` block has no XLA
-compile ledger behind it here: it reports the kernel library of
-``kernels.py`` — ``n_programs`` the CUDA sources in the loaded library (0
-before the first launch, and on the CPU), ``backend_compiles`` the
-sources ``nvcc`` compiled in this process, ``backend_compile_s`` their
-seconds, ``tracing_hits`` / ``tracing_misses`` 0 and ``tracing_hit_rate``
-null (PyTorch runs eagerly: nothing is traced). The reference's warm boot
-from a factory artifact (``ServeConfig.artifact_dir``) is not ported: a
-server given one refuses to start, naming it.
+packages' ``validate_slo`` accept it. Its ``compile`` block reports the
+kernel library of ``kernels.py``: ``n_programs`` the CUDA sources in the
+loaded library (0 before the first launch, and on the CPU),
+``backend_compiles`` / ``backend_compile_s`` the library's build windows
+in this process and their seconds (the ``nvcc`` runs and the link, or
+the load of a library found built: the windows, and seconds, a compile
+ledger's census counts, ``obs/compilecache.py``), ``tracing_hits`` /
+``tracing_misses`` 0 and ``tracing_hit_rate`` null (the server keeps no
+ledger of its own: one left installed in a process would fill every
+later run's compile gauges).
+
+**Warm boot** (``ServeConfig.artifact_dir``): the kernel-build artifact
+(``analysis/factory.py``) is verified before anything is written (a
+refused artifact leaves no state behind), copied under the state dir
+and verified again, the kernel build directory points at the copy and,
+on the card, the library loads from it then: one BOOT row
+(``obs/boot.py:artifact_boot``) lands in ``<state_dir>/boot.json``, its
+build window a cache hit, ``nvcc`` never run.
 """
 
 from __future__ import annotations
@@ -102,8 +111,7 @@ class ServeConfig:
     # stable identity on the ping probe — the fleet dispatcher assigns
     # "r0".."rN-1"; empty derives a per-process default
     replica_id: str = ""
-    # the reference's warm boot from a factory artifact; not ported: a
-    # server given one refuses to start (module docstring)
+    # the kernel-build artifact to warm-boot from (module docstring)
     artifact_dir: Optional[str] = None
 
 
@@ -112,9 +120,9 @@ class CorrectionServer:
                  config: ServeConfig,
                  pipeline_config: Optional[PipelineConfig] = None):
         if config.artifact_dir:
-            raise NotImplementedError(
-                "ServeConfig.artifact_dir (warm boot from a factory "
-                "artifact) is not supported by the PyTorch port yet")
+            # refused before any state is written
+            from proovread_tpu_torch.obs.boot import verify_artifact
+            verify_artifact(config.artifact_dir)
         self.cfg = config
         self.short_records = list(short_records)
         self.pipeline_template = pipeline_config or PipelineConfig()
@@ -139,6 +147,17 @@ class CorrectionServer:
         # dispatcher tell a replica hung in a wave (wave busy_s
         # growing, uptime high) from a healthy idle one (wave None)
         self.replica_id = config.replica_id or f"pid{os.getpid()}"
+        self.boot_manifest = None
+        if config.artifact_dir:
+            from proovread_tpu_torch.obs.boot import artifact_boot
+            self.boot_manifest, row = artifact_boot(
+                config.state_dir, artifact_dir=config.artifact_dir,
+                device=self.pipeline_template.device,
+                replica=self.replica_id,
+                fetch_to=os.path.join(config.state_dir, "artifact_cache"))
+            log.info("serve: booted from artifact %s (%d build window(s), "
+                     "%d violation(s))", self.boot_manifest["version"],
+                     row["n_backend_compiles"], len(row["violations"]))
         self._born_mono = time.monotonic()
         self._wave_state: Optional[Dict[str, Any]] = None
         self._jobs: Dict[str, Job] = {}
@@ -767,8 +786,8 @@ class CorrectionServer:
                   "p99_s": round(float(np.percentile(vs, 99)), 6),
                   "max_s": round(float(max(vs)), 6)}
             for cls, vs in sorted(lat.items())}
-        # the kernel library's census (module docstring): the cold side
-        # of the serving lifetime; nothing is traced, so no warm side
+        # the kernel library's build windows (module docstring): the cold
+        # side of the serving lifetime; nothing is traced, so no warm side
         from proovread_tpu_torch.obs.validate import SLO_SCHEMA_VERSION
         c = kernels.census()
         return {
@@ -782,8 +801,9 @@ class CorrectionServer:
             "latency": latency,
             "demotions": demotions,
             "compile": {"n_programs": c["n_programs"],
-                        "backend_compiles": c["nvcc_compiles"],
-                        "backend_compile_s": c["nvcc_seconds"],
+                        "backend_compiles": kernels.build_windows,
+                        "backend_compile_s": round(
+                            kernels.build_window_seconds, 6),
                         "tracing_hits": 0, "tracing_misses": 0,
                         "tracing_hit_rate": None},
             "drain": {"requested": self._drain.is_set(),

@@ -199,20 +199,70 @@ def test_cli_trace_qc_and_metrics_pass_the_validators(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["serve", "-s", "s.fq", "--socket", "s.sock", "--state-dir", "st",
-     "--compile-cache"],
-    ["--compile-ledger", "c.jsonl"], ["--compile-cache"],
-    ["--xprof", "xp"]], ids=lambda f: f[0])
-def test_refused_flags_name_themselves(tmp_path, capsys, flag):
-    """Each unported flag returns 2 naming itself (``serve`` runs since
-    the server was ported; its own unported ``--compile-cache`` is
-    refused the same way) and writes nothing."""
+    ["serve", "--compile-cache"], ["--compile-ledger", "c.jsonl"],
+    ["--compile-cache"], ["--xprof", "xp"]], ids=lambda f: f[0])
+def test_refused_flags_name_themselves(tmp_path, capsys, monkeypatch, flag):
+    """The flags that were refused before the kernel build's account was
+    ported now run (the name is kept from then): ``--compile-ledger``
+    writes a ledger both packages' validator accepts, ``--compile-cache``
+    (bare: the usual build directory) and ``--xprof`` (a torch.profiler
+    trace in the dir) leave the outputs written, and ``serve
+    --compile-cache DIR`` serves on the CPU and drains clean.
+    ``tests/test_torch_compile.py`` holds the outputs byte-equal."""
+    import signal
+    import threading
+    import time
+
+    from proovread_tpu_torch import kernels
+    from proovread_tpu_torch.obs import compilecache
+    from proovread_tpu_torch.serve.protocol import ServeClient
+    lp, sp = _inputs(tmp_path, 100, 10)
+    if flag[0] == "serve":
+        # the server keeps its library directory for the process: put
+        # this process's back after the test
+        monkeypatch.setattr(kernels, "_build_dir_override",
+                            kernels._build_dir_override)
+        monkeypatch.setattr(compilecache, "_cache_dir",
+                            compilecache._cache_dir)
+        sock, st = str(tmp_path / "s.sock"), str(tmp_path / "st")
+        drained = []
+
+        def drain():
+            t0 = time.monotonic()
+            while not os.path.exists(sock) and time.monotonic() - t0 < 60:
+                time.sleep(0.05)
+            with ServeClient(sock) as c:
+                drained.append(c.ping()["ok"] and c.drain()["draining"])
+        old = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                signal.SIGINT)}
+        t = threading.Thread(target=drain, daemon=True)
+        t.start()
+        try:
+            assert tmain(["serve", "-s", sp, "--socket", sock,
+                          "--state-dir", st, "--device", "cpu", "-q",
+                          "--compile-cache", str(tmp_path / "cache")]) == 0
+        finally:
+            for s, h in old.items():
+                signal.signal(s, h)
+        t.join(timeout=30)
+        assert drained == [True]
+        assert kernels.build_dir() == tmp_path / "cache"
+        return
     out = str(tmp_path / "res")
-    argv = flag if flag[0] == "serve" else (
-        ["-l", "l.fq", "-s", "s.fq", "-p", out, "--no-checkpoint"] + flag)
-    assert tmain(argv) == 2
-    assert flag[0] in capsys.readouterr().err
-    assert not os.path.exists(out)
+    extra = [str(tmp_path / f) if f in ("c.jsonl", "xp") else f
+             for f in flag]
+    cfg = tmp_path / "c.cfg"
+    cfg.write_text(json.dumps({"batch-reads": 8, "device-chunk": 128}))
+    assert tmain(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
+                  "--device", "cpu", "-q", "-c", str(cfg)] + extra) == 0
+    assert "error" not in capsys.readouterr().err
+    assert sorted(os.listdir(out)) == sorted(
+        f"res.{f}" for f in OUTPUTS + ("parameter.log",))
+    if flag[0] == "--compile-ledger":
+        from proovread_tpu.obs.validate import validate_compile_ledger
+        assert validate_compile_ledger(extra[1])["census"]["calls"] > 0
+    if flag[0] == "--xprof":
+        assert os.listdir(extra[1]) == ["res.pt.trace.json"]
 
 
 @pytest.mark.parametrize("flags", [
@@ -242,14 +292,21 @@ def test_mesh_flags_run(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("key", ["compile-ledger", "compile-cache-dir"])
 def test_refused_config_keys_name_themselves(tmp_path, capsys, key):
+    """The config keys of the compile ledger and the library cache run
+    (they were refused before; the name is kept from then)."""
     lp, sp = _inputs(tmp_path, 100, 10)
     cfg = tmp_path / "c.cfg"
-    cfg.write_text(json.dumps({key: "x"}))
+    target = str(tmp_path / "x")
+    cfg.write_text(json.dumps({key: target, "batch-reads": 8,
+                               "device-chunk": 128}))
     out = str(tmp_path / "res")
     assert tmain(["-l", lp, "-s", sp, "-p", out, "--no-checkpoint",
-                  "--device", "cpu", "-c", str(cfg)]) == 2
-    assert key in capsys.readouterr().err
-    assert not os.path.exists(out)
+                  "--device", "cpu", "-q", "-c", str(cfg)]) == 0
+    assert "error" not in capsys.readouterr().err
+    assert os.path.exists(os.path.join(out, "res.untrimmed.fq"))
+    if key == "compile-ledger":
+        from proovread_tpu.obs.validate import validate_compile_ledger
+        assert validate_compile_ledger(target)["census"]["calls"] > 0
 
 
 def test_checkpoint_journal_needs_no_checkpoint(tmp_path, capsys):

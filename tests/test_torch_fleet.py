@@ -16,6 +16,7 @@ deterministic. The whole ``slam`` drill is ``slow``, as in the JAX
 package."""
 
 import json
+import os
 import threading
 import time
 
@@ -288,9 +289,12 @@ class TestFleetDrills:
             disp.close()
 
     def test_artifact_boot_refused(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="artifact_dir"):
-            FleetDispatcher([], FleetConfig(state_dir=str(tmp_path),
-                                            artifact_dir="art"), _pcfg())
+        """An artifact without a manifest is refused before any state;
+        ``tests/test_torch_boot.py`` holds the boot from a real one."""
+        with pytest.raises(FileNotFoundError, match="manifest.json"):
+            FleetDispatcher([], FleetConfig(
+                state_dir=str(tmp_path / "f"), artifact_dir="art"), _pcfg())
+        assert not os.path.exists(tmp_path / "f")
 
 
 # --------------------------------------------------------------------------

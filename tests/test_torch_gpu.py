@@ -859,3 +859,45 @@ def test_mesh2_on_one_card_equals_single_device(cuda):
     assert mesh["trimmed"] == smoke.records_of(res.trimmed)
     assert not mesh["notes"]
     assert all(c["bsw_expand_v2"] > 0 for c in mesh["launches"])
+
+
+def test_artifact_boot_compiles_nothing(cuda, tmp_path):
+    """A kernel-build artifact (``analysis/factory.py``) boots a fresh
+    process (``obs/boot.py run``, the factory's boot child launching each
+    kernel entry once) with 0 nvcc compiles: one build window, a cache
+    hit, no violation."""
+    from proovread_tpu_torch.analysis import factory
+    from proovread_tpu_torch.obs import boot
+    from proovread_tpu_torch.obs.validate import validate_boot_row
+    art = str(tmp_path / "art")
+    factory.build_artifact(art)
+    ((row, report),) = boot.run(art, ("artifact",))
+    validate_boot_row(row)
+    assert report["nvcc_compiles"] == 0 and row["violations"] == []
+    assert row["hit_rate"] == 1.0 and row["n_backend_compiles"] == 1
+    assert all(report["launches"].values())
+
+
+def test_profiled_run_equals_unprofiled(cuda):
+    """The mesh drill's workload through ``Pipeline.run`` on the card
+    under the profiler, a tracer and a compile ledger gives the records
+    of the run without them; the profiler's launches of bsw v2 are
+    ``count_launch``'s and its operations the cost model's on the calls
+    that launched."""
+    from proovread_tpu_torch import obs
+    from proovread_tpu_torch.align import bsw
+    from proovread_tpu_torch.obs import compilecache, profile
+    from proovread_tpu_torch.parallel import smoke
+    longs, srs, truth = smoke.workload()
+    _, _, plain = smoke.run(longs, srs, config=smoke.pcfg(device="cuda"))
+    bsw.bsw_expand_v2.launches = 0
+    with obs.tracing(), profile.profiling() as prof, \
+            compilecache.scope(compilecache.Ledger(backend="cuda")) as led:
+        _, _, res = smoke.run(longs, srs, config=smoke.pcfg(device="cuda"))
+    assert smoke.records_of(res.untrimmed) == \
+        smoke.records_of(plain.untrimmed)
+    assert smoke.records_of(res.trimmed) == smoke.records_of(plain.trimmed)
+    rec = prof.records["bsw_expand_v2"]
+    assert rec.launches == bsw.bsw_expand_v2.launches > 0
+    assert rec.flops == rec.launch_flops > 0
+    assert res.compile_census["calls"] == led.census()["calls"] > 0

@@ -1,5 +1,6 @@
 """The port stands alone: no ``jax`` and no ``proovread_tpu`` imports (the
-serving layer, the validators and the mesh included), CUDA asked for
+serving layer, the validators, the mesh, the compile ledger, the cost
+attribution, the boot and the static checks included), CUDA asked for
 without a card raises, threads that ask for the kernel library at once
 build it once, unsupported settings raise ``NotImplementedError`` naming
 the setting, a mesh without a process group clamps to one device, and the
@@ -82,7 +83,16 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.parallel.plan, "
             "proovread_tpu_torch.parallel.dmesh, "
             "proovread_tpu_torch.parallel.launch, "
-            "proovread_tpu_torch.parallel.smoke\n"
+            "proovread_tpu_torch.parallel.smoke, "
+            "proovread_tpu_torch.obs.compilecache, "
+            "proovread_tpu_torch.obs.profile, "
+            "proovread_tpu_torch.obs.census, proovread_tpu_torch.obs.boot, "
+            "proovread_tpu_torch.analysis, "
+            "proovread_tpu_torch.analysis.engine, "
+            "proovread_tpu_torch.analysis.rules, "
+            "proovread_tpu_torch.analysis.shapes, "
+            "proovread_tpu_torch.analysis.factory, "
+            "proovread_tpu_torch.analysis.__main__\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'proovread_tpu')]\n"
             "assert not bad, bad\n")

@@ -385,12 +385,15 @@ class TestServerDrills:
 
 
 def test_refusals_name_themselves(tmp_path):
-    """The factory-artifact warm boot is refused by name, and a server
-    asked for the card without one raises at construction."""
+    """An artifact that is not one is refused (naming its missing
+    manifest) before any state is written, and a server asked for the
+    card without one raises at construction. ``tests/test_torch_boot.py``
+    holds the warm boot from a real artifact."""
     _, _, shorts = _dataset(n_jobs=1)
-    with pytest.raises(NotImplementedError, match="artifact_dir"):
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
         CorrectionServer(shorts, ServeConfig(
             state_dir=str(tmp_path / "a"), artifact_dir="art"), _pcfg())
+    assert not os.path.exists(tmp_path / "a")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             CorrectionServer(shorts, ServeConfig(
@@ -625,16 +628,16 @@ def test_server_twin_matches_jax_server(tmp_path):
 # --------------------------------------------------------------------------
 
 def test_serve_cli_refusals(tmp_path, capsys):
-    """``serve`` refuses the reference's XLA cache and artifact boot by
-    name, and the card when there is none."""
+    """``serve`` refuses an artifact that fails verification by naming
+    the flag, and the card when there is none (with ``--compile-cache``
+    accepted), writing nothing either way."""
     from proovread_tpu_torch.cli import main
     base = ["serve", "-s", "s.fq", "--socket", str(tmp_path / "s.sock"),
             "--state-dir", str(tmp_path / "st")]
-    for flag in (["--compile-cache"], ["--boot-from-artifact", "art"]):
-        assert main(base + flag) == 2
-        assert flag[0] in capsys.readouterr().err
+    assert main(base + ["--boot-from-artifact", "art"]) == 2
+    assert "--boot-from-artifact" in capsys.readouterr().err
     if not torch.cuda.is_available():
-        assert main(base) == 2
+        assert main(base + ["--compile-cache"]) == 2
         assert "is_available" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "st")
 
