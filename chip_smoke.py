@@ -240,7 +240,18 @@ any failure exits non-zero:
    of the artifact): the five files equal, the library a cache hit, the
    profiler's trace naming the port's kernels and the span ranges; and
    ``serve --boot-from-artifact`` answering config 4's reads as one job,
-   its ``boot.json`` a valid row with a cache hit and no violation.
+   its ``boot.json`` a valid row with a cache hit and no violation;
+20. the history gates (``phase20``): ``obs/accuracy.py record_workload``
+   records config 4, config 3 (80,000 bases) and dmesh (four gloo ranks
+   on the card) as ``cuda`` ACCURACY rows, each a scored command-line
+   subprocess (its wall and each kernel entry's calls, from its compile
+   ledger, logged); 3 and 4 score as ``ACCURACY_r10.json`` does, dmesh
+   as the same workload on one device; then ``accuracy_check`` (r10 and
+   the new rows), ``boot_check`` (phase 19's BOOT rows),
+   ``compile_check`` (``COMPILE_r09.json`` and one warm config 4 run on a
+   copy of phase 19's artifact) and, in the main process after the
+   lanes, ``load_check`` (``LOAD_r18.json`` and phase 17's LOAD row):
+   each PASS, the card's rows in pools of their own.
 
 Every trace, metrics, QC and truth-sidecar artifact the command-line runs
 write (phases 3, 7, 8, 11-13, both sides of phase 3's twins) passes the
@@ -249,7 +260,8 @@ port's own validators (``obs/validate.py``) too.
 The main process runs phases 2-7, 11, 9, 10, 14 and 17 in that order.
 From the end of phase 6 on, three lanes (``Lane``: a second
 ``chip_smoke.py`` each, ``--skip`` every other phase and ``--lane-out``)
-run phases 13, 8 and 16, phases 12, 15 and 18, and phase 19 beside it,
+run phases 13, 8 and 16, phases 12, 15 and 18, and phases 19 and 20
+beside it,
 the first two each on its own copy of phase 4's workload (phase 19's
 subprocesses build, boot and profile on their own); their logs are
 printed after phase 17.
@@ -2101,15 +2113,22 @@ def recorded_accuracy(config):
     return next(r for r in rows if r["config"] == config)
 
 
+def acc_fields(acc) -> dict:
+    """A QC aggregate's accuracy section as an ACCURACY row's scoring
+    fields: the read counts, the mean identities and the summed error
+    classes."""
+    return dict(n_scored=acc["n_scored"], n_classified=acc["n_classified"],
+                identity_before=acc["identity_before"]["mean"],
+                identity_after=acc["identity_after"]["mean"],
+                errors_before=acc["errors_before"],
+                errors_after=acc["errors_after"],
+                introduced=acc["introduced"], chimera=acc["chimera"])
+
+
 def hold_accuracy(label, acc, row):
-    """A QC aggregate's accuracy section against a recorded row: the read
-    counts, the mean identities and the summed error classes equal."""
-    got = dict(n_scored=acc["n_scored"], n_classified=acc["n_classified"],
-               identity_before=acc["identity_before"]["mean"],
-               identity_after=acc["identity_after"]["mean"],
-               errors_before=acc["errors_before"],
-               errors_after=acc["errors_after"],
-               introduced=acc["introduced"], chimera=acc["chimera"])
+    """A QC aggregate's accuracy section against a recorded row: the
+    scoring fields equal."""
+    got = acc_fields(acc)
     want = {k: row[k] for k in got}
     if got != want:
         raise AssertionError(f"{label}: accuracy {got} is not the recorded "
@@ -3816,10 +3835,14 @@ def phase17(device="cuda", kill="replica_death@r1.j5"):
     every routed job completed), the row's backend ``device``. Returns
     what it logs."""
     from proovread_tpu_torch.obs import load
+    from proovread_tpu_torch.obs.memory import LeakCheck
     from proovread_tpu_torch.obs.validate import validate_load
+    leak = LeakCheck()
     (ok, rows), wall, busy = device_busy(lambda: load.run_smoke(
         n_replicas=2, pipeline_config=load.smoke_config(device), kill=kill,
         overload=False))
+    # the smoke's own leak check passed; the tensors left, by example
+    lrep = leak.report()
     if not ok or len(rows) != 1:
         raise AssertionError("phase 17: the fleet smoke failed (its lines "
                              "above name the check)")
@@ -3839,7 +3862,7 @@ def phase17(device="cuda", kill="replica_death@r1.j5"):
                 latency={c: (x["count"], x["p50_s"], x["p99_s"])
                          for c, x in row["latency"].items()},
                 accuracy=row["accuracy"], heartbeat=row["heartbeat"],
-                compile=row["compile"])
+                compile=row["compile"], leak=lrep, row=row)
 
 
 # phase 18's workload: the shard-exact family at E.coli-class depth, 640
@@ -4286,6 +4309,7 @@ def phase19(tmp, shape=(1_250_000, 5_000_000, 6)) -> dict:
                 or warm["hit_rate"] != 1.0:
             raise AssertionError(f"phase 19: the artifact boot: {warm}, "
                                  f"{wrep['nvcc_compiles']} nvcc compiles")
+        out["boot_rows"] = [row for row, _ in rows]
         out["boot"] = {row["mode"]: dict(
             wall_s=row["boot_wall_s"], import_s=rep["import_s"],
             context_s=rep["context_s"], build_window_s=row["compile_s"],
@@ -4306,6 +4330,141 @@ def phase19(tmp, shape=(1_250_000, 5_000_000, 6)) -> dict:
             raise AssertionError(f"phase 19 profiled run: exit {rc}\n"
                                  f"{fh.read()[-3000:]}")
     out["profiled"] = hold_profiled(prof_dir)
+    return out
+
+
+# phase 20's scored workloads, in the order they run (the JAX package's
+# ``ACCURACY_r10.json`` rows, each recorded afresh on the card)
+ACCURACY20 = ("4", "3", "dmesh")
+# the fields of an ACCURACY row that its scoring gives (``acc_fields``)
+SCORE_FIELDS = ("n_scored", "n_classified", "identity_before",
+                "identity_after", "errors_before", "errors_after",
+                "introduced", "chimera")
+
+
+def score_fields(row) -> dict:
+    return {k: row[k] for k in SCORE_FIELDS}
+
+
+def dmesh_one_device(tmp, device="cuda") -> dict:
+    """The dmesh workload (``obs/accuracy.py``: the mesh drill's
+    shard-exact reads with the drill's config) through ``cli.main`` in
+    this process on one device, scored: the QC aggregate's scores as an
+    ACCURACY row's fields."""
+    from proovread_tpu_torch import cli
+    from proovread_tpu_torch.obs import accuracy
+    longs, srs, truths, _, _, _, cfg = accuracy._workload("dmesh", None)
+    inputs = input_args(tmp, "dmesh-one", longs, srs)
+    tp = write_truth(tmp, "dmesh-one", longs, truths)
+    cfgp = os.path.join(tmp, "dmesh-one.cfg")
+    with open(cfgp, "w") as fh:
+        json.dump(cfg, fh)
+    qc = os.path.join(tmp, "dmesh-one.qc")
+    rc = cli.main(inputs + ["-p", os.path.join(tmp, "dmesh-one", "res"),
+                            "-m", "sr-noccs", "--truth", tp, "--qc-out", qc,
+                            "-c", cfgp, "--device", device])
+    if rc != 0:
+        raise AssertionError(f"phase 20: dmesh on one device exited {rc}")
+    return acc_fields(read_qc(qc)[0]["aggregate"]["accuracy"])
+
+
+def gate_verdict(label, verdict, pools=()) -> dict:
+    """A history gate's verdict: PASS with every pool of ``pools`` in it,
+    else fail; its pools and the statuses of its checks."""
+    if verdict["verdict"] != "PASS" or not set(pools) <= set(
+            verdict["pools"]):
+        raise AssertionError(f"phase 20: {label} gate: "
+                             + json.dumps(verdict))
+    statuses = {}
+    for c in verdict["checks"]:
+        statuses[c["status"]] = statuses.get(c["status"], 0) + 1
+    return dict(verdict=verdict["verdict"], pools=verdict["pools"],
+                checks=statuses)
+
+
+def phase20(tmp, boot_rows=None, art=None, device="cuda") -> dict:
+    """The history gates on the card's own rows. ``record_workload``
+    (``obs/accuracy.py``) records config 4, config 3 (its 80,000-base
+    cap) and dmesh (``--mesh-shards 4``: four gloo ranks on the card) as
+    ``cuda`` ACCURACY rows, each a scored command-line subprocess; the
+    scoring fields of 3 and 4 must equal ``ACCURACY_r10.json``'s, and
+    dmesh's the same workload's on one device (``dmesh_one_device``; the
+    port's mesh equals one device), its difference to r10's dmesh row
+    logged. Then the gates, each PASS: ``accuracy_check`` over r10 and the
+    new rows (the ``cuda`` pools apart from the ``cpu`` ones),
+    ``boot_check`` over phase 19's BOOT rows (``boot_rows``), and
+    ``compile_check`` over ``COMPILE_r09.json`` and the COMPILE row of one
+    warm command-line run of config 4 on a verified copy of phase 19's
+    artifact (``art``: ``census.artifact_prewarm_config``). ``load_check``
+    over phase 17's LOAD row runs in ``main``, where that row is.
+    ``perf_check`` has no card leg: the port writes no bench rows before
+    its benchmark. Returns what it logs."""
+    from proovread_tpu_torch.obs import accuracy, boot, census
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(tmp, exist_ok=True)
+    r10 = {str(r["config"]): r for r in (
+        e["row"] for e in accuracy.load_rows(
+            [os.path.join(here, "ACCURACY_r10.json")]))}
+    out = {"walls": {}, "calls": {}, "rows": {}}
+    for wl in ACCURACY20:
+        led = os.path.join(tmp, f"ledger_{wl}.jsonl")
+        t0 = time.monotonic()
+        row = accuracy.record_workload(wl, device=device, ledger_out=led,
+                                       run_timeout=900)
+        out["walls"][wl] = round(time.monotonic() - t0, 2)
+        with open(led) as fh:
+            by_entry = json.loads(fh.readline())["census"]["by_entry"]
+        # each kernel entry's calls in the run (its compile ledger)
+        out["calls"][wl] = {e: v["calls"] for e, v in sorted(
+            by_entry.items())}
+        if row["backend"] != device:
+            raise AssertionError(f"phase 20: workload {wl} ran on "
+                                 f"{row['backend']}, not {device}")
+        out["rows"][wl] = row
+    for wl in ("4", "3"):
+        got, want = score_fields(out["rows"][wl]), score_fields(r10[wl])
+        if got != want:
+            raise AssertionError(f"phase 20: config {wl} scores {got}, "
+                                 f"ACCURACY_r10.json {want}")
+    t0 = time.monotonic()
+    one = dmesh_one_device(tmp, device)
+    out["dmesh_one_device_s"] = round(time.monotonic() - t0, 2)
+    if score_fields(out["rows"]["dmesh"]) != one:
+        raise AssertionError(f"phase 20: dmesh at mesh 4 "
+                             f"{score_fields(out['rows']['dmesh'])}, on "
+                             f"one device {one}")
+    out["dmesh_vs_r10"] = {k: [out["rows"]["dmesh"][k], r10["dmesh"][k]]
+                           for k in SCORE_FIELDS
+                           if out["rows"]["dmesh"][k] != r10["dmesh"][k]}
+    card = os.path.join(tmp, "ACCURACY_card.json")
+    with open(card, "w") as fh:
+        for wl in ACCURACY20:
+            fh.write(json.dumps(out["rows"][wl]) + "\n")
+    out["gates"] = {"accuracy": gate_verdict(
+        "accuracy", accuracy.accuracy_check(accuracy.load_rows(
+            [os.path.join(here, "ACCURACY_r10.json"), card])),
+        (f"config3/{device}", f"config4/{device}",
+         f"configdmesh/{device}/mesh4"))}
+    if boot_rows:
+        out["gates"]["boot"] = gate_verdict("boot", boot.boot_check(
+            [{"source": "phase19", "row": r} for r in boot_rows]),
+            [f"kernels/{device}/cold", f"kernels/{device}/artifact"])
+    if art:
+        t0 = time.monotonic()
+        copy = os.path.join(tmp, "art_copy")
+        manifest = boot.fetch_artifact(art, copy)
+        row = census.artifact_prewarm_config(4, manifest, copy,
+                                             artifact_dir=art, device=device,
+                                             run_timeout=900)
+        out["compile_row"] = row
+        out["compile_s"] = round(time.monotonic() - t0, 2)
+        if row["cache_hit_rate"] != 1.0 or row["backend"] != device:
+            raise AssertionError(f"phase 20: the warm run {row}")
+        out["gates"]["compile"] = gate_verdict(
+            "compile", census.compile_check(census.load_rows(
+                [os.path.join(here, "COMPILE_r09.json")])
+                + [{"source": "phase20", "row": row}]),
+            [f"config4/{device}"])
     return out
 
 
@@ -4331,10 +4490,10 @@ PORT_KERNEL = re.compile(
 
 # the phases that run in lanes (``Lane``) beside the main process's
 # phases 7, 11, 9, 10, 14 and 17 (each in the order of ``main``'s code:
-# 13, 8, 16 and 12, 15, 18): each group depends on nothing the main
-# process makes
-LANES = (("8", "13", "16"), ("12", "15", "18"), ("19",))
-ALL_PHASES = tuple(str(p) for p in range(2, 20))
+# 13, 8, 16; 12, 15, 18; 19, 20): each group depends on nothing the main
+# process makes (phase 20 on phase 19's artifact and BOOT rows)
+LANES = (("8", "13", "16"), ("12", "15", "18"), ("19", "20"))
+ALL_PHASES = tuple(str(p) for p in range(2, 21))
 
 
 class Lane:
@@ -4438,7 +4597,7 @@ def profile_phase(phase, fn, wall_unprofiled) -> None:
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap_.add_argument("--skip", default="",
-                     help="comma list of phases 2-19 to leave out; such a "
+                     help="comma list of phases 2-20 to leave out; such a "
                           "run prints no result lines")
     ap_.add_argument("--lane-out", default=None,
                      help="run as a lane of a full run: no lanes of its "
@@ -4955,11 +5114,13 @@ def main(argv=None) -> int:
             "(count, p50 s, p99 s) " + json.dumps(r16["latency"]))
 
     # -- phase 17: the fleet on one card --------------------------------------
+    r17 = None
     if "17" not in skip_here:
         r17, _ = drive(17, phase17,
                        required=serve_path + ("lcs_lengths",
                                               "edit_alignments"))
-        log("phase17 " + json.dumps(r17))
+        log("phase17 " + json.dumps({k: v for k, v in r17.items()
+                                     if k != "row"}))
         log(f"phase17 (a drill: its rate is fixed per-wave cost) wall "
             f"{r17['wall_s']:.2f} s, {r17['bases_per_s_fleet']} fleet "
             f"bases/s, handoffs "
@@ -4984,14 +5145,35 @@ def main(argv=None) -> int:
             f"drill {r18['drill_s']:.1f} s; identity "
             f"{r18['identity_before']:.6f} -> {r18['identity_after']:.6f}")
 
-    # -- phase 19: the kernel build's own account -----------------------------
-    if "19" not in skip_here:
-        t19 = time.monotonic()
+    # -- phases 19-20: the kernel build's own account, the history gates ------
+    if {"19", "20"} - skip_here:
         with tempfile.TemporaryDirectory() as tmp:
-            r19 = phase19(tmp)
-        mark("phase19", t19)
-        log("phase19 " + json.dumps(r19))
-        lane_results["19"] = r19
+            r19 = None
+            if "19" not in skip_here:
+                t19 = time.monotonic()
+                r19 = phase19(tmp)
+                mark("phase19", t19)
+                log("phase19 " + json.dumps(r19))
+                lane_results["19"] = r19
+            if "20" not in skip_here:
+                t20 = time.monotonic()
+                art = os.path.join(tmp, "art")
+                r20 = phase20(os.path.join(tmp, "phase20"),
+                              boot_rows=r19 and r19["boot_rows"],
+                              art=art if os.path.isdir(art) else None)
+                mark("phase20", t20)
+                for wl, row in r20["rows"].items():
+                    log(f"phase20 ACCURACY row {wl} ({r20['walls'][wl]:.2f} "
+                        f"s with its subprocess): " + json.dumps(row))
+                    log(f"phase20 {wl} kernel entry calls "
+                        + json.dumps(r20["calls"][wl]))
+                log("phase20 " + json.dumps(
+                    {k: v for k, v in r20.items()
+                     if k not in ("rows", "calls")}))
+                for gate, v in r20["gates"].items():
+                    log(f"phase20 gate {gate}: {v['verdict']} "
+                        + json.dumps(v))
+                lane_results["20"] = r20
 
     # -- the lanes' phases ---------------------------------------------------
     for lane in lanes:
@@ -5003,6 +5185,16 @@ def main(argv=None) -> int:
             raise AssertionError("phase 19: the profiled run's records "
                                  "differ from phase 4's")
         log("phase19 profiled run == phase 4, byte for byte")
+    if r17 is not None and "20" not in skip:
+        # phase 20's gate over phase 17's LOAD row (with the JAX package's
+        # committed history, which pools apart)
+        from proovread_tpu_torch.obs import load as obs_load
+        v = gate_verdict("load", obs_load.load_check(
+            obs_load.load_rows([os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "LOAD_r18.json")])
+            + [{"source": "phase17", "row": r17["row"]}]),
+            ["slam/x2/cuda"])
+        log("phase20 gate load: " + v["verdict"] + " " + json.dumps(v))
     cli8 = lane_results.get("8")
     if cli7 is not None and cli8 is not None:
         log(f"phase8 bsw device time a launch at m=256: "

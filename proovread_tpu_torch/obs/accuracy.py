@@ -26,12 +26,38 @@ Scores merge into the per-read QC records (``accuracy`` field), the
 comes as a sidecar JSONL written next to simulated FASTQs
 (``io/simulate.py:write_truth_sidecar``), so a command-line run can be
 scored with ``--truth``.
+
+The **recorder** (:func:`record_workload`) runs a workload through the
+port's command line as a subprocess, scored with ``--truth``, and turns
+its QC artifact into one ``ACCURACY`` row, the reference's fields; the
+row's ``backend`` is the subprocess's own (its compile ledger's census),
+``"cuda"`` or ``"cpu"``. The **gate** (:func:`accuracy_check`) replays
+``ACCURACY_*.json`` history as the reference's does: rows pool per
+(config, backend, mesh_shards), so a row of the card (``cuda``) never
+pools with the JAX package's (``tpu`` or ``cpu``), and the newest row of
+each pool must clear the identity floor, show uplift (``identity_after
+>= identity_before``) and stay within ``identity_drop`` of the
+rolling-baseline median. A ``--device cpu`` row pools with the JAX
+package's CPU rows, whose scores it equals.
+
+CLI::
+
+    python -m proovread_tpu_torch.obs.accuracy record --workloads 4 \\
+        [--device cuda|cpu] [--out FILE]
+    python -m proovread_tpu_torch.obs.accuracy check [ACCURACY_*.json ...]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,11 +65,16 @@ import torch
 
 from proovread_tpu_torch import kernels
 from proovread_tpu_torch.obs.profile import attributed
+# one rolling-median implementation for every history gate
+from proovread_tpu_torch.obs.regress import (_median, history_paths,
+                                             json_values)
+
+SCHEMA_VERSION = 1
 
 # truth-sidecar schema version (writer: io/simulate.py:write_truth_sidecar)
 TRUTH_SCHEMA_VERSION = 1
 
-# -- the reference's gate thresholds (its gate tooling is not ported) ----
+# -- gate thresholds (the reference's) ------------------------------------
 # corrected identity must clear this absolute floor
 IDENTITY_FLOOR = 0.95
 # ... and may drop at most this much below the rolling-baseline median
@@ -76,15 +107,12 @@ _BIG = 1 << 20
 WAVE_MAX_WARPS = 32
 
 
+def _log(msg: str) -> None:
+    print(f"[accuracy] {msg}", file=sys.stderr, flush=True)
+
+
 def _liblog():
     return logging.getLogger("proovread_tpu_torch.obs.accuracy")
-
-
-def _median(vals: List[float]) -> float:
-    """Median of ``vals`` (the reference's ``obs/regress.py:_median``)."""
-    s = sorted(vals)
-    n = len(s)
-    return s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2.0
 
 
 # --------------------------------------------------------------------------
@@ -857,3 +885,351 @@ def load_truth_sidecar(path: str) -> Tuple[Dict[str, np.ndarray],
     if meta is None:
         raise ValueError(f"{path}: empty truth sidecar (no meta line)")
     return truth, bps
+
+
+# --------------------------------------------------------------------------
+# the gate over ACCURACY history (obs/regress.py conventions)
+# --------------------------------------------------------------------------
+
+def load_rows(paths: List[str]) -> List[Dict[str, Any]]:
+    """ACCURACY history rows, oldest first (one JSON value or JSON lines
+    a file)."""
+    out: List[Dict[str, Any]] = []
+    for path in paths:
+        for obj in json_values(path, flatten=True):
+            if isinstance(obj, dict) and obj.get("metric") == "accuracy":
+                out.append({"source": path, "row": obj})
+    return out
+
+
+def _usable(entry: Dict[str, Any]) -> bool:
+    return isinstance(entry["row"].get("identity_after"), (int, float))
+
+
+def _pool_key(row: Dict[str, Any]):
+    """Rows pool per (config, backend, mesh shape); a row without
+    ``backend`` pools as ``"cpu"`` (the reference's default)."""
+    return (str(row.get("config")), row.get("backend") or "cpu",
+            int(row.get("mesh_shards") or 1))
+
+
+def accuracy_check(entries: List[Dict[str, Any]],
+                   identity_floor: float = IDENTITY_FLOOR,
+                   identity_drop: float = IDENTITY_DROP,
+                   introduced_growth: float = INTRODUCED_GROWTH,
+                   introduced_min_abs: int = INTRODUCED_MIN_ABS,
+                   window: int = BASELINE_WINDOW) -> Dict[str, Any]:
+    """The gate, as data: every pool's newest row must clear the absolute
+    identity floor, show uplift (identity_after >= identity_before) and
+    stay within ``identity_drop`` of the rolling-baseline median;
+    introduced-error growth past the threshold also trips. Verdict PASS /
+    REGRESSION / NO-DATA; check statuses ok / regressed / skipped /
+    missing."""
+    checks: List[Dict[str, Any]] = []
+    for e in entries:
+        if not _usable(e):
+            note = "row lacks identity_after"
+            skipped = e["row"].get("accuracy_skipped")
+            if skipped:
+                note += f" (accuracy_skipped: {skipped})"
+            checks.append({"check": "row", "status": "missing",
+                           "source": e["source"], "note": note})
+    usable = [e for e in entries if _usable(e)]
+    if not usable:
+        return {"schema": SCHEMA_VERSION, "verdict": "NO-DATA",
+                "pools": [], "checks": checks}
+
+    pools: Dict[Any, List[Dict[str, Any]]] = {}
+    for e in usable:
+        pools.setdefault(_pool_key(e["row"]), []).append(e)
+
+    pool_names = []
+    for key in sorted(pools):
+        group = pools[key]
+        lrow = group[-1]["row"]
+        name = f"config{key[0]}/{key[1]}" + (
+            f"/mesh{key[2]}" if key[2] != 1 else "")
+        pool_names.append(name)
+        lid_a = float(lrow["identity_after"])
+        checks.append({
+            "check": f"{name}:identity_floor",
+            "status": "regressed" if lid_a < identity_floor else "ok",
+            "value": round(lid_a, 4), "threshold": identity_floor})
+        lid_b = lrow.get("identity_before")
+        if isinstance(lid_b, (int, float)):
+            checks.append({
+                "check": f"{name}:identity_uplift",
+                "status": "regressed" if lid_a < float(lid_b) else "ok",
+                "value": round(lid_a, 4),
+                "baseline": round(float(lid_b), 4),
+                "note": "correction must never lower identity"})
+        else:
+            checks.append({"check": f"{name}:identity_uplift",
+                           "status": "skipped",
+                           "note": "row carries no identity_before"})
+        base = group[:-1][-window:]
+        if not base:
+            checks.append({"check": f"{name}:baseline",
+                           "status": "skipped",
+                           "note": "no prior rows in this pool — "
+                                   "nothing to regress against"})
+            continue
+        med = _median([float(e["row"]["identity_after"]) for e in base])
+        checks.append({
+            "check": f"{name}:identity_after",
+            "status": ("regressed" if lid_a < med - identity_drop
+                       else "ok"),
+            "value": round(lid_a, 4), "baseline": round(med, 4),
+            "threshold": identity_drop})
+        intro = lrow.get("introduced")
+        base_intros = [sum((e["row"].get("introduced") or {}).values())
+                       for e in base
+                       if isinstance(e["row"].get("introduced"), dict)]
+        if isinstance(intro, dict) and base_intros:
+            lat = sum(intro.values())
+            bmed = _median([float(v) for v in base_intros])
+            regressed = (lat > bmed * (1 + introduced_growth)
+                         and lat - bmed >= introduced_min_abs)
+            checks.append({
+                "check": f"{name}:introduced_errors",
+                "status": "regressed" if regressed else "ok",
+                "value": lat, "baseline": round(bmed, 1),
+                "threshold": introduced_growth})
+        else:
+            checks.append({"check": f"{name}:introduced_errors",
+                           "status": "skipped",
+                           "note": "class breakdown absent on latest "
+                                   "and/or all baseline rows"})
+    verdict = ("REGRESSION" if any(c["status"] == "regressed"
+                                   for c in checks) else "PASS")
+    return {"schema": SCHEMA_VERSION, "verdict": verdict,
+            "pools": pool_names, "checks": checks}
+
+
+# --------------------------------------------------------------------------
+# recording: one ACCURACY row from one scored command-line subprocess
+# --------------------------------------------------------------------------
+
+# the dmesh workload's knobs (parallel/smoke.py's small-workload config),
+# so the command line runs the mesh regime the drill runs
+DMESH_CONFIG = {"batch-reads": 8, "device-chunk": 128,
+                "host-chunk-rows": 512, "mesh-chunks-per-shard": 1,
+                "seq-filter": {"--min-length": 150}}
+DMESH_SHARDS = 4
+
+
+def _workload(workload: str, cap_bases: Optional[int]):
+    """(longs, shorts, truths, cap, mesh, config label, extra config) of
+    an accuracy workload, simulated with numpy."""
+    if workload in ("3", "4"):
+        from proovread_tpu_torch.obs.census import (DEFAULT_CAPS,
+                                                    build_workload)
+        cfg_n = int(workload)
+        cap = cap_bases if cap_bases is not None \
+            else DEFAULT_CAPS.get(cfg_n)
+        longs, srs, truths = build_workload(cfg_n, cap)
+        return longs, srs, truths, cap, None, cfg_n, None
+    if workload == "dmesh":
+        from proovread_tpu_torch.io.simulate import \
+            simulate_independent_segments
+        from proovread_tpu_torch.parallel.smoke import (N_LONG, READ_LEN,
+                                                        SEED, SR_PER)
+        longs, srs, truths = simulate_independent_segments(
+            seed=SEED, n_long=N_LONG, read_len=READ_LEN, sr_per=SR_PER,
+            with_truth=True)
+        return (longs, srs, truths, None, DMESH_SHARDS, "dmesh",
+                DMESH_CONFIG)
+    raise ValueError(f"accuracy record supports workloads 3, 4 and dmesh, "
+                     f"not {workload!r}")
+
+
+def record_workload(workload: str, *, cache_dir: Optional[str] = "auto",
+                    cap_bases: Optional[int] = None,
+                    run_timeout: float = 5400.0, device: str = "cuda",
+                    ledger_out: Optional[str] = None) -> Dict[str, Any]:
+    """One scored command-line subprocess run, one ACCURACY row.
+
+    Workloads: ``3`` and ``4`` are the bench configs of
+    ``obs/census.py:build_workload`` (config 3 under its pinned cap,
+    ``DEFAULT_CAPS``); ``dmesh`` is the mesh drill's shard-exact workload
+    through ``--mesh-shards 4``. This process only simulates the workload
+    (numpy), writes the FASTQs and the truth sidecar and reads the QC
+    artifact and compile ledger the subprocess leaves: it never touches
+    the card, which the subprocess (``--device``) owns. The row's
+    ``backend`` is the ledger census's. ``ledger_out`` keeps a copy of
+    the run's compile ledger (its census counts each entry's calls)."""
+    from proovread_tpu_torch.io.simulate import write_truth_sidecar
+    from proovread_tpu_torch.obs.census import _write_fastq
+    longs, srs, truths, cap, mesh, config_label, extra_cfg = _workload(
+        workload, cap_bases)
+    total_bases = sum(len(r) for r in longs)
+    _log(f"workload {workload}: {len(longs)} reads / {total_bases} bases"
+         + (f" (cap {cap})" if cap else "")
+         + (f", mesh={mesh}" if mesh else ""))
+    with tempfile.TemporaryDirectory(prefix="proovread_accuracy_") as tmp:
+        lp = os.path.join(tmp, "long.fq")
+        sp = os.path.join(tmp, "short.fq")
+        tp = os.path.join(tmp, "truth.jsonl")
+        qcp = os.path.join(tmp, "run.qc.jsonl")
+        ledp = os.path.join(tmp, "run.ledger.jsonl")
+        _write_fastq(lp, longs)
+        _write_fastq(sp, srs)
+        write_truth_sidecar(tp, longs, truths)
+        cmd = [sys.executable, "-m", "proovread_tpu_torch",
+               "-l", lp, "-s", sp, "-p", os.path.join(tmp, "out"),
+               "-m", "sr-noccs", "--truth", tp, "--qc-out", qcp,
+               "--compile-ledger", ledp, "--overwrite",
+               "--device", device]
+        if extra_cfg is not None:
+            cfgp = os.path.join(tmp, "run.cfg")
+            with open(cfgp, "w") as fh:
+                json.dump(extra_cfg, fh)
+            cmd += ["-c", cfgp]
+        if mesh:
+            cmd += ["--mesh-shards", str(mesh)]
+        if cache_dir:
+            cmd += (["--compile-cache"] if cache_dir == "auto"
+                    else ["--compile-cache", cache_dir])
+        _log(f"workload {workload}: scored command-line run")
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=os.getcwd(), timeout=run_timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"scored pipeline run exited {proc.returncode}: "
+                f"{' '.join(cmd)}")
+        wall = time.monotonic() - t0
+        with open(qcp) as fh:
+            meta = json.loads(fh.readline())
+        with open(ledp) as fh:
+            led_meta = json.loads(fh.readline())
+        if ledger_out is not None:
+            shutil.copyfile(ledp, ledger_out)
+    backend = (led_meta.get("census") or {}).get("backend")
+    if not backend:
+        raise RuntimeError(f"workload {workload}: the run's compile ledger "
+                           "names no backend")
+    acc = (meta.get("aggregate") or {}).get("accuracy")
+    if not acc:
+        raise RuntimeError(
+            f"workload {workload}: QC artifact carries no accuracy "
+            "aggregate — was --truth dropped?")
+    row = {
+        "metric": "accuracy", "schema": SCHEMA_VERSION,
+        "config": config_label, "backend": backend,
+        "mesh_shards": mesh, "cap_bases": cap,
+        "n_reads": len(longs), "total_bases": total_bases,
+        "wall_s": round(wall, 2),
+        "n_scored": acc["n_scored"],
+        "n_classified": acc["n_classified"],
+        "identity_before": acc["identity_before"]["mean"],
+        "identity_after": acc["identity_after"]["mean"],
+        "errors_before": acc["errors_before"],
+        "errors_after": acc["errors_after"],
+        "introduced": acc["introduced"],
+        "chimera": acc["chimera"],
+    }
+    _log(f"workload {workload}: identity "
+         f"{row['identity_before']} -> {row['identity_after']} "
+         f"({row['n_scored']}/{row['n_reads']} reads scored, "
+         f"{row['n_classified']} classified) in {row['wall_s']}s "
+         f"on {backend}")
+    return row
+
+
+# -- CLI -------------------------------------------------------------------
+
+def _resolve_paths(args_paths: List[str]) -> List[str]:
+    """The files named, else ``ACCURACY_r<digits>*.json`` in order and every
+    other ``ACCURACY_*.json`` after them."""
+    return history_paths(args_paths, "ACCURACY", "r[0-9]*")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m proovread_tpu_torch.obs.accuracy",
+        description="Ground-truth accuracy scoreboard: record scored "
+                    "command-line runs as ACCURACY rows and gate the "
+                    "history.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    rec = sub.add_parser("record",
+                         help="run and score workloads through the "
+                              "command line (truth sidecar), one "
+                              "ACCURACY row each")
+    rec.add_argument("--workloads", default="3,4,dmesh",
+                     help="comma-separated: 3 (the capped E.coli-class "
+                          "slice), 4 (config 4), dmesh (a 4-rank mesh "
+                          "run) (default: 3,4,dmesh)")
+    rec.add_argument("--out", default=None, metavar="FILE",
+                     help="append rows to this ACCURACY_*.json "
+                          "(JSON lines); default: stdout only")
+    rec.add_argument("--cache-dir", default="auto",
+                     help="kernel-library cache of the runs (default: the "
+                          "usual build directory; 'none' disables)")
+    rec.add_argument("--cap-bases", type=int, default=None,
+                     help="override config 3's pinned cap "
+                          "(default: obs/census.py DEFAULT_CAPS)")
+    rec.add_argument("--run-timeout", type=float, default=5400.0)
+    rec.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="where the runs correct and score (default: "
+                          "the card)")
+    chk = sub.add_parser("check", help="gate: exit 1 on regression")
+    chk.add_argument("files", nargs="*",
+                     help="ACCURACY history files (default: "
+                          "ACCURACY_*.json)")
+    chk.add_argument("--identity-floor", type=float,
+                     default=IDENTITY_FLOOR,
+                     help=f"absolute identity_after floor "
+                          f"(default {IDENTITY_FLOOR})")
+    chk.add_argument("--identity-drop", type=float, default=IDENTITY_DROP,
+                     help="allowed absolute identity_after drop vs the "
+                          f"rolling baseline (default {IDENTITY_DROP})")
+    chk.add_argument("--window", type=int, default=BASELINE_WINDOW)
+    args = ap.parse_args(argv)
+
+    if args.cmd == "record":
+        cache = None if args.cache_dir == "none" else args.cache_dir
+        rows = []
+        for wl in (w.strip() for w in args.workloads.split(",") if w):
+            row = record_workload(wl, cache_dir=cache,
+                                  cap_bases=(args.cap_bases
+                                             if wl == "3" else None),
+                                  run_timeout=args.run_timeout,
+                                  device=args.device)
+            print(json.dumps(row))
+            rows.append(row)
+        if args.out and rows:
+            with open(args.out, "a") as fh:
+                for row in rows:
+                    fh.write(json.dumps(row) + "\n")
+            _log(f"{len(rows)} row(s) appended to {args.out}")
+        return 0
+
+    paths = _resolve_paths(args.files)
+    if not paths:
+        print("accuracy-check: no ACCURACY history files found",
+              file=sys.stderr)
+        return 0
+    verdict = accuracy_check(load_rows(paths),
+                             identity_floor=args.identity_floor,
+                             identity_drop=args.identity_drop,
+                             window=args.window)
+    for c in verdict["checks"]:
+        if c["status"] == "regressed":
+            print(f"ACCURACY-REGRESSION: {c['check']} = {c.get('value')}"
+                  + (f" vs baseline {c['baseline']}" if "baseline" in c
+                     else "")
+                  + (f" (threshold {c['threshold']})" if "threshold" in c
+                     else ""), file=sys.stderr)
+        elif c["status"] == "missing":
+            print(f"accuracy-check: missing — {c.get('note', c)}",
+                  file=sys.stderr)
+    print(json.dumps(verdict, sort_keys=True))
+    if verdict["verdict"] == "REGRESSION":
+        return 1
+    print(f"accuracy-check: {verdict['verdict']} "
+          f"({len(verdict['pools'])} pool(s))", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,18 +24,30 @@ it observable:
   window that is not a cache hit (``nvcc`` ran) is a
   ``compiled-at-boot`` violation; a loaded library, or a source an
   entry ran, that the manifest lacks is ``unmanifested``.
+  :func:`reconcile_ledger` does the same for a real run's compile
+  ledger: each kernel entry it saw whose program the artifact does not
+  ship (another library version, or a source the manifest lacks) is
+  ``unmanifested``.
 - :class:`BootSpan` is the in-process boot row a server writes around its
   start from an artifact (``serve/server.py``, ``serve/fleet.py``).
+- ``check`` is the reference's gate over ``BOOT_*.json`` history: rows
+  pool per (config, backend, mode), so a row of the card (``cuda``)
+  never pools with the JAX package's; an artifact-mode row with any
+  violation, or a cache hit rate under ``MIN_ARTIFACT_HIT_RATE`` when it
+  built anything, is a regression on the first row, and the boot wall
+  gates against the rolling-median baseline of its pool. Exit 1 and
+  ``BOOT-REGRESSION:`` lines on any breach.
 
-The reference's ``check`` (the BOOT-history gate) waits for the port's
-benchmark, as ``obs/census.py``'s does. Its ``warm-tier1``, which copies
-an artifact into the CPU tests' XLA cache, has no counterpart: the port's
-CPU tests build nothing.
+The reference's ``warm-tier1``, which copies an artifact into the CPU
+tests' XLA cache, has no counterpart: the port's CPU tests build nothing.
+Nor has its ``stale_programs``: the manifest's programs are the library's
+sources, and a run loads the whole library.
 
     python -m proovread_tpu_torch.obs.boot run --artifact ART
     python -m proovread_tpu_torch.obs.boot verify --artifact ART
     python -m proovread_tpu_torch.obs.boot reconcile --artifact ART \\
-        --report REPORT.json
+        (--report REPORT.json | --ledger LEDGER.jsonl)
+    python -m proovread_tpu_torch.obs.boot check [BOOT_*.json ...]
 """
 
 from __future__ import annotations
@@ -50,7 +62,23 @@ import tempfile
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+# one rolling-median implementation for every history gate
+from proovread_tpu_torch.obs.regress import (_median, history_paths,
+                                             json_values)
+
 SCHEMA_VERSION = 1
+
+# the gate's thresholds (the reference's): an artifact-mode boot's cache
+# hit rate must reach this on the first row (a boot that built nothing
+# passes) ...
+MIN_ARTIFACT_HIT_RATE = 0.98
+# ... and a boot's wall may grow by this fraction of the rolling-median
+# baseline
+BOOT_WALL_THRESHOLD = 0.50
+# ... when the absolute growth also exceeds this
+BOOT_WALL_MIN_ABS_S = 5.0
+# rolling baseline: median over up to this many prior usable rows
+BASELINE_WINDOW = 3
 
 _FACTORY_MOD = "proovread_tpu_torch.analysis.factory"
 
@@ -170,6 +198,40 @@ def reconcile(manifest: Dict[str, Any], report: Dict[str, Any]
                 "kind": "unmanifested", "entry": prog["entry"],
                 "sig": prog["sig"],
                 "detail": "source an entry ran, absent from the manifest"})
+    return violations
+
+
+def reconcile_ledger(manifest: Dict[str, Any], ledger_path: str
+                     ) -> List[Dict[str, Any]]:
+    """Reconcile a real run's compile ledger with the manifest: each
+    kernel entry the run called (a ``retrace`` row) whose program the
+    manifest does not ship is ``unmanifested``, once: its library is
+    another version (the row's ``sig``, the library digest, is not the
+    manifest's ``version``) or its source is not a manifest program.
+    Glue entries, which build nothing, are not programs."""
+    from proovread_tpu_torch.kernels import ENTRY_SOURCES
+    sources = {p["entry"] for p in manifest["programs"]}
+    violations: List[Dict[str, Any]] = []
+    seen: set = set()
+    with open(ledger_path) as fh:
+        for lineno, line in enumerate(fh, 1):
+            line = line.strip()
+            if lineno == 1 or not line:
+                continue                     # meta line
+            row = json.loads(line)
+            src = ENTRY_SOURCES.get(row.get("entry"))
+            if row.get("kind") != "retrace" or src is None:
+                continue
+            key = (row["entry"], row["sig"])
+            if key in seen or (row["sig"] == manifest["version"]
+                               and src in sources):
+                continue
+            seen.add(key)
+            violations.append({
+                "kind": "unmanifested", "entry": row["entry"],
+                "sig": row["sig"],
+                "detail": f"{ledger_path}:{lineno}: observed program "
+                          "absent from the manifest"})
     return violations
 
 
@@ -327,13 +389,149 @@ def run(artifact_dir: str, modes=("cold", "artifact"), *,
     return out
 
 
+# -- the gate over BOOT history -----------------------------------------------
+
+def load_rows(paths: List[str]) -> List[Dict[str, Any]]:
+    """BOOT history rows, oldest first (one JSON value or JSON lines a
+    file)."""
+    out: List[Dict[str, Any]] = []
+    for path in paths:
+        for obj in json_values(path, flatten=True):
+            if isinstance(obj, dict) and obj.get("metric") == "boot":
+                out.append({"source": path, "row": obj})
+    return out
+
+
+def _pool_key(row: Dict[str, Any]):
+    """(config, backend, mode); a row without ``backend`` pools as
+    ``"tpu"`` (the reference's default)."""
+    return (str(row.get("config")), row.get("backend") or "tpu",
+            str(row.get("mode")))
+
+
+def boot_check(entries: List[Dict[str, Any]],
+               min_hit_rate: float = MIN_ARTIFACT_HIT_RATE,
+               wall_threshold: float = BOOT_WALL_THRESHOLD,
+               wall_min_abs_s: float = BOOT_WALL_MIN_ABS_S,
+               window: int = BASELINE_WINDOW) -> Dict[str, Any]:
+    """The gate, as data: every (config, backend, mode) pool's newest row.
+    A row that fails ``validate_boot_row`` is a non-fatal ``missing``
+    item. An artifact-mode row with any violation, or a hit rate under
+    ``min_hit_rate`` when it built anything, regresses with no baseline;
+    the boot wall gates against its pool's rolling-median baseline, in
+    both modes. Verdict PASS / REGRESSION / NO-DATA."""
+    from proovread_tpu_torch.obs.validate import (ValidationError,
+                                                  validate_boot_row)
+    checks: List[Dict[str, Any]] = []
+    usable: List[Dict[str, Any]] = []
+    for e in entries:
+        try:
+            validate_boot_row(e["row"], where=e["source"])
+            usable.append(e)
+        except ValidationError as err:
+            checks.append({"check": "row", "status": "missing",
+                           "source": e["source"], "note": str(err)})
+    if not usable:
+        return {"schema": SCHEMA_VERSION, "verdict": "NO-DATA",
+                "pools": [], "checks": checks}
+
+    pools: Dict[Any, List[Dict[str, Any]]] = {}
+    for e in usable:
+        pools.setdefault(_pool_key(e["row"]), []).append(e)
+
+    pool_names = []
+    for key in sorted(pools):
+        group = pools[key]
+        lrow = group[-1]["row"]
+        base = group[:-1][-window:]
+        name = "/".join(key)
+        pool_names.append(name)
+        if key[2] == "artifact":
+            nviol = len(lrow["violations"])
+            checks.append({
+                "check": f"{name}:violations",
+                "status": "regressed" if nviol else "ok",
+                "value": nviol, "baseline": 0, "threshold": 0,
+                "violations": lrow["violations"][:20]})
+            rate = lrow["hit_rate"]
+            if lrow["n_backend_compiles"] == 0:
+                checks.append({"check": f"{name}:hit_rate",
+                               "status": "ok", "value": None,
+                               "baseline": min_hit_rate,
+                               "threshold": min_hit_rate,
+                               "note": "0 backend compiles"})
+            else:
+                bad = rate is None or rate < min_hit_rate
+                checks.append({"check": f"{name}:hit_rate",
+                               "status": "regressed" if bad else "ok",
+                               "value": rate, "baseline": min_hit_rate,
+                               "threshold": min_hit_rate})
+        if not base:
+            checks.append({"check": f"{name}:baseline",
+                           "status": "skipped",
+                           "note": "no prior rows in this pool — "
+                                   "nothing to regress against"})
+            continue
+        base_wall = _median([float(e["row"]["boot_wall_s"])
+                             for e in base])
+        new_wall = float(lrow["boot_wall_s"])
+        regressed = (new_wall - base_wall > wall_min_abs_s
+                     and new_wall > base_wall * (1 + wall_threshold))
+        checks.append({"check": f"{name}:boot_wall_s",
+                       "status": "regressed" if regressed else "ok",
+                       "value": round(new_wall, 3),
+                       "baseline": round(base_wall, 3),
+                       "threshold": wall_threshold})
+    verdict = ("REGRESSION" if any(c["status"] == "regressed"
+                                   for c in checks) else "PASS")
+    return {"schema": SCHEMA_VERSION, "verdict": verdict,
+            "pools": pool_names, "checks": checks}
+
+
+def _resolve_paths(args_paths: List[str]) -> List[str]:
+    """The files named, else ``BOOT_r*.json`` in order and every
+    other ``BOOT_*.json`` after them."""
+    return history_paths(args_paths, "BOOT", "r*")
+
+
+def check(args) -> int:
+    """``check``: the gate over BOOT history; exit 1 on a regression."""
+    paths = _resolve_paths(args.files)
+    if not paths:
+        print("boot-check: no BOOT history files found", file=sys.stderr)
+        return 0
+    verdict = boot_check(load_rows(paths),
+                         min_hit_rate=args.min_hit_rate,
+                         wall_threshold=args.wall_threshold,
+                         wall_min_abs_s=args.wall_min_abs_s,
+                         window=args.window)
+    for c in verdict["checks"]:
+        if c["status"] == "regressed":
+            print(f"BOOT-REGRESSION: {c['check']} = {c['value']} vs "
+                  f"baseline {c['baseline']} (threshold "
+                  f"{c['threshold']})", file=sys.stderr)
+            for v in c.get("violations", ()):
+                print(f"BOOT-REGRESSION:   {v['kind']}: {v['entry']} "
+                      f"{v['sig']} ({v['detail']})", file=sys.stderr)
+        elif c["status"] == "missing":
+            print(f"boot-check: bad row — {c.get('note', c)}",
+                  file=sys.stderr)
+    print(json.dumps(verdict, sort_keys=True))
+    if verdict["verdict"] == "REGRESSION":
+        return 1
+    print(f"boot-check: {verdict['verdict']} "
+          f"({len(verdict['pools'])} pool(s))", file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     from proovread_tpu_torch.obs.validate import ValidationError
     ap = argparse.ArgumentParser(
         prog="python -m proovread_tpu_torch.obs.boot",
         description="Boots from a kernel-build artifact: measured cold "
-                    "and artifact boots, verification, and the "
-                    "observed-within-shipped reconciliation.")
+                    "and artifact boots, verification, the "
+                    "observed-within-shipped reconciliation and the "
+                    "boot-check gate.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("run", help="measure cold and artifact boots")
     r.add_argument("--artifact", required=True, metavar="DIR")
@@ -345,11 +543,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     rec = sub.add_parser("reconcile", help="rc 1 with itemized violations "
                                            "unless observed within shipped")
     rec.add_argument("--artifact", required=True, metavar="DIR")
-    rec.add_argument("--report", required=True, metavar="FILE",
+    src = rec.add_mutually_exclusive_group(required=True)
+    src.add_argument("--report", metavar="FILE",
                      help="a boot report (factory --report-out)")
+    src.add_argument("--ledger", metavar="FILE",
+                     help="a real run's --compile-ledger JSONL")
     v = sub.add_parser("verify", help="verify an artifact")
     v.add_argument("--artifact", required=True, metavar="DIR")
+    chk = sub.add_parser("check", help="gate: exit 1 on regression")
+    chk.add_argument("files", nargs="*",
+                     help="BOOT history files (default: BOOT_*.json)")
+    chk.add_argument("--min-hit-rate", type=float,
+                     default=MIN_ARTIFACT_HIT_RATE)
+    chk.add_argument("--wall-threshold", type=float,
+                     default=BOOT_WALL_THRESHOLD)
+    chk.add_argument("--wall-min-abs-s", type=float,
+                     default=BOOT_WALL_MIN_ABS_S)
+    chk.add_argument("--window", type=int, default=BASELINE_WINDOW)
     args = ap.parse_args(argv)
+    if args.cmd == "check":
+        return check(args)
 
     try:
         manifest = verify_artifact(args.artifact)
@@ -362,8 +575,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                            "n_devices", "jax_version")}, sort_keys=True))
         return 0
     if args.cmd == "reconcile":
-        with open(args.report) as fh:
-            violations = reconcile(manifest, json.load(fh))
+        if args.report:
+            with open(args.report) as fh:
+                violations = reconcile(manifest, json.load(fh))
+        else:
+            violations = reconcile_ledger(manifest, args.ledger)
         for viol in violations:
             print(f"BOOT-VIOLATION: {viol['kind']}: {viol['entry']} "
                   f"{viol['sig']} ({viol['detail']})", file=sys.stderr)

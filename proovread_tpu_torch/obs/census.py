@@ -15,19 +15,33 @@ verified copy of a kernel-build artifact (``analysis/factory.py``) and
 the cold side is the artifact's own build, from its manifest.
 
 The parent never touches the card: the runs are subprocesses, the
-artifact copy is file I/O. ``check``, the reference's gate over
-``COMPILE_*.json`` history, waits for the port's benchmark, which alone
-defines what is measured across runs (ROADMAP.md).
+artifact copy is file I/O.
+
+``check`` is the reference's gate over ``COMPILE_*.json`` history: rows
+pool per (config, backend), so a row of the card (``cuda``) never pools
+with the JAX package's, and the gate fails (exit 1,
+``COMPILE-REGRESSION:`` lines) when a pool's newest row's warm compile
+seconds grow, its program count grows, or its warm cache hit rate drops
+against the rolling baseline. Before the gate it cross-links the newest
+``LEDGER_*.jsonl`` beside the package with the kernel-build artifact
+there (``artifact/``, or ``PROOVREAD_TORCH_ARTIFACT``): each program the
+ledger saw that the artifact does not ship is a non-fatal
+``never-shipped`` line (``obs/boot.py:reconcile_ledger``). The
+reference's second cross-link, against the static census predictor, has
+no counterpart: ``analysis/predict.py`` predicts XLA programs per shape,
+and the port compiles one library for every shape.
 
     python -m proovread_tpu_torch.obs.census prewarm --configs 4 \\
         --cache-dir build/prewarm --fresh [--out FILE] [--device cuda]
     python -m proovread_tpu_torch.obs.census prewarm --configs 4 \\
         --from-artifact ART
+    python -m proovread_tpu_torch.obs.census check [COMPILE_*.json ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import glob as _glob
 import json
 import os
 import shutil
@@ -35,9 +49,25 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
+
+# one rolling-median implementation for every history gate
+from proovread_tpu_torch.obs.regress import (_median, history_paths,
+                                             json_values)
 
 SCHEMA_VERSION = 1
+
+# the gate's thresholds (the reference's): warm-run compile seconds may
+# grow by this fraction of the baseline ...
+WARM_COMPILE_THRESHOLD = 0.30
+# ... when the absolute growth also exceeds this
+WARM_COMPILE_MIN_ABS_S = 0.5
+# the program count may grow by at most this fraction
+PROGRAMS_THRESHOLD = 0.02
+# the warm cache hit rate may drop by this much, absolute
+HIT_RATE_DROP = 0.05
+# rolling baseline: median over up to this many prior usable rows
+BASELINE_WINDOW = 3
 
 # config 3 (E.coli class) runs at this cap of long-read bases unless
 # asked for more; None = the config's whole workload
@@ -192,12 +222,193 @@ def _gate(row: Dict[str, Any], min_rate: float) -> bool:
     return True
 
 
+# -- the gate over COMPILE history ------------------------------------------
+
+def load_rows(paths: List[str]) -> List[Dict[str, Any]]:
+    """COMPILE history rows, oldest first (one JSON value or JSON lines a
+    file, ``obs/regress.py`` conventions)."""
+    out: List[Dict[str, Any]] = []
+    for path in paths:
+        for obj in json_values(path, flatten=True):
+            if isinstance(obj, dict) and obj.get("metric") == \
+                    "compile_census":
+                out.append({"source": path, "row": obj})
+    return out
+
+
+def _usable(entry: Dict[str, Any]) -> bool:
+    row = entry["row"]
+    return (isinstance(row.get("cold"), dict)
+            and isinstance(row.get("warm"), dict))
+
+
+def _pool_key(row: Dict[str, Any]):
+    """(config as an int, backend); a row without ``backend`` pools as
+    ``"tpu"`` (the reference's default)."""
+    return (int(row.get("config", 0)), row.get("backend") or "tpu")
+
+
+def compile_check(entries: List[Dict[str, Any]],
+                  warm_threshold: float = WARM_COMPILE_THRESHOLD,
+                  warm_min_abs_s: float = WARM_COMPILE_MIN_ABS_S,
+                  programs_threshold: float = PROGRAMS_THRESHOLD,
+                  hit_rate_drop: float = HIT_RATE_DROP,
+                  window: int = BASELINE_WINDOW) -> Dict[str, Any]:
+    """The gate, as data: every (config, backend) pool's newest row
+    against a rolling baseline of its predecessors. Verdict PASS /
+    REGRESSION / NO-DATA; check statuses ok / regressed / skipped /
+    missing."""
+    checks: List[Dict[str, Any]] = []
+    for e in entries:
+        if not _usable(e):
+            checks.append({"check": "row", "status": "missing",
+                           "source": e["source"],
+                           "note": "row lacks cold/warm phases"})
+    usable = [e for e in entries if _usable(e)]
+    if not usable:
+        return {"schema": SCHEMA_VERSION, "verdict": "NO-DATA",
+                "pools": [], "checks": checks}
+
+    pools: Dict[Any, List[Dict[str, Any]]] = {}
+    for e in usable:
+        pools.setdefault(_pool_key(e["row"]), []).append(e)
+
+    def _grew(name, new, base, *, threshold, min_abs=0.0):
+        regressed = (new - base > min_abs
+                     and new > base * (1 + threshold))
+        return {"check": name,
+                "status": "regressed" if regressed else "ok",
+                "value": round(new, 4), "baseline": round(base, 4),
+                "threshold": threshold}
+
+    pool_names = []
+    for key in sorted(pools):
+        group = pools[key]
+        latest = group[-1]
+        base = group[:-1][-window:]
+        name = f"config{key[0]}/{key[1]}"
+        pool_names.append(name)
+        if not base:
+            checks.append({"check": f"{name}:baseline",
+                           "status": "skipped",
+                           "note": "no prior rows in this pool — "
+                                   "nothing to regress against"})
+            continue
+        lrow = latest["row"]
+        checks.append(_grew(
+            f"{name}:warm_compile_s", float(lrow["warm"]["compile_s"]),
+            _median([float(e["row"]["warm"]["compile_s"])
+                     for e in base]),
+            threshold=warm_threshold, min_abs=warm_min_abs_s))
+        checks.append(_grew(
+            f"{name}:n_programs", float(lrow["cold"]["n_programs"]),
+            _median([float(e["row"]["cold"]["n_programs"])
+                     for e in base]),
+            threshold=programs_threshold))
+        rates = [e["row"].get("cache_hit_rate") for e in base]
+        rates = [float(r) for r in rates if r is not None]
+        lrate = lrow.get("cache_hit_rate")
+        if rates and lrate is not None:
+            base_rate = _median(rates)
+            regressed = float(lrate) < base_rate - hit_rate_drop
+            checks.append({
+                "check": f"{name}:cache_hit_rate",
+                "status": "regressed" if regressed else "ok",
+                "value": round(float(lrate), 4),
+                "baseline": round(base_rate, 4),
+                "threshold": hit_rate_drop})
+        else:
+            checks.append({"check": f"{name}:cache_hit_rate",
+                           "status": "skipped",
+                           "note": "hit rate absent (cache off?)"})
+    verdict = ("REGRESSION" if any(c["status"] == "regressed"
+                                   for c in checks) else "PASS")
+    return {"schema": SCHEMA_VERSION, "verdict": verdict,
+            "pools": pool_names, "checks": checks}
+
+
+def _crosslink_manifest(artifact: Optional[str] = None,
+                        ledgers: Optional[List[str]] = None) -> None:
+    """Shipped against observed: reconcile the newest compile ledger
+    (``LEDGER_*.jsonl`` beside the package, or ``ledgers``) with the
+    kernel-build artifact (``artifact/`` there, ``PROOVREAD_TORCH_ARTIFACT``
+    or ``artifact``). Each program the ledger saw that the artifact does
+    not ship is a ``never-shipped`` line: every boot from the artifact
+    builds it. Non-fatal: no artifact, no ledger or an unreadable one
+    leaves the plain gate."""
+    try:
+        from proovread_tpu_torch.obs import boot as _boot
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        if artifact is None:
+            artifact = os.environ.get("PROOVREAD_TORCH_ARTIFACT",
+                                      os.path.join(root, "artifact"))
+        if not os.path.isfile(os.path.join(artifact, "manifest.json")):
+            return
+        if ledgers is None:
+            ledgers = sorted(_glob.glob(os.path.join(root,
+                                                     "LEDGER_*.jsonl")))
+        if not ledgers:
+            return
+        manifest = _boot.verify_artifact(artifact)
+        never = _boot.reconcile_ledger(manifest, ledgers[-1])
+        for v in never:
+            print(f"compile-check: never-shipped: {v['entry']} "
+                  f"{v['sig']} — observed in {ledgers[-1]} but absent "
+                  f"from artifact {manifest['version']}; every boot "
+                  "pays this build (rebuild the artifact)",
+                  file=sys.stderr)
+        if not never:
+            print(f"compile-check: artifact {manifest['version']} ≡ "
+                  f"{os.path.basename(ledgers[-1])}: observed within "
+                  "shipped", file=sys.stderr)
+    except Exception as e:                              # noqa: BLE001
+        print(f"compile-check: manifest cross-link unavailable: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+
+
+def _resolve_paths(args_paths: List[str]) -> List[str]:
+    """The files named, else ``COMPILE_r*.json`` in order and every
+    other ``COMPILE_*.json`` after them."""
+    return history_paths(args_paths, "COMPILE", "r*")
+
+
+def check(args) -> int:
+    """``check``: the cross-link, then the gate; exit 1 on a regression."""
+    paths = _resolve_paths(args.files)
+    if not paths:
+        print("compile-check: no COMPILE history files found",
+              file=sys.stderr)
+        return 0
+    _crosslink_manifest()
+    verdict = compile_check(load_rows(paths),
+                            warm_threshold=args.warm_threshold,
+                            warm_min_abs_s=args.warm_min_abs_s,
+                            programs_threshold=args.programs_threshold,
+                            hit_rate_drop=args.hit_rate_drop,
+                            window=args.window)
+    for c in verdict["checks"]:
+        if c["status"] == "regressed":
+            print(f"COMPILE-REGRESSION: {c['check']} = {c['value']} vs "
+                  f"baseline {c['baseline']} (threshold "
+                  f"{c['threshold']})", file=sys.stderr)
+        elif c["status"] == "missing":
+            print(f"compile-check: missing — {c.get('note', c)}",
+                  file=sys.stderr)
+    print(json.dumps(verdict, sort_keys=True))
+    if verdict["verdict"] == "REGRESSION":
+        return 1
+    print(f"compile-check: {verdict['verdict']} "
+          f"({len(verdict['pools'])} pool(s))", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m proovread_tpu_torch.obs.census",
         description="Fill a kernel-library cache with a cold and a warm "
                     "command-line run and record a compile_census row "
-                    "per config.")
+                    "per config; gate the COMPILE history.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pw = sub.add_parser("prewarm", help="cold and warm runs, COMPILE rows")
     pw.add_argument("--configs", default="4",
@@ -221,7 +432,21 @@ def main(argv=None) -> int:
                     default=MIN_WARM_HIT_RATE,
                     help="fail unless each warm run's library-cache hit "
                          "rate reaches this (0 turns the gate off)")
+    chk = sub.add_parser("check", help="gate: exit 1 on regression")
+    chk.add_argument("files", nargs="*",
+                     help="COMPILE history files (default: "
+                          "COMPILE_*.json)")
+    chk.add_argument("--warm-threshold", type=float,
+                     default=WARM_COMPILE_THRESHOLD)
+    chk.add_argument("--warm-min-abs-s", type=float,
+                     default=WARM_COMPILE_MIN_ABS_S)
+    chk.add_argument("--programs-threshold", type=float,
+                     default=PROGRAMS_THRESHOLD)
+    chk.add_argument("--hit-rate-drop", type=float, default=HIT_RATE_DROP)
+    chk.add_argument("--window", type=int, default=BASELINE_WINDOW)
     args = ap.parse_args(argv)
+    if args.cmd == "check":
+        return check(args)
 
     caps = dict(DEFAULT_CAPS)
     for part in (args.cap_bases or "").split(","):

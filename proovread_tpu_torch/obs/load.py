@@ -24,14 +24,17 @@ per-reason rejections, per-tenant demotions, per-family accuracy (truth
 rides the generated traffic, so the fleet path is *scored*, not just
 exercised; on the card with the LCS and traceback kernels), the kernel
 library's census and per-replica SLO slices. ``backend`` is the port's
-device, ``"cuda"`` or ``"cpu"``. The reference's gate over LOAD history
-(``load_rows``, ``load_check``: pooling rows across runs) is benchmark
-work and is not ported here.
+device, ``"cuda"`` or ``"cpu"``. ``check`` is the reference's gate over
+LOAD history: rows pool per (scenario, n_replicas, backend), so a row of
+the card never pools with the JAX package's, and it trips on throughput
+drop, p99 growth, accuracy drop, a broken accounting identity or any
+orphaned job.
 
 CLI::
 
     python -m proovread_tpu_torch.obs.load smoke [--out FILE]
         [--replicas N] [--device cuda|cpu]
+    python -m proovread_tpu_torch.obs.load check [LOAD_*.json ...]
 """
 
 from __future__ import annotations
@@ -45,6 +48,21 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+# one rolling-median implementation for every history gate
+from proovread_tpu_torch.obs.regress import (_median, history_paths,
+                                             json_values)
+
+SCHEMA_VERSION = 1
+
+# the gate's thresholds (the reference's), generous on purpose: they catch
+# structural regressions (a build a wave, a routing pathology), not
+# scheduler jitter
+THROUGHPUT_DROP = 0.50      # allowed fractional bases/sec/fleet drop
+P99_GROWTH = 1.00           # allowed fractional p99 growth per class...
+P99_MIN_ABS_S = 2.0         # ...when the absolute growth also exceeds
+IDENTITY_DROP = 0.005       # allowed absolute per-family identity drop
+BASELINE_WINDOW = 3
 
 
 def _log(msg: str) -> None:
@@ -396,6 +414,208 @@ def run_smoke(n_replicas: int = 2, pipeline_config=None,
 
 
 # --------------------------------------------------------------------------
+# the gate over LOAD history
+# --------------------------------------------------------------------------
+
+def load_rows(paths: List[str]) -> List[Dict[str, Any]]:
+    """LOAD history files as ``{"source", "row"}`` entries in file order
+    (one JSON object a file, or JSON lines)."""
+    out: List[Dict[str, Any]] = []
+    for path in paths:
+        for obj in json_values(path):
+            if isinstance(obj, dict) and "load_schema" in obj:
+                out.append({"source": path, "row": obj})
+    return out
+
+
+def _pool_key(row: Dict[str, Any]):
+    """(scenario, fleet size, backend); a row without ``backend`` pools as
+    ``"cpu"`` (the reference's default)."""
+    return (str(row.get("scenario")), int(row.get("n_replicas") or 0),
+            str(row.get("backend") or "cpu"))
+
+
+def load_check(entries: List[Dict[str, Any]],
+               throughput_drop: float = THROUGHPUT_DROP,
+               p99_growth: float = P99_GROWTH,
+               p99_min_abs_s: float = P99_MIN_ABS_S,
+               identity_drop: float = IDENTITY_DROP,
+               window: int = BASELINE_WINDOW) -> Dict[str, Any]:
+    """The gate, as data. Per (scenario, n_replicas, backend) pool the
+    newest row must validate (``validate_load``: schema and the three
+    accounting identities), carry no orphaned job, show uplift in every
+    family, and stay within the thresholds of the rolling-baseline median
+    for fleet throughput, each class's p99 and each family's identity.
+    Invalid baseline rows are non-fatal ``missing`` items. Verdict PASS /
+    REGRESSION / NO-DATA."""
+    from proovread_tpu_torch.obs.validate import (ValidationError,
+                                                  validate_load)
+
+    checks: List[Dict[str, Any]] = []
+    pools: Dict[Any, List[Dict[str, Any]]] = {}
+    for e in entries:
+        pools.setdefault(_pool_key(e["row"]), []).append(e)
+    if not pools:
+        return {"schema": SCHEMA_VERSION, "verdict": "NO-DATA",
+                "pools": [], "checks": checks}
+
+    pool_names = []
+    for key in sorted(pools):
+        group = pools[key]
+        name = f"{key[0]}/x{key[1]}/{key[2]}"
+        pool_names.append(name)
+        latest = group[-1]
+        lrow = latest["row"]
+        try:
+            validate_load(lrow, where=latest["source"])
+        except ValidationError as err:
+            checks.append({"check": f"{name}:identity",
+                           "status": "regressed",
+                           "value": str(err)[:300],
+                           "note": "newest row fails validation — "
+                                   "schema drift or a broken "
+                                   "accounting identity"})
+            continue
+        checks.append({"check": f"{name}:identity", "status": "ok",
+                       "value": lrow["jobs"]["accepted"]})
+        checks.append({
+            "check": f"{name}:orphaned",
+            "status": ("regressed" if lrow["jobs"]["orphaned"] > 0
+                       else "ok"),
+            "value": lrow["jobs"]["orphaned"],
+            "note": "orphaned jobs are explicitly-counted losses — a "
+                    "recorded row must have none"})
+        for fam, a in sorted(lrow["accuracy"].items()):
+            checks.append({
+                "check": f"{name}:uplift:{fam}",
+                "status": ("regressed"
+                           if float(a["identity_after"])
+                           < float(a["identity_before"])
+                           else "ok"),
+                "value": round(float(a["identity_after"]), 4),
+                "baseline": round(float(a["identity_before"]), 4),
+                "note": "correction must never lower identity"})
+        base: List[Dict[str, Any]] = []
+        for e in group[:-1]:
+            try:
+                validate_load(e["row"], where=e["source"])
+                base.append(e["row"])
+            except ValidationError as err:
+                checks.append({"check": f"{name}:baseline-row",
+                               "status": "missing",
+                               "source": e["source"],
+                               "note": str(err)[:200]})
+        base = base[-window:]
+        if not base:
+            checks.append({"check": f"{name}:baseline",
+                           "status": "skipped",
+                           "note": "no prior valid rows in this pool — "
+                                   "nothing to regress against"})
+            continue
+
+        bmed = _median([float(b["bases_per_sec_fleet"]) for b in base])
+        lv = float(lrow["bases_per_sec_fleet"])
+        if bmed > 0:
+            delta = (lv - bmed) / bmed
+            checks.append({
+                "check": f"{name}:bases_per_sec_fleet",
+                "status": ("regressed" if -delta > throughput_drop
+                           else "ok"),
+                "value": round(lv, 2), "baseline": round(bmed, 2),
+                "delta_frac": round(delta, 4),
+                "threshold": throughput_drop})
+        base_p99: Dict[str, List[float]] = {}
+        for b in base:
+            for cls, lr in b["latency"].items():
+                base_p99.setdefault(cls, []).append(float(lr["p99_s"]))
+        for cls, vals in sorted(base_p99.items()):
+            lr = lrow["latency"].get(cls)
+            if lr is None:
+                checks.append({"check": f"{name}:p99:{cls}",
+                               "status": "missing",
+                               "note": "baseline has this length "
+                                       "class, latest row does not"})
+                continue
+            med = _median(vals)
+            new = float(lr["p99_s"])
+            regressed = (med > 0
+                         and (new - med) / med > p99_growth
+                         and new - med >= p99_min_abs_s)
+            checks.append({
+                "check": f"{name}:p99:{cls}",
+                "status": "regressed" if regressed else "ok",
+                "value": round(new, 3), "baseline": round(med, 3),
+                "threshold": p99_growth})
+        base_acc: Dict[str, List[float]] = {}
+        for b in base:
+            for fam, a in b["accuracy"].items():
+                base_acc.setdefault(fam, []).append(
+                    float(a["identity_after"]))
+        for fam, a in sorted(lrow["accuracy"].items()):
+            la = float(a["identity_after"])
+            vals = base_acc.get(fam)
+            if not vals:
+                checks.append({"check": f"{name}:identity:{fam}",
+                               "status": "skipped",
+                               "note": "no baseline rows score this "
+                                       "family yet"})
+                continue
+            med = _median(vals)
+            checks.append({
+                "check": f"{name}:identity:{fam}",
+                "status": ("regressed" if la < med - identity_drop
+                           else "ok"),
+                "value": round(la, 4), "baseline": round(med, 4),
+                "threshold": identity_drop})
+        for fam in sorted(set(base_acc) - set(lrow["accuracy"])):
+            checks.append({"check": f"{name}:identity:{fam}",
+                           "status": "missing",
+                           "note": "baseline rows score this family, "
+                                   "latest row does not"})
+
+    verdict = ("REGRESSION" if any(c["status"] == "regressed"
+                                   for c in checks) else "PASS")
+    return {"schema": SCHEMA_VERSION, "verdict": verdict,
+            "pools": pool_names, "checks": checks}
+
+
+def _resolve_paths(args_paths: List[str]) -> List[str]:
+    """The files named, else ``LOAD_r<digits>*.json`` in order and every
+    other ``LOAD_*.json`` after them."""
+    return history_paths(args_paths, "LOAD", "r[0-9]*")
+
+
+def check(args) -> int:
+    """``check``: the gate over LOAD history; exit 1 on a regression."""
+    paths = _resolve_paths(args.files)
+    if not paths:
+        print("load-check: no LOAD history files found", file=sys.stderr)
+        return 0
+    verdict = load_check(load_rows(paths),
+                         throughput_drop=args.throughput_drop,
+                         p99_growth=args.p99_growth,
+                         p99_min_abs_s=args.p99_min_abs_s,
+                         identity_drop=args.identity_drop,
+                         window=args.window)
+    for c in verdict["checks"]:
+        if c["status"] == "regressed":
+            print(f"LOAD-REGRESSION: {c['check']} = {c.get('value')}"
+                  + (f" vs baseline {c['baseline']}" if "baseline" in c
+                     else "")
+                  + (f" (threshold {c['threshold']})" if "threshold" in c
+                     else ""), file=sys.stderr)
+        elif c["status"] == "missing":
+            print(f"load-check: missing — {c.get('note', c)}",
+                  file=sys.stderr)
+    print(json.dumps(verdict, sort_keys=True))
+    if verdict["verdict"] == "REGRESSION":
+        return 1
+    print(f"load-check: {verdict['verdict']} "
+          f"({len(verdict['pools'])} pool(s))", file=sys.stderr)
+    return 0
+
+
+# --------------------------------------------------------------------------
 # CLI
 # --------------------------------------------------------------------------
 
@@ -403,7 +623,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="proovread-tpu-torch-load",
         description="Fleet load scoreboard: run the multi-replica load "
-                    "smoke (one LOAD row per scenario).")
+                    "smoke (one LOAD row per scenario) and gate the "
+                    "history.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     smk = sub.add_parser("smoke",
                          help="2-replica fleet: slam traffic + mid-wave "
@@ -415,7 +636,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     smk.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="where the replicas' waves and the scoring run "
                           "(default: the card)")
+    chk = sub.add_parser("check", help="gate: exit 1 on regression")
+    chk.add_argument("files", nargs="*",
+                     help="LOAD history files (default: LOAD_*.json)")
+    chk.add_argument("--throughput-drop", type=float,
+                     default=THROUGHPUT_DROP)
+    chk.add_argument("--p99-growth", type=float, default=P99_GROWTH)
+    chk.add_argument("--p99-min-abs-s", type=float,
+                     default=P99_MIN_ABS_S)
+    chk.add_argument("--identity-drop", type=float,
+                     default=IDENTITY_DROP)
+    chk.add_argument("--window", type=int, default=BASELINE_WINDOW)
     args = ap.parse_args(argv)
+    if args.cmd == "check":
+        return check(args)
     ok, rows = run_smoke(n_replicas=args.replicas,
                          pipeline_config=smoke_config(args.device))
     for row in rows:

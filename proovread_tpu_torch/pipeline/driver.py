@@ -19,7 +19,8 @@ reads with chimera detection, and finally ``trim_records``. Two engines:
   the resilience ladder (``pipeline/resilience.py``): a device fault
   retries it at the next-cheaper rung, ``fused`` -> ``eager`` ->
   ``chunk-halved`` -> ``host-scan``, each demotion reported.
-- ``engine="scan"``: buckets of ``batch_reads`` reads in input order, each
+- ``engine="scan"`` (and any engine but ``"device"``, as the
+  reference's): buckets of ``batch_reads`` reads in input order, each
   pass a ``FastCorrector.correct_batch`` (``pipeline/correct.py``): host
   seeding and admission, Smith-Waterman on the device, torch votes. It is
   also the ladder's last rung.
@@ -29,16 +30,17 @@ checkpoint journal, and ``resume`` replays the buckets it holds. Fault
 injection (``fault_spec`` or ``PROOVREAD_FAULT``, ``testing/faults.py``)
 fires at the device engine's bucket entry, each pass and the fused span.
 
-Supported: ``mode="sr"`` and ``mode="mr"`` (the mr task schedule:
-``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N, ``BWA_MR_FINISH`` for
-the finish), flex on or off, one device or a mesh, at any coverage (past
-``2*max_coverage+2 > 256`` votes per lane the passes take the f32
-packed-word pileup kernel). The short-read set is resident on the device
-within ``sr_device_budget`` and streamed above it (``_SrDevice``: a host
-slice and one slab upload a pass, passes 2..N eager), with the same bits.
-``debug_dir`` writes each bucket's admitted finish alignments as SAM
-(``dcorrect.dump_admitted_sam``). Every other setting raises
-``NotImplementedError`` naming it.
+Every mode runs by its prefix, as the reference's: a mode that starts
+with ``sr`` takes the sr task schedule, any other the mr schedule
+(``BWA_MR_1`` for pass 1, ``BWA_MR`` for passes 2..N, ``BWA_MR_FINISH`` for
+the finish), and the span and task names carry ``mode[:2]``. Every engine
+but ``"device"`` runs as the scan engine. Flex on or off, one device or a
+mesh, at any coverage (past ``2*max_coverage+2 > 256`` votes per lane the
+passes take the f32 packed-word pileup kernel). The short-read set is
+resident on the device within ``sr_device_budget`` and streamed above it
+(``_SrDevice``: a host slice and one slab upload a pass, passes 2..N
+eager), with the same bits. ``debug_dir`` writes each bucket's admitted
+finish alignments as SAM (``dcorrect.dump_admitted_sam``).
 
 A mesh (``mesh_shards`` >= 2, ``parallel/dmesh.py``) runs where this
 process is a rank of a ``torch.distributed`` group (``parallel/launch.py``
@@ -354,18 +356,6 @@ def _align_params_cfg(cfg: PipelineConfig,
     return _align_params(cfg.mode, iteration)
 
 
-def _unsupported(cfg: PipelineConfig) -> Optional[str]:
-    """Name of the first setting the port does not run, or None."""
-    checks = (
-        (cfg.engine not in ("device", "scan"), f"engine={cfg.engine!r}"),
-        (cfg.mode not in ("sr", "mr"), f"mode={cfg.mode!r}"),
-    )
-    for bad, name in checks:
-        if bad:
-            return name
-    return None
-
-
 def _uniform_rest(cfg: PipelineConfig) -> bool:
     """Passes 2..N share one parameter set (else they run eagerly: the
     fused loop bakes in one)."""
@@ -518,10 +508,6 @@ class Pipeline:
         """The run inside its metrics scope: the registry the CLI
         installed, or a fresh one, so ``result.metrics`` is always
         filled."""
-        bad = _unsupported(self.config)
-        if bad is not None:
-            raise NotImplementedError(
-                f"{bad} is not supported by the PyTorch port yet")
         with obs.metrics.scope() as reg:
             _declare_metrics(reg)
             with obs.span("pipeline", cat="task", mode=self.config.mode,

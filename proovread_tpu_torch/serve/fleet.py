@@ -466,12 +466,15 @@ class FleetDispatcher:
         # up exactly as a SIGKILL would leave it, minus torn bytes
         srv._close_listener()
         srv.drain()
-        if not srv._drained.wait(self.cfg.kill_wait_s):
+        drained = srv._drained.wait(self.cfg.kill_wait_s)
+        if not drained:
             log.error("fleet: %s worker did not stop within %.0fs — "
                       "sweeping the journal anyway", rep.replica_id,
                       self.cfg.kill_wait_s)
         rep.final_slo = srv.slo_snapshot()
         srv.write_slo(os.path.join(rep.state_dir, "slo.json"))
+        if drained:
+            srv.join_threads()
         if handoff:
             self._handoff(rep)
 

@@ -658,14 +658,26 @@ class CorrectionServer:
         self._threads.append(t)
 
     def join(self, timeout: Optional[float] = None) -> bool:
-        """Wait until the worker has drained; then close the listener and
-        write the SLO artifact. Returns drain cleanliness."""
+        """Wait until the worker has drained; then close the listener, wait
+        for the server's threads to end and write the SLO artifact.
+        Returns drain cleanliness."""
         if not self._drained.wait(timeout):
             raise TimeoutError("server did not drain in time")
         self._close_listener()
+        self.join_threads()
         if self.cfg.slo_path:
             self.write_slo(self.cfg.slo_path)
         return self._drain_clean
+
+    def join_threads(self, timeout: float = 5.0) -> None:
+        """Wait, up to ``timeout`` s each, for the listener and worker
+        threads to end. A thread still running (the listener polls its
+        socket every 0.2 s) holds the server, and with it its pipelines'
+        short-read sets on the card, past a shutdown."""
+        me = threading.current_thread()
+        for t in self._threads:
+            if t is not me:
+                t.join(timeout)
 
     def serve_forever(self) -> bool:
         """Foreground mode (the CLI): listener thread + worker loop in

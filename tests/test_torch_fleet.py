@@ -288,6 +288,22 @@ class TestFleetDrills:
         finally:
             disp.close()
 
+    def test_shutdown_ends_every_replica_thread(self, tmp_path):
+        """A killed replica and a drained one: once the fleet's shutdown
+        returns, no server thread runs (a running listener held its
+        server, and the server's short-read sets on the card, past the
+        load smoke's leak check)."""
+        disp, sb = _fleet(tmp_path, fault_spec="replica_death@r1")
+        try:
+            _wait(lambda: not disp.replicas[1].alive)
+            disp.drain_all()
+            threads = [t for rep in disp.replicas
+                       for t in rep.server._threads]
+            assert len(threads) == 4
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            disp.close()
+
     def test_artifact_boot_refused(self, tmp_path):
         """An artifact without a manifest is refused before any state;
         ``tests/test_torch_boot.py`` holds the boot from a real one."""

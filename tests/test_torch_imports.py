@@ -1,15 +1,17 @@
 """The port stands alone: no ``jax`` and no ``proovread_tpu`` imports (the
 serving layer, the validators, the mesh, the compile ledger, the cost
-attribution, the boot and the static checks included), CUDA asked for
-without a card raises, threads that ask for the kernel library at once
-build it once, unsupported settings raise ``NotImplementedError`` naming
-the setting, a mesh without a process group clamps to one device, and the
-resilience settings
+attribution, the boot, the history gates and the static checks included),
+CUDA asked for without a card raises, threads that ask for the kernel
+library at once build it once, the engines and modes the reference runs by
+their name's default or prefix (``engine="host"``, ``mode="utg"``,
+``mode="sr-noccs"``) give the JAX package's records and span names, a mesh
+without a process group clamps to one device, and the resilience settings
 (the journal, resume, a bucket timeout, fault injection, the scan engine),
 flex mode (``haplo_coverage`` bare and explicit), the streaming regime and
 ``debug_dir`` run."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -87,6 +89,7 @@ def test_port_import_leaves_jax_unloaded():
             "proovread_tpu_torch.obs.compilecache, "
             "proovread_tpu_torch.obs.profile, "
             "proovread_tpu_torch.obs.census, proovread_tpu_torch.obs.boot, "
+            "proovread_tpu_torch.obs.regress, "
             "proovread_tpu_torch.analysis, "
             "proovread_tpu_torch.analysis.engine, "
             "proovread_tpu_torch.analysis.rules, "
@@ -123,15 +126,56 @@ def test_cuda_without_card_raises():
         Pipeline(PipelineConfig()).run(*_tiny())
 
 
-@pytest.mark.parametrize("setting,kw", [
-    ("engine", dict(engine="host")),
-    ("mode", dict(mode="utg")),
-])
-def test_unsupported_settings_raise(setting, kw):
+def _run_traced(pipeline, longs, srs, tracing):
+    with tracing() as tr:
+        res = pipeline.run(longs, srs)
+    return res, [(ev["name"], ev["cat"]) for ev in tr.events]
+
+
+def _key(res):
+    recs = lambda rs: [(r.id, r.seq, r.qual.tobytes(), r.desc)  # noqa: E731
+                       for r in rs]
+    return (recs(res.untrimmed), recs(res.trimmed), res.ignored,
+            res.chimera, [dataclasses.asdict(r) for r in res.reports])
+
+
+@pytest.mark.parametrize("kw,twin", [
+    (dict(engine="host"), dict(engine="scan")),
+    (dict(mode="utg"), None),
+    (dict(mode="sr-noccs"), dict(mode="sr")),
+], ids=["engine=host", "mode=utg", "mode=sr-noccs"])
+def test_reference_settings_match_jax(kw, twin):
+    """An engine other than ``"device"`` runs as the scan engine and a
+    mode by its prefix, as in the reference (``driver.py:636``,
+    ``_align_params``, ``mode[:2]`` in span and task names): the records,
+    reports and span names equal the JAX package's run on the same
+    input, and the port's run of the named twin setting."""
+    from proovread_tpu.io.records import SeqRecord as JRecord
+    from proovread_tpu.obs.trace import tracing as jtracing
+    from proovread_tpu.pipeline.driver import Pipeline as JPipeline
+    from proovread_tpu.pipeline.driver import PipelineConfig as JConfig
+
+    from proovread_tpu_torch.obs.trace import tracing
     from proovread_tpu_torch.pipeline.driver import Pipeline, PipelineConfig
-    cfg = PipelineConfig(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=setting):
-        Pipeline(cfg).run(*_tiny())
+    base = dict(n_iterations=1, device_chunk=128, host_chunk_rows=512)
+    longs, srs = _tiny()
+    jl = [JRecord(r.id, r.seq, qual=r.qual) for r in longs]
+    js = [JRecord(r.id, r.seq, qual=r.qual) for r in srs]
+    jres, jspans = _run_traced(JPipeline(JConfig(**base, **kw)), jl, js,
+                               jtracing)
+    tres, tspans = _run_traced(
+        Pipeline(PipelineConfig(device="cpu", **base, **kw)), longs, srs,
+        tracing)
+    assert _key(tres) == _key(jres)
+    assert tspans == jspans
+    mode = kw.get("mode", "sr")
+    assert (f"bwa-{mode[:2]}-finish", "pass") in tspans
+    if twin is not None:
+        ores, ospans = _run_traced(
+            Pipeline(PipelineConfig(device="cpu", **base, **twin)), longs,
+            srs, tracing)
+        assert _key(ores) == _key(tres)
+        assert [n for n, _ in ospans] == [n for n, _ in tspans]
 
 
 def test_mesh_without_group_clamps_to_one_device(caplog):
