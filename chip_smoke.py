@@ -36,9 +36,10 @@ any failure exits non-zero:
    bases) with the edge cases (empty read or truth, truths of 64, 2048 and
    4096 bases, a read past its truth, N codes; its blocks, warps a pair,
    registers and occupancy logged), the scoreboard's banded traceback
-   kernel (``csrc/edit.cu``) on 64 pairs before (~15% errors) and after
-   (~0.1%) correction at E.coli-class lengths and its edge cases (also
-   against the host numpy ``edit_alignment``, in the background), and the
+   (``csrc/edit.cu``: its DP and walk kernels, each timed, beside the
+   DP's chain floor) on 64 pairs before (~15% errors) and after (~0.1%)
+   correction at E.coli-class lengths and its edge cases (also against
+   the host numpy ``edit_alignment``, in the background), and the
    ordered vote
    scatter (``csrc/scatter.cu``) on 16 M random fractional weights with
    heavy duplication onto a 256 x 24576 x 6 target, on 4 M with segments
@@ -333,6 +334,44 @@ import numpy as np
 # the 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 16.7e12
+# the least clocks between two dependent integer instructions on Hopper;
+# a loose lower bound on a chain of them (shuffles, ballots and predicate
+# logic take longer)
+MIN_DEP_CLOCKS = 4
+
+
+def edit_chain_instructions(W):
+    """The dependent instructions of one column of ``csrc/edit.cu``'s DP
+    at W words a lane, counted from the source, a 64-bit add or compare as
+    two (low and high half), 64-bit logic as one (its halves are
+    independent): Eq & Pv (1), a word's sum (2) and its carry-out test
+    (2), the lane's generate (1 a word), the ballot (1), the lanes'
+    carries (or, add, xor, the lane's bit: 4), the words' carries up to the
+    top word's sum (1 a word), Xh and Ph (2), the top bits (2), the shuffle
+    (1), lane 0's +1 (1), the shift's or (1), Pv (1). Not the compiled
+    code's chain: a count for a loose lower bound."""
+    return 17 + 2 * W
+
+
+def edit_chain(pairs, bands):
+    """``csrc/edit.cu``'s DP chains on ``pairs`` at ``bands`` (as
+    ``edit_alignments`` takes them): each pair's shorter and longer sides
+    (``la``, ``lb``), the wrapper's plan (``edit_plan``), its words a lane
+    (``words``) and ``clocks``, a loose lower bound on its DP's time: its
+    columns x ``edit_chain_instructions`` x MIN_DEP_CLOCKS, each
+    instruction at the least latency of any (the card's single pairs take
+    several times it: PERF.md, row 11)."""
+    from proovread_tpu_torch.obs import accuracy as acc
+    la = np.asarray([min(len(a), len(b)) for a, b in pairs])
+    lb = np.asarray([max(len(a), len(b)) for a, b in pairs])
+    band = np.asarray(bands, np.int64)
+    plan = acc.edit_plan(la, lb, np.where(band == 0, 64,
+                                          np.maximum(band, 1)))
+    words = np.abs(plan["W"])
+    clocks = np.where(la > 0, lb * MIN_DEP_CLOCKS
+                      * edit_chain_instructions(words), 0)
+    return dict(la=la, lb=lb, plan=plan, words=words, clocks=clocks)
+
 # f32 lanes an SM a clock for one add, max or compare. No bound here counts
 # a fused multiply-add (the data sheet's 67 TFLOP/s counts one as two): the
 # bsw and sw DPs are built with -fmad=false, and the pileups and the
@@ -460,7 +499,8 @@ def launcher_times(fn, names, reps: int = 5, entry=None) -> dict:
     """Times of one call of a kernel's launcher ``fn``: ``ms``, its median
     CUDA-event time (host syncs and launch gaps included); ``kernel_ms``,
     the device time of the kernels of one call whose names hold one of
-    ``names``; ``device_ms``, all device work of one call (the
+    ``names``, and ``kernel_ms_by_name`` that time for each of ``names``;
+    ``device_ms``, all device work of one call (the
     kernels plus what the launcher runs around them: index checks, work
     lists, packing, copies), and ``device_ops``, the kernels, memsets and
     copies of one call. The last three from torch.profiler over ``reps``
@@ -471,8 +511,8 @@ def launcher_times(fn, names, reps: int = 5, entry=None) -> dict:
     (cause not found). There, when the profiler records no launch of
     ``names`` three times over, the kernel's time comes from CUDA events
     around each call of the C ``entry`` instead (``KernelTimer``; nothing
-    else runs on the stream between them), and ``device_ms`` /
-    ``device_ops`` are then not measured (None)."""
+    else runs on the stream between them), and ``kernel_ms_by_name``,
+    ``device_ms`` and ``device_ops`` are then not measured (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -504,7 +544,7 @@ def launcher_times(fn, names, reps: int = 5, entry=None) -> dict:
             for _ in range(reps):
                 fn()
         return dict(ms=ms, kernel_ms=kt.total_ms() / max(len(kt.events), 1),
-                    device_ms=None, device_ops=None,
+                    kernel_ms_by_name=None, device_ms=None, device_ops=None,
                     kernel_timed_by="cuda events")
     attr = ("self_device_time_total" if hasattr(
         evs[0], "self_device_time_total") else "self_cuda_time_total")
@@ -518,8 +558,10 @@ def launcher_times(fn, names, reps: int = 5, entry=None) -> dict:
         return ms_, ops
     kernel_ms, _ = per_call(mine)
     device_ms, device_ops = per_call(evs)
-    return dict(ms=ms, kernel_ms=kernel_ms, device_ms=device_ms,
-                device_ops=device_ops)
+    by_name = {nm: per_call([e for e in mine if nm in e.key])[0]
+               for nm in names}
+    return dict(ms=ms, kernel_ms=kernel_ms, kernel_ms_by_name=by_name,
+                device_ms=device_ms, device_ops=device_ops)
 
 
 # each kernel's names as the profiler shows them
@@ -532,7 +574,7 @@ KERNEL_NAMES = {
     "hcr": ("hcr_scan_kernel",),
     "sw": ("sw_dp_kernel", "sw_walk_kernel"),
     "lcs": ("lcs_wave_kernel", "lcs_global_kernel"),
-    "edit": ("edit_kernel",),
+    "edit": ("edit_dp_kernel", "edit_walk_kernel"),
     "scatter": ("scatter_ordered_kernel",),
 }
 
@@ -1329,7 +1371,7 @@ def edit_inputs(rng, dev, n_each=32):
 
 
 def check_edit(rng, dev, hold):
-    """The scoreboard's banded traceback kernel against its plain version
+    """The scoreboard's banded traceback kernels against their plain version
     (CPU tensors) on ``edit_inputs`` (bitwise); the plain version runs
     once, on the host, and that run is its time (``plain_ms``). The same
     pairs and the kernel's result go to ``hold`` (an ``EditHold``), which
@@ -1354,24 +1396,36 @@ def check_edit(rng, dev, hold):
     # recurrence counts obs/profile.py's EDIT_OPS_A_CELL INT32 operations
     # a cell (the match compare, the diagonal add, the up add, their
     # minimum, the left add, the minimum with it, the clamp to _BIG and
-    # the two decisions; the kernel's scan and band masks are its
-    # design's, not the function's); the walk's steps are not counted. A
-    # throughput figure: the floor is the longest pair's chain of rows,
-    # each a scan across its band
+    # the two decisions), whatever implements it; the walk's steps are
+    # not counted. A throughput figure: the floor is the longest chain
     from proovread_tpu_torch.obs.profile import edit_counts
-    la = np.asarray([min(len(a), len(b)) for a, b in pairs])
-    width = np.asarray([abs(len(a) - len(b)) for a, b in pairs]) \
-        + 2 * np.asarray(bands) + 1
+    ch = edit_chain(pairs, bands)
+    la, lb, plan = ch["la"], ch["lb"], ch["plan"]
+    width = lb - la + 2 * np.asarray(bands) + 1
     cells = int((la * width).sum())
     n_ops, n_bytes = edit_counts(sum(len(a) + len(b) for a, b in pairs),
                                  len(pairs), cells)
     b_ms, b_by = bound(n_bytes, n_ops, PEAK_INT32_OPS_PER_S)
+    # the DP's chain: the longest pair's loose lower bound (edit_chain);
+    # in this log line only, as it is counted, not measured
+    live = la > 0
+    k = int(np.argmax(ch["clocks"]))
+    by_name = tm["kernel_ms_by_name"] or {}
     return dict(max_abs_err=max_abs_err([(got.cpu().float(),
                                           want.float())]),
                 **tm, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, cells=cells,
-                longest_chain_rows=int(la.max()),
-                longest_row_cells=int(width[int(np.argmax(la))]),
+                dp_kernel_ms=by_name.get("edit_dp_kernel"),
+                walk_kernel_ms=by_name.get("edit_walk_kernel"),
+                chain_floor_ms=float(ch["clocks"][k]) / max_sm_clock_hz()
+                * 1e3,
+                longest_chain_columns=int(lb[live].max()),
+                floor_pair_columns=int(lb[k]),
+                floor_pair_words_a_lane=int(ch["words"][k]),
+                words_a_lane={str(x): int(c) for x, c in zip(
+                    *np.unique(plan["W"][live], return_counts=True))},
+                widest_window_words=int(plan["S"].max()),
+                state_bytes=int(16 * plan["rec"].sum()),
                 widest_row_cells=int(width.max()),
                 shape=f"P={len(pairs)} bases={n_bytes}")
 
@@ -5219,13 +5273,17 @@ def main(argv=None) -> int:
     rows = []
     for name, (_, source, replaces) in wrappers.items():
         r = results[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "kernel_ms": r["kernel_ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "kernel_ms": r["kernel_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"]}
+        # an entry of several kernels: each one's time
+        if len(r.get("kernel_ms_by_name") or {}) > 1:
+            row["kernel_ms_by_name"] = r["kernel_ms_by_name"]
+        rows.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

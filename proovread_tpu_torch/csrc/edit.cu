@@ -4,293 +4,559 @@
 //
 // Replaces the host numpy of proovread_tpu_torch/obs/accuracy.py:_banded_tb
 // and its walk (the reference's proovread_tpu/obs/accuracy.py:_banded_tb is
-// the same numpy; no Pallas kernel): rows of the shorter sequence a against
-// a diagonal band of the longer b, cell idx = j - i + w of width
-// lb - la + 2w + 1; diagonal (i-1, j-1) + (a[i-1] != b[j-1] or a[i-1] is
-// N), up (i-1, j) + 1, and the left dependency (i, j-1) + 1 closed by a
-// min-plus prefix scan, cur = min(c0, cummin(c0 - idx) + idx); j < 1 has no
-// diagonal, j < 0 and j > lb hold _BIG, every cell is clamped to _BIG. The
-// walk goes back from (la, lb) preferring the diagonal, then up, then left,
-// with the host's exact comparisons (_BIG arithmetic included).
+// the same numpy; no Pallas kernel): with a the shorter sequence (m rows)
+// and b the longer (n columns, d = n - m), the host fills the band of cells
+// with offset j - i in [-w, d + w] (diagonal + (a != b or a is N), up + 1,
+// left + 1; every other cell _BIG), then walks back from (m, n) preferring
+// the diagonal, then up, then left. The wrapper doubles w and relaunches
+// the pairs whose distance exceeds it while w is below m.
 //
-// What bounds it: each pair is a chain of la rows, each a scan across the
-// band; the host ran a dozen numpy calls a row (18-23 s a scored run for
-// ~115 alignments on the card's host, PERF.md). The work is la * width
-// cells (~40 M for a 15%-error 8 kb read) of a few dozen instructions, a
-// few ms a pair at one SM's issue rate; the floor is the longest pair's
-// row chain. So one block takes one pair (all pairs of a call in one
-// launch, one SM each), and a row costs two __syncthreads() (on the H100
-// the widest before-correction pairs hold a launch at ~50 ms, with
-// 1,024-thread blocks faster than smaller ones: PERF.md):
-// - the two DP rows and a state byte a cell live in shared memory (in a
-//   global scratch past the wrapper's shared-memory size).
-// - each thread owns E contiguous cells of the row (E = ceil(width /
-//   threads), made odd so that a warp's threads reading their e-th cells
-//   hit 32 different banks); warps past the row's cells only meet the
-//   barriers, so a narrow band (a corrected read's) costs a few warps. In
-//   a first pass a thread computes each cell's c0 = min(diagonal, up),
-//   keeps it in the new row, and the minimum of c0 - idx; a warp
-//   __shfl_up_sync min-scan and the warps' totals through shared memory
-//   give each thread the minimum over the threads before it; a second
-//   pass runs the scan along its cells (cur = min(c0, cummin(c0 - idx) +
-//   idx)), applies the band's masks and the clamp, and stores each cell's
-//   state: 0 the diagonal is a match, 1 a substitution, 2 up (an
-//   insertion), 3 left (a deletion), the host walk's first choice among
-//   "diagonal predecessor gives this cell", "up predecessor does", else
-//   left. After the row's barrier the warps pack the states into two
-//   bit-planes by __ballot_sync (coalesced, ceil(width / 32) words a row
-//   each).
-// - after the last row one warp walks back: it stages tiles of 32 rows x
-//   8 words of both planes in shared memory (a device-memory round trip a
-//   tile, not a step), finds in each row the highest cell at or left of
-//   the current one whose state is not "left" (one __clz a word; the
-//   cells it passes are deletions) and takes that cell's step.
-// The wrapper doubles the band and relaunches the pairs whose distance
-// exceeds it while the band is below the shorter length, as the host does.
-
-#include <climits>
+// Exactness: every step off the diagonal moves j - i by one and costs 1,
+// so a path of cost <= w from (0, 0) stays inside offsets [-w, w], inside
+// the band; every cell whose true distance D is <= w has its banded value
+// equal to D, every other cell a value >= D > w. The walk starts at dist
+// <= w and only compares candidates against a current value <= w, so it
+// visits only cells with D <= w and takes the same branch under any DP X
+// with X = D where D <= w and X > w elsewhere; the relaunch test dist > w
+// has the same truth value under such an X. This kernel computes such an
+// X: the exact recurrence on a region of whole 64-bit words that contains
+// the band, its boundary cells set to upper bounds of D (a value one above
+// a neighbour's), never below it, so X >= D everywhere and X = D along
+// every path of cost <= w. With w >= m the band is the whole matrix and X
+// is D everywhere.
+//
+// What bounds it: the host's recurrence costs ~9 integer operations a
+// banded cell (0.4 ms for phase 2's 743 M cells at the card's INT32 rate,
+// obs/profile.py edit_counts), but each pair is a chain of dependent steps.
+// The earlier design (one 1,024-thread block a pair, a row a step: a
+// two-pass min-plus scan across the band, two __syncthreads() and a global
+// load of b twice a cell) issued several dozen instructions a cell and
+// took ~3 us a row: 50 ms for those pairs on the H100 (PERF.md row 11).
+//
+// This design cuts the work of a step by about 64x (Myers 1999; Hyyrö's
+// blocked and banded form; Edlib's traceback from stored deltas), so the
+// floor becomes the longest pair's chain of columns, each a chain of
+// dependent instructions that one warp issues in order:
+// - DP (edit_dp_kernel): a pair is one warp, up to 8 pairs a block (the
+//   wrapper's EDIT_WARPS), no block barrier. The rows are the bit-vector
+//   axis: the vertical deltas of a column (Pv, Mv: +1, -1) over a window of
+//   32 W words, W words a lane (lane l holds slots lW .. lW + W - 1, slot
+//   k the row word wlo + k), W picked by the wrapper so that the window
+//   holds the band's rows at every column (W <= 6 in registers, else a
+//   global scratch). b is stepped a base a column: Eq (the rows whose base
+//   equals b[j-1]; none for N, so an N never matches) from a per-pair
+//   table of four masks a word and a zero row, built by the warp first,
+//   loaded a column ahead. The sum (Eq & Pv) + Pv is a carry-lookahead
+//   adder: each word's sum and that sum plus one, the lane's generate and
+//   propagate, the carries between lanes from two ballots and one 32-bit
+//   addition (as csrc/lcs.cu), then each word's carry selects its sum. The
+//   horizontal deltas shift up a row through one shuffle; the row below
+//   the window takes a +1 horizontal delta (exact on row 0, an upper
+//   bound above it). As the band slides down (its lowest row is j - d -
+//   w), the window drops its lowest word and takes a fresh one on top
+//   (Pv all ones: one above the cell below, an upper bound; the window
+//   keeps a word to spare, so that word's base is above the band anyway),
+//   and the value below the window (the anchor, for dist) adds the
+//   dropped word's deltas. The columns between two slides or tiles of b
+//   run as a loop without a branch, two columns an iteration at W <= 4,
+//   so that one column's stores fill the gaps of the next one's chain.
+//   Each column stores two bit-planes a word, 16 bytes: D (the walk takes
+//   the diagonal: a match, or X(i-1, j-1) + 1 == X(i, j), read off the
+//   vertical and shifted horizontal deltas) and M (on the diagonal a
+//   match; off it, the up step: X(i-1, j) + 1 == X(i, j)).
+// - Walk (edit_walk_kernel): a pair is one warp, which stages 32 columns
+//   (lane x column j0 - x) of three row words in registers, and the 32
+//   columns to their left as it enters them, looks down the diagonal from
+//   the current cell at once (lane x at (i - x', j - x')), takes the run
+//   of matches with one ballot and the step after it from its lane, the
+//   host's branch order throughout. A walk that reaches a word outside a
+//   column's stored window left the band: dist -1. Pairs that the wrapper
+//   will relaunch at twice the band skip it.
+// Codes outside 0..4 compare as the host does: equal negative codes
+// match (their Eq is built from a directly), codes >= 4 never do.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BIG = 1 << 20;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WALK_ROWS = 32;     // rows of a walk tile
-constexpr int WALK_WORDS = 8;     // words of a walk tile's row, a plane
+constexpr uint64_t ONES = ~0ull;
+constexpr int MAX_WARPS = 8;      // pairs a block (255 registers a thread)
 
-// A pair's DP scratch in 32-bit words: two band rows and a state byte a
-// cell.
-__host__ __device__ __forceinline__ int64_t dp_words(int width) {
-  return 2 * int64_t(width) + (width + 3) / 4;
+// The lowest row word of the window at column j (rows max(1, j - dw) ..,
+// dw = d + w).
+__device__ __forceinline__ int wlo_of(int j, int dw) {
+  return (max(1, j - dw) - 1) >> 6;
 }
 
-__device__ __forceinline__ int warp_min_scan(int x, int lane) {
+// A lane's words in registers (W a compile-time constant). UNROLL: the
+// columns a loop iteration runs, so that one column's states and stores
+// fill the gaps of the next column's chain (more spill at larger W).
+template <int W>
+struct RegWords {
+  static constexpr int UNROLL = W <= 4 ? 2 : 1;
+  uint64_t pv[W], mv[W], eq[W], en[W], s[W], h[W], s1[W];
+  __device__ __forceinline__ constexpr int size() const { return W; }
+  __device__ __forceinline__ uint64_t& PV(int t) { return pv[t]; }
+  __device__ __forceinline__ uint64_t& MV(int t) { return mv[t]; }
+  __device__ __forceinline__ uint64_t& EQ(int t) { return eq[t]; }
+  __device__ __forceinline__ uint64_t& EN(int t) { return en[t]; }
+  __device__ __forceinline__ uint64_t& S(int t) { return s[t]; }
+  __device__ __forceinline__ uint64_t& H(int t) { return h[t]; }
+  __device__ __forceinline__ uint64_t& S1(int t) { return s1[t]; }
+};
+
+// A lane's words in a global scratch, lane-interleaved (seven arrays of w
+// words a lane), for windows past the register ones.
+struct GlobWords {
+  static constexpr int UNROLL = 1;
+  uint64_t* base;                   // the pair's scratch + lane
+  int w;
+  __device__ __forceinline__ int size() const { return w; }
+  __device__ __forceinline__ uint64_t& at(int a, int t) {
+    return base[(int64_t(a) * w + t) * 32];
+  }
+  __device__ __forceinline__ uint64_t& PV(int t) { return at(0, t); }
+  __device__ __forceinline__ uint64_t& MV(int t) { return at(1, t); }
+  __device__ __forceinline__ uint64_t& EQ(int t) { return at(2, t); }
+  __device__ __forceinline__ uint64_t& EN(int t) { return at(3, t); }
+  __device__ __forceinline__ uint64_t& S(int t) { return at(4, t); }
+  __device__ __forceinline__ uint64_t& H(int t) { return at(5, t); }
+  __device__ __forceinline__ uint64_t& S1(int t) { return at(6, t); }
+};
+
+// The rows of word q (rows 64q + 1 ..) whose base is c, for a code the
+// table does not hold (negative).
+__device__ uint64_t eq_direct(const int8_t* a, int m, int64_t q, int c) {
+  uint64_t e = 0;
+  for (int k = 0; k < 64; ++k) {
+    const int64_t r = q * 64 + k;
+    if (r < m && a[r] == c) e |= 1ull << k;
+  }
+  return e;
+}
+
+// Eq of the lane's words (slots lane * nw + t, words q0 + t) for code c
+// into EN: codes 0-3 from their rows of the table, others from its zero
+// row (4), negative ones (only where NEG) from a directly.
+template <bool NEG, class Wd>
+__device__ __forceinline__ void load_eq(Wd& ws, const uint64_t* peq,
+                                        int npad, const int8_t* a, int m,
+                                        int c, int q0) {
+  const int nw = ws.size();
+  if (NEG && c < 0) {
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x = min(x, y);
+    for (int t = 0; t < nw; ++t) ws.EN(t) = eq_direct(a, m, q0 + t, c);
+  } else {
+    const uint64_t* row = peq + int64_t(min(unsigned(c), 4u)) * npad + q0;
+#pragma unroll
+    for (int t = 0; t < nw; ++t) ws.EN(t) = row[t];
+  }
+}
+
+// One column of the pair's DP. Pv, Mv: the vertical deltas of column j-1
+// over the window, turned into column j's; EQ: b[j-1]'s match masks. The
+// states of the column's stored slots (k < S) go to rec.
+template <class Wd>
+__device__ __forceinline__ void dp_column(Wd& ws, uint4* rec, int S,
+                                          int lane) {
+  const int nw = ws.size();
+  // s = (Eq & Pv) + Pv over the warp's integer, as a carry-lookahead
+  // adder: each word's sum, and that sum plus one, without a carry in;
+  // its generate (a carry out) and propagate (all ones) bits; the lane's
+  // generate and propagate from those; the lanes' carries from two
+  // ballots; then each word's carry in selects its sum
+  bool G = false, P = true;
+#pragma unroll
+  for (int t = 0; t < nw; ++t) {
+    const uint64_t pv = ws.PV(t);
+    const uint64_t s = (ws.EQ(t) & pv) + pv;
+    ws.S(t) = s;
+    ws.S1(t) = s + 1;
+    G = s < pv || (s == ONES && G);
+    P = P && s == ONES;
+  }
+  const unsigned g = __ballot_sync(FULL, G);
+  const unsigned a = g | __ballot_sync(FULL, P);
+  // carry into each lane (nothing into the window's lowest word)
+  bool cin = (((a + g) ^ a ^ g) >> lane) & 1u;
+#pragma unroll
+  for (int t = 0; t < nw; ++t) {
+    const uint64_t pv = ws.PV(t);
+    const uint64_t s = cin ? ws.S1(t) : ws.S(t);
+    cin = ws.S(t) < pv || (ws.S(t) == ONES && cin);
+    const uint64_t xh = (s ^ pv) | ws.EQ(t);
+    ws.S(t) = ws.MV(t) | ~(xh | pv);       // Ph
+    ws.H(t) = pv & xh;                     // Mh
+  }
+  // the horizontal deltas one row up: the top bits cross to the next
+  // lane; into the window's lowest row a +1 (Ph bit 0)
+  const unsigned top = unsigned(ws.S(nw - 1) >> 63)
+                       | unsigned(ws.H(nw - 1) >> 63) << 1;
+  unsigned in = __shfl_up_sync(FULL, top, 1);
+  if (lane == 0) in = 1;
+  uint4* out = rec + lane * nw;
+#pragma unroll
+  for (int t = nw - 1; t >= 0; --t) {
+    const uint64_t ph = ws.S(t) << 1
+        | (t > 0 ? ws.S(t > 0 ? t - 1 : 0) >> 63 : uint64_t(in & 1u));
+    const uint64_t mh = ws.H(t) << 1
+        | (t > 0 ? ws.H(t > 0 ? t - 1 : 0) >> 63 : uint64_t(in >> 1));
+    const uint64_t eq = ws.EQ(t);
+    const uint64_t xv = eq | ws.MV(t);
+    const uint64_t pv = mh | ~(xv | ph);
+    const uint64_t mv = ph & xv;
+    ws.PV(t) = pv;
+    ws.MV(t) = mv;
+    // X(i, j) - X(i-1, j-1) = dv + dh' is 1 where (dv, dh') is (1, 0) or
+    // (0, 1); on a match it is 0 and the diagonal is taken
+    const uint64_t dg = eq | (pv & ~mh) | (ph & ~mv);
+    const uint64_t mk = eq | (~dg & pv);
+    if (lane * nw + t < S)
+      out[t] = make_uint4(unsigned(dg), unsigned(dg >> 32), unsigned(mk),
+                          unsigned(mk >> 32));
+  }
+}
+
+// Columns j .. end (j left past end): each loads b[j]'s masks for column
+// j + 1 (a word up when that column slides the window) and runs column j.
+template <bool NEG, class Wd>
+__device__ __forceinline__ void dp_columns(Wd& ws, int& j, int end, int t0,
+                                           int tb, int next_slide, int q0,
+                                           const uint64_t* peq, int npad,
+                                           const int8_t* a, int m,
+                                           uint4* rec, int S, int lane) {
+  const int nw = ws.size();
+#pragma unroll Wd::UNROLL
+  for (; j <= end; ++j) {
+#pragma unroll
+    for (int t = 0; t < nw; ++t) ws.EQ(t) = ws.EN(t);
+    load_eq<NEG>(ws, peq, npad, a, m, __shfl_sync(FULL, tb, j - t0),
+                 q0 + (j + 1 >= next_slide));
+    dp_column(ws, rec + int64_t(j - 1) * S, S, lane);
+  }
+}
+
+// The window one word up: slot k takes slot k + 1, the top slot a fresh
+// word (Pv all ones).
+template <class Wd>
+__device__ __forceinline__ void slide(Wd& ws, int lane) {
+  const int nw = ws.size();
+  const uint64_t p0 = __shfl_down_sync(FULL, ws.PV(0), 1);
+  const uint64_t m0 = __shfl_down_sync(FULL, ws.MV(0), 1);
+#pragma unroll
+  for (int t = 0; t + 1 < nw; ++t) {
+    ws.PV(t) = ws.PV(t + 1);
+    ws.MV(t) = ws.MV(t + 1);
+  }
+  ws.PV(nw - 1) = lane == 31 ? ONES : p0;
+  ws.MV(nw - 1) = lane == 31 ? 0 : m0;
+}
+
+// The DP of one pair (a the shorter side, m >= 1): the match-mask table,
+// the columns, then X(m, n) into o[0].
+template <class Wd>
+__device__ void dp_pair(Wd& ws, const int8_t* a, int m, const int8_t* b,
+                        int n, int w, int S, uint64_t* peq, uint4* rec,
+                        int lane, int64_t* o) {
+  const int nw = ws.size();
+  const int nwords = (m + 63) >> 6;
+  const int npad = nwords + 32 * nw;       // past the last word: zeros
+  for (int q = lane; q < npad; q += 32) {
+    uint64_t ma = 0, mc = 0, mg = 0, mt = 0;
+    for (int k = 0; k < 64; ++k) {
+      const int64_t r = int64_t(q) * 64 + k;
+      const int x = r < m ? a[r] : 4;
+      const uint64_t bit = 1ull << k;
+      ma |= x == 0 ? bit : 0;
+      mc |= x == 1 ? bit : 0;
+      mg |= x == 2 ? bit : 0;
+      mt |= x == 3 ? bit : 0;
+    }
+    peq[q] = ma;
+    peq[npad + q] = mc;
+    peq[2 * npad + q] = mg;
+    peq[3 * npad + q] = mt;
+    peq[4 * npad + q] = 0;
+  }
+  __syncwarp();
+  const int dw = n - m + w;
+#pragma unroll
+  for (int t = 0; t < nw; ++t) {
+    ws.PV(t) = ONES;                       // column 0: X(i, 0) = i
+    ws.MV(t) = 0;
+  }
+  int wlo = 0;
+  int anchor = 0;                          // X(64 wlo, j)
+  int next_slide = dw + 65;                // the first j of wlo + 1
+  // b's codes 32 a tile, lane x holding b[t0 + x] (4 past n), the next
+  // tile loaded a tile ahead; columns t0 .. t0 + 31 load the masks of
+  // b[j] for column j + 1, one column ahead
+  int tb = lane < n ? int(b[lane]) : 4;
+  int tn = 32 + lane < n ? int(b[32 + lane]) : 4;
+  load_eq<true>(ws, peq, npad, a, m, __shfl_sync(FULL, tb, 0), lane * nw);
+  for (int t0 = 0; t0 <= n; t0 += 32) {
+    const bool neg = __ballot_sync(FULL, tb < 0) != 0;
+    int j = max(1, t0);
+    const int jend = min(n, t0 + 31);
+    while (j <= jend) {
+      if (j == next_slide) {
+        // the row below the window moves up a word: its value adds the
+        // dropped word's deltas (column j - 1)
+        anchor += __shfl_sync(FULL,
+                              __popcll(ws.PV(0)) - __popcll(ws.MV(0)), 0);
+        slide(ws, lane);
+        ++wlo;
+        next_slide += 64;
+      }
+      // a run of columns without a slide or a new tile, and without a
+      // branch unless the tile holds a negative code
+      const int end = min(jend, next_slide - 1);
+      const int q0 = wlo + lane * nw;
+      if (neg)
+        dp_columns<true>(ws, j, end, t0, tb, next_slide, q0, peq, npad, a,
+                         m, rec, S, lane);
+      else
+        dp_columns<false>(ws, j, end, t0, tb, next_slide, q0, peq, npad, a,
+                          m, rec, S, lane);
+    }
+    anchor += jend - max(1, t0) + 1;       // the +1 below the window
+    tb = tn;
+    tn = t0 + 64 + lane < n ? int(b[t0 + 64 + lane]) : 4;
+  }
+  // X(m, n): the anchor and the deltas of the rows up to m
+  int sum = 0;
+#pragma unroll
+  for (int t = 0; t < nw; ++t) {
+    const int64_t r0 = int64_t(wlo + lane * nw + t) * 64;   // rows r0 + 1 ..
+    const uint64_t mask = r0 >= m ? 0
+        : m - r0 >= 64 ? ONES : (1ull << (m - r0)) - 1;
+    sum += __popcll(ws.PV(t) & mask) - __popcll(ws.MV(t) & mask);
+  }
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) sum += __shfl_xor_sync(FULL, sum, x);
+  if (lane == 0) o[0] = anchor + sum;
+}
+
+// The pair of a launch's warp: a the shorter side, swap when the read is
+// the longer one.
+struct Pair {
+  const int8_t* a;
+  const int8_t* b;
+  int m, n;
+  bool swap;
+};
+
+__device__ __forceinline__ Pair pair_of(const int8_t* rd,
+                                        const int64_t* rd_off,
+                                        const int8_t* tr,
+                                        const int64_t* tr_off, int p) {
+  Pair x{rd + rd_off[p], tr + tr_off[p], int(rd_off[p + 1] - rd_off[p]),
+         int(tr_off[p + 1] - tr_off[p]), false};
+  if (x.m > x.n) {
+    const int8_t* y = x.a;
+    x.a = x.b;
+    x.b = y;
+    const int k = x.m;
+    x.m = x.n;
+    x.n = k;
+    x.swap = true;
   }
   return x;
 }
 
-// list [gridDim.x]: the pairs of this launch; band [P]: w; bits_off [P]:
-// a pair's bit-planes (row i >= 1, plane q at words ((i-1) * 2 + q) * S);
-// rows_off [P]: its two DP rows in grows, or -1 for shared memory; out
-// [P, 5]: dist (-1 if the walk left the band), matches, sub, ins, del.
-__global__ void __launch_bounds__(1024)
-edit_kernel(const int8_t* rd, const int64_t* rd_off, const int8_t* tr,
-            const int64_t* tr_off, const int32_t* list,
-            const int32_t* band, const int64_t* bits_off,
-            const int64_t* rows_off, uint32_t* bits, int32_t* grows,
-            int64_t* out) {
-  extern __shared__ __align__(16) int32_t edit_smem[];
-  __shared__ int tot_s[32];
-  __shared__ uint32_t tile_s[WALK_ROWS][2][WALK_WORDS];
-  const int p = list[blockIdx.x];
-  const int T = blockDim.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
-  const int8_t* a = rd + rd_off[p];
-  const int8_t* b = tr + tr_off[p];
-  int la = int(rd_off[p + 1] - rd_off[p]);
-  int lb = int(tr_off[p + 1] - tr_off[p]);
-  const bool swap = la > lb;             // a is the shorter sequence
-  if (swap) {
-    const int8_t* x = a;
-    a = b;
-    b = x;
-    const int y = la;
-    la = lb;
-    lb = y;
-  }
+// meta [P, 5] (int64): a pair's states in rec (uint4 index), its mask
+// table in peq, its word scratch in gst (-1: registers), S (slots stored a
+// column) and W (words a lane; negative: |W| in the global scratch).
+// list [G]: the pairs of this launch, a warp each.
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+edit_dp_kernel(const int8_t* rd, const int64_t* rd_off, const int8_t* tr,
+               const int64_t* tr_off, const int32_t* list, int G,
+               const int32_t* band, const int64_t* meta, uint4* rec,
+               uint64_t* peq, uint64_t* gst, int64_t* out) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= G) return;
+  const int p = list[g];
+  const Pair x = pair_of(rd, rd_off, tr, tr_off, p);
   int64_t* o = out + int64_t(p) * 5;
-  if (la == 0) {
-    if (tid == 0) {
-      o[0] = la + lb;
+  if (x.m == 0) {
+    if (lane == 0) {
+      o[0] = x.n;
       o[1] = 0;
       o[2] = 0;
-      o[3] = swap ? lb : 0;
-      o[4] = swap ? 0 : lb;
+      o[3] = x.swap ? x.n : 0;
+      o[4] = x.swap ? 0 : x.n;
     }
     return;
   }
-  const int w = band[p];
-  const int d = lb - la;
-  const int width = d + 2 * w + 1;
-  const int S = (width + 31) >> 5;
-  uint32_t* pb = bits + bits_off[p];
-  int32_t* prev = rows_off[p] < 0 ? edit_smem : grows + rows_off[p];
-  int32_t* cur = prev + width;
-  uint8_t* st = reinterpret_cast<uint8_t*>(cur + width);
-  for (int idx = tid; idx < width; idx += T) {
-    const int j = idx - w;
-    prev[idx] = j >= 0 && j <= lb ? j : BIG;
+  const int64_t* mt = meta + int64_t(p) * 5;
+  uint4* r = rec + mt[0];
+  uint64_t* q = peq + mt[1];
+  const int S = int(mt[3]), W = int(mt[4]), w = band[p];
+  switch (W) {
+#define EDIT_REGS(K)                                                    \
+  case K: {                                                             \
+    RegWords<K> ws;                                                     \
+    dp_pair(ws, x.a, x.m, x.b, x.n, w, S, q, r, lane, o);               \
+    break;                                                              \
   }
-  // the thread's cells: E contiguous ones, E odd so that the threads of a
-  // warp reading their e-th cells hit 32 different banks; nwa warps hold
-  // cells, the others only meet the barriers
-  const int E = ((width + T - 1) / T) | 1;
-  const int c_lo = min(width, E * tid);
-  const int c_hi = min(width, c_lo + E);
-  const int nwa = ((width + E - 1) / E + 31) >> 5;
-  __syncthreads();
-  for (int i = 1; i <= la; ++i) {
-    const int ai = a[i - 1];
-    int incl = INT_MAX;
-    if (warp < nwa) {
-      // pass 1: each cell's c0 = min(diagonal, up), kept in cur, and the
-      // thread's minimum of c0 - idx, then its warp's inclusive min-scan
-      int r = INT_MAX;
-      for (int idx = c_lo; idx < c_hi; ++idx) {
-        const int j = i + idx - w;
-        const int cost = ai >= 4 || j < 1 || j > lb || b[j - 1] != ai;
-        const int diag = j >= 1 ? prev[idx] + cost : BIG;
-        const int up = idx + 1 < width ? prev[idx + 1] + 1 : BIG;
-        const int c0 = min(diag, up);
-        cur[idx] = c0;
-        r = min(r, c0 - idx);
-      }
-      incl = warp_min_scan(r, lane);
-      if (lane == 31) tot_s[warp] = incl;
+    EDIT_REGS(1)
+    EDIT_REGS(2)
+    EDIT_REGS(3)
+    EDIT_REGS(4)
+    EDIT_REGS(6)
+#undef EDIT_REGS
+    default: {
+      GlobWords ws{gst + mt[2] + lane, -W};
+      dp_pair(ws, x.a, x.m, x.b, x.n, w, S, q, r, lane, o);
     }
-    __syncthreads();
-    if (warp < nwa) {
-      // the minimum over the threads before this one: the warps' totals
-      // scanned, then the warp's own scan shifted by a lane
-      const int ws = warp_min_scan(lane < nwa ? tot_s[lane] : INT_MAX, lane);
-      const int before = __shfl_sync(FULL, ws, warp > 0 ? warp - 1 : 0);
-      const int left = __shfl_up_sync(FULL, incl, 1);
-      int sc = min(warp > 0 ? before : INT_MAX, lane > 0 ? left : INT_MAX);
-      // pass 2: cur = min(c0, cummin(c0 - idx) + idx), the band's masks,
-      // the clamp, and each cell's state byte
-      for (int idx = c_lo; idx < c_hi; ++idx) {
-        const int j = i + idx - w;
-        const int c0 = cur[idx];
-        sc = min(sc, c0 - idx);
-        int cv = min(c0, sc + idx);
-        if (j < 0 || j > lb) cv = BIG;
-        cv = min(cv, BIG);
-        cur[idx] = cv;
-        const int cost = ai >= 4 || j < 1 || j > lb || b[j - 1] != ai;
-        const int pu = idx + 1 < width ? prev[idx + 1] : BIG;
-        int state = 3;
-        if (j >= 1 && prev[idx] + cost == cv)
-          state = cost;                  // 0: a match, 1: a substitution
-        else if (pu + 1 == cv)
-          state = 2;
-        st[idx] = uint8_t(state);
-      }
-    }
-    __syncthreads();
-    // the row's states as two bit-planes, a word of 32 cells a warp step
-    uint32_t* rb = pb + int64_t(i - 1) * 2 * S;
-    for (int wd = warp; wd < S; wd += nw) {
-      const int idx = wd * 32 + lane;
-      const int state = idx < width ? st[idx] : 3;
-      const unsigned b0 = __ballot_sync(FULL, state & 1);
-      const unsigned b1 = __ballot_sync(FULL, state >> 1);
-      if (lane == 0) {
-        rb[wd] = b0;
-        rb[S + wd] = b1;
-      }
-    }
-    int32_t* t = prev;
-    prev = cur;
-    cur = t;
   }
-  __syncthreads();                       // the last row's bit-planes
-  if (warp != 0) return;
+}
 
-  // the walk, every lane taking the same steps
-  const int dist = prev[d + w];
-  int i = la, idx = d + w;
-  int t_hi = -1, t_w0 = 0;               // the tile: rows t_hi-31..t_hi
-  auto stage = [&](int hi, int w0) {
-    __syncwarp();
-    for (int e = lane; e < WALK_ROWS * 2 * WALK_WORDS; e += 32) {
-      const int r = e / (2 * WALK_WORDS), q = (e / WALK_WORDS) & 1;
-      const int row = hi - r, word = w0 + e % WALK_WORDS;
-      tile_s[r][q][e % WALK_WORDS] =
-          row >= 1 && word >= 0 && word < S
-              ? pb[(int64_t(row - 1) * 2 + q) * S + word] : FULL;
-    }
-    __syncwarp();
-    t_hi = hi;
-    t_w0 = w0;
-  };
-  // word wd of plane q of row i, in the tile
-  auto tw = [&](int q, int wd) { return tile_s[t_hi - i][q][wd - t_w0]; };
-  int64_t matches = 0, sub = 0, ins = 0, del = 0;
-  bool ok = true;
-  while (i > 0) {
-    int wd = idx >> 5;
-    if (i > t_hi || i <= t_hi - WALK_ROWS || wd < t_w0
-        || wd >= t_w0 + WALK_WORDS)
-      stage(i, wd - (WALK_WORDS - 2));
-    // the highest cell at or left of idx whose state is not "left"
-    uint32_t X = ~(tw(0, wd) & tw(1, wd)) & (FULL >> (31 - (idx & 31)));
-    while (X == 0) {
-      if (--wd < 0) break;
-      if (wd < t_w0) stage(i, wd - (WALK_WORDS - 2));
-      X = ~(tw(0, wd) & tw(1, wd));
-    }
-    if (wd < 0) {
-      ok = false;
-      break;
-    }
-    const int bit = 31 - __clz(int(X));
-    const int at = wd * 32 + bit;
-    del += idx - at;
-    idx = at;
-    const int st = int((tw(0, wd) >> bit) & 1u)
-                   | int(((tw(1, wd) >> bit) & 1u) << 1);
-    if (st == 0) {
-      ++matches;
-    } else if (st == 1) {
-      ++sub;
-    } else {
-      ++ins;
-      ++idx;
-    }
-    --i;
+// A walk's tile: lane x holds column j0 - x, row words q - 2 .. q (v[k]
+// word q - 2 + k, bit k of ok set when the column stored it).
+struct Tile {
+  uint4 v[3];
+  unsigned ok;
+  int j0, q;
+};
+
+__device__ __forceinline__ void stage(Tile& t, const uint4* r, int S,
+                                      int dw, int j0, int q, int lane) {
+  t.j0 = j0;
+  t.q = q;
+  t.ok = 0;
+  const int jl = j0 - lane;
+  // a column past the first: no word stored
+  const int wl = jl >= 1 ? wlo_of(jl, dw) : -(S + 3);
+  const uint4* col = r + int64_t(max(jl, 1) - 1) * S;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int x = q - 2 + k - wl;
+    const bool in = x >= 0 && x < S;
+    t.v[k] = in ? col[x] : make_uint4(0, 0, 0, 0);
+    t.ok |= unsigned(in) << k;
   }
-  del += idx - w;                        // row 0: left to j = 0
+}
+
+// The walk of one pair from its DP's states; counts into o[1..4] (dist -1
+// when it left the band).
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+edit_walk_kernel(const int8_t* rd, const int64_t* rd_off, const int8_t* tr,
+                 const int64_t* tr_off, const int32_t* list, int G,
+                 const int32_t* band, const int64_t* meta, const uint4* rec,
+                 int64_t* out) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= G) return;
+  const int p = list[g];
+  const Pair x = pair_of(rd, rd_off, tr, tr_off, p);
+  int64_t* o = out + int64_t(p) * 5;
+  const int w = band[p];
+  // nothing to walk: an empty side (the DP wrote the row), or a pair the
+  // wrapper runs again at twice the band
+  if (x.m == 0 || (o[0] > w && w < x.m)) return;
+  const int64_t* mt = meta + int64_t(p) * 5;
+  const uint4* r = rec + mt[0];
+  const int S = int(mt[3]);
+  const int dw = x.n - x.m + w;
+  int i = x.m, j = x.n;
+  int matches = 0, sub = 0, ins = 0, del = 0;
+  bool ok = true;
+  // the tile in use and the next one (the 32 columns to its left, staged
+  // when the walk enters this one, around the row it entered at)
+  Tile cur, nxt;
+  cur.j0 = nxt.j0 = -64;
+  cur.q = nxt.q = 0;
+  cur.ok = nxt.ok = 0;
+  while (i > 0 && j > 0) {
+    const int q = (i - 1) >> 6;
+    int L = cur.j0 - j;
+    if (L < 0 || L > 31 || q < cur.q - 2 || q > cur.q) {
+      if (j <= nxt.j0 && j > nxt.j0 - 32 && q >= nxt.q - 2 && q <= nxt.q)
+        cur = nxt;
+      else
+        stage(cur, r, S, dw, j, q, lane);
+      L = cur.j0 - j;
+      stage(nxt, r, S, dw, cur.j0 - 32, q, lane);
+    }
+    // down the diagonal: lane x >= L looks at (i - (x - L), j - (x - L));
+    // st 3 a match, 1 a substitution, 2 up, 0 left, 4 not staged, 5
+    // outside the column's stored window
+    const int row = i - (lane - L);
+    const int k = ((row - 1) >> 6) - cur.q + 2;
+    const bool staged = lane >= L && row >= 1 && cur.j0 - lane >= 1
+                        && k >= 0 && k <= 2;
+    const uint4 v = k == 2 ? cur.v[2] : k == 1 ? cur.v[1] : cur.v[0];
+    const int bit = (row - 1) & 31;
+    const unsigned dg = (row - 1) & 32 ? v.y : v.x;
+    const unsigned mk = (row - 1) & 32 ? v.w : v.z;
+    const int st = !staged ? 4
+        : !((cur.ok >> k) & 1u) ? 5
+        : int((dg >> bit) & 1u) | int(((mk >> bit) & 1u) << 1);
+    const unsigned stop = __ballot_sync(FULL, lane >= L && st != 3);
+    const int f = stop ? __ffs(int(stop)) - 1 : 32;
+    matches += f - L;
+    i -= f - L;
+    j -= f - L;
+    if (f == 32 || i == 0 || j == 0) continue;
+    const int s = __shfl_sync(FULL, st, f);
+    if (s >= 4) {
+      if (s == 5) {
+        ok = false;
+        break;
+      }
+      continue;                            // staged next round
+    }
+    sub += s == 1;
+    ins += s == 2;
+    del += s == 0;
+    i -= s != 0;
+    j -= s != 2;
+  }
+  ins += i;                                // column 0: up to row 0
+  del += j;                                // row 0: left to column 0
   if (lane == 0) {
-    o[0] = ok ? dist : -1;
+    if (!ok) o[0] = -1;
     o[1] = matches;
     o[2] = sub;
-    o[3] = swap ? del : ins;
-    o[4] = swap ? ins : del;
+    o[3] = x.swap ? del : ins;
+    o[4] = x.swap ? ins : del;
   }
 }
 
 }  // namespace
 
 // rd/tr i8 flat (reads, truths), rd_off/tr_off i64 [P+1]; list i32 [G];
-// band i32 [P]; bits_off, rows_off i64 [P]; bits u32, grows i32 scratch;
-// threads a block; smem_width: the widest band row kept in shared memory;
-// out i64 [P, 5] (the listed pairs' rows written).
+// band i32 [P]; meta i64 [P, 5] (see edit_dp_kernel); rec, peq, gst: the
+// states, mask tables and word scratch the wrapper planned; warps: pairs a
+// block; out i64 [P, 5] (the listed pairs' rows written). The DP kernel,
+// then the walk kernel.
 PT_EXPORT int pt_edit_alignments(const void* rd, const void* rd_off,
                                  const void* tr, const void* tr_off,
                                  const void* list, int G, const void* band,
-                                 const void* bits_off, const void* rows_off,
-                                 void* bits, void* grows, int threads,
-                                 int smem_width, void* out, void* stream) {
+                                 const void* meta, void* rec, void* peq,
+                                 void* gst, int warps, void* out,
+                                 void* stream) {
   if (G <= 0) return cudaSuccess;
-  if (threads < 32 || threads > 1024 || threads % 32) {
-    return cudaErrorInvalidValue;
-  }
-  const size_t smem =
-      smem_width > 0 ? size_t(dp_words(smem_width)) * sizeof(int32_t) : 0;
-  cudaError_t e = pt_reserve_smem(edit_kernel, smem);
-  if (e != cudaSuccess) return e;
+  if (warps < 1 || warps > MAX_WARPS) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  edit_kernel<<<G, threads, smem, s>>>(
-      static_cast<const int8_t*>(rd), static_cast<const int64_t*>(rd_off),
-      static_cast<const int8_t*>(tr), static_cast<const int64_t*>(tr_off),
-      static_cast<const int32_t*>(list), static_cast<const int32_t*>(band),
-      static_cast<const int64_t*>(bits_off),
-      static_cast<const int64_t*>(rows_off), static_cast<uint32_t*>(bits),
-      static_cast<int32_t*>(grows), static_cast<int64_t*>(out));
+  const auto* r8 = static_cast<const int8_t*>(rd);
+  const auto* ro = static_cast<const int64_t*>(rd_off);
+  const auto* t8 = static_cast<const int8_t*>(tr);
+  const auto* to = static_cast<const int64_t*>(tr_off);
+  const auto* ls = static_cast<const int32_t*>(list);
+  const auto* bd = static_cast<const int32_t*>(band);
+  const auto* mt = static_cast<const int64_t*>(meta);
+  auto* o = static_cast<int64_t*>(out);
+  const int blocks = (G + warps - 1) / warps;
+  edit_dp_kernel<<<blocks, warps * 32, 0, s>>>(
+      r8, ro, t8, to, ls, G, bd, mt, static_cast<uint4*>(rec),
+      static_cast<uint64_t*>(peq), static_cast<uint64_t*>(gst), o);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  edit_walk_kernel<<<blocks, warps * 32, 0, s>>>(
+      r8, ro, t8, to, ls, G, bd, mt, static_cast<const uint4*>(rec), o);
   return cudaGetLastError();
 }

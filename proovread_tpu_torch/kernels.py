@@ -85,7 +85,7 @@ _SIGNATURES = {
     "pt_lcs_occupancy": [_I, _P, _P],
     "pt_scatter_add_ordered": [_P, _P, _P, _P, _I, _I, _P],
     "pt_edit_alignments": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                           _I, _P, _P],
+                           _P, _P],
 }
 
 _lib = None

@@ -486,9 +486,10 @@ def edit_alignments(rd: torch.Tensor, rd_off: torch.Tensor,
     """:func:`edit_alignment` of every pair (read ``rd[rd_off[p]:
     rd_off[p+1]]``, truth ``tr[tr_off[p]:tr_off[p+1]]``, ``band[p]``):
     int64 [P, 5] of (dist, matches, sub, ins, del). CPU tensors take the
-    plain version, CUDA tensors the kernel ``csrc/edit.cu`` (all pairs in
-    one launch; pairs whose distance exceeds their band while the band is
-    below the shorter length go again at twice the band)."""
+    plain version, CUDA tensors the kernels of ``csrc/edit.cu`` (all pairs
+    in one DP launch and one walk launch; pairs whose distance exceeds their
+    band while the band is below the shorter length go again at twice the
+    band)."""
     if rd.device.type == "cpu":
         return edit_alignments_plain(rd, rd_off, tr, tr_off, band)
     if rd.device.type != "cuda":
@@ -500,56 +501,83 @@ def edit_alignments(rd: torch.Tensor, rd_off: torch.Tensor,
 
 edit_alignments.launches = 0
 
-# a block of csrc/edit.cu keeps its two DP rows and a state byte a cell
-# in shared memory up to this many bytes (two blocks an SM); wider bands
-# use a global scratch. A block has a thread a cell of the widest band row
-# of the launch, at most EDIT_MAX_THREADS (a thread of a wider row takes
-# several contiguous cells)
-EDIT_SMEM_BYTES = 100 * 1024
-EDIT_MAX_THREADS = 1024
+# csrc/edit.cu runs a pair as one warp, EDIT_WARPS pairs a block (at most
+# 8). A pair's DP keeps a window of 32 W 64-bit row words that covers the
+# band's rows at every column, W words a lane: in registers up to
+# EDIT_REG_WORDS words a lane (W rounded up to a size the kernel
+# compiles, at most the largest), past that in a global scratch. score()
+# classifies a pair only under MAX_CLASSIFY_CELLS, so min(width, m) stays
+# below ~8,950 rows, S below 141 words and W at most 6: the global scratch
+# serves only direct callers with larger bands
+EDIT_WARPS = 4
+EDIT_REG_WORDS = 6
+_EDIT_REG_SIZES = np.asarray([1, 2, 3, 4, 6])
+
+
+def edit_plan(short, long_, w) -> Dict[str, np.ndarray]:
+    """How ``csrc/edit.cu`` runs pairs of shorter side ``short`` and longer
+    side ``long_`` at band ``w`` (arrays): ``S`` the row words stored a
+    column (the band's rows at a column, at most min(width, short), span at
+    most ceil(that / 64) + 1 words), ``W`` the words a lane (negative: the
+    global scratch's), and each pair's ``rec`` (states: 16-byte slots, S a
+    column), ``peq`` (mask table: words, four codes and a zero row over the
+    row words and a window past them) and ``gst`` (word scratch: words,
+    seven arrays of |W| a lane)."""
+    m = np.asarray(short, np.int64)
+    n = np.asarray(long_, np.int64)
+    width = n - m + 2 * np.asarray(w, np.int64) + 1
+    nwords = -(-m // 64)
+    S = np.where(m > 0, np.minimum(nwords, -(-np.minimum(width, m) // 64)
+                                   + 1), 0)
+    lane_words = np.maximum(-(-S // 32), 1)
+    reg = lane_words <= min(EDIT_REG_WORDS, int(_EDIT_REG_SIZES[-1]))
+    sized = _EDIT_REG_SIZES[np.searchsorted(
+        _EDIT_REG_SIZES, np.minimum(lane_words, _EDIT_REG_SIZES[-1]))]
+    W = np.where(reg, sized, -lane_words)
+    live = m > 0
+    return dict(S=S, W=W, rec=np.where(live, n * S, 0),
+                peq=np.where(live, 5 * (nwords + 32 * np.abs(W)), 0),
+                gst=np.where(live & ~reg, 7 * 32 * np.abs(W), 0))
 
 
 def _edit_cuda(rd, rd_off, tr, tr_off, to, po, w) -> torch.Tensor:
     dev = rd.device
     P = len(to) - 1
     la, lb = np.diff(to), np.diff(po)
-    short, d = np.minimum(la, lb), np.abs(la - lb)
+    short, long_ = np.minimum(la, lb), np.maximum(la, lb)
+    kernels.require(int(long_.max(initial=0)) < _BIG,
+                    f"edit_alignments: a sequence of {_BIG} bases or more "
+                    "(the host's cells saturate at that value)")
     out = torch.zeros((P, 5), dtype=torch.int64, device=dev)
     rd, rd_off, tr, tr_off = (t.contiguous() for t in
                               (rd, rd_off, tr, tr_off))
     todo = np.arange(P)
     while len(todo):
-        width = d[todo] + 2 * w[todo] + 1
-        live = short[todo] > 0
-        bits = np.where(live, 2 * short[todo] * -(-width // 32), 0)
-        dp = 2 * width + -(-width // 4)         # csrc/edit.cu dp_words
-        smem = live & (dp * 4 <= EDIT_SMEM_BYTES)
-        rows = np.where(live & ~smem, dp, 0)
-        meta = {}
-        for key, vals, fill in (("bits_off", np.cumsum(bits) - bits, 0),
-                                ("rows_off", np.where(
-                                    smem, -1, np.cumsum(rows) - rows), -1)):
-            full = np.full(P, fill, np.int64)
-            full[todo] = vals
-            meta[key] = torch.as_tensor(full, device=dev)
+        plan = edit_plan(short[todo], long_[todo], w[todo])
+        meta = np.zeros((P, 5), np.int64)
+        scratch = []
+        for k, key in enumerate(("rec", "peq", "gst")):
+            meta[todo, k] = np.cumsum(plan[key]) - plan[key]
+            scratch.append(int(plan[key].sum()))
+        meta[todo, 3] = plan["S"]
+        meta[todo, 4] = plan["W"]
+        # the longest chains start first
+        lst = torch.as_tensor(todo[np.argsort(-long_[todo], kind="stable")]
+                              .astype(np.int32), device=dev)
         band = torch.as_tensor(w.astype(np.int32), device=dev)
-        lst = torch.as_tensor(todo.astype(np.int32), device=dev)
-        bits_t = torch.empty(max(int(bits.sum()), 1), dtype=torch.int32,
-                             device=dev)
-        rows_t = torch.empty(max(int(rows.sum()), 1), dtype=torch.int32,
-                             device=dev)
-        wmax = int(width[live].max()) if live.any() else 32
-        threads = int(min(EDIT_MAX_THREADS, -(-wmax // 32) * 32))
-        smem_width = int(width[smem].max()) if smem.any() else 0
+        meta_t = torch.as_tensor(meta, device=dev)
+        rec_t = torch.empty(4 * max(scratch[0], 1), dtype=torch.int32,
+                            device=dev)
+        peq_t, gst_t = (torch.empty(max(x, 1), dtype=torch.int64, device=dev)
+                        for x in scratch[1:])
+        warps = int(min(EDIT_WARPS, len(todo)))
         rc = kernels.lib().pt_edit_alignments(
             rd.data_ptr(), rd_off.data_ptr(), tr.data_ptr(),
             tr_off.data_ptr(), lst.data_ptr(), len(todo), band.data_ptr(),
-            meta["bits_off"].data_ptr(), meta["rows_off"].data_ptr(),
-            bits_t.data_ptr(), rows_t.data_ptr(), threads, smem_width,
-            out.data_ptr(), kernels.stream_of(rd))
-        kernels.check(rc, f"edit_alignments ({len(todo)} pairs, {threads} "
-                          f"threads, rows of {smem_width} cells in shared "
-                          "memory)")
+            meta_t.data_ptr(), rec_t.data_ptr(), peq_t.data_ptr(),
+            gst_t.data_ptr(), warps, out.data_ptr(), kernels.stream_of(rd))
+        kernels.check(rc, f"edit_alignments ({len(todo)} pairs, {warps} a "
+                          f"block, {scratch[0] * 16} bytes of states)")
         kernels.count_launch(edit_alignments)
         dist = out[:, 0].cpu().numpy()[todo]
         kernels.require(bool((dist >= 0).all()),

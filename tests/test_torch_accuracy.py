@@ -216,6 +216,72 @@ def test_edit_alignments_plain_matches_jax(case):
         assert any(d > w for (d, *_), w in zip(want, bands))
 
 
+def _band_edge_pairs(case):
+    """(read, truth) pairs for the band-widening test. "edges": optimal
+    paths that reach toward each edge of the band (a block of the truth
+    missing at the read's start and extra bases at its end, so the path
+    runs right and back, and the mirror), and repeats with many equal-cost
+    paths; "errors": reads of 15% errors; "n_sides": N on either side."""
+    rng = np.random.default_rng(17)
+    if case == "edges":
+        tr = rng.integers(0, 4, 160).astype(np.int8)
+        pairs = []
+        for k in (5, 20):
+            extra = rng.integers(0, 4, k)
+            pairs += [(np.concatenate([tr[k:], extra]).astype(np.int8), tr),
+                      (np.concatenate([extra, tr[:-k]]).astype(np.int8), tr)]
+        rep = np.asarray([0, 1, 1] * 50, np.int8)
+        return pairs + [(rep[9:], rep), (np.concatenate(
+            [rep[:40], rep[52:], [2, 2]]).astype(np.int8), rep)]
+    pairs = _pairs(18, [150, 90, 200], err=0.15)
+    if case == "n_sides":
+        for rd, tr in pairs:
+            rd[::7] = 4
+            tr[::5] = 4
+    return pairs + [(b, a) for a, b in pairs]
+
+
+@pytest.mark.parametrize("case", ["edges", "errors", "n_sides"])
+def test_edit_band_widening_keeps_the_result(case):
+    """The exactness argument of ``csrc/edit.cu``: a banded pass whose
+    distance is at most its band w gives (dist, matches, sub, ins, del)
+    of the whole matrix, so widening the band past w, up to the whole
+    matrix, changes nothing. Shown on the JAX package's ``_banded_tb``
+    pass and ``edit_alignment``, and on the port's ``_banded_tb_plain``
+    and ``edit_alignments_plain``, at bands at the distance (paths that
+    reach toward both edges), one below it (doubled) and above it.
+    Tolerance: bitwise (integers)."""
+    pairs = _band_edge_pairs(case)
+    runs, rows, bands, widened = [], [], [], 0
+    for a, b in pairs:
+        x, y = (a, b) if len(a) <= len(b) else (b, a)
+        full = jacc._banded_tb(x, y, len(x))
+        want = [full[k] for k in _KEYS]
+        if len(a) > len(b):
+            want[3], want[4] = want[4], want[3]
+        dist = full["dist"]
+        for w in sorted({max(dist - 1, 1), max(dist, 1), dist + 1,
+                         2 * dist + 3, len(x)}):
+            one = jacc._banded_tb(x, y, w)
+            plain = tacc._banded_tb_plain(torch.as_tensor(x),
+                                          torch.as_tensor(y), w)
+            assert list(plain) == [one[k] for k in _KEYS]
+            if one["dist"] <= w:
+                widened += 1
+                assert one == full, (len(x), len(y), w)
+            else:
+                assert w < dist
+            assert [jacc.edit_alignment(a, b, band=w)[k]
+                    for k in _KEYS] == want
+            runs.append((a, b))
+            rows.append(want)
+            bands.append(w)
+    assert widened >= 3 * len(pairs)
+    got = tacc.edit_alignments_plain(*tacc.pack_pairs(runs, "cpu"),
+                                     np.asarray(bands))
+    assert got.tolist() == rows
+
+
 def test_edit_kernel_wrapper_needs_a_card():
     """No plain fallback for a tensor that is not on the CPU: a tensor
     elsewhere raises, and scoring on "cuda" without a card raises."""
@@ -235,6 +301,31 @@ def test_edit_kernel_wrapper_needs_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         tacc.score_read_sets(seqs, seqs, truth, device="cuda")
     assert tacc.edit_alignments.launches == launches
+
+
+@pytest.mark.parametrize("reg_words", [0, 6, 16])
+def test_edit_plan_keeps_windows_the_kernel_compiles(monkeypatch,
+                                                     reg_words):
+    """``edit_plan`` gives every pair a window of at least its S row words:
+    in registers only at a size ``csrc/edit.cu`` compiles, whatever
+    ``EDIT_REG_WORDS`` says, else in the global scratch; and the largest
+    pair that scoring classifies stays in registers."""
+    monkeypatch.setattr(tacc, "EDIT_REG_WORDS", reg_words)
+    w = np.arange(1, 14000, 37)
+    m = np.full(len(w), 30000)
+    plan = tacc.edit_plan(m, m + 50, w)
+    S, W = plan["S"], plan["W"]
+    assert (32 * np.abs(W) >= S).all()
+    reg = W > 0
+    assert set(W[reg].tolist()) <= set(tacc._EDIT_REG_SIZES.tolist())
+    assert (W[reg] <= reg_words).all()
+    assert (plan["gst"] == np.where(reg, 0, 7 * 32 * np.abs(W))).all()
+    assert (~reg).any() and (reg.any() == (reg_words > 0))
+    # score(): (m + 1) x width under MAX_CLASSIFY_CELLS
+    side = int(np.sqrt(tacc.MAX_CLASSIFY_CELLS))
+    big = tacc.edit_plan(np.asarray([side]), np.asarray([side]),
+                         np.asarray([side // 2]))
+    assert (big["W"] > 0).all() == (reg_words >= 6), big
 
 
 @pytest.mark.parametrize("la,lb,band", [(300, 330, None), (500, 420, None),

@@ -653,20 +653,26 @@ elif which.startswith("lcs"):
         assert int(want[0]) == 0 and int(want[1]) == 0 and int(want[2]) > 40
         assert (plan["blocks"] == 0) == (which == "lcs_global"), plan
 elif which.startswith("edit"):
-    # "edit": blocks of one warp: a read of ~300 bases against a shorter
-    # truth (the swap; 5 cells a thread) and of ~100 against a longer one,
-    # N on either side, a read past its truth, empty and identical sides,
-    # bands too small (doubled, relaunched) and wider than the shorter
-    # side; then blocks of two warps: 120 truth bases deleted, so that in
-    # row 40 the path runs left from cell 80 to 200 (rows of 281 cells, 5
-    # a thread) across the second warp's first cell (160), the band at the
-    # read's length (so a wrong distance is not redone at twice the band).
-    # "edit_global": the pair of ~300, the doubled band and the two-warp
-    # pair with every DP row in the global scratch instead of shared
-    # memory. Each pair also against the host numpy.
+    # the traceback's DP and walk kernels (a pair a warp, EDIT_WARPS pairs
+    # a block), each pair against the plain version and the host numpy.
+    # "edit": four pairs a block, a partial last block: a read of ~320
+    # bases against a shorter truth (the swap), a band too small (doubled,
+    # relaunched) and one of 0 (64), N on either side, negative codes on
+    # both (equal ones match), a read past its truth, empty and identical
+    # sides, a one-base pair. "edit_edges": paths pushed toward each band
+    # edge (a block of the truth missing at the start and extra bases at
+    # the end, and the mirror), at their distance as the band and one
+    # below it, with the band at the shorter length (the whole matrix);
+    # homopolymers and repeats whose equal-cost paths tie between the
+    # diagonal and up across the row words' edges (rows 64, 128, 192).
+    # "edit_wide": a pair whose window spans more than one warp's 32 row
+    # words (two words a lane) and one of a warp's 32, both windows full
+    # (the band's rows fill every stored word, and its top reaches the
+    # word the window takes on as it slides), beside narrow pairs, four
+    # pairs a block. "edit_global": the two full windows, the doubled band
+    # and an edge pair with every window in the global scratch
+    # (EDIT_REG_WORDS = 0).
     from proovread_tpu_torch.obs import accuracy as acc
-    if which == "edit_global":
-        acc.EDIT_SMEM_BYTES = 0
 
     def mutated(tr, err=0.12):
         rd = tr.copy()
@@ -674,45 +680,79 @@ elif which.startswith("edit"):
         rd[sub] = rng.integers(0, 5, int(sub.sum()))
         return np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.05))
 
-    tr = rng.integers(0, 4, 280).astype(np.int8)
-    long_rd = np.concatenate([mutated(tr), rng.integers(0, 4, 40)])
+    def at_dist(a, b, less=0):
+        return max(acc.edit_alignment(a, b, band=len(b))["dist"] - less, 1)
+
     tr2 = rng.integers(0, 4, 60).astype(np.int8)
-    dbl = (np.insert(mutated(tr2), 20, rng.integers(0, 4, 12)), tr2)
-    one_warp = [((long_rd.astype(np.int8), tr), 40), (dbl, 2)]
+    dbl = ((np.insert(mutated(tr2), 20, rng.integers(0, 4, 12)), tr2), 2)
+    # windows exactly full: S = 32 W row words stored, so the band's top
+    # reaches the word the window takes on top as it slides
+    tr5 = rng.integers(0, 4, 4300).astype(np.int8)
+    wide = ((mutated(tr5, 0.1)[:4100], tr5[:4200]), 1950)
+    narrow = ((mutated(tr5, 0.1)[:2150], tr5[:2200]), 940)
+    tr6 = rng.integers(0, 4, 200).astype(np.int8)
+    edge_hi = (np.concatenate([tr6[24:], rng.integers(0, 4, 24)])
+               .astype(np.int8), tr6)
+    edge_lo = (np.concatenate([rng.integers(0, 4, 24), tr6[:-24]])
+               .astype(np.int8), tr6)
+    acc.EDIT_WARPS = 3 if which == "edit_edges" else 4
     if which == "edit":
+        tr = rng.integers(0, 4, 280).astype(np.int8)
+        long_rd = np.concatenate([mutated(tr), rng.integers(0, 4, 40)])
         tr3 = rng.integers(0, 4, 100).astype(np.int8)
         tr3[::9] = 4                                # N in the truth
         rd4 = mutated(tr2)
         rd4[::6] = 4                                # N in the read
-        one_warp += [((mutated(tr3), tr3), 0),
-                     ((rd4, tr2), 3),
-                     ((np.concatenate([mutated(tr2), rng.integers(0, 4, 30)])
-                       .astype(np.int8), tr2), 12),  # read past its truth
-                     ((tr2[:0], tr2), 8),            # empty read
-                     ((tr2, tr2[:0]), 8),            # empty truth
-                     ((tr2.copy(), tr2), 100),       # identical
-                     ((tr2[:1].copy(), tr2[:1]), 1)]
-    tr = rng.integers(0, 4, 200).astype(np.int8)
-    # no truth base of the run's second half matches the read's base 40,
-    # so only the run (the scan across the warps) gives those cells, and
-    # the run fits no other row
-    tr[100:160] = (tr[39] + 1 + rng.integers(0, 3, 60)) % 4
-    tr[160] = (tr[40] + 1) % 4
-    two_warps = [((np.delete(tr, np.arange(40, 160)), tr), 80)]
+        rd7, tr7 = mutated(tr2), tr2.copy()
+        rd7[3:6], tr7[3:6] = -1, -1                 # negative codes
+        rd7[30], tr7[40] = -2, -3
+        cases = [((long_rd.astype(np.int8), tr), 40), dbl,
+                 ((mutated(tr3), tr3), 0), ((rd4, tr2), 3), ((rd7, tr7), 9),
+                 ((np.concatenate([mutated(tr2), rng.integers(0, 4, 30)])
+                   .astype(np.int8), tr2), 12),     # read past its truth
+                 ((tr2[:0], tr2), 8),               # empty read
+                 ((tr2, tr2[:0]), 8),               # empty truth
+                 ((tr2.copy(), tr2), 100),          # identical
+                 ((tr2[:1].copy(), tr2[:1]), 1)]
+    elif which == "edit_edges":
+        cases = []
+        for a, b in (edge_hi, edge_lo):
+            cases += [((a, b), at_dist(a, b)), ((b, a), at_dist(a, b)),
+                      ((a, b), at_dist(a, b, 1)), ((a, b), len(a))]
+        for rep in ([0] * 200, [0, 1] * 100, [2, 2, 3] * 70):
+            b = np.asarray(rep, np.int8)
+            for a in (b[7:], np.concatenate([b[:60], b[71:]]),
+                      np.concatenate([b, [0, 0, 1]])):
+                a = np.asarray(a, np.int8)
+                cases += [((a, b), at_dist(a, b)), ((b, a), 0)]
+    elif which == "edit_wide":
+        cases = [wide, narrow, ((mutated(tr6), tr6), 16),
+                 ((tr2, mutated(tr2)), 5), dbl,
+                 ((edge_hi[1], edge_hi[0]), 40)]
+    else:
+        acc.EDIT_REG_WORDS = 0
+        cases = [wide, narrow, dbl, (edge_lo, at_dist(*edge_lo))]
+    pairs = [c[0] for c in cases]
+    bands = np.asarray([c[1] for c in cases])
+    args = acc.pack_pairs(pairs, "cpu")
+    to, po, w = acc._edit_args("edit", *args, bands)
+    plan = acc.edit_plan(np.minimum(np.diff(to), np.diff(po)),
+                         np.maximum(np.diff(to), np.diff(po)), w)
     n0 = acc.edit_alignments.launches
-    for threads, cases in ((32, one_warp), (64, two_warps)):
-        acc.EDIT_MAX_THREADS = threads
-        pairs = [c[0] for c in cases]
-        bands = np.asarray([c[1] for c in cases])
-        args = acc.pack_pairs(pairs, "cpu")
-        to, po, w = acc._edit_args("edit", *args, bands)
-        got = acc._edit_cuda(*args, to, po, w)
-        same([got], [acc.edit_alignments_plain(*args, bands)])
-        host = [acc.edit_alignment(r, t, band=int(b)) for (r, t), b in
-                zip(pairs, bands)]
-        assert got.tolist() == [[h[k] for k in ("dist", "matches", "sub",
-                                                "ins", "del")] for h in host]
-    assert acc.edit_alignments.launches - n0 >= 4   # a band doubled
+    got = acc._edit_cuda(*args, to, po, w)
+    same([got], [acc.edit_alignments_plain(*args, bands)])
+    host = [acc.edit_alignment(r, t, band=int(b)) for (r, t), b in
+            zip(pairs, bands)]
+    assert got.tolist() == [[h[k] for k in ("dist", "matches", "sub", "ins",
+                                            "del")] for h in host]
+    if which in ("edit_wide", "edit_global"):
+        assert plan["S"][:2].tolist() == [64, 32], plan
+        assert np.abs(plan["W"][:2]).tolist() == [2, 1], plan
+        assert (plan["W"] < 0).all() == (which == "edit_global"), plan
+    if which != "edit_edges":                       # a band doubled
+        assert acc.edit_alignments.launches - n0 >= 2
+    else:
+        assert int(got[:, 0].max()) >= 40 and int(got[:, 3].sum()) > 0
 elif which.startswith("scatter"):
     # "scatter": fractional weights onto a few hot cells (segments up to
     # ~100 long, crossing the blocks' edges), a keep mask, indices past the
@@ -863,7 +903,8 @@ def emu_server(emu_lib, tmp_path_factory):
                                    "assemble", "assemble_long", "hcr",
                                    "hcr_long", "sw", "sw640", "lcs",
                                    "lcs_global", "lcs_wave", "edit",
-                                   "edit_global", "scatter", "scatter_long",
+                                   "edit_edges", "edit_wide", "edit_global",
+                                   "scatter", "scatter_long",
                                    "scatter_edges"])
 def test_kernel_source_matches_plain(emu_server, which):
     proc, lines, d = emu_server

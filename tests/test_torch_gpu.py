@@ -460,16 +460,16 @@ def test_lcs_kernel_matches_plain(cuda, monkeypatch, max_warps):
         *acc.pack_pairs(pairs, "cpu")))
 
 
-@pytest.mark.parametrize("smem_bytes", [100 * 1024, 0])
-def test_edit_kernel_matches_plain(cuda, monkeypatch, smem_bytes):
-    """The scoreboard's banded traceback: pairs of 50 to 3,000 bases at
-    ~15% and ~0.5% errors, reads longer and shorter than their truths, N
-    on either side, empty sides, bands too small (doubled), bands past a
-    block's 1024 threads; with ``smem_bytes`` 0 every pair's DP rows in
-    the global scratch. Bitwise against the plain version and the host
-    numpy."""
+@pytest.mark.parametrize("reg_words", [6, 0])
+def test_edit_kernel_matches_plain(cuda, monkeypatch, reg_words):
+    """The scoreboard's banded traceback (DP and walk kernels): pairs of
+    50 to 3,000 bases at ~15% and ~0.5% errors, reads longer and shorter
+    than their truths, N on either side, empty sides, bands too small
+    (doubled), and a 6,000-base pair at a band of 2,500 (three row words a
+    lane); with ``reg_words`` 0 every pair's window in the global
+    scratch. Bitwise against the plain version and the host numpy."""
     from proovread_tpu_torch.obs import accuracy as acc
-    monkeypatch.setattr(acc, "EDIT_SMEM_BYTES", smem_bytes)
+    monkeypatch.setattr(acc, "EDIT_REG_WORDS", reg_words)
     rng = np.random.default_rng(11)
     pairs, bands = [], []
     for i, n_t in enumerate(rng.integers(50, 3000, 24)):
@@ -484,6 +484,13 @@ def test_edit_kernel_matches_plain(cuda, monkeypatch, smem_bytes):
             tr[::11] = 4
         pairs.append((rd, tr))
         bands.append([3, 700, 40, 16][i % 4])
+    tr = rng.integers(0, 4, 6000).astype(np.int8)
+    rd = tr.copy()
+    err = rng.random(len(rd)) < 0.15
+    rd[err] = rng.integers(0, 5, int(err.sum()))
+    pairs.append((np.delete(rd, np.flatnonzero(rng.random(len(rd)) < 0.03)),
+                  tr))
+    bands.append(2500)
     pairs += [(pairs[0][0][:0], pairs[0][1]), (pairs[1][0], pairs[1][1][:0])]
     bands += [8, 8]
     want = [[acc.edit_alignment(a, b, band=w)[k] for k in

@@ -36,7 +36,17 @@ with the time a step of that pair's chain takes, the kernel's registers
 and spills (ptxas), its instruction mix (``cuobjdump -sass``) and its
 resident blocks an SM.
 
-Every unpatched copy's outputs, and the LCS, must equal the plain
+With ``edit`` among ``--kernels`` it times the package's own traceback
+kernels (``csrc/edit.cu``: the DP and the walk, each) on pairs made as
+``chip_smoke.py`` phase 2 makes them (``edit_inputs``, seed 0), on the
+pair of the most columns alone and on the pair of the longest chain
+(``chip_smoke.edit_chain``: columns x the dependent instructions of a
+column at its words a lane) alone, with the DP's time a
+column of each single pair, the kernels' registers and spills (ptxas)
+and their instruction mix (``cuobjdump -sass``).
+
+Every unpatched copy's outputs, the LCS and the traceback must equal the
+plain
 versions' bit for bit. Prints one JSON object a line; the last line
 holds them all, and with ``--out DIR`` also ``DIR/kernel_probe.json``.
 Needs a card.
@@ -145,6 +155,45 @@ def probe_lcs(emit) -> None:
     emit(row)
 
 
+def probe_edit(emit) -> None:
+    """The traceback row of the probe (see the module's docstring)."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from proovread_tpu_torch import kernels
+    from proovread_tpu_torch.obs import accuracy as acc
+    dev = torch.device("cuda")
+    pairs, bands = cs.edit_inputs(np.random.default_rng(0), dev)
+    want = acc.edit_alignments_plain(*acc.pack_pairs(pairs, "cpu"), bands)
+    if not torch.equal(acc.edit_alignments(*acc.pack_pairs(pairs, dev),
+                                           bands).cpu(), want):
+        raise SystemExit("kernel_probe: edit differs from the plain version")
+    ch = cs.edit_chain(pairs, bands)
+    la, lb, words = ch["la"], ch["lb"], ch["words"]
+    row = dict(kernel="edit", pairs=len(pairs),
+               ptxas=kernels.ptxas_usage("edit.cu"),
+               sass=sass_mix(kernels.build(), "edit_"))
+    for name, idx in ((f"{len(pairs)} pairs", np.arange(len(pairs))),
+                      ("most columns", [int(np.argmax(lb))]),
+                      ("longest chain", [int(np.argmax(ch["clocks"]))])):
+        args = acc.pack_pairs([pairs[i] for i in idx], dev)
+        tm = cs.launcher_times(
+            lambda args=args, b=bands[idx]: acc.edit_alignments(*args, b),
+            cs.KERNEL_NAMES["edit"])
+        row[name] = dict(ms=tm["ms"], kernel_ms=tm["kernel_ms"],
+                         kernel_ms_by_name=tm["kernel_ms_by_name"],
+                         device_ops=tm["device_ops"])
+        if len(idx) == 1:
+            dp_ms = (tm["kernel_ms_by_name"] or {}).get("edit_dp_kernel")
+            row[name].update(columns=int(lb[idx[0]]),
+                             rows=int(la[idx[0]]),
+                             words_a_lane=int(words[idx[0]]),
+                             ns_a_column=None if dp_ms is None
+                             else dp_ms * 1e6 / int(lb[idx[0]]))
+    row["equal_to_plain"] = True
+    emit(row)
+
+
 def sm_clock_mhz() -> float:
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                           "--format=csv,noheader,nounits"],
@@ -159,7 +208,7 @@ def main() -> int:
     ap_.add_argument("--gaps", default="0.05,0.25,1.0",
                      help="idle seconds before the utg chunk's sw launches")
     ap_.add_argument("--out", default=None, help="directory for the JSON")
-    ap_.add_argument("--kernels", default="sw,scatter,lcs",
+    ap_.add_argument("--kernels", default="sw,scatter,lcs,edit",
                      help="comma list of the kernels to probe")
     args = ap_.parse_args()
     probe = set(args.kernels.split(","))
@@ -191,6 +240,8 @@ def main() -> int:
               / 1e6))
     if "lcs" in probe:
         probe_lcs(emit)
+    if "edit" in probe:
+        probe_edit(emit)
     shapes, scatters = [], []
     if "sw" in probe:
         for label, R, m, n, qmax, ap in (
